@@ -1,0 +1,329 @@
+// One-token cached attention (flash decode) for NVIDIA Hopper, sm_90a.
+//
+// Replaces tpu_autoscaler/workloads/attention.py::_decode_kernel, the
+// Pallas kernel behind flash_decode.  Same function: for each row, the
+// new token's queries [h, d] attend over the row's cache [hkv, max_len,
+// d] with per-row lengths, an optional sliding window and the serving
+// ring layout; GQA query head g reads KV head g / (h / hkv).
+//
+// What bounds it.  Per launch the kernel reads every live K and V row
+// once and does ~4*h*d flops per live key: about h/hkv flops per byte,
+// far below the ~295 flops/byte at which an H100 stops being
+// memory-bound.  So the cost is the cache bytes, and the design is about
+// reading each live cache byte once, and keeping those reads in flight:
+//
+// - one CTA per (row, KV head); the GQA group's query heads share each
+//   K/V tile staged in shared memory (one warp per query head), so a
+//   tile is read from device memory once for the whole group;
+// - the CTA loops only over the positions the row can see —
+//   [max(0, qpos - window + 1), qpos], or the live part of the ring —
+//   where the TPU grid streams every k-block and only skips the compute;
+// - tiles are double-buffered with cp.async: the next tile's copy is in
+//   flight while the warps score the current one;
+// - each lane scores whole keys (lane j takes keys j, j+32, ...), so a
+//   tile's scores need one warp reduction for the max and one for the
+//   sum, not one per key; K rows are padded by 16 bytes in shared
+//   memory so the lanes' row reads fall in distinct banks;
+// - probabilities never leave the chip: scores, the online-softmax
+//   carry (m, l) and the accumulator stay in registers and shared memory.
+//
+// Known weakness, left to a later change: at serving widths the grid is
+// only b * hkv CTAs (8 at 4 slots x 2 KV heads on 132 SMs).  Split-KV
+// across SMs, TMA and tensor-core dot products are the planned fixes.
+//
+// Numerics, matching the TPU kernel: scores are f32 dot products scaled
+// by d^-0.5 after the dot; online softmax in f32 starting from m = -1e30;
+// P is rounded to v's dtype before PV; PV accumulates in f32; l is
+// clamped to 1e-30 so a row with no visible key yields zeros; the output
+// is written in q's dtype.
+//
+// Ring layout: the cache holds the last `max_len` positions; position p
+// lives in slot p mod max_len.  The TPU kernel recovers each slot's
+// position as qpos - floormod(qpos - slot, width).  Here the loop runs
+// over positions p >= 0 directly, so the slot is p % width of a
+// non-negative p, and C++'s truncating % never sees a negative operand.
+//
+// Interface: a plain C function (see flash_decode at the bottom), built
+// with nvcc into a shared library and called through ctypes.  It
+// launches on the caller's stream, allocates nothing and returns
+// cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr int kMaxGroup = 32;
+constexpr int kStages = 2;
+constexpr int kTileBytes = 8192;   // K (or V) bytes per tile, unpadded
+
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static __device__ __forceinline__ float load(float x) { return x; }
+  static __device__ __forceinline__ float round(float x) { return x; }
+  static __device__ __forceinline__ float store(float x) { return x; }
+  // The 4 floats of a 16-byte vector.
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  // P cast to v's dtype (round to nearest even), as the TPU kernel does.
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16(x));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
+    return __float2bfloat16(x);
+  }
+  // The 8 bf16 of a 16-byte vector, as floats (bf16 is the top half of
+  // an f32, so each conversion is a shift or a mask).
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// Tile geometry for element type T and head_dim D.
+template <typename T, int D>
+struct Tile {
+  static constexpr int kVec = 16 / sizeof(T);         // elements per vector
+  static constexpr int kVpr = D / kVec;               // vectors per row
+  static constexpr int kKStride = kVpr + 1;           // padded K row
+  static constexpr int kKeys = kTileBytes / (D * sizeof(T));
+  static constexpr int kStageVecs = kKeys * (kKStride + kVpr);
+  // Dynamic shared memory for a group of g query heads.
+  static size_t bytes(int g) {
+    return static_cast<size_t>(kStages) * kStageVecs * 16 +
+           static_cast<size_t>(g) * (kKeys + D) * sizeof(float);
+  }
+};
+
+// Block = one warp per query head of the group; grid = b * hkv.
+template <typename T, int D>
+__global__ void __launch_bounds__(32 * kMaxGroup)
+    flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const int* __restrict__ lengths, T* __restrict__ out,
+                        int h, int hkv, int max_len, int window, int ring,
+                        float scale) {
+  using G = Tile<T, D>;
+  constexpr int BK = G::kKeys;
+  constexpr int VPR = G::kVpr;
+  constexpr int KS = G::kKStride;
+  constexpr int VEC = G::kVec;
+  constexpr int E = D / 32;             // head_dim elements per lane in PV
+  extern __shared__ uint4 smem[];
+  const int group = h / hkv;
+  // [stage][K tile (padded rows) | V tile], then per warp: P, then q.
+  float* ps = reinterpret_cast<float*>(smem + kStages * G::kStageVecs);
+  float* qs = ps + group * BK;
+
+  const int row = blockIdx.x / hkv;
+  const int kvh = blockIdx.x % hkv;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  // Visible positions [lo, hi] of this row's new token at qpos.
+  const int qpos = lengths[row] - 1;
+  const int hi = ring ? qpos : min(qpos, max_len - 1);
+  int lo = 0;
+  if (window > 0) lo = max(lo, qpos - window + 1);
+  if (ring) lo = max(lo, qpos - max_len + 1);
+  const int ntiles = hi >= lo ? (hi - lo) / BK + 1 : 0;
+
+  const size_t head = static_cast<size_t>(row) * h +
+                      static_cast<size_t>(kvh) * group + warp;
+  float* qw = qs + warp * D;
+  for (int i = lane; i < D; i += 32) qw[i] = Elem<T>::load(q[head * D + i]);
+  float* sc = ps + warp * BK;
+
+  const size_t kv_row0 =
+      (static_cast<size_t>(row) * hkv + kvh) * static_cast<size_t>(max_len);
+  const uint4* kg = reinterpret_cast<const uint4*>(k) + kv_row0 * VPR;
+  const uint4* vg = reinterpret_cast<const uint4*>(v) + kv_row0 * VPR;
+
+  auto load_tile = [&](int t) {
+    if (t < ntiles) {
+      const int start = lo + t * BK;
+      const int n = min(BK, hi - start + 1);
+      uint4* kst = smem + (t % kStages) * G::kStageVecs;
+      uint4* vst = kst + BK * KS;
+      for (int i = threadIdx.x; i < n * VPR; i += blockDim.x) {
+        const int r = i / VPR;
+        const int c = i % VPR;
+        const int pos = start + r;
+        const int slot = ring ? pos % max_len : pos;  // pos >= 0 here
+        const size_t src = static_cast<size_t>(slot) * VPR + c;
+        cp_async16(kst + r * KS + c, kg + src);
+        cp_async16(vst + r * VPR + c, vg + src);
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+
+  float m = kNegInf;
+  float l = 0.f;
+  float acc[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+
+  load_tile(0);
+  for (int t = 0; t < ntiles; ++t) {
+    load_tile(t + 1);
+    cp_async_wait_one();  // tile t has landed (t + 1 may be in flight)
+    __syncthreads();
+    const int n = min(BK, hi - (lo + t * BK) + 1);
+    const uint4* kst = smem + (t % kStages) * G::kStageVecs;
+    const T* vs = reinterpret_cast<const T*>(kst + BK * KS);
+
+    // Scores: lane j takes keys j, j + 32, ... of the tile.
+    float mx = kNegInf;
+    for (int j = lane; j < n; j += 32) {
+      const uint4* kr = kst + j * KS;
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int c = 0; c < VPR; ++c) {
+        float kf[VEC];
+        Elem<T>::unpack(kr[c], kf);
+        const float* qc = qw + c * VEC;
+#pragma unroll
+        for (int i = 0; i < VEC; i += 2) {
+          s0 += qc[i] * kf[i];
+          s1 += qc[i + 1] * kf[i + 1];
+        }
+      }
+      const float s = (s0 + s1) * scale;
+      sc[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    // Online-softmax merge of the tile into (m, l, acc).
+    const float m_new = fmaxf(m, warp_max(mx));
+    const float corr = expf(m - m_new);
+    float psum = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float p = expf(sc[j] - m_new);
+      sc[j] = p;
+      psum += p;
+    }
+    psum = warp_sum(psum);
+    __syncwarp();  // every lane's P is visible to the whole warp
+    l = l * corr + psum;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] *= corr;
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) {
+      const float p = Elem<T>::round(sc[j]);
+      const T* vr = vs + j * D + lane * E;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] += p * Elem<T>::load(vr[e]);
+    }
+    m = m_new;
+    __syncthreads();  // the stage is free for the copy issued next
+  }
+
+  const float l_safe = fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    out[head * D + lane * E + e] = Elem<T>::store(acc[e] / l_safe);
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const int* lengths, void* out, int b, int h, int hkv,
+                   int max_len, int window, int ring, cudaStream_t stream) {
+  const int group = h / hkv;
+  const size_t smem = Tile<T, D>::bytes(group);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_decode_kernel<T, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const float scale =
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
+  flash_decode_kernel<T, D><<<b * hkv, 32 * group, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), lengths, static_cast<T*>(out), h, hkv,
+      max_len, window, ring, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q [b, h, 1, d], k/v [b, hkv, max_len, d], out [b, h, 1, d], all
+// contiguous and 16-byte aligned, in one dtype (0: f32, 1: bf16);
+// lengths [b] int32 on the device.  window 0 means no window.  Returns a
+// cudaError_t: 0 on a successful launch.
+extern "C" int flash_decode(const void* q, const void* k, const void* v,
+                            const int* lengths, void* out, int b, int h,
+                            int hkv, int max_len, int d, int dtype,
+                            int window, int ring, int device, void* stream) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (b < 1 || hkv < 1 || max_len < 1 || h % hkv != 0 ||
+      h / hkv > kMaxGroup || window < 0 || (ring && window == 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && d == 64)
+    err = launch<__nv_bfloat16, 64>(q, k, v, lengths, out, b, h, hkv,
+                                    max_len, window, ring, s);
+  else if (dtype == 1 && d == 128)
+    err = launch<__nv_bfloat16, 128>(q, k, v, lengths, out, b, h, hkv,
+                                     max_len, window, ring, s);
+  else if (dtype == 0 && d == 64)
+    err = launch<float, 64>(q, k, v, lengths, out, b, h, hkv, max_len,
+                            window, ring, s);
+  else if (dtype == 0 && d == 128)
+    err = launch<float, 128>(q, k, v, lengths, out, b, h, hkv, max_len,
+                             window, ring, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
