@@ -30,15 +30,34 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
-TOL = {"torch.bfloat16": 2e-2, "torch.float32": 2e-5}
+F32_TOL = 2e-5                   # the JAX package's kernel-vs-einsum bound
+BF16_RTOL = 2.0 ** -5            # of each (row, head)'s largest |out|
 TOL_REASON = {
-    "torch.bfloat16": "outputs are stored in bf16 (ulp 2^-7 relative: "
-                      "<= 1.6e-2 for |out| < 4) and the kernel rounds P "
-                      "to bf16 at the running max, the plain version at "
-                      "the final max",
-    "torch.float32": "f32 throughout; only the summation order differs "
-                     "(the JAX package's kernel-vs-einsum tolerance)",
+    "torch.bfloat16": "per (row, head): 2^-5 of that row's largest |out|, "
+                      "4-8 bf16 ulps there (ulp is 2^-8..2^-7 of the "
+                      "value).  Both versions round the output to bf16 "
+                      "and P to bf16 (the kernel at the running max, the "
+                      "plain version at the final max), each worth about "
+                      "one ulp; a mis-merged tile moves a row by the "
+                      "size of the row itself",
+    "torch.float32": "2e-5 absolute: f32 throughout, only the summation "
+                     "order differs (the JAX package's kernel-vs-einsum "
+                     "tolerance)",
 }
+
+
+def err_over_tol(torch, got, want) -> tuple[float, float]:
+    """(max |got - want|, the worst error as a share of its tolerance):
+    a share <= 1 passes.  Tolerances as in TOL_REASON; a row with no
+    visible key must come out exactly zero in bf16."""
+    diff = (got.float() - want.float()).abs()
+    if want.dtype == torch.float32:
+        tol = diff.new_full((), F32_TOL)
+    else:
+        tol = BF16_RTOL * want.float().abs().amax(dim=-1, keepdim=True)
+    over = torch.where(diff > 0, diff / tol, diff.new_zeros(()))
+    return diff.max().item(), over.max().item()
+
 
 # Full serving width: bench_tpu.py's serving phase.
 FULL = dict(vocab=32768, d_model=1024, n_layers=8, n_heads=16,
@@ -157,9 +176,8 @@ def check_case(torch, F, attention, flush, *, label, b, h, hkv, max_len,
     got = attention.flash_decode(q, k, v, ln, **kw)
     want = attention.flash_decode_reference(q, k, v, ln, **kw)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
+    err, share = err_over_tol(torch, got, want)
     dname = str(dtype)
-    tol = TOL[dname]
     mask = _visible_mask(torch, ln, max_len, window, ring)
     ms = _time_ms(torch, lambda: attention.flash_decode(q, k, v, ln, **kw),
                   flush)
@@ -173,13 +191,14 @@ def check_case(torch, F, attention, flush, *, label, b, h, hkv, max_len,
                                    dname)
     rec = dict(case=label, shape=[b, h, hkv, max_len, d], dtype=dname,
                lengths=list(lengths), window=window, ring=ring,
-               max_abs_err=err, tolerance=tol, tolerance_reason=TOL_REASON[
-                   dname], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=bound_ms, bound_by=bound_by, live_keys=live)
+               max_abs_err=err, err_over_tolerance=share,
+               tolerance=TOL_REASON[dname], ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               live_keys=live)
     emit("kernel_check", **rec)
-    if not err <= tol:
-        raise AssertionError(f"flash_decode {label}: max |err| {err} > "
-                             f"{tol}")
+    if not share <= 1.0:
+        raise AssertionError(f"flash_decode {label}: error {share} times "
+                             f"its tolerance (max |err| {err})")
     return rec
 
 
@@ -350,9 +369,11 @@ def phase_profile(torch, np, serving, eng):
 
 
 def phase_small_exact(torch, np, model, serving):
-    """A small f32 model on the card: the kernel route and the einsum
-    route give the same greedy tokens, as the CPU tests demand of the
-    port against JAX."""
+    """A small f32 model on the card, in both cache modes: the linear
+    cache, and the ``--ring`` cache (window 16 + chunk 8 wide, so the
+    prompts wrap it and the ring prefill scatter and decode write index
+    run).  The kernel route and the einsum route give the same greedy
+    tokens, as the CPU tests demand of the port against JAX."""
     import dataclasses
 
     cfg = model.ModelConfig(vocab=256, d_model=128, n_layers=2, n_heads=2,
@@ -362,18 +383,26 @@ def phase_small_exact(torch, np, model, serving):
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, 256, (n,)).astype(np.int32)
                for n in (5, 17, 33, 9, 41)]
-    out = []
-    for impl in ("kernel", "einsum"):
-        eng = serving.ContinuousBatcher(
-            params, dataclasses.replace(cfg, attention=impl), slots=3,
-            max_len=64, chunk=8, device="cuda")
-        reqs = [serving.Request(prompt=p, max_new_tokens=8) for p in prompts]
-        _serve_all(eng, reqs)
-        out.append([r.generated for r in reqs])
-    emit("small_exact", tokens_equal=out[0] == out[1],
-         tokens=sum(len(t) for t in out[0]))
-    if out[0] != out[1]:
-        raise AssertionError("f32 kernel route and einsum route disagree")
+    rec = {}
+    for mode, window, ring in (("linear", None, False),
+                               ("ring", 16, True)):
+        out = []
+        for impl in ("kernel", "einsum"):
+            eng = serving.ContinuousBatcher(
+                params, dataclasses.replace(cfg, attention=impl,
+                                            attention_window=window),
+                slots=3, max_len=64, chunk=8, device="cuda", ring=ring)
+            reqs = [serving.Request(prompt=p, max_new_tokens=8)
+                    for p in prompts]
+            _serve_all(eng, reqs)
+            out.append([r.generated for r in reqs])
+        rec[mode] = dict(tokens_equal=out[0] == out[1],
+                         tokens=sum(len(t) for t in out[0]))
+    emit("small_exact", **rec)
+    for mode, r in rec.items():
+        if not r["tokens_equal"]:
+            raise AssertionError(f"f32 kernel route and einsum route "
+                                 f"disagree ({mode} cache)")
 
 
 def phase_cli(model, DrainReceipt):

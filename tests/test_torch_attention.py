@@ -137,7 +137,10 @@ def test_auto_resolves_by_device_and_head_dim():
     cfg = ModelConfig(d_model=256, n_heads=4)           # head_dim 64
     assert cfg.resolved_attention(torch.device("cpu")) == "einsum"
     assert cfg.resolved_attention(torch.device("cuda")) == "kernel"
+    # A head_dim the kernel is not built for still resolves to the
+    # kernel on CUDA, whose wrapper then raises: never a plain run there.
     small = ModelConfig(d_model=128, n_heads=4)         # head_dim 32
-    assert small.resolved_attention(torch.device("cuda")) == "einsum"
+    assert small.resolved_attention(torch.device("cuda")) == "kernel"
+    assert small.resolved_attention(torch.device("cpu")) == "einsum"
     assert ModelConfig(attention="einsum").resolved_attention(
         torch.device("cuda")) == "einsum"

@@ -24,8 +24,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpu_autoscaler_torch.workloads.attention import KERNEL_HEAD_DIMS
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -43,9 +41,9 @@ class ModelConfig:
     attention_window: int | None = None
     dtype: Any = torch.bfloat16
     # "auto" (default): the flash_decode CUDA kernel on a CUDA device
-    # (for the head dims it is built for), the einsum path elsewhere.
-    # "einsum" always takes the plain path; "kernel" always takes the
-    # kernel and is refused on the CPU.
+    # (which raises on a shape it does not take), the einsum path on the
+    # CPU.  "einsum" always takes the plain path; "kernel" always takes
+    # the kernel and is refused on the CPU.
     attention: str = "auto"
     # Flash-attention tile sizes of the JAX training kernel; carried
     # so configs round-trip, unused on the serving path.
@@ -101,16 +99,15 @@ class ModelConfig:
 
     def resolved_attention(self, device: torch.device) -> str:
         """'kernel' or 'einsum' for tensors on ``device``.  'auto'
-        takes the kernel on CUDA when it is built for this head_dim;
-        an explicit 'kernel' off CUDA is refused, never run plain."""
+        takes the kernel on every CUDA device, so a head_dim the kernel
+        does not take raises there instead of running plain; an
+        explicit 'kernel' off CUDA is refused, never run plain."""
         if self.attention == "kernel" and device.type != "cuda":
             raise ValueError(
                 f"attention='kernel' needs CUDA tensors, got {device}")
         if self.attention != "auto":
             return self.attention
-        if device.type == "cuda" and self.head_dim in KERNEL_HEAD_DIMS:
-            return "kernel"
-        return "einsum"
+        return "kernel" if device.type == "cuda" else "einsum"
 
     @property
     def head_dim(self) -> int:
