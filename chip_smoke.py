@@ -4,10 +4,12 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, drives the port's
-main path (the continuous-batching server at the full serving width of
-``bench_tpu.py``'s serving phase) through its public entry points, and
-runs the ``serve`` CLI once.  Each phase prints one JSON line; a failed
-phase raises and the script exits non-zero.  The last lines are the
+two serving paths through their public entry points at the full width
+of ``bench_tpu.py``: the continuous-batching server with the linear
+cache (its serving phase) and the paged-KV server (its paged phase,
+whose pool is small enough to preempt), and runs the ``serve`` CLI with
+each cache.  Each phase prints one JSON line; a failed phase raises and
+the script exits non-zero.  The last lines are the
 card's ``nvidia-smi`` name and power limit, the ``kernels`` summary,
 and ``{"ok": true, "device": {...}}``.
 
@@ -64,6 +66,13 @@ FULL = dict(vocab=32768, d_model=1024, n_layers=8, n_heads=16,
             n_kv_heads=2, d_ff=4096, seq_len=1024)
 PROMPT_LENS = (64, 384, 896, 128, 640, 256, 512, 96)
 NEW_TOKENS, SLOTS, MAX_LEN, CHUNK = 128, 4, 1024, 128
+# The paged path: bench_tpu.py's paged phase (bench_tpu.py:624-647).
+# 16 requests hold 5952 prompt tokens (8000 with their generations)
+# against a 4096-token pool (the linear engine's 4 x 1024 budget), and
+# all 16 are admitted at once, so the pool must preempt.
+PAGED_SLOTS, BLOCK_SIZE, PREFILL_LANES = 16, 16, 4
+NUM_BLOCKS = 4 * MAX_LEN // BLOCK_SIZE
+PAGED_PROMPT_LENS = PROMPT_LENS * 2
 COMPARE_TICKS = 16
 # Kernel route vs einsum route on identical inputs: bf16 attention
 # outputs differ by about one bf16 ulp, which moves N(0, 1) logits by a
@@ -117,10 +126,13 @@ def _live_keys(lengths, max_len: int, window, ring: bool) -> list[int]:
     return out
 
 
-def _bound_ms(b, h, hkv, d, elem, live, dtype_name) -> tuple[float, str]:
-    """Least time for the work: each live K/V row, q, out and lengths
-    moved once, against ~4*d flops per (query head, live key)."""
-    moved = sum(live) * hkv * d * elem * 2 + 2 * b * h * d * elem + 4 * b
+def _bound_ms(b, h, hkv, d, elem, live, dtype_name,
+              extra_bytes: int = 0) -> tuple[float, str]:
+    """Least time for the work: each live K/V row, q, out, lengths (and
+    ``extra_bytes``, e.g. a block table) moved once, against ~4*d flops
+    per (query head, live key)."""
+    moved = sum(live) * hkv * d * elem * 2 + 2 * b * h * d * elem + 4 * b \
+        + extra_bytes
     ops = 4 * d * (h // hkv) * hkv * sum(live)
     peak = BF16_OPS_PER_S if dtype_name == "torch.bfloat16" \
         else F32_OPS_PER_S
@@ -224,11 +236,125 @@ def phase_kernel_checks(torch, F, attention, flush, main_lengths):
             for i, c in enumerate(cases)]
 
 
-def _requests(serving, np, cfg):
+def _paged_visible(torch, tables, lengths, bs, window):
+    """[slots, tpr*bs] bool: the keys the paged kernel must read (for
+    the bound and the library yardstick's mask)."""
+    qpos = (lengths.long() - 1)[:, None]
+    kpos = torch.arange(tables.shape[1] * bs, device=tables.device)[None, :]
+    vis = (kpos <= qpos) & (tables >= 0).repeat_interleave(bs, dim=1)
+    if window is not None:
+        vis &= kpos > qpos - window
+    return vis
+
+
+def check_paged_case(torch, F, attention, flush, *, label, slots, h, hkv,
+                     bs, tpr, nb, d, dtype, lengths, tables=None,
+                     window=None, edits=(), seed=0):
+    """One K4 case: random q and pools, ``tables`` (or random block ids
+    up to each row's length, -1 past it) with ``edits`` (row, entry,
+    block id) applied, against paged_flash_decode_reference."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    q = rnd(slots, h, 1, d)
+    k, v = rnd(nb, hkv, bs, d), rnd(nb, hkv, bs, d)
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    if tables is None:
+        tables = torch.randint(0, nb, (slots, tpr), generator=g,
+                               device="cuda", dtype=torch.int32)
+        used = -(-ln.long() // bs)
+        tables[torch.arange(tpr, device="cuda")[None, :]
+               >= used[:, None]] = -1
+    tables = torch.as_tensor(tables, dtype=torch.int32, device="cuda")
+    for row, entry, block in edits:
+        tables[row, entry] = block
+    got = attention.paged_flash_decode(q, k, v, tables, ln, window=window)
+    want = attention.paged_flash_decode_reference(q, k, v, tables, ln,
+                                                  window=window)
+    torch.cuda.synchronize()
+    err, share = err_over_tol(torch, got, want)
+    dname = str(dtype)
+    vis = _paged_visible(torch, tables, ln, bs, window)
+    ms = _time_ms(torch, lambda: attention.paged_flash_decode(
+        q, k, v, tables, ln, window=window), flush)
+    plain_ms = _time_ms(torch, lambda: attention.paged_flash_decode_reference(
+        q, k, v, tables, ln, window=window), flush)
+    # No single PyTorch call reads through a block table: the yardstick
+    # is SDPA over rows gathered beforehand, the gather timed beside it.
+    gather_ms = _time_ms(torch, lambda: (attention.gather_pool_rows(
+        k, tables), attention.gather_pool_rows(v, tables)), flush)
+    k_rows = attention.gather_pool_rows(k, tables)
+    v_rows = attention.gather_pool_rows(v, tables)
+    library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k_rows, v_rows, attn_mask=vis[:, None, None, :],
+        enable_gqa=True), flush)
+    live = vis.sum(dim=1).tolist()
+    bound_ms, bound_by = _bound_ms(slots, h, hkv, d, q.element_size(), live,
+                                   dname, extra_bytes=tables.numel() * 4)
+    rec = dict(case=label, shape=[slots, h, hkv, nb, bs, tpr, d],
+               dtype=dname, lengths=list(lengths), window=window,
+               edits=[list(e) for e in edits], max_abs_err=err,
+               err_over_tolerance=share, tolerance=TOL_REASON[dname], ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms, gather_ms=gather_ms,
+               bound_ms=bound_ms, bound_by=bound_by, live_keys=live)
+    emit("paged_kernel_check", **rec)
+    if not share <= 1.0:
+        raise AssertionError(f"paged_flash_decode {label}: error {share} "
+                             f"times its tolerance (max |err| {err})")
+    return rec
+
+
+def phase_paged_kernel_checks(torch, F, attention, flush, main_tick):
+    """K4 in 11 cases; the first at the paged main path's shape with the
+    block tables and lengths of its median decode tick."""
+    tpr = MAX_LEN // BLOCK_SIZE
+    full = dict(slots=PAGED_SLOTS, h=16, hkv=2, bs=BLOCK_SIZE, tpr=tpr,
+                nb=NUM_BLOCKS, d=64, dtype=torch.bfloat16)
+    spread = [1, 300, 777, 1024] * 4
+    edges = [0, 1, 16, 17] + [100, 129, 255, 256, 257, 511, 512, 513, 700,
+                              1000, 1023, 1024]
+    main_tables, main_lengths = main_tick
+    cases = [
+        dict(full, label="full-main-path", tables=main_tables,
+             lengths=main_lengths),
+        dict(full, label="edges", lengths=edges),
+        # A -1 below row 1's length; row 2's entries 0 and 5 past the
+        # pool (clamped to its last block and read).
+        dict(full, label="dead-and-past-pool", lengths=spread,
+             edits=((1, 3, -1), (5, 0, -1), (2, 0, NUM_BLOCKS),
+                    (2, 5, NUM_BLOCKS + 40))),
+        dict(full, label="window-256", window=256, lengths=spread),
+        dict(full, label="window-256-dead", window=256, lengths=spread,
+             edits=((3, 60, -1), (7, 50, -1))),
+        dict(full, label="mha", hkv=16, lengths=spread),
+        dict(full, label="mqa", hkv=1, lengths=spread),
+        dict(full, label="bs-8", bs=8, tpr=MAX_LEN // 8, nb=2 * NUM_BLOCKS,
+             lengths=edges),
+        dict(full, label="bs-64", bs=64, tpr=MAX_LEN // 64,
+             nb=NUM_BLOCKS // 4, lengths=edges),
+        dict(full, label="f32-d128", d=128, dtype=torch.float32,
+             lengths=spread),
+        dict(full, label="f32-d128-bs-8-window", d=128, dtype=torch.float32,
+             bs=8, tpr=MAX_LEN // 8, nb=2 * NUM_BLOCKS, window=100,
+             lengths=edges, edits=((4, 1, -1),)),
+    ]
+    return [check_paged_case(torch, F, attention, flush, seed=100 + i, **c)
+            for i, c in enumerate(cases)]
+
+
+def _requests(serving, np, cfg, prompt_lens=PROMPT_LENS):
     rng = np.random.default_rng(0)
     return [serving.Request(
         prompt=rng.integers(0, cfg.vocab, (n,)).astype(np.int32),
-        max_new_tokens=NEW_TOKENS) for n in PROMPT_LENS]
+        max_new_tokens=NEW_TOKENS) for n in prompt_lens]
+
+
+def _served(reqs) -> None:
+    if not all(r.done and len(r.generated) == r.max_new_tokens
+               for r in reqs):
+        raise AssertionError("main path left requests unserved")
 
 
 def _serve_all(eng, reqs) -> float:
@@ -240,10 +366,37 @@ def _serve_all(eng, reqs) -> float:
     eng.run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    if not all(r.done and len(r.generated) == r.max_new_tokens
-               for r in reqs):
-        raise AssertionError("main path left requests unserved")
+    _served(reqs)
     return dt
+
+
+def _serve_ticks(eng, reqs) -> tuple[float, int]:
+    """Serve ``reqs`` to the end, tick by tick: (wall seconds, peak
+    count of sequences holding a slot after a tick)."""
+    import torch
+
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    peak = 0
+    while not eng.idle:
+        eng.tick()
+        peak = max(peak, eng.stats().active)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    _served(reqs)
+    return dt, peak
+
+
+def _agreement(reqs, ereqs) -> tuple[int, int]:
+    """(greedy tokens equal position by position, length of the equal
+    prefixes), summed over requests."""
+    agree = sum(int(a == b) for r, e in zip(reqs, ereqs)
+                for a, b in zip(r.generated, e.generated))
+    prefix = sum(next((i for i, (a, b) in enumerate(
+        zip(r.generated, e.generated)) if a != b), len(r.generated))
+        for r, e in zip(reqs, ereqs))
+    return agree, prefix
 
 
 def phase_main_path(torch, np, attention, model, serving):
@@ -296,11 +449,7 @@ def phase_main_path(torch, np, attention, model, serving):
                                      device="cuda")
     ereqs = _requests(serving, np, cfg)
     einsum_s = _serve_all(eeng, ereqs)
-    agree = sum(int(a == b) for r, e in zip(reqs, ereqs)
-                for a, b in zip(r.generated, e.generated))
-    prefix = sum(next((i for i, (a, b) in enumerate(
-        zip(r.generated, e.generated)) if a != b), len(r.generated))
-        for r, e in zip(reqs, ereqs))
+    agree, prefix = _agreement(reqs, ereqs)
     # The launch pattern of a tick in the middle of the run: the shape
     # the kernel timing below uses.
     by_live = sorted(tick_lengths, key=sum)
@@ -332,13 +481,109 @@ def phase_main_path(torch, np, attention, model, serving):
     return rec, eng
 
 
-def phase_profile(torch, np, serving, eng):
-    """Where a steady window of the main path spends device time:
+def phase_paged_main_path(torch, np, attention, model, serving, paged):
+    """The paged-KV server at full width: warm pass (with the einsum
+    gather route on identical inputs for COMPARE_TICKS ticks), then the
+    timed pass whose kernel launches are counted, then the same traffic
+    through an einsum-route engine for greedy agreement."""
+    import dataclasses
+
+    cfg = model.ModelConfig(**FULL)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, "cuda")
+    geometry = dict(slots=PAGED_SLOTS, max_len=MAX_LEN,
+                    block_size=BLOCK_SIZE, num_blocks=NUM_BLOCKS,
+                    chunk=CHUNK, prefill_lanes=PREFILL_LANES)
+    eng = paged.PagedBatcher(params, cfg, device="cuda", **geometry)
+    ecfg = dataclasses.replace(cfg, attention="einsum")
+    einsum_step = paged.make_paged_decode_step(ecfg, MAX_LEN)
+    kernel_step = eng._decode
+    diffs, ticks_seen = [], []
+
+    def compared_step(p, cache, tables, tokens, active):
+        # The kernel's inputs this tick (lengths after the write), then
+        # the same cache, tables, tokens and mask through the einsum
+        # route first.
+        ticks_seen.append((tables.clone(), (cache.lengths + 1).tolist()))
+        if len(diffs) < COMPARE_TICKS:
+            ref = paged.PagedKVCache(cache.k.clone(), cache.v.clone(),
+                                     cache.lengths.clone())
+            want, _ = einsum_step(p, ref, tables, tokens, active)
+        logits, cache = kernel_step(p, cache, tables, tokens, active)
+        if len(diffs) < COMPARE_TICKS:
+            rows = active.nonzero()[:, 0].to(logits.device)
+            dl = (logits[rows] - want[rows]).abs()
+            diffs.append((dl.mean().item(), dl.max().item(),
+                          bool(torch.isfinite(logits).all())))
+        return logits, cache
+
+    eng._decode = compared_step
+    warm_s = _serve_all(eng, _requests(serving, np, cfg, PAGED_PROMPT_LENS))
+    eng._decode = kernel_step
+
+    reqs = _requests(serving, np, cfg, PAGED_PROMPT_LENS)
+    ticks0, steps0, pre0 = eng.ticks, eng.decode_steps, eng.preemptions
+    attention.reset_launch_counts()
+    dt, peak = _serve_ticks(eng, reqs)
+    launches = dict(attention.LAUNCHES)
+    steps = eng.decode_steps - steps0
+    preemptions = eng.preemptions - pre0
+    want_launches = steps * cfg.n_layers
+    decoded = sum(len(r.generated) for r in reqs)
+    if eng.allocator.used_blocks != 0:
+        raise AssertionError(f"drained paged engine holds "
+                             f"{eng.allocator.used_blocks} blocks")
+
+    eeng = paged.PagedBatcher(params, ecfg, device="cuda", **geometry)
+    ereqs = _requests(serving, np, cfg, PAGED_PROMPT_LENS)
+    einsum_s = _serve_all(eeng, ereqs)
+    agree, prefix = _agreement(reqs, ereqs)
+    by_live = sorted(ticks_seen, key=lambda t: sum(t[1]))
+    mid_tables, mid_lengths = by_live[len(by_live) // 2]
+    rec = dict(
+        config=FULL, dtype="bfloat16", **geometry,
+        prompt_lens=PAGED_PROMPT_LENS, new_tokens=NEW_TOKENS,
+        warm_seconds=warm_s, seconds=dt, ticks=eng.ticks - ticks0,
+        decode_steps=steps, decoded_tokens=decoded,
+        decode_tokens=eng.decode_tokens, tokens_per_s=decoded / dt,
+        preemptions=preemptions, peak_concurrent_sequences=peak,
+        paged_flash_decode_launches=launches["paged_flash_decode"],
+        flash_decode_launches=launches["flash_decode"],
+        expected_launches=want_launches, einsum_seconds=einsum_s,
+        einsum_tokens_per_s=decoded / einsum_s,
+        einsum_preemptions=eeng.preemptions,
+        compare_ticks=len(diffs),
+        dlogits_mean=statistics.fmean(d[0] for d in diffs),
+        dlogits_max=max(d[1] for d in diffs),
+        greedy_tokens_agree=agree, greedy_prefix_agree=prefix,
+        greedy_tokens_total=decoded, mid_tick_lengths=mid_lengths)
+    emit("paged_main_path", **rec)
+    if launches["paged_flash_decode"] != want_launches or want_launches == 0:
+        raise AssertionError(
+            f"paged_flash_decode launched "
+            f"{launches['paged_flash_decode']} times, want decode steps x "
+            f"layers = {want_launches}")
+    if launches["flash_decode"] != 0:
+        raise AssertionError(f"flash_decode launched "
+                             f"{launches['flash_decode']} times on the "
+                             f"paged path")
+    if preemptions == 0:
+        raise AssertionError("the paged main path never preempted")
+    if not all(d[2] for d in diffs):
+        raise AssertionError("non-finite logits on the paged main path")
+    if not rec["dlogits_max"] < DLOGITS_MAX:
+        raise AssertionError(f"kernel route logits differ from the einsum "
+                             f"gather route by {rec['dlogits_max']}")
+    return rec, (mid_tables, mid_lengths), eng
+
+
+def phase_profile(torch, np, serving, eng, path, prompt_lens):
+    """Where a steady window of a main path spends device time:
     torch.profiler over PROFILE_TICKS engine ticks (after 5 warm ones)
     of a fresh pass of the same traffic."""
     from torch.profiler import ProfilerActivity, profile
 
-    for r in _requests(serving, np, eng.cfg):
+    for r in _requests(serving, np, eng.cfg, prompt_lens):
         eng.submit(r)
     for _ in range(5):
         eng.tick()
@@ -360,7 +605,8 @@ def phase_profile(torch, np, serving, eng):
                if str(e.device_type).endswith("CUDA")]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    emit("profile", ticks=PROFILE_TICKS, profiled_wall_ms=wall_ms,
+    emit("profile", path=path, ticks=PROFILE_TICKS,
+         profiled_wall_ms=wall_ms,
          device_busy_ms=busy_ms if busy_ms > 0 else None,
          kernel_launches=sum(e.count for e in kernels),
          device_idle_share=(1 - busy_ms / wall_ms) if busy_ms > 0 else None,
@@ -368,12 +614,14 @@ def phase_profile(torch, np, serving, eng):
                            calls=e.count) for e in top])
 
 
-def phase_small_exact(torch, np, model, serving):
-    """A small f32 model on the card, in both cache modes: the linear
-    cache, and the ``--ring`` cache (window 16 + chunk 8 wide, so the
+def phase_small_exact(torch, np, model, serving, paged):
+    """A small f32 model on the card, in three cache modes: the linear
+    cache, the ``--ring`` cache (window 16 + chunk 8 wide, so the
     prompts wrap it and the ring prefill scatter and decode write index
-    run).  The kernel route and the einsum route give the same greedy
-    tokens, as the CPU tests demand of the port against JAX."""
+    run), and the paged cache with a pool of 8 blocks of 8 (so it
+    preempts).  The kernel route and the einsum route give the same
+    greedy tokens, as the CPU tests demand of the port against JAX, and
+    the paged engine gives the linear engine's tokens."""
     import dataclasses
 
     cfg = model.ModelConfig(vocab=256, d_model=128, n_layers=2, n_heads=2,
@@ -398,14 +646,38 @@ def phase_small_exact(torch, np, model, serving):
             out.append([r.generated for r in reqs])
         rec[mode] = dict(tokens_equal=out[0] == out[1],
                          tokens=sum(len(t) for t in out[0]))
+        if mode == "linear":
+            linear_tokens = out[0]
+    out, preempted = [], []
+    for impl in ("kernel", "einsum"):
+        eng = paged.PagedBatcher(
+            params, dataclasses.replace(cfg, attention=impl), slots=3,
+            max_len=64, block_size=8, num_blocks=8, chunk=8,
+            prefill_lanes=2, device="cuda")
+        reqs = [serving.Request(prompt=p, max_new_tokens=8) for p in prompts]
+        _serve_all(eng, reqs)
+        out.append([r.generated for r in reqs])
+        preempted.append(eng.preemptions)
+    rec["paged"] = dict(tokens_equal=out[0] == out[1],
+                        tokens=sum(len(t) for t in out[0]),
+                        equal_to_linear=out[0] == linear_tokens,
+                        preemptions=preempted)
     emit("small_exact", **rec)
     for mode, r in rec.items():
         if not r["tokens_equal"]:
             raise AssertionError(f"f32 kernel route and einsum route "
                                  f"disagree ({mode} cache)")
+    if not rec["paged"]["equal_to_linear"]:
+        raise AssertionError("f32 paged engine's tokens differ from the "
+                             "linear engine's")
+    if not all(preempted):
+        raise AssertionError(f"the small paged engine never preempted: "
+                             f"{preempted}")
 
 
 def phase_cli(model, DrainReceipt):
+    """The serve CLI on the card, once with the linear cache and once
+    with ``--paged`` (a 6-block pool, so it preempts)."""
     import torch
 
     cfg = model.ModelConfig(vocab=256, d_model=256, n_layers=2, seq_len=64)
@@ -422,19 +694,27 @@ def phase_cli(model, DrainReceipt):
         env = {**os.environ,
                "PYTHONPATH": os.pathsep.join(
                    [str(ROOT), os.environ.get("PYTHONPATH", "")])}
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                             cwd=ROOT, timeout=600)
-        dt = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise AssertionError(f"serve CLI exited {res.returncode}:\n"
-                             f"{res.stderr[-4000:]}")
-    receipt = DrainReceipt.parse_line(res.stdout.strip().splitlines()[-1])
-    emit("cli", seconds=dt, served=receipt.served,
-         unserved=receipt.unserved, ticks=receipt.ticks,
-         decode_tokens=receipt.decode_tokens)
-    if receipt.unserved != 0 or receipt.served != 6:
-        raise AssertionError(f"serve CLI receipt: {receipt}")
+        for cache, flags in (("linear", []),
+                             ("paged", ["--paged", "--block-size", "16",
+                                        "--num-blocks", "6",
+                                        "--max-new-tokens", "48"])):
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd + flags, capture_output=True, text=True,
+                                 env=env, cwd=ROOT, timeout=600)
+            dt = time.perf_counter() - t0
+            if res.returncode != 0:
+                raise AssertionError(f"serve CLI ({cache}) exited "
+                                     f"{res.returncode}:\n"
+                                     f"{res.stderr[-4000:]}")
+            receipt = DrainReceipt.parse_line(
+                res.stdout.strip().splitlines()[-1])
+            emit("cli", cache=cache, seconds=dt, served=receipt.served,
+                 unserved=receipt.unserved, ticks=receipt.ticks,
+                 decode_tokens=receipt.decode_tokens,
+                 preempted=receipt.stats["preempted_total"])
+            if receipt.unserved != 0 or receipt.served != 6:
+                raise AssertionError(f"serve CLI ({cache}) receipt: "
+                                     f"{receipt}")
 
 
 def main() -> None:
@@ -448,33 +728,43 @@ def main() -> None:
     import torch.nn.functional as F
 
     from tpu_autoscaler_torch.serving.drain import DrainReceipt
-    from tpu_autoscaler_torch.workloads import attention, model, serving
+    from tpu_autoscaler_torch.workloads import attention, model, paged, serving
 
     t_start = time.perf_counter()
     name, smi = phase_device(torch)
     phase_build(attention)
     main_rec, eng = phase_main_path(torch, np, attention, model, serving)
-    phase_profile(torch, np, serving, eng)
+    phase_profile(torch, np, serving, eng, "linear", PROMPT_LENS)
+    del eng
+    paged_rec, paged_tick, eng = phase_paged_main_path(
+        torch, np, attention, model, serving, paged)
+    phase_profile(torch, np, serving, eng, "paged", PAGED_PROMPT_LENS)
     del eng
     # 128 MB scratch, written before each timed launch: evicts the 50 MB L2.
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
     checks = phase_kernel_checks(torch, F, attention, flush,
                                  main_rec["mid_tick_lengths"])
-    phase_small_exact(torch, np, model, serving)
+    paged_checks = phase_paged_kernel_checks(torch, F, attention, flush,
+                                             paged_tick)
+    phase_small_exact(torch, np, model, serving, paged)
     phase_cli(model, DrainReceipt)
-    at_main = checks[0]
-    kernels = [dict(
-        name="flash_decode", route="cuda",
-        source="tpu_autoscaler_torch/csrc/flash_decode.cu",
-        replaces="tpu_autoscaler/workloads/attention.py:773",
-        launches=main_rec["flash_decode_launches"],
-        max_abs_err=at_main["max_abs_err"],
-        ms=at_main["ms"], plain_ms=at_main["plain_ms"],
-        bound_ms=at_main["bound_ms"], bound_by=at_main["bound_by"],
-        library_ms=at_main["library_ms"], cases_passed=len(checks),
-        kernel_ms=at_main["ms"], bound_us=at_main["bound_ms"] * 1e3,
-        shape=at_main["shape"], lengths=at_main["lengths"])]
+    kernels = []
+    for kname, source, replaces, path_rec, kchecks in (
+            ("flash_decode", "flash_decode.cu", 773, main_rec, checks),
+            ("paged_flash_decode", "paged_flash_decode.cu", 898, paged_rec,
+             paged_checks)):
+        at_main = kchecks[0]
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source=f"tpu_autoscaler_torch/csrc/{source}",
+            replaces=f"tpu_autoscaler/workloads/attention.py:{replaces}",
+            launches=path_rec[f"{kname}_launches"],
+            max_abs_err=at_main["max_abs_err"], ms=at_main["ms"],
+            plain_ms=at_main["plain_ms"], bound_ms=at_main["bound_ms"],
+            bound_by=at_main["bound_by"], library_ms=at_main["library_ms"],
+            gather_ms=at_main.get("gather_ms"), cases_passed=len(kchecks),
+            shape=at_main["shape"], lengths=at_main["lengths"]))
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

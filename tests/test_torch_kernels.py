@@ -42,3 +42,43 @@ def test_cuda_kernel_matches_plain_version(dtype, d):
         torch.cuda.synchronize()
         err, share = err_over_tol(torch, got, want)
         assert share <= 1.0, (kw, err, share, TOL_REASON[str(dtype)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.float32, 128)])
+@pytest.mark.parametrize("bs", [8, 16])
+def test_paged_cuda_kernel_matches_plain_version(dtype, d, bs):
+    """The paged kernel against its plain version on the card: linear
+    and windowed, scrambled block ids, a -1 entry below a row's length,
+    an id past the pool, a row of length 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    slots, h, hkv, tpr = 4, 16, 2, 384 // bs
+    nb = slots * tpr + 16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    q = rnd(slots, h, 1, d)
+    k, v = rnd(nb, hkv, bs, d), rnd(nb, hkv, bs, d)
+    tables = torch.randperm(nb, generator=g, device="cuda")[
+        :slots * tpr].reshape(slots, tpr).to(torch.int32)
+    tables[1, 2] = -1
+    tables[2, 0] = nb + 5
+    lengths = torch.tensor([0, 100, 383, 384], dtype=torch.int32,
+                           device="cuda")
+    for window in (None, 256):
+        got = attention.paged_flash_decode(q, k, v, tables, lengths,
+                                           window=window)
+        want = attention.paged_flash_decode_reference(q, k, v, tables,
+                                                      lengths, window=window)
+        torch.cuda.synchronize()
+        err, share = err_over_tol(torch, got, want)
+        assert share <= 1.0, (window, err, share, TOL_REASON[str(dtype)])
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.paged_flash_decode(q[..., :32].contiguous(),
+                                     k[..., :32].contiguous(),
+                                     v[..., :32].contiguous(), tables,
+                                     lengths)

@@ -1,0 +1,197 @@
+// Pieces shared by the one-token decode kernels (flash_decode.cu and
+// paged_flash_decode.cu) for NVIDIA Hopper, sm_90a.
+//
+// Both kernels run one CTA per (row, KV head) and one warp per query
+// head of the GQA group.  K and V tiles are staged in shared memory with
+// cp.async, double-buffered; each warp merges a staged tile into its own
+// online-softmax carry (m, l, acc) with merge_tile below.  Only how a
+// tile's keys are found in device memory differs between the kernels.
+//
+// Numerics, matching the TPU kernels: scores are f32 dot products scaled
+// by d^-0.5 after the dot; online softmax in f32 starting from m = -1e30;
+// P is rounded to v's dtype before PV; PV accumulates in f32; l is
+// clamped to 1e-30 by the caller so a row with no visible key yields
+// zeros; the output is written in q's dtype.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace decode {
+
+constexpr float kNegInf = -1e30f;
+constexpr int kMaxGroup = 32;
+constexpr int kStages = 2;
+constexpr int kTileBytes = 8192;   // K (or V) bytes per tile, unpadded
+
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static __device__ __forceinline__ float load(float x) { return x; }
+  static __device__ __forceinline__ float round(float x) { return x; }
+  static __device__ __forceinline__ float store(float x) { return x; }
+  // The 4 floats of a 16-byte vector.
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  // P cast to v's dtype (round to nearest even), as the TPU kernel does.
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16(x));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
+    return __float2bfloat16(x);
+  }
+  // The 8 bf16 of a 16-byte vector, as floats (bf16 is the top half of
+  // an f32, so each conversion is a shift or a mask).
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// Tile geometry for element type T and head_dim D.  A stage holds a K
+// tile (rows padded by 16 bytes, so the lanes' row reads fall in
+// distinct banks) and a V tile.
+template <typename T, int D>
+struct Tile {
+  static constexpr int kVec = 16 / sizeof(T);         // elements per vector
+  static constexpr int kVpr = D / kVec;               // vectors per row
+  static constexpr int kKStride = kVpr + 1;           // padded K row
+  static constexpr int kKeys = kTileBytes / (D * sizeof(T));
+  static constexpr int kStageVecs = kKeys * (kKStride + kVpr);
+  // Dynamic shared memory for the stages and, for a group of g query
+  // heads, each warp's P and q.
+  static size_t bytes(int g) {
+    return static_cast<size_t>(kStages) * kStageVecs * 16 +
+           static_cast<size_t>(g) * (kKeys + D) * sizeof(float);
+  }
+};
+
+// Merge the n keys of one staged tile into the calling warp's carry:
+// qw is the warp's query (f32, D), sc its BK-float score scratch, acc its
+// D/32 output elements per lane.  live(j) says whether key j of the tile
+// is visible; a key that is not was never copied in, so its shared
+// memory is neither scored nor read (its P is exactly 0).  Each lane
+// scores whole keys (lane j takes keys j, j + 32, ...), so a tile costs
+// one warp reduction for the max and one for the sum.
+template <typename T, int D, typename Live>
+__device__ __forceinline__ void merge_tile(const uint4* kst, int n,
+                                           const float* qw, float* sc,
+                                           float scale, float& m, float& l,
+                                           float* acc, Live live) {
+  using G = Tile<T, D>;
+  constexpr int BK = G::kKeys;
+  constexpr int VPR = G::kVpr;
+  constexpr int KS = G::kKStride;
+  constexpr int VEC = G::kVec;
+  constexpr int E = D / 32;
+  const int lane = threadIdx.x % 32;
+  const T* vs = reinterpret_cast<const T*>(kst + BK * KS);
+
+  float mx = kNegInf;
+  for (int j = lane; j < n; j += 32) {
+    if (!live(j)) continue;
+    const uint4* kr = kst + j * KS;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int c = 0; c < VPR; ++c) {
+      float kf[VEC];
+      Elem<T>::unpack(kr[c], kf);
+      const float* qc = qw + c * VEC;
+#pragma unroll
+      for (int i = 0; i < VEC; i += 2) {
+        s0 += qc[i] * kf[i];
+        s1 += qc[i + 1] * kf[i + 1];
+      }
+    }
+    const float s = (s0 + s1) * scale;
+    sc[j] = s;
+    mx = fmaxf(mx, s);
+  }
+  const float m_new = fmaxf(m, warp_max(mx));
+  const float corr = expf(m - m_new);
+  float psum = 0.f;
+  for (int j = lane; j < n; j += 32) {
+    const float p = live(j) ? expf(sc[j] - m_new) : 0.f;
+    sc[j] = p;
+    psum += p;
+  }
+  psum = warp_sum(psum);
+  __syncwarp();  // every lane's P is visible to the whole warp
+  l = l * corr + psum;
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] *= corr;
+#pragma unroll 4
+  for (int j = 0; j < n; ++j) {
+    const float p = Elem<T>::round(sc[j]);
+    if (p == 0.f) continue;  // a key not copied in, or one that adds 0
+    const T* vr = vs + j * D + lane * E;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] += p * Elem<T>::load(vr[e]);
+  }
+  m = m_new;
+}
+
+// Raise a kernel's dynamic shared-memory limit when it needs more than
+// the default 48 KB.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// Make `device` current for the launch.
+inline cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  return err;
+}
+
+}  // namespace decode

@@ -31,11 +31,8 @@
 // only b * hkv CTAs (8 at 4 slots x 2 KV heads on 132 SMs).  Split-KV
 // across SMs, TMA and tensor-core dot products are the planned fixes.
 //
-// Numerics, matching the TPU kernel: scores are f32 dot products scaled
-// by d^-0.5 after the dot; online softmax in f32 starting from m = -1e30;
-// P is rounded to v's dtype before PV; PV accumulates in f32; l is
-// clamped to 1e-30 so a row with no visible key yields zeros; the output
-// is written in q's dtype.
+// Numerics, matching the TPU kernel: see decode_common.cuh, which holds
+// the tile merge this kernel shares with paged_flash_decode.cu.
 //
 // Ring layout: the cache holds the last `max_len` positions; position p
 // lives in slot p mod max_len.  The TPU kernel recovers each slot's
@@ -53,95 +50,11 @@
 
 #include <cmath>
 
+#include "decode_common.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kMaxGroup = 32;
-constexpr int kStages = 2;
-constexpr int kTileBytes = 8192;   // K (or V) bytes per tile, unpadded
-
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float load(float x) { return x; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-  static __device__ __forceinline__ float store(float x) { return x; }
-  // The 4 floats of a 16-byte vector.
-  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  // P cast to v's dtype (round to nearest even), as the TPU kernel does.
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
-    return __float2bfloat16(x);
-  }
-  // The 8 bf16 of a 16-byte vector, as floats (bf16 is the top half of
-  // an f32, so each conversion is a shift or a mask).
-  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
-    const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// Tile geometry for element type T and head_dim D.
-template <typename T, int D>
-struct Tile {
-  static constexpr int kVec = 16 / sizeof(T);         // elements per vector
-  static constexpr int kVpr = D / kVec;               // vectors per row
-  static constexpr int kKStride = kVpr + 1;           // padded K row
-  static constexpr int kKeys = kTileBytes / (D * sizeof(T));
-  static constexpr int kStageVecs = kKeys * (kKStride + kVpr);
-  // Dynamic shared memory for a group of g query heads.
-  static size_t bytes(int g) {
-    return static_cast<size_t>(kStages) * kStageVecs * 16 +
-           static_cast<size_t>(g) * (kKeys + D) * sizeof(float);
-  }
-};
+using namespace decode;
 
 // Block = one warp per query head of the group; grid = b * hkv.
 template <typename T, int D>
@@ -155,7 +68,6 @@ __global__ void __launch_bounds__(32 * kMaxGroup)
   constexpr int BK = G::kKeys;
   constexpr int VPR = G::kVpr;
   constexpr int KS = G::kKStride;
-  constexpr int VEC = G::kVec;
   constexpr int E = D / 32;             // head_dim elements per lane in PV
   extern __shared__ uint4 smem[];
   const int group = h / hkv;
@@ -218,51 +130,8 @@ __global__ void __launch_bounds__(32 * kMaxGroup)
     cp_async_wait_one();  // tile t has landed (t + 1 may be in flight)
     __syncthreads();
     const int n = min(BK, hi - (lo + t * BK) + 1);
-    const uint4* kst = smem + (t % kStages) * G::kStageVecs;
-    const T* vs = reinterpret_cast<const T*>(kst + BK * KS);
-
-    // Scores: lane j takes keys j, j + 32, ... of the tile.
-    float mx = kNegInf;
-    for (int j = lane; j < n; j += 32) {
-      const uint4* kr = kst + j * KS;
-      float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-      for (int c = 0; c < VPR; ++c) {
-        float kf[VEC];
-        Elem<T>::unpack(kr[c], kf);
-        const float* qc = qw + c * VEC;
-#pragma unroll
-        for (int i = 0; i < VEC; i += 2) {
-          s0 += qc[i] * kf[i];
-          s1 += qc[i + 1] * kf[i + 1];
-        }
-      }
-      const float s = (s0 + s1) * scale;
-      sc[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    // Online-softmax merge of the tile into (m, l, acc).
-    const float m_new = fmaxf(m, warp_max(mx));
-    const float corr = expf(m - m_new);
-    float psum = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float p = expf(sc[j] - m_new);
-      sc[j] = p;
-      psum += p;
-    }
-    psum = warp_sum(psum);
-    __syncwarp();  // every lane's P is visible to the whole warp
-    l = l * corr + psum;
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[e] *= corr;
-#pragma unroll 4
-    for (int j = 0; j < n; ++j) {
-      const float p = Elem<T>::round(sc[j]);
-      const T* vr = vs + j * D + lane * E;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[e] += p * Elem<T>::load(vr[e]);
-    }
-    m = m_new;
+    merge_tile<T, D>(smem + (t % kStages) * G::kStageVecs, n, qw, sc, scale,
+                     m, l, acc, [](int) { return true; });
     __syncthreads();  // the stage is free for the copy issued next
   }
 
@@ -278,12 +147,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int max_len, int window, int ring, cudaStream_t stream) {
   const int group = h / hkv;
   const size_t smem = Tile<T, D>::bytes(group);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_decode_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = allow_smem(flash_decode_kernel<T, D>, smem);
+  if (err != cudaSuccess) return err;
   const float scale =
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   flash_decode_kernel<T, D><<<b * hkv, 32 * group, smem, stream>>>(
@@ -303,9 +168,7 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             const int* lengths, void* out, int b, int h,
                             int hkv, int max_len, int d, int dtype,
                             int window, int ring, int device, void* stream) {
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b < 1 || hkv < 1 || max_len < 1 || h % hkv != 0 ||
       h / hkv > kMaxGroup || window < 0 || (ring && window == 0))

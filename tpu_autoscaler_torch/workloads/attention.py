@@ -1,20 +1,23 @@
-"""Cached attention for one decode step: the ``flash_decode`` CUDA
-kernel, its plain PyTorch version, and the build that makes the kernel.
+"""Cached attention for one decode step: the ``flash_decode`` and
+``paged_flash_decode`` CUDA kernels, their plain PyTorch versions, and
+the build that makes the kernels.
 
 ``flash_decode`` keeps the signature and the layout of the JAX
 package's ``workloads/attention.py::flash_decode``: q ``[b, h, 1, d]``
 (the new token's queries, already rotated), caches ``[b, kv_heads,
 max_len, d]`` with the new k/v already written, and ``length`` a scalar
-or a per-row ``[b]`` count of filled positions.  On CUDA tensors it
-launches the hand-written Hopper kernel in ``csrc/flash_decode.cu``; on
-CPU tensors it runs ``flash_decode_reference``, the same function in
-plain PyTorch.  There is no fallback from one to the other: a CUDA
-tensor the kernel does not take raises.
+or a per-row ``[b]`` count of filled positions.  ``paged_flash_decode``
+keeps those of the JAX ``paged_flash_decode``: the same q, one layer's
+block pools ``[num_blocks, kv_heads, block_size, d]``, per-row block
+tables ``[slots, tpr]`` (-1 = no block) and lengths ``[slots]``.  On
+CUDA tensors each launches its hand-written Hopper kernel (``csrc/``);
+on CPU tensors it runs its plain PyTorch version.  There is no fallback
+from one to the other: a CUDA tensor a kernel does not take raises.
 
-The kernel is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, at first use, under ``build/torch_kernels/``
-of the checkout, and loaded with ``ctypes``.  Nothing here imports or
-builds anything at module import.
+The kernels are compiled by ``nvcc`` for ``sm_90a`` into shared
+libraries with a plain C interface, at first use, under
+``build/torch_kernels/`` of the checkout, and loaded with ``ctypes``.
+Nothing here imports or builds anything at module import.
 """
 
 from __future__ import annotations
@@ -40,18 +43,22 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: Kernel launches per wrapper: each wrapper adds one where it launches
 #: its kernel and nowhere else.  Callers zero and read them to show
 #: that a path ran through the kernels.
-LAUNCHES: dict[str, int] = {"flash_decode": 0}
+LAUNCHES: dict[str, int] = {"flash_decode": 0, "paged_flash_decode": 0}
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-KERNEL_SOURCES = {"flash_decode": CSRC / "flash_decode.cu"}
+KERNEL_SOURCES = {"flash_decode": CSRC / "flash_decode.cu",
+                  "paged_flash_decode": CSRC / "paged_flash_decode.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Each library exports one C function of the kernel's name: pointers
 # (and the stream) as c_void_p, so ctypes never cuts them to 32 bits.
-_ARGTYPES = {"flash_decode": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
-             + [ctypes.c_void_p]}
+_ARGTYPES = {
+    "flash_decode": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+    + [ctypes.c_void_p],
+    "paged_flash_decode": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+    + [ctypes.c_void_p]}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -70,8 +77,11 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where kernel ``name``'s library lives: keyed by the hash of its
-    source and flags, so an edited source is rebuilt, never reused."""
+    source, the headers it may include (every ``csrc/*.cuh``) and the
+    flags, so an edited source or header is rebuilt, never reused."""
     digest = hashlib.sha256(KERNEL_SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -149,19 +159,35 @@ def _check_args(q, k_cache, v_cache, window, ring) -> None:
             f"kv_heads dividing the query heads")
 
 
+def _masked_decode(q, k_rows, v_rows, visible):
+    """The kernels' math in one pass over contiguous rows: q [b, h, 1,
+    d], k/v rows [b, hkv, n, d], visible [b, n] bool.  f32 scores scaled
+    after the dot, f32 softmax with P cast to v's dtype before PV, f32
+    accumulation, output in q's dtype.  A row with no visible key
+    yields zeros."""
+    b, h, _, d = q.shape
+    hkv = k_rows.shape[1]
+    qg = q.reshape(b, hkv, h // hkv, d).float()
+    scores = torch.einsum("bngd,bnkd->bngk", qg, k_rows.float()) * d ** -0.5
+    visible = visible[:, None, None, :]
+    scores = scores.masked_fill(~visible, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(visible, torch.exp(scores - m), 0.0)
+    l_sum = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bngk,bnkd->bngd", p.to(v_rows.dtype).float(),
+                       v_rows.float())
+    out = acc / l_sum.clamp_min(1e-30)
+    return out.to(q.dtype).reshape(b, h, 1, d)
+
+
 def flash_decode_reference(q, k_cache, v_cache, length, *,
                            window: int | None = None, ring: bool = False):
-    """The plain PyTorch version of the kernel: the same math in one
-    pass.  f32 scores scaled after the dot, f32 softmax with P cast to
-    v's dtype before PV, f32 accumulation, output in q's dtype.  A row
-    with no visible key (length 0) yields zeros."""
+    """The plain PyTorch version of the flash_decode kernel: the same
+    math in one pass (:func:`_masked_decode`)."""
     _check_args(q, k_cache, v_cache, window, ring)
-    b, h, _, d = q.shape
-    hkv, max_len = k_cache.shape[1], k_cache.shape[2]
+    b = q.shape[0]
+    max_len = k_cache.shape[2]
     lengths = _row_lengths(length, b, q.device).long()
-    qg = q.reshape(b, hkv, h // hkv, d).float()
-    scores = torch.einsum("bngd,bnkd->bngk", qg,
-                          k_cache.float()) * d ** -0.5
     qpos = (lengths - 1)[:, None]                           # [b, 1]
     slot = torch.arange(max_len, device=q.device)[None, :]
     if ring:
@@ -173,15 +199,52 @@ def flash_decode_reference(q, k_cache, v_cache, length, *,
         visible = slot <= qpos
         if window is not None:
             visible &= slot > qpos - window
-    visible = visible[:, None, None, :]
-    scores = scores.masked_fill(~visible, NEG_INF)
-    m = scores.amax(dim=-1, keepdim=True)
-    p = torch.where(visible, torch.exp(scores - m), 0.0)
-    l_sum = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bngk,bnkd->bngd", p.to(v_cache.dtype).float(),
-                       v_cache.float())
-    out = acc / l_sum.clamp_min(1e-30)
-    return out.to(q.dtype).reshape(b, h, 1, d)
+    return _masked_decode(q, k_cache, v_cache, visible)
+
+
+def _check_kernel_tensors(name: str, q, tensors: dict, group: int) -> None:
+    """What every decode kernel needs of its CUDA tensors: q's device
+    and dtype (bf16 or f32), head_dim 64 or 128, at most MAX_GROUP query
+    heads per KV head, contiguous and 16-byte aligned."""
+    d = q.shape[-1]
+    for tname, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{tname} on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{tname} is {t.dtype}, q is {q.dtype}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name} kernel takes bf16 or f32, got {q.dtype}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name} kernel takes head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {d}")
+    if group > MAX_GROUP:
+        raise ValueError(f"{name} kernel takes at most {MAX_GROUP} query "
+                         f"heads per KV head, got {group}")
+    for tname, t in {"q": q, **tensors}.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} kernel needs a contiguous {tname}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel needs {tname} aligned to 16 "
+                             f"bytes")
+
+
+def _launch(name: str, q, *args) -> None:
+    """Call kernel ``name``'s C entry on q's device and current stream;
+    raise if the launch was refused, count it otherwise."""
+    fn = getattr(_library(name), name)
+    rc = fn(*args, q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _on_cuda(name: str, q) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors
+    (run the plain version); any other device raises."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
+    return q.device.type == "cuda"
 
 
 def flash_decode(q, k_cache, v_cache, length, *, window: int | None = None,
@@ -197,44 +260,109 @@ def flash_decode(q, k_cache, v_cache, length, *, window: int | None = None,
     launch the kernel (bf16 or f32, head_dim 64 or 128, at most 32
     query heads per KV head, contiguous) or raise."""
     _check_args(q, k_cache, v_cache, window, ring)
-    if q.device.type == "cpu":
+    if not _on_cuda("flash_decode", q):
         return flash_decode_reference(q, k_cache, v_cache, length,
                                       window=window, ring=ring)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode runs on cuda or cpu, not "
-                         f"{q.device}")
     b, h, _, d = q.shape
     hkv, max_len = k_cache.shape[1], k_cache.shape[2]
     lengths = _row_lengths(length, b, q.device)
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        if t.dtype != q.dtype:
-            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"flash_decode kernel takes bf16 or f32, got "
-                         f"{q.dtype}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_decode kernel takes head_dim in "
-                         f"{KERNEL_HEAD_DIMS}, got {d}")
-    if h // hkv > MAX_GROUP:
-        raise ValueError(f"flash_decode kernel takes at most {MAX_GROUP} "
-                         f"query heads per KV head, got {h // hkv}")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if not t.is_contiguous():
-            raise ValueError(f"flash_decode kernel needs a contiguous "
-                             f"{name}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_decode kernel needs {name} aligned "
-                             f"to 16 bytes")
+    _check_kernel_tensors("flash_decode", q,
+                          {"k_cache": k_cache, "v_cache": v_cache}, h // hkv)
     out = torch.empty_like(q)
-    fn = _library("flash_decode").flash_decode
-    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), b, h, hkv, max_len, d,
-            _DTYPE_CODES[q.dtype], window or 0, int(ring), q.device.index,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_decode kernel launch failed: CUDA "
-                           f"error {rc}")
-    LAUNCHES["flash_decode"] += 1
+    _launch("flash_decode", q, q.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
+            hkv, max_len, d, _DTYPE_CODES[q.dtype], window or 0, int(ring))
+    return out
+
+
+def _check_paged_args(q, k_pool, v_pool, tables, lengths, window) -> None:
+    slots, h, sq, d = q.shape
+    if sq != 1:
+        raise ValueError(
+            f"paged_flash_decode is single-token (sq=1); got {sq}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if k_pool.shape != v_pool.shape:
+        raise ValueError(
+            f"k/v pool shape mismatch: {k_pool.shape} vs {v_pool.shape}")
+    if k_pool.dim() != 4 or k_pool.shape[3] != d or h % k_pool.shape[1]:
+        raise ValueError(
+            f"pool {tuple(k_pool.shape)} does not fit q {tuple(q.shape)}: "
+            f"want [num_blocks, kv_heads, block_size, d] with kv_heads "
+            f"dividing the query heads")
+    if tables.dim() != 2 or tables.shape[0] != slots:
+        raise ValueError(f"tables {tuple(tables.shape)} do not fit "
+                         f"{slots} slots: want [slots, tpr]")
+    if tuple(lengths.shape) != (slots,):
+        raise ValueError(f"lengths {tuple(lengths.shape)}: want "
+                         f"[{slots}]")
+
+
+def paged_flash_decode_reference(q, k_pool, v_pool, tables, lengths, *,
+                                 window: int | None = None):
+    """The plain PyTorch version of the paged_flash_decode kernel.
+
+    The kernel's table semantics, which differ from gathering the rows
+    and attending over them: a table entry < 0 hides its whole block,
+    even below the row's length; an entry >= num_blocks is clamped to
+    num_blocks - 1 and read.  Key position p is visible when
+    p <= length - 1 (and p > length - 1 - window) and its block is
+    live; a row with no visible key yields zeros."""
+    lengths = torch.as_tensor(lengths, device=q.device)
+    tables = torch.as_tensor(tables, device=q.device)
+    _check_paged_args(q, k_pool, v_pool, tables, lengths, window)
+    bs = k_pool.shape[2]
+    k_rows = gather_pool_rows(k_pool, tables)
+    v_rows = gather_pool_rows(v_pool, tables)
+    qpos = (lengths.long() - 1)[:, None]
+    kpos = torch.arange(k_rows.shape[2], device=q.device)[None, :]
+    visible = (kpos <= qpos) & (tables >= 0).repeat_interleave(bs, dim=1)
+    if window is not None:
+        visible &= kpos > qpos - window
+    return _masked_decode(q, k_rows, v_rows, visible)
+
+
+def gather_pool_rows(pool, tables):
+    """One layer's pool [nb, hkv, bs, d] read through [rows, tpr] block
+    tables as contiguous rows [rows, hkv, tpr*bs, d] (the JAX package's
+    ``paged._gather_rows``).  Entries are clamped to [0, nb - 1]: -1
+    reads block 0, whose keys the caller must mask."""
+    rows, tpr = tables.shape
+    nb, hkv, bs, d = pool.shape
+    safe = tables.long().clamp(0, nb - 1)
+    return pool[safe].permute(0, 2, 1, 3, 4).reshape(rows, hkv, tpr * bs, d)
+
+
+def paged_flash_decode(q, k_pool, v_pool, tables, lengths, *,
+                       window: int | None = None):
+    """Fused cached attention for one decode step over a PAGED cache:
+    each row's keys are read in place from the block pool through its
+    block table, with no gathered copy.  Returns [slots, h, 1, d] in q's
+    dtype.
+
+    CPU tensors run :func:`paged_flash_decode_reference`.  CUDA tensors
+    launch the kernel (bf16 or f32, head_dim 64 or 128, at most 32
+    query heads per KV head, any block size, contiguous pools) or
+    raise; tables and lengths are taken as int32 on q's device."""
+    lengths = torch.as_tensor(lengths, device=q.device)
+    tables = torch.as_tensor(tables, device=q.device)
+    _check_paged_args(q, k_pool, v_pool, tables, lengths, window)
+    if not _on_cuda("paged_flash_decode", q):
+        return paged_flash_decode_reference(q, k_pool, v_pool, tables,
+                                            lengths, window=window)
+    slots, h, _, d = q.shape
+    nb, hkv, bs, _ = k_pool.shape
+    tpr = tables.shape[1]
+    if tpr * bs >= 2 ** 31:
+        raise ValueError(f"paged_flash_decode kernel indexes positions "
+                         f"with int32; tpr * block_size = {tpr * bs}")
+    _check_kernel_tensors("paged_flash_decode", q,
+                          {"k_pool": k_pool, "v_pool": v_pool}, h // hkv)
+    tables = tables.to(torch.int32).contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    _launch("paged_flash_decode", q, q.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), slots, h, hkv, nb, bs, tpr, d,
+            _DTYPE_CODES[q.dtype], window or 0)
     return out

@@ -26,7 +26,9 @@ The server runs on CUDA unless ``--platform cpu`` is given; without a
 GPU it refuses to start rather than run on the CPU.
 
 Model flags must match the checkpoint (shared block in _cli.py);
-``--ring`` turns on the O(window) ring cache for windowed models.
+``--ring`` turns on the O(window) ring cache for windowed models, and
+``--paged`` the paged cache (workloads/paged.py): a block pool shared by
+all slots, per-slot block tables, preemption under pool pressure.
 """
 
 from __future__ import annotations
@@ -141,6 +143,17 @@ def _read_requests(requests_file, random_n, max_new_tokens, seed, cfg):
 @click.option("--ring", is_flag=True,
               help="Ring cache: O(--attention-window) per-slot memory, "
                    "unbounded sequence length (needs a window).")
+@click.option("--paged", is_flag=True,
+              help="Paged KV cache (workloads/paged.py): block pool + "
+                   "per-slot block tables, on-demand growth, batched "
+                   "prefill; memory scales with LIVE tokens, not "
+                   "slots x max-len.  Mutually exclusive with --ring.")
+@click.option("--block-size", default=16, show_default=True,
+              help="Paged cache block size (tokens per pool block).")
+@click.option("--num-blocks", default=None, type=int,
+              help="Paged pool size in blocks (default: worst case "
+                   "slots * max-len / block-size; smaller pools "
+                   "oversubscribe memory and preempt under pressure).")
 @click.option("--seed", default=0, show_default=True)
 @click.option("--final-stats", "final_stats_file", default=None,
               help="Also write the final-stats JSON (the drain "
@@ -165,7 +178,8 @@ def _read_requests(requests_file, random_n, max_new_tokens, seed, cfg):
               type=click.Choice(["cuda", "cpu"]),
               help="Device to serve on.")
 def main(checkpoint_dir, requests_file, random_n, max_new_tokens, slots,
-         max_len, chunk, ring, seed, final_stats_file, replica_id,
+         max_len, chunk, ring, paged, block_size, num_blocks, seed,
+         final_stats_file, replica_id,
          annotations_file, slo_ticks, vocab, seq_len, d_model, n_layers,
          n_kv_heads, attention_window, no_rope, moe_experts, moe_top_k,
          platform):
@@ -183,6 +197,7 @@ def main(checkpoint_dir, requests_file, random_n, max_new_tokens, slots,
         load_params,
         resolve_device,
     )
+    from tpu_autoscaler_torch.workloads.paged import PagedBatcher
     from tpu_autoscaler_torch.workloads.serving import ContinuousBatcher
 
     cfg = model_config(vocab, seq_len, d_model, n_layers, n_kv_heads,
@@ -191,6 +206,25 @@ def main(checkpoint_dir, requests_file, random_n, max_new_tokens, slots,
         raise click.UsageError("pass exactly one of --requests/--random")
     if ring and attention_window is None:
         raise click.UsageError("--ring needs --attention-window")
+    # Flag checks come before the checkpoint load: a bad combination
+    # errors at once.
+    if paged and ring:
+        raise click.UsageError(
+            "--paged and --ring are different cache layouts; pick one")
+    if paged:
+        if block_size < 1:
+            raise click.UsageError(
+                f"--block-size must be >= 1, got {block_size}")
+        if max_len % block_size:
+            raise click.UsageError(
+                f"--max-len {max_len} must be a multiple of "
+                f"--block-size {block_size}")
+        min_blocks = -(-chunk // block_size)  # one prefill chunk
+        if num_blocks is not None and num_blocks < min_blocks:
+            raise click.UsageError(
+                f"--num-blocks {num_blocks} cannot hold even one "
+                f"prefill chunk (--chunk {chunk} needs >= {min_blocks} "
+                f"blocks of {block_size}); admission would livelock")
     if moe_experts is not None:
         raise click.UsageError(
             "serving MoE models is not ported yet (ROADMAP.md, MoE "
@@ -213,11 +247,17 @@ def main(checkpoint_dir, requests_file, random_n, max_new_tokens, slots,
                           cfg)
     if not reqs:
         raise click.UsageError("no requests to serve")
-    engine = ContinuousBatcher(
-        params, cfg, slots=slots, max_len=max_len, chunk=chunk,
-        ring=ring, device=device,
-        generator=torch.Generator(device=device).manual_seed(seed),
-        slo_ticks=slo_ticks)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    if paged:
+        engine = PagedBatcher(
+            params, cfg, slots=slots, max_len=max_len,
+            block_size=block_size, num_blocks=num_blocks, chunk=chunk,
+            device=device, generator=generator, slo_ticks=slo_ticks)
+    else:
+        engine = ContinuousBatcher(
+            params, cfg, slots=slots, max_len=max_len, chunk=chunk,
+            ring=ring, device=device, generator=generator,
+            slo_ticks=slo_ticks)
 
     watcher = DrainWatcher(annotations_file or DEFAULT_ANNOTATIONS_PATH)
     t0 = time.perf_counter()

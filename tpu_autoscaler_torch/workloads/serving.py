@@ -329,12 +329,18 @@ class Request:
     finished_tick: int | None = None
     # Queue-wait/execute split: first tick the request held a slot.
     first_scheduled_tick: int | None = None
+    # Engine-assigned id ("r1", "r2", ...), kept across preemptions.
+    request_id: str | None = None
+    # Last tick a paged engine preempted it (its requeue wait starts).
+    preempted_tick: int | None = None
 
 
 @dataclasses.dataclass
 class _SlotState:
     request: Request | None = None
     remaining_prompt: np.ndarray | None = None
+    # The prompt is fully in the cache and generation has its first token.
+    seeded: bool = False
 
 
 class ContinuousBatcher:
@@ -377,15 +383,7 @@ class ContinuousBatcher:
         self.chunk = chunk
         self.max_len = max_len
         self.ring = ring
-        if ring:
-            if cfg.attention_window is None:
-                raise ValueError("ring=True needs cfg.attention_window")
-            buf_len = cfg.attention_window + chunk
-        else:
-            buf_len = max_len
-        self.cache = SlotKVCache.zeros(cfg, slots, buf_len, self.device)
-        self._decode = make_slot_decode_step(cfg, ring=ring)
-        self._prefill = make_prefill_chunk(cfg, chunk, ring=ring)
+        self._build_device_state(cfg, slots, max_len, chunk, ring)
         self._slots = [_SlotState() for _ in range(slots)]
         self._queue: list[Request] = []
         self._pending_token = np.zeros((slots,), np.int64)
@@ -401,6 +399,21 @@ class ContinuousBatcher:
         # cache.lengths host-side so KV occupancy never reads the device.
         self._stats = ServingStatsRecorder(slots, slo_ticks=slo_ticks)
         self._stat_lengths = np.zeros(slots, np.int64)
+        self._rid_seq = 0
+
+    def _build_device_state(self, cfg, slots, max_len, chunk, ring) -> None:
+        """Allocate the cache and build the step functions.  A subclass
+        with another memory system (paged.PagedBatcher) overrides this;
+        the host-side scheduling is shared."""
+        if ring:
+            if cfg.attention_window is None:
+                raise ValueError("ring=True needs cfg.attention_window")
+            buf_len = cfg.attention_window + chunk
+        else:
+            buf_len = max_len
+        self.cache = SlotKVCache.zeros(cfg, slots, buf_len, self.device)
+        self._decode = make_slot_decode_step(cfg, ring=ring)
+        self._prefill = make_prefill_chunk(cfg, chunk, ring=ring)
 
     def submit(self, request: Request) -> None:
         """Queue a request, validating its cache footprint UP FRONT —
@@ -436,12 +449,37 @@ class ContinuousBatcher:
                 f"{self.max_len}")
         if request.submitted_tick is None:
             request.submitted_tick = self.ticks
+        if request.request_id is None:
+            self._rid_seq += 1
+            request.request_id = f"r{self._rid_seq}"
         self._queue.append(request)
 
     @property
     def idle(self) -> bool:
         return not self._queue and all(
             s.request is None for s in self._slots)
+
+    def _note_admitted(self, req: Request) -> None:
+        """Wait-split bookkeeping for one admission, shared by every
+        engine's ``_admit``: the first admission closes the
+        submit→schedule wait, a re-admission closes a preemption's
+        requeue wait."""
+        if req.first_scheduled_tick is None:
+            req.first_scheduled_tick = self.ticks
+            self._stats.note_first_scheduled(
+                self.ticks - (req.submitted_tick or 0))
+        elif req.preempted_tick is not None:
+            self._stats.note_requeue_wait(self.ticks - req.preempted_tick)
+
+    def _note_seeded(self, i: int, tok: int) -> None:
+        """Slot i's prompt is fully in the cache and ``tok``, sampled
+        from its last logits, is the first generated token: it becomes
+        the slot's pending decode input."""
+        slot = self._slots[i]
+        slot.request.generated.append(tok)
+        slot.seeded = True
+        self._pending_token[i] = tok
+        self._has_pending[i] = True
 
     def _admit(self) -> None:
         if self.draining:
@@ -451,13 +489,10 @@ class ContinuousBatcher:
                 req = self._queue.pop(0)
                 slot.request = req
                 slot.remaining_prompt = np.asarray(req.prompt, np.int64)
+                slot.seeded = False
                 self._has_pending[i] = False
                 self._stats.note_admit()
-                if req.first_scheduled_tick is None:
-                    # The first admission closes the submit→schedule wait.
-                    req.first_scheduled_tick = self.ticks
-                    self._stats.note_first_scheduled(
-                        self.ticks - (req.submitted_tick or 0))
+                self._note_admitted(req)
                 self._stat_lengths[i] = 0
                 # Reset the slot: stale cache beyond every future write
                 # point is invisible by construction.
@@ -545,10 +580,7 @@ class ContinuousBatcher:
             self._stat_lengths[i] += take
             if len(slot.remaining_prompt) == 0:
                 # Prompt complete: sample the first generated token.
-                tok = self._sample_host(logits, slot.request)
-                slot.request.generated.append(tok)
-                self._pending_token[i] = tok
-                self._has_pending[i] = True
+                self._note_seeded(i, self._sample_host(logits, slot.request))
                 self._finish_if_done(i)
             break
 
@@ -562,8 +594,13 @@ class ContinuousBatcher:
             self.params, self.cache,
             torch.from_numpy(self._pending_token).to(self.device),
             torch.from_numpy(self._has_pending).to(self.device))
-        self.decode_steps += 1
         self._stat_lengths[self._has_pending] += 1
+        self._take_decoded(logits)
+
+    def _take_decoded(self, logits) -> None:
+        """After a batched decode step: sample every decoding row's next
+        token, append it, and finish the requests that are done."""
+        self.decode_steps += 1
         temps = np.array(
             [s.request.temperature if s.request else 0.0
              for s in self._slots], np.float32)
