@@ -4,14 +4,15 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, drives the port's
-two serving paths through their public entry points at the full width
-of ``bench_tpu.py``: the continuous-batching server with the linear
-cache (its serving phase) and the paged-KV server (its paged phase,
-whose pool is small enough to preempt), and runs the ``serve`` CLI with
-each cache.  Each phase prints one JSON line; a failed phase raises and
-the script exits non-zero.  The last lines are the
-card's ``nvidia-smi`` name and power limit, the ``kernels`` summary,
-and ``{"ok": true, "device": {...}}``.
+three paths through their public entry points at the full width of
+``bench_tpu.py``: the continuous-batching server with the linear cache
+(its serving phase), the paged-KV server (its paged phase, whose pool
+is small enough to preempt) and ``decode.generate`` (its decode phase,
+GQA and MHA, and a long prompt), and runs the ``serve`` CLI with each
+cache and the ``generate`` CLI.  Each phase prints one JSON line; a
+failed phase raises and the script exits non-zero.  The last lines are
+the card's ``nvidia-smi`` name and power limit, the ``kernels``
+summary, and ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; without one it exits non-zero before printing
 any result.  Imports nothing of JAX and nothing of the JAX package.
@@ -79,6 +80,15 @@ COMPARE_TICKS = 16
 # few hundredths; 0.25 is several times what such rounding gives.
 DLOGITS_MAX = 0.25
 PROFILE_TICKS = 40
+# The generate path: bench_tpu.py's decode phase (bench_tpu.py:450-453),
+# the serving model as GQA and as MHA, then a long prompt (the longest
+# of the serving traffic) that fills the config's seq_len.
+GEN_BATCH, GEN_PROMPT, GEN_STEPS = 8, 128, 256
+GEN_SHAPES = (("gqa", dict(FULL), GEN_PROMPT, GEN_STEPS),
+              ("mha", dict(FULL, n_kv_heads=None), GEN_PROMPT, GEN_STEPS),
+              ("long-prompt", dict(FULL), max(PROMPT_LENS), 128))
+GEN_REPS = 3
+LSE_TOL = 1e-4   # f32 in both versions; only the summation order differs
 SPIN_CYCLES = 400_000            # ~0.2 ms of device spin at ~1.98 GHz
 
 
@@ -215,6 +225,8 @@ def check_case(torch, F, attention, flush, *, label, b, h, hkv, max_len,
 
 
 def phase_kernel_checks(torch, F, attention, flush, main_lengths):
+    """K3 in 14 cases; the first at the linear main path's shape with
+    the lengths of its median decode tick."""
     full = dict(b=4, h=16, hkv=2, max_len=1024, d=64, dtype=torch.bfloat16)
     window, chunk = 256, CHUNK
     ring = dict(full, max_len=window + chunk, window=window, ring=True)
@@ -231,6 +243,12 @@ def phase_kernel_checks(torch, F, attention, flush, main_lengths):
         dict(full, label="mqa", h=16, hkv=1, lengths=[1, 300, 777, 1024]),
         dict(full, label="f32-d128", d=128, dtype=torch.float32,
              lengths=[0, 129, 513, 1024]),
+        dict(full, label="d32", d=32, lengths=[1, 300, 777, 1024]),
+        dict(full, label="f32-d32-window", d=32, dtype=torch.float32,
+             window=window, lengths=[0, 100, 257, 1024]),
+        dict(full, label="d256", d=256, lengths=[1, 300, 777, 1024]),
+        dict(full, label="f32-d256", d=256, dtype=torch.float32,
+             lengths=[0, 65, 513, 1024]),
     ]
     return [check_case(torch, F, attention, flush, seed=i, **c)
             for i, c in enumerate(cases)]
@@ -307,7 +325,7 @@ def check_paged_case(torch, F, attention, flush, *, label, slots, h, hkv,
 
 
 def phase_paged_kernel_checks(torch, F, attention, flush, main_tick):
-    """K4 in 11 cases; the first at the paged main path's shape with the
+    """K4 in 15 cases; the first at the paged main path's shape with the
     block tables and lengths of its median decode tick."""
     tpr = MAX_LEN // BLOCK_SIZE
     full = dict(slots=PAGED_SLOTS, h=16, hkv=2, bs=BLOCK_SIZE, tpr=tpr,
@@ -339,8 +357,100 @@ def phase_paged_kernel_checks(torch, F, attention, flush, main_tick):
         dict(full, label="f32-d128-bs-8-window", d=128, dtype=torch.float32,
              bs=8, tpr=MAX_LEN // 8, nb=2 * NUM_BLOCKS, window=100,
              lengths=edges, edits=((4, 1, -1),)),
+        dict(full, label="d32", d=32, lengths=spread),
+        dict(full, label="f32-d32-bs-8", d=32, dtype=torch.float32, bs=8,
+             tpr=MAX_LEN // 8, nb=2 * NUM_BLOCKS, lengths=edges),
+        dict(full, label="d256-window", d=256, window=256, lengths=spread,
+             edits=((3, 60, -1),)),
+        dict(full, label="f32-d256", d=256, dtype=torch.float32,
+             lengths=spread),
     ]
     return [check_paged_case(torch, F, attention, flush, seed=100 + i, **c)
+            for i, c in enumerate(cases)]
+
+
+def _visible_pairs(s: int, causal: bool, window) -> int:
+    """(query, key) pairs one head of a flash_attention call can see."""
+    if not causal:
+        return s * s
+    w = s if window is None else min(window, s)
+    # Query i sees min(i + 1, w) keys.
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def check_attn_case(torch, F, attention, flush, *, label, b, h, hkv, s, d,
+                    dtype, causal=True, window=None, seed=0):
+    """One K1 case: random q/k/v against flash_attention_reference (out
+    with err_over_tol, lse within LSE_TOL), timed beside the plain
+    version and SDPA with the same mask."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    q, k, v = rnd(b, h, s, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d)
+    kw = dict(causal=causal, window=window)
+    out, lse = attention.flash_attention_forward(q, k, v, **kw)
+    want, want_lse = attention.flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err, share = err_over_tol(torch, out, want)
+    lse_err = (lse - want_lse).abs().max().item()
+    dname = str(dtype)
+    ms = _time_ms(torch, lambda: attention.flash_attention_forward(
+        q, k, v, **kw), flush)
+    plain_ms = _time_ms(torch, lambda: attention.flash_attention_reference(
+        q, k, v, **kw), flush)
+    if causal and window is not None:
+        sdpa = dict(attn_mask=attention.causal_band_mask(s, window, "cuda"))
+    else:
+        sdpa = dict(is_causal=causal)
+    library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, enable_gqa=True, **sdpa), flush)
+    elem = q.element_size()
+    pairs = _visible_pairs(s, causal, window)
+    moved = (2 * b * h + 2 * b * hkv) * s * d * elem + b * h * s * 4
+    ops = 4 * d * b * h * pairs
+    peak = BF16_OPS_PER_S if dname == "torch.bfloat16" else F32_OPS_PER_S
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / peak
+    rec = dict(case=label, shape=[b, h, hkv, s, d], dtype=dname,
+               causal=causal, window=window, max_abs_err=err,
+               err_over_tolerance=share, tolerance=TOL_REASON[dname],
+               lse_max_abs_err=lse_err, lse_tolerance=LSE_TOL, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               visible_pairs_per_head=pairs)
+    emit("attn_kernel_check", **rec)
+    if not share <= 1.0:
+        raise AssertionError(f"flash_attention {label}: error {share} times "
+                             f"its tolerance (max |err| {err})")
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f"flash_attention {label}: lse off by "
+                             f"{lse_err}")
+    return rec
+
+
+def phase_attn_kernel_checks(torch, F, attention, flush):
+    """K1 in 14 cases; the first is the GQA generate path's prefill."""
+    main = dict(b=GEN_BATCH, h=16, hkv=2, s=GEN_PROMPT, d=64,
+                dtype=torch.bfloat16)
+    cases = [
+        dict(main, label="main-path-prefill"),
+        dict(main, label="long-prompt", s=896),
+        dict(main, label="seq-len", b=2, s=1024),
+        dict(main, label="tail", b=2, s=1000),
+        dict(main, label="s1", s=1),
+        dict(main, label="s17", s=17),
+        dict(main, label="window-256", b=2, s=1024, window=256),
+        dict(main, label="window-1", b=2, s=300, window=1),
+        dict(main, label="mha", b=2, hkv=16, s=512),
+        dict(main, label="mqa", b=2, hkv=1, s=512),
+        dict(main, label="non-causal", b=2, s=256, causal=False),
+        dict(main, label="f32-d128", b=2, s=300, d=128, dtype=torch.float32),
+        dict(main, label="f32-d32", b=2, s=200, d=32, dtype=torch.float32),
+        dict(main, label="d256", b=2, s=333, d=256),
+    ]
+    return [check_attn_case(torch, F, attention, flush, seed=200 + i, **c)
             for i, c in enumerate(cases)]
 
 
@@ -596,7 +706,12 @@ def phase_profile(torch, np, serving, eng, path, prompt_lens):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     eng.run()
+    _emit_profile(path, "ticks", prof, wall_ms)
 
+
+def _emit_profile(path, unit, prof, wall_ms) -> None:
+    """Device busy time, idle share and the top kernels of a window of
+    PROFILE_TICKS engine ticks or decode steps (``unit``)."""
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) \
             or getattr(e, "self_cuda_time_total", 0)
@@ -605,7 +720,7 @@ def phase_profile(torch, np, serving, eng, path, prompt_lens):
                if str(e.device_type).endswith("CUDA")]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    emit("profile", path=path, ticks=PROFILE_TICKS,
+    emit("profile", path=path, **{unit: PROFILE_TICKS},
          profiled_wall_ms=wall_ms,
          device_busy_ms=busy_ms if busy_ms > 0 else None,
          kernel_launches=sum(e.count for e in kernels),
@@ -614,14 +729,162 @@ def phase_profile(torch, np, serving, eng, path, prompt_lens):
                            calls=e.count) for e in top])
 
 
-def phase_small_exact(torch, np, model, serving, paged):
+def _wall(torch, fn):
+    """(seconds, result) of one call, synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _decode_diffs(torch, decode, params, prompt, kcfg, ecfg, max_len):
+    """The kernel route against the einsum route on identical inputs:
+    prefill's logits over every [b, s] position (K1's check on the
+    path), then COMPARE_TICKS decode steps, each from a copy of the
+    kernel route's cache and the same token.  Returns (prefill max
+    |dlogits|, whether prefill's logits are finite, [(mean, max,
+    finite)] per step)."""
+    logits, cache = decode.prefill(params, prompt, kcfg, max_len)
+    want, _ = decode.prefill(params, prompt, ecfg, max_len)
+    prefill_max = (logits - want).abs().max().item()
+    finite = bool(torch.isfinite(logits).all())
+    del want
+    token = torch.argmax(logits[:, -1], -1).to(torch.int32)
+    diffs = []
+    for _ in range(COMPARE_TICKS):
+        ref = decode.KVCache(cache.k.clone(), cache.v.clone(), cache.length)
+        want, _ = decode.decode_step(params, ref, token, ecfg)
+        logits, cache = decode.decode_step(params, cache, token, kcfg)
+        dl = (logits - want).abs()
+        diffs.append((dl.mean().item(), dl.max().item(),
+                      bool(torch.isfinite(logits).all())))
+        token = torch.argmax(logits, -1).to(torch.int32)
+    return prefill_max, finite, diffs
+
+
+def phase_generate_main_path(torch, np, attention, model, decode, label,
+                             arch, prompt_len, steps):
+    """decode.generate at full width through its public API: a warm
+    call, the kernel route against the einsum route on identical inputs
+    (prefill logits and COMPARE_TICKS decode steps), then GEN_REPS timed
+    calls, each with the launch counts zeroed just before and read just
+    after (K1 once per layer, K3 once per layer per decode step, K4
+    never), timed as bench_tpu.py:465-486 does (prefill alone, then the
+    whole call, and the difference); then the einsum route's generate
+    for its time and greedy agreement."""
+    import dataclasses
+
+    cfg = model.ModelConfig(**arch)
+    ecfg = dataclasses.replace(cfg, attention="einsum")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, "cuda")
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (GEN_BATCH, prompt_len)).astype(np.int32)).cuda()
+    max_len = prompt_len + steps
+
+    def run(c):
+        return decode.generate(params, prompt, c, steps)
+
+    def prefill_alone():
+        return decode.prefill(model.cast_params(params, cfg.dtype, "cuda"),
+                              prompt, cfg, max_len)[0]
+
+    warm_s, _ = _wall(torch, lambda: run(cfg))
+    cast = model.cast_params(params, cfg.dtype, "cuda")
+    prefill_max, prefill_finite, diffs = _decode_diffs(
+        torch, decode, cast, prompt, cfg, ecfg, max_len)
+    del cast
+    want = {"flash_attention": cfg.n_layers,
+            "flash_decode": (steps - 1) * cfg.n_layers,
+            "paged_flash_decode": 0}
+    gen_s, pf_s, launches = [], [], []
+    for _ in range(GEN_REPS):
+        pf_s.append(_wall(torch, prefill_alone)[0])
+        attention.reset_launch_counts()
+        dt, out = _wall(torch, lambda: run(cfg))
+        launches.append(dict(attention.LAUNCHES))
+        gen_s.append(dt)
+    gen_dt, pf_dt = statistics.fmean(gen_s), statistics.fmean(pf_s)
+    decode_dt = gen_dt - pf_dt
+    einsum_pf = statistics.fmean(
+        _wall(torch, lambda: decode.prefill(
+            model.cast_params(params, cfg.dtype, "cuda"), prompt, ecfg,
+            max_len)[0])[0] for _ in range(GEN_REPS))
+    einsum_s, eout = _wall(torch, lambda: run(ecfg))
+    gen = out[:, prompt_len:]
+    egen = eout[:, prompt_len:]
+    equal = (gen == egen).cpu()
+    prefix = sum(steps if bool(row.all()) else int((~row).nonzero()[0])
+                 for row in equal)
+    rec = dict(
+        shape=label, config=arch, dtype="bfloat16", batch=GEN_BATCH,
+        prompt_len=prompt_len, steps=steps, max_len=max_len,
+        warm_seconds=warm_s, generate_seconds=gen_s, prefill_seconds=pf_s,
+        prefill_ms=pf_dt * 1e3, decode_ms_per_step=decode_dt / steps * 1e3,
+        decode_tokens_per_s=GEN_BATCH * steps / decode_dt,
+        einsum_prefill_ms=einsum_pf * 1e3, einsum_generate_seconds=einsum_s,
+        einsum_decode_ms_per_step=(einsum_s - einsum_pf) / steps * 1e3,
+        einsum_decode_tokens_per_s=GEN_BATCH * steps / (einsum_s - einsum_pf),
+        launches=launches[-1], expected_launches=want,
+        prefill_dlogits_max=prefill_max, compare_steps=len(diffs),
+        dlogits_mean=statistics.fmean(d[0] for d in diffs),
+        dlogits_max=max(d[1] for d in diffs),
+        greedy_tokens_agree=int(equal.sum()), greedy_prefix_agree=prefix,
+        greedy_tokens_total=GEN_BATCH * steps)
+    emit("generate_main_path", **rec)
+    if any(n != want for n in launches):
+        raise AssertionError(f"generate ({label}) launched {launches}, "
+                             f"want {want} per call")
+    if not (prefill_finite and all(d[2] for d in diffs)
+            and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"non-finite logits on the generate path "
+                             f"({label})")
+    if not (prefill_max < DLOGITS_MAX and rec["dlogits_max"] < DLOGITS_MAX):
+        raise AssertionError(
+            f"generate ({label}): kernel route logits differ from the "
+            f"einsum route by {prefill_max} (prefill), "
+            f"{rec['dlogits_max']} (decode)")
+    if not decode_dt > 0:
+        raise AssertionError(f"generate ({label}) took no longer than its "
+                             f"prefill: {gen_dt} s vs {pf_dt} s")
+    return rec, params, prompt, cfg
+
+
+def phase_generate_profile(torch, model, decode, params, prompt, cfg, steps):
+    """Where PROFILE_TICKS decode steps of the GQA generate call spend
+    device time: the step loop of decode.generate, after prefill and 5
+    warm steps, under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cast = model.cast_params(params, cfg.dtype, "cuda")
+    logits, cache = decode.prefill(cast, prompt, cfg, prompt.shape[1] + steps)
+    token = torch.argmax(logits[:, -1], -1).to(torch.int32)
+    for _ in range(5):
+        logits, cache = decode.decode_step(cast, cache, token, cfg)
+        token = torch.argmax(logits, -1).to(torch.int32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_TICKS):
+            logits, cache = decode.decode_step(cast, cache, token, cfg)
+            token = torch.argmax(logits, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    _emit_profile("generate", "decode_steps", prof, wall_ms)
+
+
+def phase_small_exact(torch, np, model, serving, paged, decode):
     """A small f32 model on the card, in three cache modes: the linear
     cache, the ``--ring`` cache (window 16 + chunk 8 wide, so the
     prompts wrap it and the ring prefill scatter and decode write index
     run), and the paged cache with a pool of 8 blocks of 8 (so it
-    preempts).  The kernel route and the einsum route give the same
-    greedy tokens, as the CPU tests demand of the port against JAX, and
-    the paged engine gives the linear engine's tokens."""
+    preempts); then decode.generate.  The kernel route and the einsum
+    route give the same greedy tokens, as the CPU tests demand of the
+    port against JAX; the paged engine, and generate prompt by prompt,
+    give the linear engine's tokens; a sampled generate stays in the
+    vocab; forward's logits equal prefill's through K1."""
     import dataclasses
 
     cfg = model.ModelConfig(vocab=256, d_model=128, n_layers=2, n_heads=2,
@@ -662,6 +925,27 @@ def phase_small_exact(torch, np, model, serving, paged):
                         tokens=sum(len(t) for t in out[0]),
                         equal_to_linear=out[0] == linear_tokens,
                         preemptions=preempted)
+    kcfg = dataclasses.replace(cfg, attention="kernel")
+    ecfg = dataclasses.replace(cfg, attention="einsum")
+    batch = torch.from_numpy(rng.integers(0, 256, (3, 40)).astype(np.int32))
+    out = [decode.generate(params, batch, c, 10).tolist()
+           for c in (kcfg, ecfg)]
+    alone = [decode.generate(params, torch.from_numpy(p)[None], kcfg,
+                             8)[0, len(p):].tolist() for p in prompts]
+    sampled = decode.generate(
+        params, batch, kcfg, 10, temperature=0.8, top_k=20,
+        generator=torch.Generator(device="cuda").manual_seed(3))[:, 40:]
+    tokens = batch.cuda()
+    logits, _ = decode.prefill(params, tokens, kcfg, 40)
+    forward_diff = {impl: (model.forward(params, tokens, c) - logits).abs()
+                    .max().item() for impl, c in (("kernel", kcfg),
+                                                  ("einsum", ecfg))}
+    rec["generate"] = dict(tokens_equal=out[0] == out[1],
+                           tokens=3 * 10,
+                           equal_to_linear=alone == linear_tokens,
+                           sampled_in_vocab=bool(
+                               ((sampled >= 0) & (sampled < 256)).all()),
+                           forward_vs_prefill_max=forward_diff)
     emit("small_exact", **rec)
     for mode, r in rec.items():
         if not r["tokens_equal"]:
@@ -670,51 +954,91 @@ def phase_small_exact(torch, np, model, serving, paged):
     if not rec["paged"]["equal_to_linear"]:
         raise AssertionError("f32 paged engine's tokens differ from the "
                              "linear engine's")
+    if not rec["generate"]["sampled_in_vocab"]:
+        raise AssertionError(f"sampled generate gave tokens outside the "
+                             f"vocab: {sampled.tolist()}")
+    if not rec["generate"]["equal_to_linear"]:
+        raise AssertionError("f32 generate's tokens differ from the "
+                             "linear engine's, prompt by prompt")
+    if not max(forward_diff.values()) <= 2e-4:
+        raise AssertionError(f"forward's logits differ from prefill's "
+                             f"through K1 by {forward_diff}")
     if not all(preempted):
         raise AssertionError(f"the small paged engine never preempted: "
                              f"{preempted}")
 
 
-def phase_cli(model, DrainReceipt):
-    """The serve CLI on the card, once with the linear cache and once
-    with ``--paged`` (a 6-block pool, so it preempts)."""
+def phase_cli(model, decode, DrainReceipt):
+    """The CLIs on the card: serve with the linear cache and with
+    ``--paged`` (a 6-block pool, so it preempts); then, at the CLIs'
+    default architecture flags (head_dim 32), generate, which must
+    print the tokens decode.generate gives in-process, and serve."""
     import torch
 
-    cfg = model.ModelConfig(vocab=256, d_model=256, n_layers=2, seq_len=64)
-    with tempfile.TemporaryDirectory() as tmp:
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join(
+               [str(ROOT), os.environ.get("PYTHONPATH", "")])}
+
+    def run(cmd, what):
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                             cwd=ROOT, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"{what} exited {res.returncode}:\n"
+                                 f"{res.stderr[-4000:]}")
+        return time.perf_counter() - t0, res.stdout.strip().splitlines()
+
+    def serve(ckpt, cache, flags):
+        cmd = [sys.executable, "-m", "tpu_autoscaler_torch.workloads.serve",
+               "--checkpoint-dir", ckpt, "--random", "6", "--platform",
+               "cuda", "--annotations-file",
+               os.path.join(tmp, "annotations"), *flags]
+        dt, lines = run(cmd, f"serve CLI ({cache})")
+        receipt = DrainReceipt.parse_line(lines[-1])
+        emit("cli", command="serve", cache=cache, seconds=dt,
+             served=receipt.served, unserved=receipt.unserved,
+             ticks=receipt.ticks, decode_tokens=receipt.decode_tokens,
+             preempted=receipt.stats["preempted_total"])
+        if receipt.unserved != 0 or receipt.served != 6:
+            raise AssertionError(f"serve CLI ({cache}) receipt: {receipt}")
+
+    def checkpoint(cfg, name):
         params = model.init_params(
             torch.Generator(device="cuda").manual_seed(2), cfg, "cuda")
-        model.save_params(os.path.join(tmp, "ckpt"), 1, params)
-        cmd = [sys.executable, "-m", "tpu_autoscaler_torch.workloads.serve",
-               "--checkpoint-dir", os.path.join(tmp, "ckpt"),
-               "--random", "6", "--slots", "2", "--max-len", "128",
-               "--chunk", "16", "--vocab", "256", "--d-model", "256",
-               "--n-layers", "2", "--seq-len", "64", "--platform", "cuda",
-               "--annotations-file", os.path.join(tmp, "annotations")]
-        env = {**os.environ,
-               "PYTHONPATH": os.pathsep.join(
-                   [str(ROOT), os.environ.get("PYTHONPATH", "")])}
-        for cache, flags in (("linear", []),
-                             ("paged", ["--paged", "--block-size", "16",
-                                        "--num-blocks", "6",
-                                        "--max-new-tokens", "48"])):
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd + flags, capture_output=True, text=True,
-                                 env=env, cwd=ROOT, timeout=600)
-            dt = time.perf_counter() - t0
-            if res.returncode != 0:
-                raise AssertionError(f"serve CLI ({cache}) exited "
-                                     f"{res.returncode}:\n"
-                                     f"{res.stderr[-4000:]}")
-            receipt = DrainReceipt.parse_line(
-                res.stdout.strip().splitlines()[-1])
-            emit("cli", cache=cache, seconds=dt, served=receipt.served,
-                 unserved=receipt.unserved, ticks=receipt.ticks,
-                 decode_tokens=receipt.decode_tokens,
-                 preempted=receipt.stats["preempted_total"])
-            if receipt.unserved != 0 or receipt.served != 6:
-                raise AssertionError(f"serve CLI ({cache}) receipt: "
-                                     f"{receipt}")
+        model.save_params(os.path.join(tmp, name), 1, params)
+        return os.path.join(tmp, name), params
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, _ = checkpoint(model.ModelConfig(vocab=256, d_model=256,
+                                               n_layers=2, seq_len=64),
+                             "d256")
+        arch = ["--vocab", "256", "--d-model", "256", "--n-layers", "2",
+                "--seq-len", "64", "--slots", "2", "--max-len", "128",
+                "--chunk", "16"]
+        serve(ckpt, "linear", arch)
+        serve(ckpt, "paged", arch + ["--paged", "--block-size", "16",
+                                     "--num-blocks", "6",
+                                     "--max-new-tokens", "48"])
+        # The CLIs' defaults: vocab 256, d_model 128, 2 layers, 4 heads.
+        cfg = model.ModelConfig()
+        ckpt, params = checkpoint(cfg, "defaults")
+        prompt = [5, 17, 42, 9, 200]
+        dt, lines = run([sys.executable, "-m",
+                         "tpu_autoscaler_torch.workloads.generate",
+                         "--checkpoint-dir", ckpt, "--prompt",
+                         ",".join(map(str, prompt)), "--batch", "2",
+                         "--steps", "8", "--platform", "cuda"],
+                        "generate CLI")
+        want = decode.generate(params, torch.tensor([prompt] * 2), cfg,
+                               8).tolist()
+        want_lines = [f"{','.join(map(str, row[:5]))} | "
+                      f"{','.join(map(str, row[5:]))}" for row in want]
+        emit("cli", command="generate", head_dim=cfg.head_dim, seconds=dt,
+             lines=lines, in_process=want_lines)
+        if lines != want_lines:
+            raise AssertionError(f"generate CLI printed {lines}, "
+                                 f"in-process {want_lines}")
+        serve(ckpt, "linear-defaults", [])
 
 
 def main() -> None:
@@ -728,7 +1052,13 @@ def main() -> None:
     import torch.nn.functional as F
 
     from tpu_autoscaler_torch.serving.drain import DrainReceipt
-    from tpu_autoscaler_torch.workloads import attention, model, paged, serving
+    from tpu_autoscaler_torch.workloads import (
+        attention,
+        decode,
+        model,
+        paged,
+        serving,
+    )
 
     t_start = time.perf_counter()
     name, smi = phase_device(torch)
@@ -747,24 +1077,39 @@ def main() -> None:
                                  main_rec["mid_tick_lengths"])
     paged_checks = phase_paged_kernel_checks(torch, F, attention, flush,
                                              paged_tick)
-    phase_small_exact(torch, np, model, serving, paged)
-    phase_cli(model, DrainReceipt)
+    attn_checks = phase_attn_kernel_checks(torch, F, attention, flush)
+    del flush
+    gen_recs = []
+    for label, arch, prompt_len, steps in GEN_SHAPES:
+        rec, params, prompt, cfg = phase_generate_main_path(
+            torch, np, attention, model, decode, label, arch, prompt_len,
+            steps)
+        gen_recs.append(rec)
+        if label == "gqa":
+            phase_generate_profile(torch, model, decode, params, prompt, cfg,
+                                   steps)
+        del params, prompt
+    phase_small_exact(torch, np, model, serving, paged, decode)
+    phase_cli(model, decode, DrainReceipt)
     kernels = []
-    for kname, source, replaces, path_rec, kchecks in (
-            ("flash_decode", "flash_decode.cu", 773, main_rec, checks),
-            ("paged_flash_decode", "paged_flash_decode.cu", 898, paged_rec,
-             paged_checks)):
+    for kname, source, replaces, launches, kchecks in (
+            ("flash_attention", "flash_attention.cu", 192,
+             gen_recs[0]["launches"]["flash_attention"], attn_checks),
+            ("flash_decode", "flash_decode.cu", 773,
+             main_rec["flash_decode_launches"], checks),
+            ("paged_flash_decode", "paged_flash_decode.cu", 898,
+             paged_rec["paged_flash_decode_launches"], paged_checks)):
         at_main = kchecks[0]
         kernels.append(dict(
             name=kname, route="cuda",
             source=f"tpu_autoscaler_torch/csrc/{source}",
             replaces=f"tpu_autoscaler/workloads/attention.py:{replaces}",
-            launches=path_rec[f"{kname}_launches"],
-            max_abs_err=at_main["max_abs_err"], ms=at_main["ms"],
-            plain_ms=at_main["plain_ms"], bound_ms=at_main["bound_ms"],
-            bound_by=at_main["bound_by"], library_ms=at_main["library_ms"],
+            launches=launches, max_abs_err=at_main["max_abs_err"],
+            ms=at_main["ms"], plain_ms=at_main["plain_ms"],
+            bound_ms=at_main["bound_ms"], bound_by=at_main["bound_by"],
+            library_ms=at_main["library_ms"],
             gather_ms=at_main.get("gather_ms"), cases_passed=len(kchecks),
-            shape=at_main["shape"], lengths=at_main["lengths"]))
+            shape=at_main["shape"], lengths=at_main.get("lengths")))
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

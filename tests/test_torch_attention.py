@@ -139,8 +139,9 @@ def test_auto_resolves_by_device_and_head_dim():
     assert cfg.resolved_attention(torch.device("cuda")) == "kernel"
     # A head_dim the kernel is not built for still resolves to the
     # kernel on CUDA, whose wrapper then raises: never a plain run there.
-    small = ModelConfig(d_model=128, n_heads=4)         # head_dim 32
-    assert small.resolved_attention(torch.device("cuda")) == "kernel"
-    assert small.resolved_attention(torch.device("cpu")) == "einsum"
+    odd = ModelConfig(d_model=192, n_heads=4)           # head_dim 48
+    assert odd.head_dim not in attention.KERNEL_HEAD_DIMS
+    assert odd.resolved_attention(torch.device("cuda")) == "kernel"
+    assert odd.resolved_attention(torch.device("cpu")) == "einsum"
     assert ModelConfig(attention="einsum").resolved_attention(
         torch.device("cuda")) == "einsum"

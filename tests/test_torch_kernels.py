@@ -16,9 +16,13 @@ from chip_smoke import TOL_REASON, err_over_tol
 from tpu_autoscaler_torch.workloads import attention
 
 
+HEAD_DIMS = [(torch.bfloat16, 64), (torch.float32, 128),
+             (torch.bfloat16, 32), (torch.float32, 32),
+             (torch.bfloat16, 256), (torch.float32, 256)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
-                                     (torch.float32, 128)])
+@pytest.mark.parametrize("dtype,d", HEAD_DIMS)
 def test_cuda_kernel_matches_plain_version(dtype, d):
     """The CUDA kernel against its plain version on the card (linear,
     window and ring), with chip_smoke.py's tolerances (TOL_REASON)."""
@@ -45,8 +49,7 @@ def test_cuda_kernel_matches_plain_version(dtype, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
-                                     (torch.float32, 128)])
+@pytest.mark.parametrize("dtype,d", HEAD_DIMS)
 @pytest.mark.parametrize("bs", [8, 16])
 def test_paged_cuda_kernel_matches_plain_version(dtype, d, bs):
     """The paged kernel against its plain version on the card: linear
@@ -78,7 +81,46 @@ def test_paged_cuda_kernel_matches_plain_version(dtype, d, bs):
         err, share = err_over_tol(torch, got, want)
         assert share <= 1.0, (window, err, share, TOL_REASON[str(dtype)])
     with pytest.raises(ValueError, match="head_dim"):
-        attention.paged_flash_decode(q[..., :32].contiguous(),
-                                     k[..., :32].contiguous(),
-                                     v[..., :32].contiguous(), tables,
+        attention.paged_flash_decode(q[..., :16].contiguous(),
+                                     k[..., :16].contiguous(),
+                                     v[..., :16].contiguous(), tables,
                                      lengths)
+
+
+LSE_TOL = 1e-4   # f32 in both versions; only the summation order differs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.float32, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.float32, 128)])
+def test_flash_attention_cuda_kernel_matches_plain_version(dtype, d):
+    """K1 against its plain version on the card: causal, windowed (a
+    window smaller than a tile, and of 1) and non-causal, GQA and MHA,
+    at s 1, 2 and tails that are not a multiple of the tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    cases = [(2, 4, 2, 100, {}), (2, 4, 2, 100, {"window": 17}),
+             (2, 4, 2, 70, {"window": 1}), (2, 4, 2, 77, {"causal": False}),
+             (1, 4, 4, 33, {}), (3, 8, 1, 1, {}), (2, 4, 2, 2, {})]
+    for b, h, hkv, s, kw in cases:
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+        q, k, v = rnd(b, h, s, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d)
+        out, lse = attention.flash_attention_forward(q, k, v, **kw)
+        want, want_lse = attention.flash_attention_reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err, share = err_over_tol(torch, out, want)
+        assert share <= 1.0, (s, kw, err, share, TOL_REASON[str(dtype)])
+        assert (lse - want_lse).abs().max().item() <= LSE_TOL, (s, kw)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.flash_attention(q[..., :16].contiguous(),
+                                  k[..., :16].contiguous(),
+                                  v[..., :16].contiguous())
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        attention.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        attention.flash_attention(q.requires_grad_(), k, v)

@@ -336,5 +336,6 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         f"tpu_autoscaler_torch.{m}" for m in (
             "serving.drain", "serving.stats", "workloads._cli",
             "workloads.attention", "workloads.checkpoint",
-            "workloads.decode", "workloads.model", "workloads.paged",
+            "workloads.decode", "workloads.generate", "workloads.model",
+            "workloads.paged",
             "workloads.serve", "workloads.serving")}

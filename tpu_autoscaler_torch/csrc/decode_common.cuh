@@ -1,5 +1,7 @@
 // Pieces shared by the one-token decode kernels (flash_decode.cu and
-// paged_flash_decode.cu) for NVIDIA Hopper, sm_90a.
+// paged_flash_decode.cu) for NVIDIA Hopper, sm_90a.  The prompt kernel
+// (flash_attention.cu) takes the element types, the cp.async and warp
+// helpers and the dispatch over dtype and head_dim from here too.
 //
 // Both kernels run one CTA per (row, KV head) and one warp per query
 // head of the GQA group.  K and V tiles are staged in shared memory with
@@ -17,6 +19,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace decode {
 
@@ -95,7 +99,9 @@ __device__ __forceinline__ void cp_async_wait_one() {
 
 // Tile geometry for element type T and head_dim D.  A stage holds a K
 // tile (rows padded by 16 bytes, so the lanes' row reads fall in
-// distinct banks) and a V tile.
+// distinct banks) and a V tile.  kTileBytes fixes the keys per tile:
+// from 128 (bf16, D 32) down to 8 (f32, D 256).  The largest CTA, a
+// group of 32 at bf16 D 256, takes 68 KB of shared memory.
 template <typename T, int D>
 struct Tile {
   static constexpr int kVec = 16 / sizeof(T);         // elements per vector
@@ -192,6 +198,33 @@ inline cudaError_t use_device(int device) {
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   return err;
+}
+
+// The head_dims every kernel is built for: 32, 64, 128 and 256.
+template <int D>
+using HeadDim = std::integral_constant<int, D>;
+
+template <typename T, typename F>
+cudaError_t dispatch_head_dim(int d, F& f) {
+  T* tag = nullptr;
+  switch (d) {
+    case 32: return f(tag, HeadDim<32>{});
+    case 64: return f(tag, HeadDim<64>{});
+    case 128: return f(tag, HeadDim<128>{});
+    case 256: return f(tag, HeadDim<256>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Call f(T* tag, std::integral_constant<int, D>) for the element type
+// (dtype 0: f32, 1: bf16) and head_dim d of a launch, so each C entry
+// names its launch once for every instantiation; any other dtype or d
+// is cudaErrorInvalidValue.
+template <typename F>
+cudaError_t dispatch(int dtype, int d, F f) {
+  if (dtype == 0) return dispatch_head_dim<float>(d, f);
+  if (dtype == 1) return dispatch_head_dim<__nv_bfloat16>(d, f);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace decode

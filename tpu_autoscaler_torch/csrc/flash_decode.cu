@@ -174,19 +174,9 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
       h / hkv > kMaxGroup || window < 0 || (ring && window == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && d == 64)
-    err = launch<__nv_bfloat16, 64>(q, k, v, lengths, out, b, h, hkv,
-                                    max_len, window, ring, s);
-  else if (dtype == 1 && d == 128)
-    err = launch<__nv_bfloat16, 128>(q, k, v, lengths, out, b, h, hkv,
-                                     max_len, window, ring, s);
-  else if (dtype == 0 && d == 64)
-    err = launch<float, 64>(q, k, v, lengths, out, b, h, hkv, max_len,
-                            window, ring, s);
-  else if (dtype == 0 && d == 128)
-    err = launch<float, 128>(q, k, v, lengths, out, b, h, hkv, max_len,
-                             window, ring, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch(dtype, d, [&](auto tag, auto dim) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return launch<T, decltype(dim)::value>(q, k, v, lengths, out, b, h, hkv,
+                                           max_len, window, ring, s);
+  }));
 }

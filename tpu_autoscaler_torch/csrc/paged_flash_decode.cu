@@ -37,7 +37,7 @@
 // (32 at 16 slots x 2 KV heads on 132 SMs); split-KV is the fix.
 //
 // Block sizes: any bs >= 1.  Every key row is d * sizeof(T) bytes (a
-// multiple of 16 for the head_dims built here, 64 and 128), so every
+// multiple of 16 for the head_dims built here, 32 to 256), so every
 // key's vectors are 16-byte aligned whatever the block size.
 //
 // Interface: a plain C function (paged_flash_decode at the bottom), built
@@ -200,19 +200,10 @@ extern "C" int paged_flash_decode(const void* q, const void* k,
       h / hkv > kMaxGroup || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && d == 64)
-    err = launch<__nv_bfloat16, 64>(q, k, v, tables, lengths, out, slots, h,
-                                    hkv, nb, bs, tpr, window, s);
-  else if (dtype == 1 && d == 128)
-    err = launch<__nv_bfloat16, 128>(q, k, v, tables, lengths, out, slots,
-                                     h, hkv, nb, bs, tpr, window, s);
-  else if (dtype == 0 && d == 64)
-    err = launch<float, 64>(q, k, v, tables, lengths, out, slots, h, hkv,
-                            nb, bs, tpr, window, s);
-  else if (dtype == 0 && d == 128)
-    err = launch<float, 128>(q, k, v, tables, lengths, out, slots, h, hkv,
-                             nb, bs, tpr, window, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch(dtype, d, [&](auto tag, auto dim) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return launch<T, decltype(dim)::value>(q, k, v, tables, lengths, out,
+                                           slots, h, hkv, nb, bs, tpr, window,
+                                           s);
+  }));
 }

@@ -1,7 +1,13 @@
-"""Cached attention for one decode step: the ``flash_decode`` and
-``paged_flash_decode`` CUDA kernels, their plain PyTorch versions, and
-the build that makes the kernels.
+"""Attention kernels: the prompt's ``flash_attention`` forward and the
+one-token ``flash_decode`` and ``paged_flash_decode``, as CUDA kernels
+beside their plain PyTorch versions, and the build that makes them.
 
+``flash_attention`` keeps the signature and the layout of the JAX
+package's ``workloads/attention.py::flash_attention``: q ``[b, h, s,
+d]`` and k/v ``[b, kv_heads, s, d]``, causal by default, with an
+optional sliding window; ``flash_attention_forward`` also returns the
+f32 log-sum-exp ``[b, h, s, 1]``.  The kernel picks its own tiles, so
+the JAX ``block_q``/``block_k`` are not part of the signature.
 ``flash_decode`` keeps the signature and the layout of the JAX
 package's ``workloads/attention.py::flash_decode``: q ``[b, h, 1, d]``
 (the new token's queries, already rotated), caches ``[b, kv_heads,
@@ -34,27 +40,31 @@ import torch
 
 NEG_INF = -1e30
 
-#: head_dim values the kernel is instantiated for.
-KERNEL_HEAD_DIMS = (64, 128)
-#: The kernel runs one warp per query head of a GQA group.
+#: head_dim values every kernel is instantiated for.
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+#: The decode kernels run one warp per query head of a GQA group.
 MAX_GROUP = 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches per wrapper: each wrapper adds one where it launches
 #: its kernel and nowhere else.  Callers zero and read them to show
 #: that a path ran through the kernels.
-LAUNCHES: dict[str, int] = {"flash_decode": 0, "paged_flash_decode": 0}
+LAUNCHES: dict[str, int] = {"flash_attention": 0, "flash_decode": 0,
+                             "paged_flash_decode": 0}
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-KERNEL_SOURCES = {"flash_decode": CSRC / "flash_decode.cu",
+KERNEL_SOURCES = {"flash_attention": CSRC / "flash_attention.cu",
+                  "flash_decode": CSRC / "flash_decode.cu",
                   "paged_flash_decode": CSRC / "paged_flash_decode.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Each library exports one C function of the kernel's name: pointers
 # (and the stream) as c_void_p, so ctypes never cuts them to 32 bits.
 _ARGTYPES = {
+    "flash_attention": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+    + [ctypes.c_void_p],
     "flash_decode": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
     "paged_flash_decode": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
@@ -202,10 +212,12 @@ def flash_decode_reference(q, k_cache, v_cache, length, *,
     return _masked_decode(q, k_cache, v_cache, visible)
 
 
-def _check_kernel_tensors(name: str, q, tensors: dict, group: int) -> None:
-    """What every decode kernel needs of its CUDA tensors: q's device
-    and dtype (bf16 or f32), head_dim 64 or 128, at most MAX_GROUP query
-    heads per KV head, contiguous and 16-byte aligned."""
+def _check_kernel_tensors(name: str, q, tensors: dict,
+                          group: int | None = None) -> None:
+    """What every kernel needs of its CUDA tensors: q's device and
+    dtype (bf16 or f32), a head_dim in KERNEL_HEAD_DIMS, at most
+    MAX_GROUP query heads per KV head (``group``, for the decode
+    kernels), contiguous and 16-byte aligned."""
     d = q.shape[-1]
     for tname, t in tensors.items():
         if t.device != q.device:
@@ -217,7 +229,7 @@ def _check_kernel_tensors(name: str, q, tensors: dict, group: int) -> None:
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name} kernel takes head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got {d}")
-    if group > MAX_GROUP:
+    if group is not None and group > MAX_GROUP:
         raise ValueError(f"{name} kernel takes at most {MAX_GROUP} query "
                          f"heads per KV head, got {group}")
     for tname, t in {"q": q, **tensors}.items():
@@ -247,6 +259,99 @@ def _on_cuda(name: str, q) -> bool:
     return q.device.type == "cuda"
 
 
+def _validate_attention_args(q, k, v, causal, window) -> None:
+    """The JAX package's checks, with its errors: the kernel would
+    otherwise read out of range or give a silently wrong output."""
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(
+            f"query heads ({q.shape[1]}) must be a multiple of kv heads "
+            f"({k.shape[1]})")
+    if k.shape != v.shape:
+        raise ValueError(f"k/v shape mismatch: {k.shape} vs {v.shape}")
+    if window is not None and (not causal or window < 1):
+        raise ValueError(
+            f"window={window} requires causal=True and window >= 1")
+    if (q.shape[0], q.shape[2], q.shape[3]) != (
+            k.shape[0], k.shape[2], k.shape[3]):
+        raise ValueError(
+            f"q and k/v must share batch, seq and head_dim; got q "
+            f"{tuple(q.shape)} vs kv {tuple(k.shape)}")
+
+
+def causal_band_mask(s: int, window: int | None = None,
+                     device=None) -> torch.Tensor:
+    """[s, s] boolean mask: key visible iff q - window < k <= q.  The
+    dense counterpart of the kernel's mask, shared by the einsum paths
+    and the plain version so the window has one definition."""
+    mask = torch.ones((s, s), dtype=torch.bool, device=device).tril()
+    if window is not None:
+        pos = torch.arange(s, device=device)
+        mask &= (pos[:, None] - pos[None, :]) < window
+    return mask
+
+
+def flash_attention_reference(q, k, v, *, causal: bool = True,
+                              window: int | None = None):
+    """The plain PyTorch version of the flash_attention kernel, with its
+    numerics in one pass: f32 scores scaled by d^-0.5 after the dot,
+    masked entries at -1e30, f32 softmax, P cast to v's dtype before PV
+    with f32 accumulation, out = acc / l in q's dtype and lse = m +
+    log(l) in f32.  Returns (out [b, h, s, d], lse [b, h, s, 1])."""
+    _validate_attention_args(q, k, v, causal, window)
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    qg = q.reshape(b, hkv, h // hkv, s, d).float()
+    scores = torch.einsum("bngqd,bnkd->bngqk", qg, k.float()) * d ** -0.5
+    if causal:
+        scores = scores.masked_fill(
+            ~causal_band_mask(s, window, q.device), NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l_sum = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bngqk,bnkd->bngqd", p.to(v.dtype).float(),
+                       v.float())
+    out = (acc / l_sum).to(q.dtype).reshape(b, h, s, d)
+    return out, (m + torch.log(l_sum)).reshape(b, h, s, 1)
+
+
+def flash_attention_forward(q, k, v, *, causal: bool = True,
+                            window: int | None = None):
+    """Fused attention over a whole sequence (see module doc): returns
+    (out [b, h, s, d] in q's dtype, lse [b, h, s, 1] f32).
+
+    CPU tensors run :func:`flash_attention_reference`.  CUDA tensors
+    launch the kernel (bf16 or f32, head_dim 32, 64, 128 or 256, any s,
+    contiguous) or raise.  Inputs that require grad raise: the kernel
+    has no backward until K2 lands with the trainer (ROADMAP.md, slice
+    4)."""
+    _validate_attention_args(q, k, v, causal, window)
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise NotImplementedError(
+            "flash_attention has no backward yet: K2 lands with the "
+            "trainer (ROADMAP.md, slice 4)")
+    if not _on_cuda("flash_attention", q):
+        return flash_attention_reference(q, k, v, causal=causal,
+                                         window=window)
+    b, h, s, d = q.shape
+    _check_kernel_tensors("flash_attention", q, {"k": k, "v": v})
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s, 1), dtype=torch.float32, device=q.device)
+    _launch("flash_attention", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, h, k.shape[1], s, d,
+            _DTYPE_CODES[q.dtype], int(causal), window or 0)
+    return out, lse
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int | None = None):
+    """q [batch, heads, seq, head_dim]; k, v [batch, kv_heads, seq,
+    head_dim] with heads % kv_heads == 0 -> output shaped like q.
+    ``window=w`` (requires causal): each query sees only the w most
+    recent keys including itself.  :func:`flash_attention_forward`
+    without the lse."""
+    return flash_attention_forward(q, k, v, causal=causal, window=window)[0]
+
+
 def flash_decode(q, k_cache, v_cache, length, *, window: int | None = None,
                  ring: bool = False):
     """Fused cached attention for one decode step (see module doc).
@@ -257,8 +362,8 @@ def flash_decode(q, k_cache, v_cache, length, *, window: int | None = None,
     width.  Returns [b, h, 1, d] in q's dtype.
 
     CPU tensors run :func:`flash_decode_reference`.  CUDA tensors
-    launch the kernel (bf16 or f32, head_dim 64 or 128, at most 32
-    query heads per KV head, contiguous) or raise."""
+    launch the kernel (bf16 or f32, head_dim 32, 64, 128 or 256, at most
+    32 query heads per KV head, contiguous) or raise."""
     _check_args(q, k_cache, v_cache, window, ring)
     if not _on_cuda("flash_decode", q):
         return flash_decode_reference(q, k_cache, v_cache, length,
@@ -341,9 +446,9 @@ def paged_flash_decode(q, k_pool, v_pool, tables, lengths, *,
     dtype.
 
     CPU tensors run :func:`paged_flash_decode_reference`.  CUDA tensors
-    launch the kernel (bf16 or f32, head_dim 64 or 128, at most 32
-    query heads per KV head, any block size, contiguous pools) or
-    raise; tables and lengths are taken as int32 on q's device."""
+    launch the kernel (bf16 or f32, head_dim 32, 64, 128 or 256, at
+    most 32 query heads per KV head, any block size, contiguous pools)
+    or raise; tables and lengths are taken as int32 on q's device."""
     lengths = torch.as_tensor(lengths, device=q.device)
     tables = torch.as_tensor(tables, device=q.device)
     _check_paged_args(q, k_pool, v_pool, tables, lengths, window)

@@ -17,12 +17,18 @@ approximation (``jax.nn.gelu``'s default).
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from tpu_autoscaler_torch.workloads.attention import (
+    causal_band_mask,
+    flash_attention,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +46,7 @@ class ModelConfig:
     # recent ``attention_window`` keys only.  None = full causal.
     attention_window: int | None = None
     dtype: Any = torch.bfloat16
-    # "auto" (default): the flash_decode CUDA kernel on a CUDA device
+    # "auto" (default): the CUDA attention kernels on a CUDA device
     # (which raises on a shape it does not take), the einsum path on the
     # CPU.  "einsum" always takes the plain path; "kernel" always takes
     # the kernel and is refused on the CPU.
@@ -131,35 +137,49 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def init_params(generator: torch.Generator, cfg: ModelConfig,
-                device=None) -> dict:
-    """Stacked-layer f32 params (leading dim = layer), drawn from
-    ``generator`` on its own device and placed on ``device``."""
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The params tree's leaf shapes: what :func:`init_params` makes and
+    what a checkpoint for ``cfg`` must hold."""
     if cfg.moe_experts is not None:
         raise NotImplementedError(
             "MoE params are not ported yet (ROADMAP.md, MoE slice)")
     L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    return {
+        "embed": (cfg.vocab, d),
+        "blocks": {
+            "qkv": (L, d, d + 2 * cfg.kv_heads * cfg.head_dim),
+            "attn_out": (L, d, d),
+            "w1": (L, d, f),
+            "w2": (L, f, d),
+            "ln1": (L, d),
+            "ln2": (L, d),
+        },
+        "ln_f": (d,),
+        "unembed": (d, cfg.vocab),
+    }
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                device=None) -> dict:
+    """Stacked-layer f32 params (leading dim = layer), drawn from
+    ``generator`` on its own device and placed on ``device``: normal
+    weights scaled by fan-in (embed 0.02), gains of one."""
+    shapes = param_shapes(cfg)
+    d, f = cfg.d_model, cfg.d_ff
+    scale = {"embed": 0.02, "qkv": d ** -0.5, "attn_out": d ** -0.5,
+             "w1": d ** -0.5, "w2": f ** -0.5, "unembed": d ** -0.5}
     dev = resolve_device(device)
 
-    def norm(shape, scale):
+    def leaf(name, shape):
+        if name not in scale:                  # the norm gains
+            return torch.ones(shape, dtype=torch.float32, device=dev)
         x = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=generator.device)
-        return (x * scale).to(dev)
+        return (x * scale[name]).to(dev)
 
-    return {
-        "embed": norm((cfg.vocab, d), 0.02),
-        "blocks": {
-            "qkv": norm((L, d, d + 2 * cfg.kv_heads * cfg.head_dim),
-                        d ** -0.5),
-            "attn_out": norm((L, d, d), d ** -0.5),
-            "w1": norm((L, d, f), d ** -0.5),
-            "w2": norm((L, f, d), f ** -0.5),
-            "ln1": torch.ones((L, d), dtype=torch.float32, device=dev),
-            "ln2": torch.ones((L, d), dtype=torch.float32, device=dev),
-        },
-        "ln_f": torch.ones((d,), dtype=torch.float32, device=dev),
-        "unembed": norm((d, cfg.vocab), d ** -0.5),
-    }
+    return {name: ({k: leaf(k, v) for k, v in shape.items()}
+                   if isinstance(shape, dict) else leaf(name, shape))
+            for name, shape in shapes.items()}
 
 
 def _map_tree(fn, tree):
@@ -280,3 +300,74 @@ def _ffn_residual(x: torch.Tensor, y: torch.Tensor, layer: dict,
             "MoE FFN is not ported yet (ROADMAP.md, MoE slice)")
     hdn = F.gelu(y @ layer["w1"].to(cfg.dtype), approximate="tanh")
     return x + hdn @ layer["w2"].to(cfg.dtype)
+
+
+def _block(x: torch.Tensor, layer: dict, cfg: ModelConfig):
+    """One transformer block over x [batch, seq, d_model] in compute
+    dtype, without the JAX package's mesh branch and ``ffn`` hook.
+    Attention is the flash_attention kernel when the config resolves to
+    it on x's device, else the grouped einsum with the band mask.
+    Returns ``(x, aux)``; aux holds the MoE router losses, zeros for
+    the dense FFN."""
+    b, s, d = x.shape
+    h, hd, hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    y = _rmsnorm(x, layer["ln1"])
+    q, k, v = _split_qkv(y, layer["qkv"], cfg)
+    if cfg.rope:
+        q = _rope(q, cfg.rope_theta)
+        k = _rope(k, cfg.rope_theta)
+    if cfg.resolved_attention(x.device) == "kernel":
+        attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=True, window=cfg.attention_window)
+    else:
+        # Grouped einsum (n = KV head, g = query heads per KV head): GQA
+        # without repeating K/V.
+        qg = q.reshape(b, hkv, h // hkv, s, hd)
+        scores = torch.einsum("bngqd,bnkd->bngqk", qg, k) / math.sqrt(hd)
+        mask = causal_band_mask(s, cfg.attention_window, x.device)
+        scores = torch.where(mask, scores.float(), -1e30)
+        probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
+        attn = torch.einsum("bngqk,bnkd->bngqd", probs, v).reshape(
+            b, h, s, hd)
+    attn = attn.transpose(1, 2).reshape(b, s, d)
+    x = x + attn @ layer["attn_out"].to(cfg.dtype)
+    y = _rmsnorm(x, layer["ln2"])
+    x = _ffn_residual(x, y, layer, cfg)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, {"balance_loss": zero, "z_loss": zero}
+
+
+def features_with_aux(params: dict, tokens: torch.Tensor,
+                      cfg: ModelConfig):
+    """tokens [batch, seq] int -> (final-norm features [batch, seq,
+    d_model] in compute dtype, aux dict of per-layer-mean router
+    losses: zeros, since MoE is not ported).  ``cfg.remat`` only changes
+    what a backward pass keeps; the port has no backward before the
+    trainer slice, so it is not consulted here."""
+    if cfg.moe_experts is not None:
+        raise NotImplementedError(
+            "MoE FFN is not ported yet (ROADMAP.md, MoE slice)")
+    x = params["embed"].to(cfg.dtype)[tokens]
+    aux = []
+    for i in range(cfg.n_layers):
+        x, layer_aux = _block(
+            x, {name: w[i] for name, w in params["blocks"].items()}, cfg)
+        aux.append(layer_aux)
+    mean = {name: torch.stack([a[name] for a in aux]).mean()
+            for name in aux[0]}
+    return _rmsnorm(x, params["ln_f"]), mean
+
+
+def features(params: dict, tokens: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+    """tokens [batch, seq] int -> final-norm features [batch, seq,
+    d_model] in compute dtype (everything before the unembedding)."""
+    return features_with_aux(params, tokens, cfg)[0]
+
+
+def forward(params: dict, tokens: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """tokens [batch, seq] int -> logits [batch, seq, vocab] f32, on
+    the tokens' device."""
+    x = features(params, tokens, cfg)
+    return (x @ params["unembed"].to(cfg.dtype)).float()
