@@ -4,15 +4,17 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, drives the port's
-three paths through their public entry points at the full width of
+four paths through their public entry points at the full width of
 ``bench_tpu.py``: the continuous-batching server with the linear cache
 (its serving phase), the paged-KV server (its paged phase, whose pool
-is small enough to preempt) and ``decode.generate`` (its decode phase,
-GQA and MHA, and a long prompt), and runs the ``serve`` CLI with each
-cache and the ``generate`` CLI.  Each phase prints one JSON line; a
-failed phase raises and the script exits non-zero.  The last lines are
-the card's ``nvidia-smi`` name and power limit, the ``kernels``
-summary, and ``{"ok": true, "device": {...}}``.
+is small enough to preempt), ``decode.generate`` (its decode phase, GQA
+and MHA, and a long prompt) and the trainer's step (its step phase, and
+the long-sequence remat recipe of its step_large phase), and runs the
+``serve`` CLI with each cache, the ``generate`` CLI and the ``train``
+CLI (train, resume, drain).  Each phase prints one JSON line; a failed
+phase raises and the script exits non-zero.  The last lines are the
+card's ``nvidia-smi`` name and power limit, the ``kernels`` summary, and
+``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; without one it exits non-zero before printing
 any result.  Imports nothing of JAX and nothing of the JAX package.
@@ -35,6 +37,7 @@ BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 F32_TOL = 2e-5                   # the JAX package's kernel-vs-einsum bound
 BF16_RTOL = 2.0 ** -5            # of each (row, head)'s largest |out|
+GRAD_F32_RTOL = 1e-4             # of an f32 gradient's largest |value|
 TOL_REASON = {
     "torch.bfloat16": "per (row, head): 2^-5 of that row's largest |out|, "
                       "4-8 bf16 ulps there (ulp is 2^-8..2^-7 of the "
@@ -60,6 +63,29 @@ def err_over_tol(torch, got, want) -> tuple[float, float]:
         tol = BF16_RTOL * want.float().abs().amax(dim=-1, keepdim=True)
     over = torch.where(diff > 0, diff / tol, diff.new_zeros(()))
     return diff.max().item(), over.max().item()
+
+
+def grad_err_over_tol(torch, got, want) -> tuple[float, float]:
+    """err_over_tol for a gradient tensor: bf16 within 2^-5 of each
+    row's largest |value|, f32 within GRAD_F32_RTOL of the tensor's
+    largest |value| (a gradient sums thousands of products whose sum
+    cancels toward zero: dS sums to 0 over a row's keys), both floored
+    at d * 2^-20 absolute.  The floor is the f32 rounding noise of
+    dP - delta (two d-term f32 sums, |error| up to ~d * 2^-23 * |do| *
+    |v|, times |k| or |q|) that both versions carry where the exact
+    gradient cancels to zero: the first query row sees only its own key,
+    and a window of 1 every row, so there dS is 0 in exact arithmetic.
+    The inputs are N(0, 1), so the floor (6e-5 at d 64) is far below
+    the gradients' own scale."""
+    diff = (got.float() - want.float()).abs()
+    mag = want.float().abs()
+    floor = want.shape[-1] * 2.0 ** -20
+    if want.dtype == torch.float32:
+        tol = torch.clamp_min(GRAD_F32_RTOL * mag.max(), floor)
+    else:
+        tol = torch.clamp_min(BF16_RTOL * mag.amax(dim=-1, keepdim=True),
+                              floor)
+    return diff.max().item(), (diff / tol).max().item()
 
 
 # Full serving width: bench_tpu.py's serving phase.
@@ -90,6 +116,25 @@ GEN_SHAPES = (("gqa", dict(FULL), GEN_PROMPT, GEN_STEPS),
 GEN_REPS = 3
 LSE_TOL = 1e-4   # f32 in both versions; only the summation order differs
 SPIN_CYCLES = 400_000            # ~0.2 ms of device spin at ~1.98 GHz
+# The training path: bench_tpu.py's step phase (bench_tpu.py:171-173),
+# MHA at head_dim 64, the default TrainConfig, one fixed batch; then its
+# step_large phase (bench_tpu.py:238-240), head_dim 128 with remat and
+# the chunked cross-entropy.
+TRAIN_FULL = dict(vocab=32768, d_model=1024, n_layers=8, n_heads=16,
+                  d_ff=4096, seq_len=1024)
+TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS = 16, 2, 10
+TRAIN_LARGE = dict(vocab=32768, d_model=1536, n_layers=20, n_heads=12,
+                   d_ff=6144, seq_len=2048, remat=True, ce_chunk=256)
+LARGE_BATCH, LARGE_WARM, LARGE_STEPS = 8, 1, 3
+PROFILE_STEPS = 3
+# Kernel route vs einsum route at the first step, same params and batch:
+# both compute in bf16 and differ by attention-output rounding (~one
+# bf16 ulp), which moves a ~10.4 mean cross-entropy by ~1e-3 and the
+# gradient (dominated by the embedding and unembedding) by well under
+# a percent; the bounds are several times that.
+TRAIN_LOSS_GAP = 0.02
+TRAIN_GRAD_NORM_RTOL = 0.02
+SMALL_TRAIN_LOSS_GAP = 1e-4      # f32: summation order only, 5 steps
 
 
 def emit(phase: str, **fields) -> None:
@@ -454,6 +499,121 @@ def phase_attn_kernel_checks(torch, F, attention, flush):
             for i, c in enumerate(cases)]
 
 
+def _bwd_bounds(b, h, hkv, s, d, elem, pairs, dtype_name):
+    """Least times of the backward's work, as (ms, bound_by) for the
+    whole backward and for each of its two kernels.  Bytes: each input
+    read once and each output written once (q, out, do, dq over h heads;
+    k, v, dk, dv over hkv; the f32 lse and delta); operations: 2*d flops
+    per visible (query head, key) pair for each product of d-long
+    vectors: 5 for the backward (q.k, do.v, P.do, dS.q, dS.k), 3 for dq
+    alone (q.k, do.v, dS.k), 4 for dk/dv alone (q.k, do.v, P.do, dS.q)."""
+    peak = BF16_OPS_PER_S if dtype_name == "torch.bfloat16" \
+        else F32_OPS_PER_S
+    q_t, kv_t, row = b * h * s * d * elem, b * hkv * s * d * elem, b * h * s * 4
+    parts = {"all": ((4 * q_t + 4 * kv_t + 2 * row), 5),
+             "dq": ((3 * q_t + 2 * kv_t + 2 * row), 3),
+             "dkv": ((2 * q_t + 4 * kv_t + 2 * row), 4)}
+    out = {}
+    for name, (moved, products) in parts.items():
+        t_bytes = moved / HBM_BYTES_PER_S
+        t_ops = products * 2 * d * b * h * pairs / peak
+        out[name] = (max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def check_bwd_case(torch, F, attention, flush, *, label, b, h, hkv, s, d,
+                   dtype, causal=True, window=None, seed=0):
+    """One K2 case: random q, k, v and do, out and lse from K1; dq, dk
+    and dv against flash_attention_backward_reference with
+    grad_err_over_tol; each kernel timed alone and the whole backward
+    (delta and both launches) beside the plain version and SDPA's
+    backward with the same mask."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    q, k, v, do = rnd(b, h, s, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d), \
+        rnd(b, h, s, d)
+    kw = dict(causal=causal, window=window)
+    out, lse = attention.flash_attention_forward(q, k, v, **kw)
+    got = attention.flash_attention_backward(q, k, v, out, lse, do, **kw)
+    want = attention.flash_attention_backward_reference(q, k, v, out, lse,
+                                                        do, **kw)
+    torch.cuda.synchronize()
+    errs = {name: grad_err_over_tol(torch, gt, wt)
+            for name, gt, wt in zip(("dq", "dk", "dv"), got, want)}
+    del got, want
+    dname = str(dtype)
+    delta = attention._delta(out, do)
+    ms_dq = _time_ms(torch, lambda: attention._bwd_dq(
+        q, k, v, do, lse, delta, causal, window), flush)
+    ms_dkv = _time_ms(torch, lambda: attention._bwd_dkv(
+        q, k, v, do, lse, delta, causal, window), flush)
+    ms = _time_ms(torch, lambda: attention.flash_attention_backward(
+        q, k, v, out, lse, do, **kw), flush)
+    plain_ms = _time_ms(
+        torch, lambda: attention.flash_attention_backward_reference(
+            q, k, v, out, lse, do, **kw), flush)
+    if causal and window is not None:
+        sdpa = dict(attn_mask=attention.causal_band_mask(s, window, "cuda"))
+    else:
+        sdpa = dict(is_causal=causal)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lout = F.scaled_dot_product_attention(*leaves, enable_gqa=True, **sdpa)
+    library_ms = _time_ms(torch, lambda: torch.autograd.grad(
+        lout, leaves, do, retain_graph=True), flush)
+    del lout, leaves
+    pairs = _visible_pairs(s, causal, window)
+    bounds = _bwd_bounds(b, h, hkv, s, d, q.element_size(), pairs, dname)
+    rec = dict(case=label, shape=[b, h, hkv, s, d], dtype=dname,
+               causal=causal, window=window,
+               max_abs_err={n: e[0] for n, e in errs.items()},
+               err_over_tolerance={n: e[1] for n, e in errs.items()},
+               tolerance=("bf16: 2^-5 of each row's largest |grad|; f32: "
+                          "1e-4 of the tensor's largest |grad|; both at "
+                          "least d * 2^-20 (f32 noise of dP - delta where "
+                          "dS cancels to 0)"),
+               ms=ms, ms_dq=ms_dq, ms_dkv=ms_dkv, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bounds["all"][0],
+               bound_by=bounds["all"][1], bound_ms_dq=bounds["dq"][0],
+               bound_by_dq=bounds["dq"][1], bound_ms_dkv=bounds["dkv"][0],
+               bound_by_dkv=bounds["dkv"][1], visible_pairs_per_head=pairs)
+    emit("bwd_kernel_check", **rec)
+    worst = max(e[1] for e in errs.values())
+    if not worst <= 1.0:
+        raise AssertionError(f"flash_attention backward {label}: error "
+                             f"{rec['err_over_tolerance']} of its "
+                             f"tolerance (max |err| {rec['max_abs_err']})")
+    return rec
+
+
+def phase_bwd_kernel_checks(torch, F, attention, flush):
+    """K2 in 13 cases; the first is a layer of the training main path,
+    the second a layer of the long-sequence recipe."""
+    gqa = dict(b=2, h=16, hkv=2, s=512, d=64, dtype=torch.bfloat16)
+    cases = [
+        dict(label="train-main-path", b=TRAIN_BATCH, h=16, hkv=16, s=1024,
+             d=64, dtype=torch.bfloat16),
+        dict(label="train-large", b=LARGE_BATCH, h=12, hkv=12, s=2048, d=128,
+             dtype=torch.bfloat16),
+        dict(gqa, label="gqa8"),
+        dict(gqa, label="mqa", hkv=1),
+        dict(gqa, label="window-256", s=1024, window=256),
+        dict(gqa, label="window-1", s=300, window=1),
+        dict(gqa, label="non-causal", s=256, causal=False),
+        dict(gqa, label="s1", b=8, s=1),
+        dict(gqa, label="s17", b=8, s=17),
+        dict(gqa, label="tail", s=1000),
+        dict(gqa, label="f32-d128", s=300, d=128, dtype=torch.float32),
+        dict(gqa, label="f32-d32", s=200, d=32, dtype=torch.float32),
+        dict(gqa, label="d256", s=333, d=256),
+    ]
+    return [check_bwd_case(torch, F, attention, flush, seed=300 + i, **c)
+            for i, c in enumerate(cases)]
+
+
 def _requests(serving, np, cfg, prompt_lens=PROMPT_LENS):
     rng = np.random.default_rng(0)
     return [serving.Request(
@@ -706,12 +866,12 @@ def phase_profile(torch, np, serving, eng, path, prompt_lens):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     eng.run()
-    _emit_profile(path, "ticks", prof, wall_ms)
+    _emit_profile(path, "ticks", PROFILE_TICKS, prof, wall_ms)
 
 
-def _emit_profile(path, unit, prof, wall_ms) -> None:
+def _emit_profile(path, unit, count, prof, wall_ms) -> dict:
     """Device busy time, idle share and the top kernels of a window of
-    PROFILE_TICKS engine ticks or decode steps (``unit``)."""
+    ``count`` engine ticks, decode steps or train steps (``unit``)."""
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) \
             or getattr(e, "self_cuda_time_total", 0)
@@ -720,13 +880,15 @@ def _emit_profile(path, unit, prof, wall_ms) -> None:
                if str(e.device_type).endswith("CUDA")]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    emit("profile", path=path, **{unit: PROFILE_TICKS},
-         profiled_wall_ms=wall_ms,
-         device_busy_ms=busy_ms if busy_ms > 0 else None,
-         kernel_launches=sum(e.count for e in kernels),
-         device_idle_share=(1 - busy_ms / wall_ms) if busy_ms > 0 else None,
-         top_kernels=[dict(name=e.key[:90], device_ms=dev_us(e) / 1e3,
-                           calls=e.count) for e in top])
+    rec = dict(path=path, **{unit: count}, profiled_wall_ms=wall_ms,
+               device_busy_ms=busy_ms if busy_ms > 0 else None,
+               kernel_launches=sum(e.count for e in kernels),
+               device_idle_share=(1 - busy_ms / wall_ms) if busy_ms > 0
+               else None,
+               top_kernels=[dict(name=e.key[:90], device_ms=dev_us(e) / 1e3,
+                                 calls=e.count) for e in top])
+    emit("profile", **rec)
+    return rec
 
 
 def _wall(torch, fn):
@@ -796,6 +958,7 @@ def phase_generate_main_path(torch, np, attention, model, decode, label,
         torch, decode, cast, prompt, cfg, ecfg, max_len)
     del cast
     want = {"flash_attention": cfg.n_layers,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "flash_decode": (steps - 1) * cfg.n_layers,
             "paged_flash_decode": 0}
     gen_s, pf_s, launches = [], [], []
@@ -872,7 +1035,177 @@ def phase_generate_profile(torch, model, decode, params, prompt, cfg, steps):
             token = torch.argmax(logits, -1).to(torch.int32)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    _emit_profile("generate", "decode_steps", prof, wall_ms)
+    _emit_profile("generate", "decode_steps", PROFILE_TICKS, prof, wall_ms)
+
+
+def _train_flops(n_params, cfg, batch) -> float:
+    """A train step's flops as bench_tpu.py:198-200 counts them: 6ND over
+    the params and the tokens, plus the attention products
+    (causal-halved); remat's recomputed forward is not counted."""
+    return (6.0 * n_params * batch * cfg.seq_len
+            + 6.0 * cfg.n_layers * batch * cfg.seq_len ** 2 * cfg.d_model)
+
+
+def _loss_and_grad_norm(torch, model, params, tokens, cfg):
+    """The loss at ``params`` and the global norm of its gradient."""
+    paths, leaves = zip(*model._flatten(params))
+    leaves = [p.detach().requires_grad_() for p in leaves]
+    loss = model.loss_fn(model._unflatten(dict(zip(paths, leaves))), tokens,
+                         cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    return loss.item(), norm.item()
+
+
+def _train_steps(torch, attention, step_fn, params, opt, tokens, warm,
+                 steps):
+    """``warm`` steps, then ``steps`` timed ones, each with the launch
+    counts zeroed just before and read just after: (params, opt state,
+    every step's loss, per-step launch counts, seconds per timed step)."""
+    losses = []
+    for _ in range(warm):
+        params, opt, loss = step_fn(params, opt, tokens)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    launches = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        attention.reset_launch_counts()
+        params, opt, loss = step_fn(params, opt, tokens)
+        launches.append(dict(attention.LAUNCHES))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    return params, opt, [x.item() for x in losses], launches, step_s
+
+
+def _profile_train(torch, step_fn, params, opt, tokens, path, n) -> dict:
+    """Where ``n`` train steps spend device time, under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            params, opt, _ = step_fn(params, opt, tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return _emit_profile(path, "train_steps", n, prof, wall_ms)
+
+
+def phase_train_main_path(torch, np, attention, model, path, arch, batch,
+                          warm, steps, profile_steps, compare):
+    """``model.make_train_step`` through its public API on one fixed
+    batch (seed 1), as bench_tpu.py's step phases run it: ``warm`` steps,
+    then ``steps`` timed ones whose launches are counted per step (K1
+    once per layer, twice under remat; each K2 kernel once per layer; K3
+    and K4 never), then ``profile_steps`` under torch.profiler.  With
+    ``compare``: the einsum route's first-step loss and gradient norm on
+    the same params and batch, and its own run of the same steps; the
+    loss must fall on both routes (the batch is fixed, so the model
+    memorises it)."""
+    import dataclasses
+
+    cfg = model.ModelConfig(**arch)
+    init_fn, step_fn = model.make_train_step(cfg, device="cuda")
+    params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for _, p in model._flatten(params))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (batch, cfg.seq_len + 1)).astype(np.int32)).cuda()
+    want = {"flash_attention": (2 if cfg.remat else 1) * cfg.n_layers,
+            "flash_attention_bwd_dq": cfg.n_layers,
+            "flash_attention_bwd_dkv": cfg.n_layers,
+            "flash_decode": 0, "paged_flash_decode": 0}
+    ecfg = dataclasses.replace(cfg, attention="einsum")
+    rec = dict(path=path, config=arch, dtype="bfloat16", batch=batch,
+               n_params=n_params, warm_steps=warm, timed_steps=steps)
+    if compare:
+        kl, kn = _loss_and_grad_norm(torch, model, params, tokens, cfg)
+        el, en = _loss_and_grad_norm(torch, model, params, tokens, ecfg)
+        rec.update(first_loss=kl, einsum_first_loss=el, grad_norm=kn,
+                   einsum_grad_norm=en)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, losses, launches, step_s = _train_steps(
+        torch, attention, step_fn, params, opt, tokens, warm, steps)
+    flops = _train_flops(n_params, cfg, batch)
+    rec.update(step_ms=step_s * 1e3,
+               tokens_per_s=batch * cfg.seq_len / step_s,
+               flops_per_step=flops, mfu=flops / (step_s * BF16_OPS_PER_S),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               losses=losses, launches_per_step=launches[-1],
+               expected_launches_per_step=want)
+    rec["profile"] = _profile_train(torch, step_fn, params, opt, tokens,
+                                    path, profile_steps)
+    del params, opt
+    if compare:
+        eparams, eopt = model.make_train_step(ecfg, device="cuda")[0](
+            torch.Generator(device="cuda").manual_seed(0))
+        estep = model.make_train_step(ecfg, device="cuda")[1]
+        _, _, elosses, _, estep_s = _train_steps(
+            torch, attention, estep, eparams, eopt, tokens, warm, steps)
+        del eparams, eopt
+        rec.update(einsum_step_ms=estep_s * 1e3,
+                   einsum_tokens_per_s=batch * cfg.seq_len / estep_s,
+                   einsum_losses=elosses)
+    torch.cuda.empty_cache()
+    emit("train_main_path", **rec)
+    if any(n != want for n in launches):
+        raise AssertionError(f"train step ({path}) launched {launches}, "
+                             f"want {want} per step")
+    all_losses = losses + rec.get("einsum_losses", [])
+    if not all(np.isfinite(all_losses)):
+        raise AssertionError(f"non-finite loss on the {path} train path")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{path}: loss did not fall over "
+                             f"{warm + steps} steps: {losses}")
+    if compare:
+        if not rec["einsum_losses"][-1] < rec["einsum_losses"][0]:
+            raise AssertionError(f"{path}: einsum-route loss did not fall: "
+                                 f"{rec['einsum_losses']}")
+        if not abs(rec["first_loss"] - rec["einsum_first_loss"]) \
+                <= TRAIN_LOSS_GAP:
+            raise AssertionError(f"{path}: first-step loss {rec['first_loss']}"
+                                 f" vs einsum {rec['einsum_first_loss']}")
+        if not abs(rec["grad_norm"] - rec["einsum_grad_norm"]) \
+                <= TRAIN_GRAD_NORM_RTOL * rec["einsum_grad_norm"]:
+            raise AssertionError(f"{path}: grad norm {rec['grad_norm']} vs "
+                                 f"einsum {rec['einsum_grad_norm']}")
+    return rec
+
+
+def phase_small_train(torch, np, model):
+    """make_train_step on a small f32 model on the card: 5 steps through
+    the kernel route (K1 and K2) and through the einsum route, from the
+    same params and batches, give losses within SMALL_TRAIN_LOSS_GAP; MHA
+    at head_dim 64, and GQA at head_dim 32 with a window and remat."""
+    base = dict(vocab=256, d_model=128, n_layers=2, d_ff=256, seq_len=64,
+                dtype=torch.float32)
+    rec = {}
+    for label, extra in (("mha", dict(n_heads=2)),
+                         ("gqa-window-remat", dict(n_heads=4, n_kv_heads=2,
+                                                   attention_window=16,
+                                                   remat=True))):
+        losses = {}
+        for impl in ("kernel", "einsum"):
+            cfg = model.ModelConfig(**base, **extra, attention=impl)
+            init_fn, step_fn = model.make_train_step(cfg, device="cuda")
+            params, opt = init_fn(
+                torch.Generator(device="cuda").manual_seed(1))
+            rng = np.random.default_rng(2)
+            out = []
+            for _ in range(5):
+                tokens = rng.integers(0, 256, (4, 65)).astype(np.int32)
+                params, opt, loss = step_fn(params, opt, tokens)
+                out.append(loss.item())
+            losses[impl] = out
+        rec[label] = dict(losses=losses, max_gap=max(
+            abs(a - b) for a, b in zip(losses["kernel"], losses["einsum"])))
+    emit("small_train", **rec)
+    for label, r in rec.items():
+        if not r["max_gap"] <= SMALL_TRAIN_LOSS_GAP:
+            raise AssertionError(f"f32 train steps ({label}): kernel and "
+                                 f"einsum losses differ by {r['max_gap']}")
 
 
 def phase_small_exact(torch, np, model, serving, paged, decode):
@@ -972,20 +1305,25 @@ def phase_cli(model, decode, DrainReceipt):
     """The CLIs on the card: serve with the linear cache and with
     ``--paged`` (a 6-block pool, so it preempts); then, at the CLIs'
     default architecture flags (head_dim 32), generate, which must
-    print the tokens decode.generate gives in-process, and serve."""
+    print the tokens decode.generate gives in-process, and serve; then
+    train (20 steps, checkpoints every 10), resume to 30, drain (a
+    checkpoint request in the annotations file: exit 0 with a
+    checkpoint), and generate from the trainer's checkpoint."""
     import torch
 
     env = {**os.environ,
            "PYTHONPATH": os.pathsep.join(
                [str(ROOT), os.environ.get("PYTHONPATH", "")])}
 
-    def run(cmd, what):
+    def run(cmd, what, expect=()):
+        """Run a CLI; it must exit 0 and log each of ``expect``."""
         t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True, env=env,
                              cwd=ROOT, timeout=600)
-        if res.returncode != 0:
-            raise AssertionError(f"{what} exited {res.returncode}:\n"
-                                 f"{res.stderr[-4000:]}")
+        missing = [e for e in expect if e not in res.stderr]
+        if res.returncode != 0 or missing:
+            raise AssertionError(f"{what} exited {res.returncode}, missing "
+                                 f"{missing}:\n{res.stderr[-4000:]}")
         return time.perf_counter() - t0, res.stdout.strip().splitlines()
 
     def serve(ckpt, cache, flags):
@@ -1040,6 +1378,51 @@ def phase_cli(model, decode, DrainReceipt):
                                  f"in-process {want_lines}")
         serve(ckpt, "linear-defaults", [])
 
+        # The train CLI at its defaults: train, resume, drain; then the
+        # generate CLI on the trainer's last checkpoint.
+        tdir = os.path.join(tmp, "train")
+        drain = os.path.join(tmp, "drain-annotations")
+        with open(drain, "w") as f:
+            f.write('autoscaler.tpu.dev/checkpoint-requested="1"\n')
+
+        def train(steps, annotations, what, expect):
+            dt, _ = run([sys.executable, "-m",
+                         "tpu_autoscaler_torch.workloads.train",
+                         "--checkpoint-dir", tdir, "--steps", str(steps),
+                         "--checkpoint-every", "10", "--platform", "cuda",
+                         "--annotations-file", annotations], what, expect)
+            emit("cli", command="train", run=what, seconds=dt,
+                 checkpoints=sorted(os.listdir(tdir)))
+
+        train(20, os.path.join(tmp, "annotations"), "train",
+              ["step 10 loss", "step 20 loss",
+               "training complete at step 20"])
+        train(30, os.path.join(tmp, "annotations"), "resume",
+              ["resumed from checkpoint step 20",
+               "training complete at step 30"])
+        train(5000, drain, "drain",
+              ["resumed from checkpoint step 30",
+               "drain requested: checkpointed at step 30, exiting cleanly"])
+        if sorted(os.listdir(tdir)) != ["step_10", "step_20", "step_30"]:
+            raise AssertionError(f"train CLI left {os.listdir(tdir)}")
+        dt, lines = run([sys.executable, "-m",
+                         "tpu_autoscaler_torch.workloads.generate",
+                         "--checkpoint-dir", tdir, "--prompt",
+                         ",".join(map(str, prompt)), "--batch", "2",
+                         "--steps", "8", "--platform", "cuda"],
+                        "generate CLI on the trainer's checkpoint",
+                        ["loaded step 30"])
+        want = decode.generate(model.load_params(tdir, 30, "cuda"),
+                               torch.tensor([prompt] * 2), cfg, 8).tolist()
+        want_lines = [f"{','.join(map(str, row[:5]))} | "
+                      f"{','.join(map(str, row[5:]))}" for row in want]
+        emit("cli", command="generate", checkpoint="train step_30",
+             seconds=dt, lines=lines, in_process=want_lines)
+        if lines != want_lines:
+            raise AssertionError(f"generate CLI printed {lines} from the "
+                                 f"trainer's checkpoint, in-process "
+                                 f"{want_lines}")
+
 
 def main() -> None:
     import torch
@@ -1078,6 +1461,7 @@ def main() -> None:
     paged_checks = phase_paged_kernel_checks(torch, F, attention, flush,
                                              paged_tick)
     attn_checks = phase_attn_kernel_checks(torch, F, attention, flush)
+    bwd_checks = phase_bwd_kernel_checks(torch, F, attention, flush)
     del flush
     gen_recs = []
     for label, arch, prompt_len, steps in GEN_SHAPES:
@@ -1089,7 +1473,14 @@ def main() -> None:
             phase_generate_profile(torch, model, decode, params, prompt, cfg,
                                    steps)
         del params, prompt
+    train_rec = phase_train_main_path(
+        torch, np, attention, model, "step", TRAIN_FULL, TRAIN_BATCH,
+        TRAIN_WARM, TRAIN_STEPS, PROFILE_STEPS, compare=True)
+    phase_train_main_path(torch, np, attention, model, "step_large",
+                          TRAIN_LARGE, LARGE_BATCH, LARGE_WARM, LARGE_STEPS,
+                          1, compare=False)
     phase_small_exact(torch, np, model, serving, paged, decode)
+    phase_small_train(torch, np, model)
     phase_cli(model, decode, DrainReceipt)
     kernels = []
     for kname, source, replaces, launches, kchecks in (
@@ -1110,6 +1501,26 @@ def main() -> None:
             library_ms=at_main["library_ms"],
             gather_ms=at_main.get("gather_ms"), cases_passed=len(kchecks),
             shape=at_main["shape"], lengths=at_main.get("lengths")))
+    # K2: each kernel at a layer of the training main path, its launches
+    # per train step; plain and library times are the whole backward's
+    # (neither splits into the two kernels).
+    at_main = bwd_checks[0]
+    for kname, part, replaces, grads in (
+            ("flash_attention_bwd_dq", "dq", 310, ("dq",)),
+            ("flash_attention_bwd_dkv", "dkv", 344, ("dk", "dv"))):
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source="tpu_autoscaler_torch/csrc/flash_attention_bwd.cu",
+            replaces=f"tpu_autoscaler/workloads/attention.py:{replaces}",
+            launches=train_rec["launches_per_step"][kname],
+            launches_per="train step",
+            max_abs_err=max(at_main["max_abs_err"][g] for g in grads),
+            ms=at_main[f"ms_{part}"], plain_ms=at_main["plain_ms"],
+            bound_ms=at_main[f"bound_ms_{part}"],
+            bound_by=at_main[f"bound_by_{part}"],
+            library_ms=at_main["library_ms"],
+            plain_and_library_scope="whole backward",
+            cases_passed=len(bwd_checks), shape=at_main["shape"]))
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -181,10 +181,20 @@ def test_flash_attention_rejections_match_jax(args, match):
 
 
 def test_flash_attention_refuses_grad_and_other_devices():
-    q = torch.zeros((1, 2, 4, 8), requires_grad=True)
-    kv = torch.zeros((1, 2, 4, 8))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        attention.flash_attention(q, kv, kv)
+    """Inputs that require grad are taken (the gradient flows through the
+    autograd.Function: the plain backward on CPU tensors); other devices
+    and the kernel route off CUDA are refused."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((1, 2, 4, 8)).astype(
+        np.float32)).requires_grad_()
+    kv = torch.from_numpy(rng.standard_normal((1, 2, 4, 8)).astype(
+        np.float32))
+    out = attention.flash_attention(q, kv, kv)
+    (dq,) = torch.autograd.grad(out.sum(), (q,))
+    o, lse = attention.flash_attention_forward(q.detach(), kv, kv)
+    want = attention.flash_attention_backward_reference(
+        q.detach(), kv, kv, o, lse, torch.ones_like(o))[0]
+    assert torch.allclose(dq, want, rtol=0, atol=1e-6)
     meta = torch.zeros((1, 2, 4, 8), device="meta")
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         attention.flash_attention(meta, meta, meta)

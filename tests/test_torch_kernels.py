@@ -12,7 +12,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from chip_smoke import TOL_REASON, err_over_tol
+from chip_smoke import TOL_REASON, err_over_tol, grad_err_over_tol
 from tpu_autoscaler_torch.workloads import attention
 
 
@@ -122,5 +122,83 @@ def test_flash_attention_cuda_kernel_matches_plain_version(dtype, d):
                                   v[..., :16].contiguous())
     with pytest.raises(ValueError, match="bf16 or f32"):
         attention.flash_attention(q.half(), k.half(), v.half())
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        attention.flash_attention(q.requires_grad_(), k, v)
+    # Inputs that require grad take the autograd.Function: K1 forward,
+    # K2 backward, finite gradients of q's shape.
+    qg = q.detach().requires_grad_()
+    (dq,) = torch.autograd.grad(attention.flash_attention(qg, k, v).float()
+                                .sum(), (qg,))
+    assert dq.shape == q.shape and bool(torch.isfinite(dq).all())
+
+
+# (b, h, hkv, s, kwargs): causal, windowed (a window smaller than a tile,
+# and of 1), non-causal; MHA, GQA and MQA; s 1, 2, 33 and tails that are
+# not a multiple of the 32-row tiles.
+BWD_CASES = [(2, 4, 2, 100, {}), (2, 4, 2, 100, {"window": 17}),
+             (2, 4, 2, 70, {"window": 1}), (2, 4, 2, 77, {"causal": False}),
+             (1, 4, 4, 33, {}), (2, 8, 1, 65, {}), (3, 4, 2, 1, {}),
+             (2, 4, 2, 2, {}), (1, 4, 2, 300, {"window": 40})]
+
+
+def _bwd_inputs(g, dtype, b, h, hkv, s, d):
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    return rnd(b, h, s, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d), \
+        rnd(b, h, s, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.float32, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.float32, 128)])
+def test_flash_attention_backward_cuda_kernels_match_plain_version(dtype, d):
+    """K2 (the dq and the dk/dv kernel) against its plain version on the
+    card, per gradient tensor with grad_err_over_tol, on o and lse from
+    K1; a head_dim or dtype the kernels do not take raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for b, h, hkv, s, kw in BWD_CASES:
+        q, k, v, do = _bwd_inputs(g, dtype, b, h, hkv, s, d)
+        out, lse = attention.flash_attention_forward(q, k, v, **kw)
+        got = attention.flash_attention_backward(q, k, v, out, lse, do, **kw)
+        want = attention.flash_attention_backward_reference(
+            q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
+            assert gt.shape == wt.shape and gt.dtype == wt.dtype
+            err, share = grad_err_over_tol(torch, gt, wt)
+            assert share <= 1.0, (name, s, kw, err, share)
+    cut = [t[..., :16].contiguous() for t in (q, k, v, out, do)]
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.flash_attention_backward(*cut[:4], lse, cut[4])
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        attention.flash_attention_backward(q.half(), k.half(), v.half(),
+                                           out.half(), lse, do.half())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_function_backward_on_cuda(dtype):
+    """torch.autograd.grad through flash_attention on CUDA tensors runs
+    K1 once and each K2 kernel once, and gives the plain backward's
+    gradients on the forward's own output and lse."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, do = _bwd_inputs(g, dtype, 2, 8, 2, 130, 64)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    attention.reset_launch_counts()
+    out = attention.flash_attention(*leaves, window=50)
+    got = torch.autograd.grad(out, leaves, do)
+    counts = dict(attention.LAUNCHES)
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_bwd_dq"] == 1
+    assert counts["flash_attention_bwd_dkv"] == 1
+    o, lse = attention.flash_attention_forward(q, k, v, window=50)
+    want = attention.flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                        window=50)
+    torch.cuda.synchronize()
+    for gt, wt in zip(got, want):
+        assert grad_err_over_tol(torch, gt, wt)[1] <= 1.0

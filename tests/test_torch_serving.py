@@ -334,8 +334,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert bad.strip() == "[]"
     assert set(mods.split()) >= {
         f"tpu_autoscaler_torch.{m}" for m in (
-            "serving.drain", "serving.stats", "workloads._cli",
+            "dataio", "serving.drain", "serving.stats", "workloads._cli",
             "workloads.attention", "workloads.checkpoint",
             "workloads.decode", "workloads.generate", "workloads.model",
             "workloads.paged",
-            "workloads.serve", "workloads.serving")}
+            "workloads.serve", "workloads.serving", "workloads.train")}

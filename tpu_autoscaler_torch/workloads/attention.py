@@ -1,13 +1,18 @@
-"""Attention kernels: the prompt's ``flash_attention`` forward and the
-one-token ``flash_decode`` and ``paged_flash_decode``, as CUDA kernels
-beside their plain PyTorch versions, and the build that makes them.
+"""Attention kernels: ``flash_attention`` (the whole-sequence forward
+and its backward) and the one-token ``flash_decode`` and
+``paged_flash_decode``, as CUDA kernels beside their plain PyTorch
+versions, and the build that makes them.
 
 ``flash_attention`` keeps the signature and the layout of the JAX
 package's ``workloads/attention.py::flash_attention``: q ``[b, h, s,
 d]`` and k/v ``[b, kv_heads, s, d]``, causal by default, with an
 optional sliding window; ``flash_attention_forward`` also returns the
-f32 log-sum-exp ``[b, h, s, 1]``.  The kernel picks its own tiles, so
-the JAX ``block_q``/``block_k`` are not part of the signature.
+f32 log-sum-exp ``[b, h, s, 1]``.  Inputs that require grad go through
+one ``torch.autograd.Function`` whose backward is
+``flash_attention_backward`` (the JAX ``_backward_pallas``: a dq kernel
+and a dk/dv kernel that sums over the GQA group).  The kernels pick
+their own tiles, so the JAX ``block_q``/``block_k`` are not part of the
+signature.
 ``flash_decode`` keeps the signature and the layout of the JAX
 package's ``workloads/attention.py::flash_decode``: q ``[b, h, 1, d]``
 (the new token's queries, already rotated), caches ``[b, kv_heads,
@@ -49,27 +54,37 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: Kernel launches per wrapper: each wrapper adds one where it launches
 #: its kernel and nowhere else.  Callers zero and read them to show
 #: that a path ran through the kernels.
-LAUNCHES: dict[str, int] = {"flash_attention": 0, "flash_decode": 0,
-                             "paged_flash_decode": 0}
+LAUNCHES: dict[str, int] = {"flash_attention": 0,
+                             "flash_attention_bwd_dq": 0,
+                             "flash_attention_bwd_dkv": 0,
+                             "flash_decode": 0, "paged_flash_decode": 0}
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+# C entry -> its source; entries of one source share its library.
 KERNEL_SOURCES = {"flash_attention": CSRC / "flash_attention.cu",
+                  "flash_attention_bwd_dq": CSRC / "flash_attention_bwd.cu",
+                  "flash_attention_bwd_dkv": CSRC / "flash_attention_bwd.cu",
                   "flash_decode": CSRC / "flash_decode.cu",
                   "paged_flash_decode": CSRC / "paged_flash_decode.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Each library exports one C function of the kernel's name: pointers
+# Each library exports a C function of each entry's name: pointers
 # (and the stream) as c_void_p, so ctypes never cuts them to 32 bits.
 _ARGTYPES = {
     "flash_attention": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+    + [ctypes.c_void_p],
+    "flash_attention_bwd_dq": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+    + [ctypes.c_void_p],
+    "flash_attention_bwd_dkv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
     "flash_decode": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
     "paged_flash_decode": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
     + [ctypes.c_void_p]}
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[Path, ctypes.CDLL] = {}
+_ENTRIES: dict[str, object] = {}
 
 
 def reset_launch_counts() -> None:
@@ -86,43 +101,46 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where kernel ``name``'s library lives: keyed by the hash of its
-    source, the headers it may include (every ``csrc/*.cuh``) and the
-    flags, so an edited source or header is rebuilt, never reused."""
-    digest = hashlib.sha256(KERNEL_SOURCES[name].read_bytes())
+    """Where kernel entry ``name``'s library lives: named after its
+    source and keyed by the hash of that source, the headers it may
+    include (every ``csrc/*.cuh``) and the flags, so an edited source or
+    header is rebuilt, never reused."""
+    source = KERNEL_SOURCES[name]
+    digest = hashlib.sha256(source.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build_kernels(names=None) -> dict[str, dict]:
-    """Compile every named kernel that is not built yet, one ``nvcc``
-    per source, all started together.  Returns per kernel the build
-    seconds (0.0 when already built) and the compiler's output
-    (``-Xptxas -v`` register and shared-memory report).  Raises if any
-    build fails."""
+    """Compile the library of every named kernel entry that is not built
+    yet, one ``nvcc`` per source, all started together.  Returns per
+    source stem the build seconds (0.0 when already built) and the
+    compiler's output (``-Xptxas -v`` register and shared-memory
+    report).  Raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    outs = {library_path(name): KERNEL_SOURCES[name]
+            for name in names or KERNEL_SOURCES}
     procs = {}
     t0 = time.perf_counter()
-    for name in names or KERNEL_SOURCES:
-        out = library_path(name)
+    for out, source in outs.items():
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(KERNEL_SOURCES[name])]
-        procs[name] = (subprocess.Popen(
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        procs[out] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True), tmp, out)
-    report = {name: {"seconds": 0.0, "log": ""}
-              for name in names or KERNEL_SOURCES}
+            text=True), tmp)
+    report = {source.stem: {"seconds": 0.0, "log": ""}
+              for source in outs.values()}
     failed = []
-    for name, (proc, tmp, out) in procs.items():
+    for out, (proc, tmp) in procs.items():
+        stem = outs[out].stem
         log, _ = proc.communicate()
-        report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        report[stem] = {"seconds": time.perf_counter() - t0, "log": log}
         if proc.returncode != 0:
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            failed.append(f"{stem} (nvcc exit {proc.returncode}):\n{log}")
         else:
             os.replace(tmp, out)
     if failed:
@@ -130,18 +148,22 @@ def build_kernels(names=None) -> dict[str, dict]:
     return report
 
 
-def _library(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
-    if lib is None:
+def _entry(name: str):
+    """Kernel entry ``name`` as a typed ctypes function, its library
+    built and loaded at first use."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
         path = library_path(name)
-        if not path.exists():
-            build_kernels([name])
-        lib = ctypes.CDLL(str(path))
+        lib = _LIBS.get(path)
+        if lib is None:
+            if not path.exists():
+                build_kernels([name])
+            lib = _LIBS[path] = ctypes.CDLL(str(path))
         fn = getattr(lib, name)
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib
+        _ENTRIES[name] = fn
+    return fn
 
 
 def _row_lengths(length, b: int, device) -> torch.Tensor:
@@ -243,8 +265,7 @@ def _check_kernel_tensors(name: str, q, tensors: dict,
 def _launch(name: str, q, *args) -> None:
     """Call kernel ``name``'s C entry on q's device and current stream;
     raise if the launch was refused, count it otherwise."""
-    fn = getattr(_library(name), name)
-    rc = fn(*args, q.device.index,
+    rc = _entry(name)(*args, q.device.index,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -314,21 +335,9 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
     return out, (m + torch.log(l_sum)).reshape(b, h, s, 1)
 
 
-def flash_attention_forward(q, k, v, *, causal: bool = True,
-                            window: int | None = None):
-    """Fused attention over a whole sequence (see module doc): returns
-    (out [b, h, s, d] in q's dtype, lse [b, h, s, 1] f32).
-
-    CPU tensors run :func:`flash_attention_reference`.  CUDA tensors
-    launch the kernel (bf16 or f32, head_dim 32, 64, 128 or 256, any s,
-    contiguous) or raise.  Inputs that require grad raise: the kernel
-    has no backward until K2 lands with the trainer (ROADMAP.md, slice
-    4)."""
-    _validate_attention_args(q, k, v, causal, window)
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash_attention has no backward yet: K2 lands with the "
-            "trainer (ROADMAP.md, slice 4)")
+def _attention_forward(q, k, v, causal: bool, window):
+    """Out and lse without a graph: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
     if not _on_cuda("flash_attention", q):
         return flash_attention_reference(q, k, v, causal=causal,
                                          window=window)
@@ -342,14 +351,153 @@ def flash_attention_forward(q, k, v, *, causal: bool = True,
     return out, lse
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The JAX package's ``custom_vjp`` pair: K1's forward, saving q, k,
+    v, out and the lse it wrote; the backward launches K2 on exactly
+    those tensors (CPU tensors run both plain versions)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _attention_forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_forward(q, k, v, *, causal: bool = True,
+                            window: int | None = None):
+    """Fused attention over a whole sequence (see module doc): returns
+    (out [b, h, s, d] in q's dtype, lse [b, h, s, 1] f32).
+
+    CPU tensors run :func:`flash_attention_reference`.  CUDA tensors
+    launch the kernel (bf16 or f32, head_dim 32, 64, 128 or 256, any s,
+    contiguous) or raise.  When an input requires grad the call goes
+    through :class:`_FlashAttention`, whose backward is
+    :func:`flash_attention_backward`; the lse carries no gradient."""
+    _validate_attention_args(q, k, v, causal, window)
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _attention_forward(q, k, v, causal, window)
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None):
     """q [batch, heads, seq, head_dim]; k, v [batch, kv_heads, seq,
     head_dim] with heads % kv_heads == 0 -> output shaped like q.
     ``window=w`` (requires causal): each query sees only the w most
     recent keys including itself.  :func:`flash_attention_forward`
-    without the lse."""
+    without the lse; differentiable in q, k and v."""
     return flash_attention_forward(q, k, v, causal=causal, window=window)[0]
+
+
+def _check_backward_args(q, o, lse, do) -> None:
+    b, h, s, _ = q.shape
+    for name, t in (("out", o), ("do", do)):
+        if t.shape != q.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} must match q "
+                             f"{tuple(q.shape)}")
+    if tuple(lse.shape) != (b, h, s, 1) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be f32 [{b}, {h}, {s}, 1] (the "
+                         f"forward's), got {lse.dtype} {tuple(lse.shape)}")
+
+
+def _delta(o, do):
+    """delta = rowsum(do * out) in f32, [b, h, s, 1]: outside the
+    kernels, as the JAX package computes it outside Pallas."""
+    return (do.float() * o.float()).sum(dim=-1, keepdim=True)
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do, *,
+                                       causal: bool = True,
+                                       window: int | None = None):
+    """The plain PyTorch version of the backward kernels, with their
+    numerics in one pass: f32 scores scaled by d^-0.5 after the dot,
+    masked entries at -1e30, P = exp(s - lse), dP = do.v^T and delta =
+    rowsum(do * o) in f32, dS = P * (dP - delta); dv = sum P.to(do's
+    dtype)^T do, dk = sum dS.to(q's dtype)^T q * scale (over the GQA
+    group too), dq = dS.to(k's dtype) k * scale; f32 sums, outputs in
+    the inputs' dtypes.  Returns (dq, dk, dv)."""
+    _validate_attention_args(q, k, v, causal, window)
+    _check_backward_args(q, o, lse, do)
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    scale = d ** -0.5
+
+    def grouped(t):
+        return t.reshape(b, hkv, h // hkv, s, t.shape[-1])
+
+    qg, dog = grouped(q).float(), grouped(do).float()
+    scores = torch.einsum("bngqd,bnkd->bngqk", qg, k.float()) * scale
+    if causal:
+        scores = scores.masked_fill(
+            ~causal_band_mask(s, window, q.device), NEG_INF)
+    p = torch.exp(scores - grouped(lse))
+    dp = torch.einsum("bngqd,bnkd->bngqk", dog, v.float())
+    ds = p * (dp - grouped(_delta(o, do)))
+    dv = torch.einsum("bngqk,bngqd->bnkd", p.to(do.dtype).float(), dog)
+    dk = torch.einsum("bngqk,bngqd->bnkd", ds.to(q.dtype).float(),
+                      qg) * scale
+    dq = torch.einsum("bngqk,bnkd->bngqd", ds.to(k.dtype).float(),
+                      k.float()) * scale
+    return (dq.to(q.dtype).reshape(b, h, s, d), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _bwd_dq(q, k, v, do, lse, delta, causal, window):
+    """Launch the dq kernel (inputs checked by the caller)."""
+    b, h, s, d = q.shape
+    dq = torch.empty_like(q)
+    _launch("flash_attention_bwd_dq", q, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), b, h, k.shape[1], s, d, _DTYPE_CODES[q.dtype],
+            int(causal), window or 0)
+    return dq
+
+
+def _bwd_dkv(q, k, v, do, lse, delta, causal, window):
+    """Launch the dk/dv kernel (inputs checked by the caller)."""
+    b, h, s, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_attention_bwd_dkv", q, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, k.shape[1], s, d,
+            _DTYPE_CODES[q.dtype], int(causal), window or 0)
+    return dk, dv
+
+
+def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
+                             window: int | None = None):
+    """The gradients (dq, dk, dv) of ``flash_attention`` given the
+    forward's inputs, its output ``o`` and lse, and the output's
+    gradient ``do``.  dk and dv sum over every query head of each KV
+    head's group.
+
+    CPU tensors run :func:`flash_attention_backward_reference`.  CUDA
+    tensors launch the dq and the dk/dv kernels on the lse the forward
+    wrote (bf16 or f32, head_dim 32, 64, 128 or 256, any s, contiguous)
+    or raise."""
+    _validate_attention_args(q, k, v, causal, window)
+    _check_backward_args(q, o, lse, do)
+    if not _on_cuda("flash_attention_backward", q):
+        return flash_attention_backward_reference(
+            q, k, v, o, lse, do, causal=causal, window=window)
+    _check_kernel_tensors("flash_attention_backward", q,
+                          {"k": k, "v": v, "out": o, "do": do})
+    if lse.device != q.device or not lse.is_contiguous():
+        raise ValueError("flash_attention_backward kernel needs a "
+                         "contiguous f32 lse on q's device")
+    delta = _delta(o, do)
+    return (_bwd_dq(q, k, v, do, lse, delta, causal, window),
+            *_bwd_dkv(q, k, v, do, lse, delta, causal, window))
 
 
 def flash_decode(q, k_cache, v_cache, length, *, window: int | None = None,

@@ -1,11 +1,15 @@
 """The in-tree decoder-only transformer LM, on PyTorch.
 
-The counterpart of the JAX package's ``workloads/model.py`` for the
-serving path: the same ``ModelConfig`` fields, the same stacked
-parameter layout (leading dim = layer; packed ``qkv`` of width
+The counterpart of the JAX package's ``workloads/model.py`` without the
+mesh: the same ``ModelConfig`` fields, the same stacked parameter layout
+(leading dim = layer; packed ``qkv`` of width
 ``d + 2*kv_heads*head_dim``), and the same block math, so a JAX
 parameter tree carries across one to one (``params_from_jax``) and the
-tests can hold every function to its JAX twin.
+tests can hold every function to its JAX twin.  The training half is
+the loss (``loss_and_metrics``, with the chunked cross-entropy),
+``TrainConfig`` and its hand-written schedules, ``make_optimizer``
+(optax's clip + adamw inside ``MultiSteps``, over plain tensors) and
+``make_train_step``, the single-device ``make_sharded_train_step``.
 
 bf16 compute over f32 master parameters, as in the JAX package.  The
 numbers follow the JAX code where the two frameworks would otherwise
@@ -24,6 +28,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from tpu_autoscaler_torch.workloads.attention import (
     causal_band_mask,
@@ -57,12 +62,12 @@ class ModelConfig:
     attn_block_k: int = 1024
     rope: bool = True
     rope_theta: float = 10000.0
-    # Training-only fields, carried field for field for the trainer
-    # slice of the port.
+    # Training: rematerialize each block in the backward
+    # (torch.utils.checkpoint), and the chunked cross-entropy.
     remat: bool = False
     ce_chunk: int | None = None
-    # Mixture-of-experts FFN: accepted here, but the serving path of
-    # this port refuses it (see ROADMAP.md, MoE slice).
+    # Mixture-of-experts FFN: accepted here, but this port refuses it
+    # (see ROADMAP.md, slice 6).
     moe_experts: int | None = None
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -142,7 +147,7 @@ def param_shapes(cfg: ModelConfig) -> dict:
     what a checkpoint for ``cfg`` must hold."""
     if cfg.moe_experts is not None:
         raise NotImplementedError(
-            "MoE params are not ported yet (ROADMAP.md, MoE slice)")
+            "MoE params are not ported yet (ROADMAP.md, slice 6)")
     L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
     return {
         "embed": (cfg.vocab, d),
@@ -182,10 +187,13 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
             for name, shape in shapes.items()}
 
 
-def _map_tree(fn, tree):
+def _map_tree(fn, tree, *others):
+    """fn over the leaves of ``tree`` (and the same leaves of ``others``,
+    trees of the same paths), as a tree of the same paths."""
     if isinstance(tree, dict):
-        return {k: _map_tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _map_tree(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    return fn(tree, *others)
 
 
 def params_from_jax(tree, device=None) -> dict:
@@ -215,13 +223,22 @@ def save_params(directory: str, step: int, params: dict) -> str:
     """Write ``params`` as ``<directory>/step_<step>/params.npz`` (keys
     are '/'-joined tree paths); the step dir appears atomically, so
     ``checkpoint.latest_step`` never sees a half-written one."""
-    final = os.path.join(os.path.abspath(directory), f"step_{step}")
-    tmp = final + ".tmp"
-    os.makedirs(tmp, exist_ok=True)
-    np.savez(os.path.join(tmp, "params.npz"),
-             **{k: v.detach().cpu().numpy() for k, v in _flatten(params)})
-    os.replace(tmp, final)
-    return final
+    from tpu_autoscaler_torch.workloads.checkpoint import write_step
+
+    return write_step(directory, step, {"params": {
+        k: v.detach().cpu().numpy() for k, v in _flatten(params)}})
+
+
+def _unflatten(flat: dict) -> dict:
+    """The tree of '/'-joined paths (the inverse of :func:`_flatten`)."""
+    out: dict = {}
+    for key, value in flat.items():
+        node = out
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return out
 
 
 def load_params(directory: str, step: int, device=None) -> dict:
@@ -229,15 +246,9 @@ def load_params(directory: str, step: int, device=None) -> dict:
     dev = resolve_device(device)
     path = os.path.join(os.path.abspath(directory), f"step_{step}",
                         "params.npz")
-    out: dict = {}
     with np.load(path) as npz:
-        for key in npz.files:
-            node = out
-            *parents, leaf = key.split("/")
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = torch.from_numpy(npz[key]).to(dev)
-    return out
+        return _unflatten({key: torch.from_numpy(npz[key]).to(dev)
+                           for key in npz.files})
 
 
 def _rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
@@ -297,7 +308,7 @@ def _ffn_residual(x: torch.Tensor, y: torch.Tensor, layer: dict,
     stream; y is the post-ln2 activations."""
     if cfg.moe_experts is not None:
         raise NotImplementedError(
-            "MoE FFN is not ported yet (ROADMAP.md, MoE slice)")
+            "MoE FFN is not ported yet (ROADMAP.md, slice 6)")
     hdn = F.gelu(y @ layer["w1"].to(cfg.dtype), approximate="tanh")
     return x + hdn @ layer["w2"].to(cfg.dtype)
 
@@ -341,17 +352,21 @@ def features_with_aux(params: dict, tokens: torch.Tensor,
                       cfg: ModelConfig):
     """tokens [batch, seq] int -> (final-norm features [batch, seq,
     d_model] in compute dtype, aux dict of per-layer-mean router
-    losses: zeros, since MoE is not ported).  ``cfg.remat`` only changes
-    what a backward pass keeps; the port has no backward before the
-    trainer slice, so it is not consulted here."""
+    losses: zeros, since MoE is not ported).  With ``cfg.remat`` each
+    block runs under ``torch.utils.checkpoint`` (non-reentrant): the
+    backward recomputes it instead of keeping its activations."""
     if cfg.moe_experts is not None:
         raise NotImplementedError(
-            "MoE FFN is not ported yet (ROADMAP.md, MoE slice)")
+            "MoE FFN is not ported yet (ROADMAP.md, slice 6)")
     x = params["embed"].to(cfg.dtype)[tokens]
     aux = []
     for i in range(cfg.n_layers):
-        x, layer_aux = _block(
-            x, {name: w[i] for name, w in params["blocks"].items()}, cfg)
+        layer = {name: w[i] for name, w in params["blocks"].items()}
+        if cfg.remat:
+            x, layer_aux = checkpoint(_block, x, layer, cfg,
+                                      use_reentrant=False)
+        else:
+            x, layer_aux = _block(x, layer, cfg)
         aux.append(layer_aux)
     mean = {name: torch.stack([a[name] for a in aux]).mean()
             for name in aux[0]}
@@ -371,3 +386,264 @@ def forward(params: dict, tokens: torch.Tensor,
     the tokens' device."""
     x = features(params, tokens, cfg)
     return (x @ params["unembed"].to(cfg.dtype)).float()
+
+
+def _chunked_ce(x: torch.Tensor, unembed: torch.Tensor,
+                targets: torch.Tensor, chunk: int, dtype) -> torch.Tensor:
+    """Cross-entropy over sequence chunks of ``chunk`` positions: the
+    unembedding and the softmax of one [b, chunk, V] slice at a time,
+    summed in f32, over b*s."""
+    b, s, _ = x.shape
+    w = unembed.to(dtype)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for start in range(0, s, chunk):
+        logits = (x[:, start:start + chunk] @ w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(
+            -1, targets[:, start:start + chunk, None].long())[..., 0]
+        total = total + (lse - tgt).sum()
+    return total / (b * s)
+
+
+def loss_and_metrics(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
+    """Training loss and its decomposition: ``(loss, metrics)``, loss =
+    next-token cross-entropy of tokens [batch, seq + 1]; metrics holds
+    ``ce`` and the (zero) router losses.  With ``cfg.ce_chunk`` set and
+    dividing seq the cross-entropy runs chunked (:func:`_chunked_ce`);
+    otherwise over the full [b, s, V] logits."""
+    if cfg.moe_experts is not None:
+        raise NotImplementedError(
+            "MoE losses are not ported yet (ROADMAP.md, slice 6)")
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    s = inputs.shape[1]
+    x, aux = features_with_aux(params, inputs, cfg)
+    if cfg.ce_chunk is not None and s % cfg.ce_chunk == 0:
+        ce = _chunked_ce(x, params["unembed"], targets, cfg.ce_chunk,
+                         cfg.dtype)
+    else:
+        logits = (x @ params["unembed"].to(cfg.dtype)).float()
+        logp = torch.log_softmax(logits, dim=-1)
+        ce = -logp.gather(-1, targets[..., None].long()).mean()
+    return ce, {"ce": ce, **aux}
+
+
+def loss_fn(params: dict, tokens: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy of tokens [batch, seq + 1]."""
+    return loss_and_metrics(params, tokens, cfg)[0]
+
+
+# ---- optimizer ----------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer hyperparameters, field for field the JAX package's.
+
+    - ``warmup_steps`` / ``decay_steps``: linear warmup from 0 to
+      ``learning_rate`` then, when ``decay_steps`` is set, cosine decay
+      to ``learning_rate * min_lr_ratio`` by step ``decay_steps``
+      (warmup included).  Both count trainer steps (microbatches), even
+      with ``accum_steps > 1``.  Without ``decay_steps`` the LR holds
+      after warmup.
+    - ``grad_clip``: global-norm gradient clipping before Adam.
+    - ``accum_steps``: every k-th step applies the mean of the last k
+      microbatch gradients (optax.MultiSteps).
+    """
+
+    learning_rate: float = 1e-3
+    warmup_steps: int = 0
+    decay_steps: int | None = None
+    min_lr_ratio: float = 0.1
+    weight_decay: float = 1e-4          # optax.adamw's default
+    b1: float = 0.9
+    b2: float = 0.999
+    grad_clip: float | None = None
+    accum_steps: int = 1
+
+    def __post_init__(self) -> None:
+        if self.warmup_steps < 0:
+            raise ValueError(f"warmup_steps must be >= 0, got "
+                             f"{self.warmup_steps}")
+        if self.decay_steps is not None \
+                and self.decay_steps <= self.warmup_steps:
+            raise ValueError(
+                f"decay_steps ({self.decay_steps}) must exceed "
+                f"warmup_steps ({self.warmup_steps})")
+        if self.grad_clip is not None and self.grad_clip <= 0:
+            raise ValueError(f"grad_clip must be > 0, got {self.grad_clip}")
+        if self.accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got "
+                             f"{self.accum_steps}")
+
+    def schedule(self):
+        """The LR as a function of the step, or the constant peak: optax's
+        ``warmup_cosine_decay_schedule`` (init 0) with ``decay_steps``,
+        else a linear warmup joined to the constant peak, written out."""
+        peak = self.learning_rate
+        warmup = self.warmup_steps
+
+        def ramp(step):  # optax.linear_schedule(0, peak, warmup)
+            return peak * step / warmup
+
+        if self.decay_steps is not None:
+            span = self.decay_steps - warmup
+            alpha = self.min_lr_ratio       # optax: end_value / peak_value
+
+            def warmup_cosine(step):
+                if step < warmup:
+                    return ramp(step)
+                t = min(step - warmup, span)
+                cosine = 0.5 * (1 + math.cos(math.pi * t / span))
+                return peak * ((1 - alpha) * cosine + alpha)
+
+            return warmup_cosine
+        if warmup:
+            return lambda step: ramp(step) if step < warmup else peak
+        return peak
+
+    def lr_at(self, step: int) -> float:
+        """Host-side LR readout for logging."""
+        sched = self.schedule()
+        return float(sched(step)) if callable(sched) else float(sched)
+
+
+def _tree_zeros(params: dict) -> dict:
+    return _map_tree(torch.zeros_like, params)
+
+
+class Optimizer:
+    """``optax.MultiSteps(chain(clip_by_global_norm, adamw(schedule)))``
+    of the JAX trainer over trees of plain tensors, with optax's
+    arithmetic: Adam's moments ``(1 - b) * g^order + b * m``, bias
+    correction ``1 - b ** (count + 1)``, update ``-lr * (m_hat /
+    (sqrt(v_hat) + 1e-8) + wd * p)`` with decay on every leaf, the LR
+    read at the inner count before it increments; the clip
+    ``where(norm < max, g, g / norm * max)`` (no epsilon, unlike
+    ``torch.nn.utils.clip_grad_norm_``); the accumulator's running mean
+    ``acc + (g - acc) / (n + 1)``, emitted on the k-th microstep with
+    zero updates between, the inner count advancing only on emit and the
+    schedule read at ``count * accum_steps``.
+
+    The state is a dict: ``count`` (an int: inner updates so far),
+    ``mu`` and ``nu`` (trees), and with accumulation ``mini_step``,
+    ``gradient_step`` (ints) and ``acc`` (a tree).  Counts are host
+    ints, so an update never waits on the device."""
+
+    def __init__(self, train: TrainConfig):
+        self.train = train
+        self._sched = train.schedule()
+
+    def init(self, params: dict) -> dict:
+        state = {"count": 0, "mu": _tree_zeros(params),
+                 "nu": _tree_zeros(params)}
+        if self.train.accum_steps > 1:
+            state.update(mini_step=0, gradient_step=0,
+                         acc=_tree_zeros(params))
+        return state
+
+    def lr(self, count: int) -> float:
+        """The LR of the inner update number ``count`` (from 0)."""
+        if not callable(self._sched):
+            return self._sched
+        return self._sched(count * self.train.accum_steps)
+
+    def _clip(self, grads: dict) -> dict:
+        leaves = [g for _, g in _flatten(grads)]
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in leaves))
+        max_norm = self.train.grad_clip
+        keep = norm < max_norm
+        return _map_tree(
+            lambda g: torch.where(keep, g, g / norm * max_norm), grads)
+
+    def _adamw(self, grads: dict, state: dict, params: dict):
+        t = self.train
+        count = state["count"] + 1
+        mu = _map_tree(lambda g, m: (1 - t.b1) * g + t.b1 * m, grads,
+                       state["mu"])
+        nu = _map_tree(lambda g, v: (1 - t.b2) * (g * g) + t.b2 * v, grads,
+                       state["nu"])
+        bc1 = 1 - np.float32(t.b1) ** np.int32(count)
+        bc2 = 1 - np.float32(t.b2) ** np.int32(count)
+        lr = self.lr(state["count"])
+
+        def step(m, v, p):
+            u = (m / float(bc1)) / (torch.sqrt(v / float(bc2)) + 1e-8)
+            return (u + t.weight_decay * p) * -lr
+
+        updates = _map_tree(step, mu, nu, params)
+        return updates, {"count": count, "mu": mu, "nu": nu}
+
+    def _inner(self, grads: dict, state: dict, params: dict):
+        if self.train.grad_clip is not None:
+            grads = self._clip(grads)
+        return self._adamw(grads, state, params)
+
+    @torch.no_grad()
+    def update(self, grads: dict, state: dict, params: dict):
+        """(updates, new state) for ``grads`` at ``params``; add the
+        updates to the params (:func:`apply_updates`)."""
+        k = self.train.accum_steps
+        if k == 1:
+            return self._inner(grads, state, params)
+        n = state["mini_step"]
+        acc = _map_tree(lambda g, a: a + (g - a) / (n + 1), grads,
+                        state["acc"])
+        if n < k - 1:
+            return _tree_zeros(grads), {**state, "mini_step": n + 1,
+                                        "acc": acc}
+        updates, inner = self._inner(acc, state, params)
+        return updates, {**inner, "mini_step": 0,
+                         "gradient_step": state["gradient_step"] + 1,
+                         "acc": _tree_zeros(acc)}
+
+
+def make_optimizer(train: TrainConfig) -> Optimizer:
+    """The trainer's optimizer: [clip ->] adamw(schedule) [-> accum]."""
+    return Optimizer(train)
+
+
+@torch.no_grad()
+def apply_updates(params: dict, updates: dict) -> dict:
+    """params + updates, leaf by leaf (optax.apply_updates)."""
+    return _map_tree(lambda p, u: p + u, params, updates)
+
+
+def make_train_step(cfg: ModelConfig, train: TrainConfig | None = None,
+                    device=None, shard: str = "none"):
+    """(init_fn, step_fn) on one device: the single-device counterpart
+    of the JAX package's ``make_sharded_train_step``.
+
+    ``init_fn(generator) -> (params, opt_state)``: f32 master params
+    drawn from ``generator`` (:func:`init_params`) on ``device``.
+    ``step_fn(params, opt_state, tokens) -> (params, opt_state, loss)``:
+    tokens [batch, seq + 1] (numpy or a tensor), the gradient of
+    :func:`loss_fn` with respect to the f32 master params by
+    ``torch.autograd.grad``, then the optimizer's update.  The step
+    returns new params and state; the loss is a 0-d device tensor.
+    Only ``shard="none"`` is ported: the sharded modes need the mesh
+    (ROADMAP.md, slice 6)."""
+    if shard != "none":
+        raise ValueError(f"shard={shard!r} needs the mesh, which is not "
+                         "ported yet (ROADMAP.md, slice 6); only 'none'")
+    if cfg.moe_experts is not None:
+        raise NotImplementedError(
+            "MoE training is not ported yet (ROADMAP.md, slice 6)")
+    dev = resolve_device(device)
+    optimizer = make_optimizer(train or TrainConfig())
+
+    def init_fn(generator: torch.Generator):
+        params = init_params(generator, cfg, dev)
+        return params, optimizer.init(params)
+
+    def step_fn(params: dict, opt_state: dict, tokens):
+        tokens = torch.as_tensor(tokens, device=dev)
+        paths, leaves = zip(*_flatten(params))
+        leaves = [p.detach().requires_grad_() for p in leaves]
+        tree = _unflatten(dict(zip(paths, leaves)))
+        loss = loss_fn(tree, tokens, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        grads = _unflatten(dict(zip(paths, grads)))
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, loss.detach()
+
+    return init_fn, step_fn

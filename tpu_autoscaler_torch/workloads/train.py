@@ -1,0 +1,272 @@
+"""Runnable trainer, on PyTorch: one device.
+
+``python -m tpu_autoscaler_torch.workloads.train`` is the counterpart of
+the JAX package's ``workloads/train.py`` on one GPU: it builds the model
+and the optimizer recipe (``TrainConfig``), resumes from the latest
+``step_N`` checkpoint, trains on synthetic tokens (the JAX trainer's
+stream, token for token) or on a ``--data-file`` token shard,
+checkpoints every ``--checkpoint-every`` steps, and honors the
+checkpoint-aware drain contract: when the pod's
+``autoscaler.tpu.dev/checkpoint-requested`` annotation appears, a final
+checkpoint is saved and the process exits 0.
+
+Checkpoints are ``step_N/params.npz`` (the layout ``serve`` and
+``generate`` read) plus ``step_N/opt.npz``; the JAX trainer's orbax
+checkpoints cannot be read here (orbax needs JAX).  Training runs on
+CUDA unless ``--platform cpu`` is given; without a GPU it refuses to
+start rather than run on the CPU.  The mesh flags (``--tp``, ``--ep``,
+``--pp-stages``, ``--zero1``, ``--shard``) and MoE wait for slice 6 of
+the port and ``--sp`` for slice 5 (ROADMAP.md): asking for one is a
+usage error.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import sys
+import time
+
+import click
+import numpy as np
+
+from tpu_autoscaler_torch.workloads._cli import (
+    model_arch_options,
+    model_config,
+)
+
+log = logging.getLogger(__name__)
+
+
+def _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
+                     shard_mode, moe_experts) -> None:
+    """Usage errors for what this single-device trainer does not run,
+    each naming the slice of the port that brings it."""
+    refused = [
+        (tp_degree is not None and tp_degree > 1, "--tp", 6),
+        (ep_degree > 1, "--ep", 6),
+        (pp_stages > 1, "--pp-stages", 6),
+        (zero1, "--zero1", 6),
+        (shard_mode in ("zero1", "fsdp"), f"--shard {shard_mode}", 6),
+        (sp_degree > 1, "--sp", 5),
+        (moe_experts is not None, "--moe-experts", 6),
+    ]
+    for asked, flag, slice_no in refused:
+        if asked:
+            raise click.UsageError(
+                f"{flag} is not ported yet: this trainer runs on one "
+                f"device (ROADMAP.md, slice {slice_no})")
+
+
+@click.command()
+@click.option("--steps", default=100, show_default=True)
+@click.option("--batch", default=8, show_default=True)
+@model_arch_options
+@click.option("--remat", is_flag=True,
+              help="Rematerialize activations (long-context memory lever).")
+@click.option("--ce-chunk", default=None, type=int,
+              help="Chunked cross-entropy: unembed+softmax over sequence "
+                   "chunks of this size (large-vocab memory lever).")
+@click.option("--zero1", is_flag=True,
+              help="Deprecated alias for --shard zero1 (not ported: "
+                   "slice 6).")
+@click.option("--shard", "shard_mode",
+              type=click.Choice(["none", "zero1", "fsdp"]), default=None,
+              help="Data-axis state sharding; only none is ported (zero1 "
+                   "and fsdp: slice 6).")
+@click.option("--lr", default=1e-3, show_default=True,
+              help="Peak learning rate.")
+@click.option("--warmup-steps", default=0, show_default=True,
+              help="Linear LR warmup from 0 to --lr.")
+@click.option("--lr-schedule", type=click.Choice(["constant", "cosine"]),
+              default="constant", show_default=True,
+              help="cosine: decay to --min-lr-ratio * --lr over --steps.")
+@click.option("--min-lr-ratio", default=0.1, show_default=True)
+@click.option("--grad-clip", default=None, type=float,
+              help="Global-norm gradient clipping threshold.")
+@click.option("--accum-steps", default=1, show_default=True,
+              help="Gradient accumulation: apply the optimizer every k "
+                   "microbatch steps (k-times the effective batch).")
+@click.option("--weight-decay", default=1e-4, show_default=True)
+@click.option("--tp", "tp_degree", default=None, type=int,
+              help="Tensor parallelism degree (> 1 not ported: slice 6).")
+@click.option("--ep", "ep_degree", default=1, show_default=True,
+              help="Expert parallelism (> 1 not ported: slice 6).")
+@click.option("--pp-stages", default=1, show_default=True,
+              help="Pipeline stages (> 1 not ported: slice 6).")
+@click.option("--pp-microbatches", default=4, show_default=True,
+              help="Microbatches per pipelined step (with --pp-stages).")
+@click.option("--sp", "sp_degree", default=1, show_default=True,
+              help="Context parallelism (> 1 not ported: slice 5).")
+@click.option("--sp-impl",
+              type=click.Choice(["auto", "einsum", "pallas", "ulysses"]),
+              default="auto", show_default=True,
+              help="Sequence-parallel attention strategy (with --sp).")
+@click.option("--data-file", default=None,
+              help="Binary uint32 token shard to train on (numpy loader). "
+                   "Default: synthetic random tokens.")
+@click.option("--profile-dir", default=None,
+              help="Capture a torch.profiler trace of steps start+3.."
+                   "start+5 into this directory (trace.json, Chrome "
+                   "trace format).")
+@click.option("--checkpoint-dir", default="/tmp/tpu-train-ckpt",
+              show_default=True)
+@click.option("--checkpoint-every", default=50, show_default=True)
+@click.option("--annotations-file", default=None,
+              help="Downward-API annotations path (default: the standard "
+                   "/etc/podinfo/annotations).")
+@click.option("--platform", default="cuda", show_default=True,
+              type=click.Choice(["cuda", "cpu"]),
+              help="Device to train on.")
+def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
+         attention_window, no_rope, moe_experts, moe_top_k, remat,
+         ce_chunk, zero1, shard_mode, lr, warmup_steps, lr_schedule,
+         min_lr_ratio, grad_clip, accum_steps, weight_decay, tp_degree,
+         ep_degree, pp_stages, pp_microbatches, sp_degree, sp_impl,
+         data_file, profile_dir, checkpoint_dir, checkpoint_every,
+         annotations_file, platform):
+    """Train the in-tree model on one device (synthetic data)."""
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format="%(asctime)s %(levelname)s: %(message)s")
+    import torch
+
+    from tpu_autoscaler_torch.dataio import open_token_loader
+    from tpu_autoscaler_torch.workloads.checkpoint import (
+        DEFAULT_ANNOTATIONS_PATH,
+        AsyncCheckpointWriter,
+        DrainWatcher,
+        latest_step,
+        restore_checkpoint,
+        train_until_drained,
+    )
+    from tpu_autoscaler_torch.workloads.model import (
+        TrainConfig,
+        make_train_step,
+        resolve_device,
+    )
+
+    _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
+                     shard_mode, moe_experts)
+    try:
+        cfg = model_config(vocab, seq_len, d_model, n_layers, n_kv_heads,
+                           attention_window, no_rope, moe_experts,
+                           moe_top_k, remat=remat, ce_chunk=ce_chunk)
+        train_cfg = TrainConfig(
+            learning_rate=lr, warmup_steps=warmup_steps,
+            decay_steps=steps if lr_schedule == "cosine" else None,
+            min_lr_ratio=min_lr_ratio, weight_decay=weight_decay,
+            grad_clip=grad_clip, accum_steps=accum_steps)
+        device = resolve_device(platform)
+    except (ValueError, RuntimeError) as e:
+        raise click.UsageError(str(e)) from e
+
+    init_fn, raw_step_fn = make_train_step(cfg, train=train_cfg,
+                                           device=device)
+    # A CPU generator: the same initial params on every device.
+    params, opt_state = init_fn(torch.Generator().manual_seed(0))
+    log.info("device %s; params initialized", device)
+
+    start = latest_step(checkpoint_dir) or 0
+    state = {"params": params, "opt": opt_state}
+    if start:
+        state = restore_checkpoint(checkpoint_dir, start, device)
+        log.info("resumed from checkpoint step %d", start)
+
+    watcher = DrainWatcher(annotations_file or DEFAULT_ANNOTATIONS_PATH)
+
+    loader = None
+    if data_file:
+        # The stream is a pure function of (seed, step), so resume
+        # replays it exactly.
+        try:
+            loader = open_token_loader(data_file, batch=batch,
+                                       window=cfg.seq_len + 1, seed=0)
+        except (ValueError, OSError) as e:
+            raise click.UsageError(str(e)) from e
+        log.info("token shard %s: %d tokens (%s loader)", data_file,
+                 loader.n_tokens, type(loader).__name__)
+
+    vocab_warned = [False]
+
+    def batch_for(step):
+        if loader is not None:
+            # Clip to the model's vocab: shards may be tokenized with a
+            # larger vocabulary than this run trains.
+            raw = loader.next(step)
+            if not vocab_warned[0] and int(raw.max()) >= cfg.vocab:
+                vocab_warned[0] = True
+                log.warning(
+                    "token shard contains ids >= model vocab %d; they "
+                    "are aliased with modulo — retokenize or raise "
+                    "--vocab if this is unintended", cfg.vocab)
+            local = (raw % np.uint32(cfg.vocab)).astype(np.int32)
+        else:
+            rng = np.random.default_rng((step << 16) | 0)
+            local = rng.integers(0, cfg.vocab, (batch, cfg.seq_len + 1),
+                                 dtype=np.int32)
+        return torch.from_numpy(local).to(device)
+
+    last_loss = [float("nan")]
+
+    def step_fn(state, tokens):
+        params, opt_state, loss = raw_step_fn(state["params"],
+                                              state["opt"], tokens)
+        last_loss[0] = float(loss)
+        return {"params": params, "opt": opt_state}
+
+    # Throughput between log lines (wall time includes host data prep).
+    tokens_per_step = batch * cfg.seq_len
+    tp_state = {"t": time.perf_counter(), "step": start}
+    profiler = [None]
+
+    def stop_profiler():
+        prof, profiler[0] = profiler[0], None
+        prof.stop()
+        path = os.path.join(profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        log.info("profiler trace written to %s", path)
+
+    def on_step(step, _state):
+        if profile_dir and step == start + 2 and profiler[0] is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            os.makedirs(profile_dir, exist_ok=True)
+            activities = [ProfilerActivity.CPU]
+            if device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            profiler[0] = profile(activities=activities)
+            profiler[0].start()
+        if profiler[0] is not None and step >= start + 5:
+            stop_profiler()
+        if step % 10 == 0:
+            now = time.perf_counter()
+            dsteps = step - tp_state["step"]
+            tok_s = (tokens_per_step * dsteps
+                     / max(now - tp_state["t"], 1e-9)) if dsteps else 0.0
+            tp_state.update(t=now, step=step)
+            log.info("step %d loss %.4f (%.0f tok/s)", step, last_loss[0],
+                     tok_s)
+
+    writer = AsyncCheckpointWriter()
+    try:
+        state, step, drained = train_until_drained(
+            step_fn, state, num_steps=steps, watcher=watcher,
+            checkpoint_dir=checkpoint_dir, make_batch=batch_for,
+            start_step=start, checkpoint_every=checkpoint_every,
+            on_step=on_step, save_fn=writer.save)
+    finally:
+        # Always drain the writer: makes the final/drain checkpoint
+        # durable AND surfaces any deferred background write error even
+        # when the training loop itself raised.
+        writer.wait()
+        if profiler[0] is not None:  # steps ended inside the trace window
+            stop_profiler()
+    if drained:
+        log.info("drain requested: checkpointed at step %d, exiting "
+                 "cleanly", step)
+    else:
+        log.info("training complete at step %d", step)
+
+
+if __name__ == "__main__":
+    main()
