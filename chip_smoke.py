@@ -4,14 +4,17 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, drives the port's
-four paths through their public entry points at the full width of
+five paths through their public entry points at the full width of
 ``bench_tpu.py``: the continuous-batching server with the linear cache
 (its serving phase), the paged-KV server (its paged phase, whose pool
 is small enough to preempt), ``decode.generate`` (its decode phase, GQA
-and MHA, and a long prompt) and the trainer's step (its step phase, and
-the long-sequence remat recipe of its step_large phase), and runs the
-``serve`` CLI with each cache, the ``generate`` CLI and the ``train``
-CLI (train, resume, drain).  Each phase prints one JSON line; a failed
+and MHA, and a long prompt), the trainer's step (its step phase, and
+the long-sequence remat recipe of its step_large phase) and the
+sequence-parallel train step (its long-context step, the sequence cut
+over 4 ranks: the kernel ring, against one device, the einsum ring and
+Ulysses), and runs the ``serve`` CLI with each cache, the ``generate``
+CLI and the ``train`` CLI (train, resume, drain; on one device and with
+``--sp 2``).  Each phase prints one JSON line; a failed
 phase raises and the script exits non-zero.  The last lines are the
 card's ``nvidia-smi`` name and power limit, the ``kernels`` summary, and
 ``{"ok": true, "device": {...}}``.
@@ -65,8 +68,9 @@ def err_over_tol(torch, got, want) -> tuple[float, float]:
     return diff.max().item(), over.max().item()
 
 
-def grad_err_over_tol(torch, got, want) -> tuple[float, float]:
-    """err_over_tol for a gradient tensor: bf16 within 2^-5 of each
+def grad_err_over_tol(torch, got, want, dtype=None) -> tuple[float, float]:
+    """err_over_tol for a gradient tensor computed from ``dtype`` inputs
+    (default: the gradient's own dtype): bf16 within 2^-5 of each
     row's largest |value|, f32 within GRAD_F32_RTOL of the tensor's
     largest |value| (a gradient sums thousands of products whose sum
     cancels toward zero: dS sums to 0 over a row's keys), both floored
@@ -80,12 +84,26 @@ def grad_err_over_tol(torch, got, want) -> tuple[float, float]:
     diff = (got.float() - want.float()).abs()
     mag = want.float().abs()
     floor = want.shape[-1] * 2.0 ** -20
-    if want.dtype == torch.float32:
+    if (dtype or want.dtype) == torch.float32:
         tol = torch.clamp_min(GRAD_F32_RTOL * mag.max(), floor)
     else:
         tol = torch.clamp_min(BF16_RTOL * mag.amax(dim=-1, keepdim=True),
                               floor)
     return diff.max().item(), (diff / tol).max().item()
+
+
+def hop_err_over_tol(torch, got, want, dtype) -> tuple[float, float]:
+    """err_over_tol for a ring hop's f32 carry (m, l or acc) computed
+    from ``dtype`` inputs.  The carry is not normalised (l and acc grow
+    with every key merged), so each row's tolerance scales with that
+    row's largest |value|, at least 1: f32 inputs F32_TOL of it (f32
+    throughout, summation order only), bf16 inputs BF16_RTOL of it (P is
+    rounded to bf16 at the running max in the kernel and at the hop's
+    max in the plain version, about one bf16 ulp of each term)."""
+    diff = (got - want).abs()
+    mag = want.abs().amax(dim=-1, keepdim=True).clamp_min(1.0)
+    rate = F32_TOL if dtype == torch.float32 else BF16_RTOL
+    return diff.max().item(), (diff / (rate * mag)).max().item()
 
 
 # Full serving width: bench_tpu.py's serving phase.
@@ -135,6 +153,25 @@ PROFILE_STEPS = 3
 TRAIN_LOSS_GAP = 0.02
 TRAIN_GRAD_NORM_RTOL = 0.02
 SMALL_TRAIN_LOSS_GAP = 1e-4      # f32: summation order only, 5 steps
+# The sequence-parallel path: bench_tpu.py's long-context train step
+# (bench_tpu.py:406-407), batch 2 with remat, the sequence cut over 4
+# ranks of 2048 tokens; 1 warm and 3 timed steps of one fixed batch.
+SP_FULL = dict(vocab=32768, d_model=1024, n_layers=4, n_heads=8, d_ff=4096,
+               seq_len=8192, remat=True)
+SP_RANKS, SP_BATCH, SP_WARM, SP_STEPS = 4, 2, 1, 3
+# The kernel ring against one device (K1/K2 at s 8192), the einsum ring
+# and Ulysses on the same params and batch, first step: all compute in
+# bf16, and attention-output rounding moves the ~10.4 loss by ~1e-4 and
+# the gradient norm by ~0.01 %; the bounds are tens of times that.
+SP_LOSS_GAP = 0.005
+SP_GRAD_NORM_RTOL = 0.005
+# Small f32 models, 5 steps, kernel ring vs einsum ring: f32 summation
+# order only; the params after them within 1e-3 of each leaf's largest
+# |value| (JAX's own sp-parity bound: Adam moves a param by ~LR whatever
+# its gradient, so f32 noise in a near-zero gradient can flip a step;
+# the plain versions on the CPU differ by 1.2e-4 at 4 ranks).
+SMALL_SP_PARAM_RTOL = 1e-3
+RING_KERNELS = ("ring_flash_step", "ring_flash_bwd_dq", "ring_flash_bwd_dkv")
 
 
 def emit(phase: str, **fields) -> None:
@@ -960,7 +997,7 @@ def phase_generate_main_path(torch, np, attention, model, decode, label,
     want = {"flash_attention": cfg.n_layers,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "flash_decode": (steps - 1) * cfg.n_layers,
-            "paged_flash_decode": 0}
+            "paged_flash_decode": 0, **dict.fromkeys(RING_KERNELS, 0)}
     gen_s, pf_s, launches = [], [], []
     for _ in range(GEN_REPS):
         pf_s.append(_wall(torch, prefill_alone)[0])
@@ -1046,12 +1083,12 @@ def _train_flops(n_params, cfg, batch) -> float:
             + 6.0 * cfg.n_layers * batch * cfg.seq_len ** 2 * cfg.d_model)
 
 
-def _loss_and_grad_norm(torch, model, params, tokens, cfg):
-    """The loss at ``params`` and the global norm of its gradient."""
+def _loss_and_grad_norm(torch, model, params, tokens, loss_of):
+    """The loss ``loss_of(params, tokens)`` and the global norm of its
+    gradient."""
     paths, leaves = zip(*model._flatten(params))
     leaves = [p.detach().requires_grad_() for p in leaves]
-    loss = model.loss_fn(model._unflatten(dict(zip(paths, leaves))), tokens,
-                         cfg)
+    loss = loss_of(model._unflatten(dict(zip(paths, leaves))), tokens)
     grads = torch.autograd.grad(loss, leaves)
     norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
     return loss.item(), norm.item()
@@ -1116,13 +1153,18 @@ def phase_train_main_path(torch, np, attention, model, path, arch, batch,
     want = {"flash_attention": (2 if cfg.remat else 1) * cfg.n_layers,
             "flash_attention_bwd_dq": cfg.n_layers,
             "flash_attention_bwd_dkv": cfg.n_layers,
-            "flash_decode": 0, "paged_flash_decode": 0}
+            "flash_decode": 0, "paged_flash_decode": 0,
+            **dict.fromkeys(RING_KERNELS, 0)}
     ecfg = dataclasses.replace(cfg, attention="einsum")
     rec = dict(path=path, config=arch, dtype="bfloat16", batch=batch,
                n_params=n_params, warm_steps=warm, timed_steps=steps)
     if compare:
-        kl, kn = _loss_and_grad_norm(torch, model, params, tokens, cfg)
-        el, en = _loss_and_grad_norm(torch, model, params, tokens, ecfg)
+        kl, kn = _loss_and_grad_norm(
+            torch, model, params, tokens,
+            lambda p, t: model.loss_fn(p, t, cfg))
+        el, en = _loss_and_grad_norm(
+            torch, model, params, tokens,
+            lambda p, t: model.loss_fn(p, t, ecfg))
         rec.update(first_loss=kl, einsum_first_loss=el, grad_norm=kn,
                    einsum_grad_norm=en)
     torch.cuda.reset_peak_memory_stats()
@@ -1301,6 +1343,334 @@ def phase_small_exact(torch, np, model, serving, paged, decode):
                              f"{preempted}")
 
 
+def _hop_pairs(sq: int, sk: int, offset: int, masked: bool, window) -> int:
+    """(query, key) pairs one head of a ring hop sees."""
+    if not masked:
+        return sq * sk
+    total = 0
+    for i in range(sq):
+        lo = 0 if window is None else max(0, offset + i - window + 1)
+        total += max(0, min(sk - 1, offset + i) - lo + 1)
+    return total
+
+
+def _hop_bounds(b, h, hkv, sq, sk, d, elem, pairs, dtype_name):
+    """Least times of a hop's work, as (ms, bound_by) for K5 ("fwd": q,
+    k, v and the f32 carry in and out moved once, 4·d flops per visible
+    (query head, key) pair), the whole of K6 ("bwd": q, do, k, v, lse,
+    delta and the f32 dq, dk, dv adds; 10·d), its dq kernel ("dq": the
+    inputs and dq; 6·d: q.k, do.v, dS.k) and its dk/dv kernel ("dkv":
+    the inputs, dk and dv; 8·d: q.k, do.v, P.do, dS.q)."""
+    peak = BF16_OPS_PER_S if dtype_name == "torch.bfloat16" \
+        else F32_OPS_PER_S
+    q_t, kv_t, row = b * h * sq * d * elem, b * hkv * sk * d * elem, \
+        b * h * sq * 4
+    dq_t, dkv_t = b * h * sq * d * 4, b * hkv * sk * d * 4
+    ins = 2 * q_t + 2 * kv_t + 2 * row
+    parts = {"fwd": (q_t + 2 * kv_t + 2 * (2 * row + dq_t), 4),
+             "bwd": (ins + dq_t + 2 * dkv_t, 10),
+             "dq": (ins + dq_t, 6), "dkv": (ins + 2 * dkv_t, 8)}
+    out = {}
+    for name, (moved, per_pair) in parts.items():
+        t_bytes = moved / HBM_BYTES_PER_S
+        t_ops = per_pair * d * b * h * pairs / peak
+        out[name] = (max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def check_ring_case(torch, F, attention, flush, *, label, b, h, hkv, sq, sk,
+                    d, dtype, offset, masked, window=None, carry="random",
+                    timed=False, seed=0):
+    """One K5 and K6 case: random q, k, v, do and carry (or the fresh
+    carry); K5's (m, l, acc) against ring_flash_step_reference with
+    hop_err_over_tol, and the carry passed in unchanged; then lse and
+    delta of the hop itself (a fresh-carry merge) and K6's (dq, dk, dv)
+    against ring_flash_bwd_step_reference with grad_err_over_tol by the
+    inputs' dtype.
+    ``timed``: each kernel timed alone beside its plain version and SDPA
+    on the same hop with its mask (forward, and its backward)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, dt=dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    q, k, v, do = rnd(b, h, sq, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, d), \
+        rnd(b, h, sq, d)
+    fresh = (torch.full((b, h, sq, 1), -1e30, device="cuda"),
+             torch.zeros((b, h, sq, 1), device="cuda"),
+             torch.zeros((b, h, sq, d), device="cuda"))
+    if carry == "fresh":
+        m, l_, acc = fresh
+    else:
+        m, l_, acc = (rnd(b, h, sq, 1, dt=torch.float32),
+                      rnd(b, h, sq, 1, dt=torch.float32).abs() + 0.5,
+                      rnd(b, h, sq, d, dt=torch.float32))
+    kw = dict(offset=offset, masked=masked, window=window)
+    before = [t.clone() for t in (m, l_, acc)]
+    got = attention.ring_flash_step(q, k, v, m, l_, acc, **kw)
+    want = attention.ring_flash_step_reference(q, k, v, m, l_, acc, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(t, t0) for t, t0 in zip((m, l_, acc), before)):
+        raise AssertionError(f"ring_flash_step {label}: the carry passed "
+                             f"in was written")
+    errs = {name: hop_err_over_tol(torch, gt, wt, dtype)
+            for name, gt, wt in zip(("m", "l", "acc"), got, want)}
+    del got, want, before
+    m0, l0, acc0 = attention.ring_flash_step_reference(q, k, v, *fresh, **kw)
+    l0 = l0.clamp_min(1e-30)
+    lse = (m0 + torch.log(l0)).contiguous()
+    delta = attention._delta((acc0 / l0).to(dtype), do)
+    del m0, l0, acc0
+    got = attention.ring_flash_bwd_step(q, k, v, do, lse, delta, **kw)
+    want = attention.ring_flash_bwd_step_reference(q, k, v, do, lse, delta,
+                                                   **kw)
+    torch.cuda.synchronize()
+    errs.update({name: grad_err_over_tol(torch, gt, wt, dtype)
+                 for name, gt, wt in zip(("dq", "dk", "dv"), got, want)})
+    del got, want
+    dname = str(dtype)
+    pairs = _hop_pairs(sq, sk, offset, masked, window)
+    bounds = _hop_bounds(b, h, hkv, sq, sk, d, q.element_size(), pairs,
+                         dname)
+    rec = dict(case=label, shape=[b, h, hkv, sq, sk, d], dtype=dname,
+               offset=offset, masked=masked, window=window, carry=carry,
+               max_abs_err={n: e[0] for n, e in errs.items()},
+               err_over_tolerance={n: e[1] for n, e in errs.items()},
+               tolerance=("carry: per row, f32 2e-5 / bf16 2^-5 of the "
+                          "row's largest |value| (at least 1); adds: as "
+                          "grad_err_over_tol by the inputs' dtype"),
+               visible_pairs_per_head=pairs,
+               **{f"bound_ms_{n}": v[0] for n, v in bounds.items()},
+               **{f"bound_by_{n}": v[1] for n, v in bounds.items()})
+    if timed:
+        args = (q, k, v, do, lse, delta, offset, masked, window)
+        rec.update(
+            ms_fwd=_time_ms(torch, lambda: attention.ring_flash_step(
+                q, k, v, m, l_, acc, **kw), flush),
+            plain_ms_fwd=_time_ms(
+                torch, lambda: attention.ring_flash_step_reference(
+                    q, k, v, m, l_, acc, **kw), flush),
+            ms_dq=_time_ms(torch, lambda: attention._ring_bwd_dq(*args),
+                           flush),
+            ms_dkv=_time_ms(torch, lambda: attention._ring_bwd_dkv(*args),
+                            flush),
+            ms_bwd=_time_ms(torch, lambda: attention.ring_flash_bwd_step(
+                q, k, v, do, lse, delta, **kw), flush),
+            plain_ms_bwd=_time_ms(
+                torch, lambda: attention.ring_flash_bwd_step_reference(
+                    q, k, v, do, lse, delta, **kw), flush))
+        # No PyTorch call merges into a carry: the yardstick is SDPA on
+        # the same hop (its normalised output) and SDPA's backward.
+        if masked and offset == 0 and window is None and sq == sk:
+            sdpa = dict(is_causal=True)
+        elif masked:
+            sdpa = dict(attn_mask=attention.ring_hop_mask(
+                sq, sk, offset, window, "cuda"))
+        else:
+            sdpa = {}
+        rec["library_ms_fwd"] = _time_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, enable_gqa=True, **sdpa), flush)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        lout = F.scaled_dot_product_attention(*leaves, enable_gqa=True,
+                                              **sdpa)
+        rec["library_ms_bwd"] = _time_ms(torch, lambda: torch.autograd.grad(
+            lout, leaves, do, retain_graph=True), flush)
+        rec["library"] = ("F.scaled_dot_product_attention on the same hop "
+                          "and mask (normalised output, no carry), and its "
+                          "backward")
+        del lout, leaves
+    emit("ring_kernel_check", **rec)
+    worst = max(e[1] for e in errs.values())
+    if not worst <= 1.0:
+        raise AssertionError(f"ring hop {label}: error "
+                             f"{rec['err_over_tolerance']} of its tolerance "
+                             f"(max |err| {rec['max_abs_err']})")
+    return rec
+
+
+def phase_ring_kernel_checks(torch, F, attention, flush):
+    """K5 and K6 in 14 cases each; the first two are the SP main path's
+    hops (b 2, h 8, s_loc 2048, d 128, bf16), timed: an unmasked hop (6
+    of each layer's 10 visible hops) and a diagonal one (4 of 10)."""
+    s_loc = SP_FULL["seq_len"] // SP_RANKS
+    main = dict(b=SP_BATCH, h=8, hkv=8, sq=s_loc, sk=s_loc, d=128,
+                dtype=torch.bfloat16)
+    small = dict(b=2, h=8, hkv=8, sq=300, sk=300, d=64, dtype=torch.bfloat16)
+    cases = [
+        dict(main, label="main-unmasked", offset=s_loc, masked=False,
+             timed=True),
+        dict(main, label="main-diag", offset=0, masked=True, carry="fresh",
+             timed=True),
+        dict(small, label="window-cut", offset=300, masked=True, window=400),
+        dict(small, label="window-in-diag", offset=0, masked=True, window=37),
+        dict(small, label="window-cut-2back", offset=600, masked=True,
+             window=650),
+        dict(small, label="gqa8", h=16, hkv=2, offset=300, masked=False),
+        dict(small, label="mqa-diag", hkv=1, offset=0, masked=True,
+             carry="fresh"),
+        dict(small, label="f32-d32-diag", d=32, dtype=torch.float32,
+             offset=0, masked=True),
+        dict(small, label="d256-window-cut", d=256, offset=300, masked=True,
+             window=450),
+        dict(small, label="f32-d128-tail", d=128, dtype=torch.float32,
+             sq=100, sk=100, offset=100, masked=False),
+        dict(small, label="f32-d256-diag", d=256, dtype=torch.float32,
+             sq=129, sk=129, offset=0, masked=True),
+        dict(small, label="sq-ne-sk", sq=70, sk=40, offset=3, masked=True,
+             window=9),
+        dict(small, label="no-key-rows-fresh", sq=64, sk=64, offset=-20,
+             masked=True, carry="fresh"),
+        dict(small, label="s1", b=3, sq=1, sk=33, offset=32, masked=True),
+    ]
+    return [check_ring_case(torch, F, attention, flush, seed=400 + i, **c)
+            for i, c in enumerate(cases)]
+
+
+def phase_sp_train_main_path(torch, np, attention, model, sp,
+                             ring_attention):
+    """The sequence-parallel train step at bench_tpu.py's long-context
+    width through ``sp.make_sp_train_step`` (the kernel ring, 4 ranks on
+    the visible cards): first the first step's loss and gradient norm
+    through the kernel ring, one device (K1/K2 at s 8192), the einsum
+    ring and Ulysses on the same params and batch; then SP_WARM warm and
+    SP_STEPS timed steps whose launches are counted per step (K5 once per
+    visible hop per layer, twice under remat; each K6 kernel once; K1-K4
+    never); one profiled step; then one warm and one timed Ulysses step,
+    its launches counted (K1 once per rank per layer, twice under remat;
+    each K2 kernel once; K5/K6 never)."""
+    cfg = model.ModelConfig(**SP_FULL)
+    devices = sp.make_sp_mesh(sp=SP_RANKS)
+    init_fn, step_fn = sp.make_sp_train_step(devices, cfg, impl="pallas")
+    params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for _, p in model._flatten(params))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (SP_BATCH, cfg.seq_len + 1)).astype(np.int32)).cuda()
+    s_loc = cfg.seq_len // SP_RANKS
+    hops = sum(1 for r in range(SP_RANKS) for src in range(SP_RANKS)
+               if ring_attention._hop_mode(src, r, s_loc, True,
+                                           cfg.attention_window)[0])
+    remat = 2 if cfg.remat else 1
+    layers = cfg.n_layers
+    zero = dict.fromkeys(attention.LAUNCHES, 0)
+    want = {**zero, "ring_flash_step": remat * hops * layers,
+            "ring_flash_bwd_dq": hops * layers,
+            "ring_flash_bwd_dkv": hops * layers}
+    want_ulysses = {**zero, "flash_attention": remat * SP_RANKS * layers,
+                    "flash_attention_bwd_dq": SP_RANKS * layers,
+                    "flash_attention_bwd_dkv": SP_RANKS * layers}
+    first = {}
+    for name, loss_of in (
+            ("pallas", sp.make_sp_loss(devices, cfg, "pallas")),
+            ("single_device", lambda p, t: model.loss_fn(p, t, cfg)),
+            ("einsum", sp.make_sp_loss(devices, cfg, "einsum")),
+            ("ulysses", sp.make_sp_loss(devices, cfg, "ulysses"))):
+        first[name] = _loss_and_grad_norm(torch, model, params, tokens,
+                                          loss_of)
+        torch.cuda.empty_cache()
+    rec = dict(config=SP_FULL, dtype="bfloat16", batch=SP_BATCH,
+               ranks=SP_RANKS, devices=[str(d) for d in devices],
+               s_loc=s_loc, n_params=n_params, visible_hops_per_layer=hops,
+               first_loss={n: v[0] for n, v in first.items()},
+               first_grad_norm={n: v[1] for n, v in first.items()},
+               warm_steps=SP_WARM, timed_steps=SP_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, losses, launches, step_s = _train_steps(
+        torch, attention, step_fn, params, opt, tokens, SP_WARM, SP_STEPS)
+    flops = _train_flops(n_params, cfg, SP_BATCH)
+    rec.update(step_ms=step_s * 1e3,
+               tokens_per_s=SP_BATCH * cfg.seq_len / step_s,
+               flops_per_step=flops, mfu=flops / (step_s * BF16_OPS_PER_S),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               losses=losses, launches_per_step=launches[-1],
+               expected_launches_per_step=want)
+    rec["profile"] = _profile_train(torch, step_fn, params, opt, tokens,
+                                    "sp", 1)
+    _, ustep = sp.make_sp_train_step(devices, cfg, impl="ulysses")
+    ustep(params, opt, tokens)
+    attention.reset_launch_counts()
+    ustep_s, (_, _, uloss) = _wall(torch, lambda: ustep(params, opt, tokens))
+    ulaunches = dict(attention.LAUNCHES)
+    rec.update(ulysses_step_ms=ustep_s * 1e3, ulysses_loss=uloss.item(),
+               ulysses_launches_per_step=ulaunches,
+               ulysses_expected_launches_per_step=want_ulysses)
+    del params, opt
+    torch.cuda.empty_cache()
+    emit("sp_train_main_path", **rec)
+    if any(n != want for n in launches):
+        raise AssertionError(f"sp train step launched {launches}, want "
+                             f"{want} per step")
+    if ulaunches != want_ulysses:
+        raise AssertionError(f"ulysses sp train step launched {ulaunches}, "
+                             f"want {want_ulysses}")
+    if not all(np.isfinite(losses + [rec["ulysses_loss"]])):
+        raise AssertionError(f"non-finite loss on the sp train path: "
+                             f"{losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"sp: loss did not fall over "
+                             f"{SP_WARM + SP_STEPS} steps: {losses}")
+    base_loss, base_norm = first["single_device"]
+    for name, (loss, norm) in first.items():
+        if not abs(loss - base_loss) <= SP_LOSS_GAP:
+            raise AssertionError(f"sp ({name}) first-step loss {loss} vs one "
+                                 f"device {base_loss}")
+        if not abs(norm - base_norm) <= SP_GRAD_NORM_RTOL * base_norm:
+            raise AssertionError(f"sp ({name}) grad norm {norm} vs one "
+                                 f"device {base_norm}")
+    return rec
+
+
+def phase_small_sp(torch, np, model, sp, decode):
+    """make_sp_train_step on a small f32 GQA model on the card: 5 steps
+    through the kernel ring (K5/K6) and through the einsum ring from the
+    same params and batches, at 2 ranks (window 24 and remat) and 4:
+    losses within SMALL_TRAIN_LOSS_GAP, params within SMALL_SP_PARAM_RTOL
+    of each leaf's largest |value|, and the greedy tokens that
+    decode.generate gives from the two final params equal."""
+    base = dict(vocab=256, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+                d_ff=256, seq_len=64, dtype=torch.float32)
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (2, 16)).astype(np.int32)).cuda()
+    rec = {}
+    for world, extra in ((2, dict(attention_window=24, remat=True)),
+                         (4, {})):
+        cfg = model.ModelConfig(**base, **extra)
+        devices = sp.make_sp_mesh(sp=world)
+        runs = {}
+        for impl in ("pallas", "einsum"):
+            init_fn, step_fn = sp.make_sp_train_step(devices, cfg, impl=impl)
+            params, opt = init_fn(torch.Generator(device="cuda").manual_seed(1))
+            rng = np.random.default_rng(2)
+            losses = []
+            for _ in range(5):
+                tokens = rng.integers(0, 256, (4, 65)).astype(np.int32)
+                params, opt, loss = step_fn(params, opt, tokens)
+                losses.append(loss.item())
+            runs[impl] = (losses, params,
+                          decode.generate(params, prompt, cfg, 8).tolist())
+        (kl, kp, kt), (el, ep, et) = runs["pallas"], runs["einsum"]
+        ep = dict(model._flatten(ep))
+        param_gap = max(((a - ep[path]).abs().max()
+                         / ep[path].abs().max().clamp_min(1e-30)).item()
+                        for path, a in model._flatten(kp))
+        rec[f"sp{world}"] = dict(
+            config=extra, losses={"pallas": kl, "einsum": el},
+            max_loss_gap=max(abs(a - b) for a, b in zip(kl, el)),
+            max_param_gap=param_gap, generate_tokens_equal=kt == et)
+    emit("small_sp", **rec)
+    for label, r in rec.items():
+        if not r["max_loss_gap"] <= SMALL_TRAIN_LOSS_GAP:
+            raise AssertionError(f"f32 sp steps ({label}): kernel and einsum "
+                                 f"ring losses differ by {r['max_loss_gap']}")
+        if not r["max_param_gap"] <= SMALL_SP_PARAM_RTOL:
+            raise AssertionError(f"f32 sp steps ({label}): params differ by "
+                                 f"{r['max_param_gap']} of their scale")
+        if not r["generate_tokens_equal"]:
+            raise AssertionError(f"f32 sp steps ({label}): the two rings' "
+                                 f"params generate different tokens")
+
+
 def phase_cli(model, decode, DrainReceipt):
     """The CLIs on the card: serve with the linear cache and with
     ``--paged`` (a 6-block pool, so it preempts); then, at the CLIs'
@@ -1308,7 +1678,8 @@ def phase_cli(model, decode, DrainReceipt):
     print the tokens decode.generate gives in-process, and serve; then
     train (20 steps, checkpoints every 10), resume to 30, drain (a
     checkpoint request in the annotations file: exit 0 with a
-    checkpoint), and generate from the trainer's checkpoint."""
+    checkpoint), and generate from the trainer's checkpoint; then the
+    same with ``train --sp 2 --sp-impl pallas`` (the kernel ring)."""
     import torch
 
     env = {**os.environ,
@@ -1379,49 +1750,60 @@ def phase_cli(model, decode, DrainReceipt):
         serve(ckpt, "linear-defaults", [])
 
         # The train CLI at its defaults: train, resume, drain; then the
-        # generate CLI on the trainer's last checkpoint.
-        tdir = os.path.join(tmp, "train")
+        # generate CLI on the trainer's last checkpoint.  Once on one
+        # device, once with the sequence over 2 ranks (the kernel ring).
         drain = os.path.join(tmp, "drain-annotations")
         with open(drain, "w") as f:
             f.write('autoscaler.tpu.dev/checkpoint-requested="1"\n')
 
-        def train(steps, annotations, what, expect):
-            dt, _ = run([sys.executable, "-m",
-                         "tpu_autoscaler_torch.workloads.train",
-                         "--checkpoint-dir", tdir, "--steps", str(steps),
-                         "--checkpoint-every", "10", "--platform", "cuda",
-                         "--annotations-file", annotations], what, expect)
-            emit("cli", command="train", run=what, seconds=dt,
-                 checkpoints=sorted(os.listdir(tdir)))
+        for label, flags, first in (
+                ("", [], []),
+                ("sp ", ["--sp", "2", "--sp-impl", "pallas"],
+                 ["sp 2 ranks (pallas)"])):
+            tdir = os.path.join(tmp, f"train{label.strip()}")
 
-        train(20, os.path.join(tmp, "annotations"), "train",
-              ["step 10 loss", "step 20 loss",
-               "training complete at step 20"])
-        train(30, os.path.join(tmp, "annotations"), "resume",
-              ["resumed from checkpoint step 20",
-               "training complete at step 30"])
-        train(5000, drain, "drain",
-              ["resumed from checkpoint step 30",
-               "drain requested: checkpointed at step 30, exiting cleanly"])
-        if sorted(os.listdir(tdir)) != ["step_10", "step_20", "step_30"]:
-            raise AssertionError(f"train CLI left {os.listdir(tdir)}")
-        dt, lines = run([sys.executable, "-m",
-                         "tpu_autoscaler_torch.workloads.generate",
-                         "--checkpoint-dir", tdir, "--prompt",
-                         ",".join(map(str, prompt)), "--batch", "2",
-                         "--steps", "8", "--platform", "cuda"],
-                        "generate CLI on the trainer's checkpoint",
-                        ["loaded step 30"])
-        want = decode.generate(model.load_params(tdir, 30, "cuda"),
-                               torch.tensor([prompt] * 2), cfg, 8).tolist()
-        want_lines = [f"{','.join(map(str, row[:5]))} | "
-                      f"{','.join(map(str, row[5:]))}" for row in want]
-        emit("cli", command="generate", checkpoint="train step_30",
-             seconds=dt, lines=lines, in_process=want_lines)
-        if lines != want_lines:
-            raise AssertionError(f"generate CLI printed {lines} from the "
-                                 f"trainer's checkpoint, in-process "
-                                 f"{want_lines}")
+            def train(steps, annotations, what, expect):
+                dt, _ = run([sys.executable, "-m",
+                             "tpu_autoscaler_torch.workloads.train",
+                             "--checkpoint-dir", tdir, "--steps", str(steps),
+                             "--checkpoint-every", "10", "--platform",
+                             "cuda", "--annotations-file", annotations,
+                             *flags], label + what, expect)
+                emit("cli", command="train", flags=flags, run=what,
+                     seconds=dt, checkpoints=sorted(os.listdir(tdir)))
+
+            train(20, os.path.join(tmp, "annotations"), "train",
+                  [*first, "step 10 loss", "step 20 loss",
+                   "training complete at step 20"])
+            train(30, os.path.join(tmp, "annotations"), "resume",
+                  ["resumed from checkpoint step 20",
+                   "training complete at step 30"])
+            train(5000, drain, "drain",
+                  ["resumed from checkpoint step 30",
+                   "drain requested: checkpointed at step 30, exiting "
+                   "cleanly"])
+            if sorted(os.listdir(tdir)) != ["step_10", "step_20", "step_30"]:
+                raise AssertionError(f"{label}train CLI left "
+                                     f"{os.listdir(tdir)}")
+            dt, lines = run([sys.executable, "-m",
+                             "tpu_autoscaler_torch.workloads.generate",
+                             "--checkpoint-dir", tdir, "--prompt",
+                             ",".join(map(str, prompt)), "--batch", "2",
+                             "--steps", "8", "--platform", "cuda"],
+                            f"generate CLI on the {label}trainer's "
+                            f"checkpoint", ["loaded step 30"])
+            want = decode.generate(model.load_params(tdir, 30, "cuda"),
+                                   torch.tensor([prompt] * 2), cfg,
+                                   8).tolist()
+            want_lines = [f"{','.join(map(str, row[:5]))} | "
+                          f"{','.join(map(str, row[5:]))}" for row in want]
+            emit("cli", command="generate",
+                 checkpoint=f"{label}train step_30", seconds=dt, lines=lines,
+                 in_process=want_lines)
+            if lines != want_lines:
+                raise AssertionError(f"generate CLI printed {lines} from the "
+                                     f"{label}trainer's checkpoint, "
+                                     f"in-process {want_lines}")
 
 
 def main() -> None:
@@ -1440,7 +1822,9 @@ def main() -> None:
         decode,
         model,
         paged,
+        ring_attention,
         serving,
+        sp,
     )
 
     t_start = time.perf_counter()
@@ -1462,6 +1846,7 @@ def main() -> None:
                                              paged_tick)
     attn_checks = phase_attn_kernel_checks(torch, F, attention, flush)
     bwd_checks = phase_bwd_kernel_checks(torch, F, attention, flush)
+    ring_checks = phase_ring_kernel_checks(torch, F, attention, flush)
     del flush
     gen_recs = []
     for label, arch, prompt_len, steps in GEN_SHAPES:
@@ -1479,8 +1864,11 @@ def main() -> None:
     phase_train_main_path(torch, np, attention, model, "step_large",
                           TRAIN_LARGE, LARGE_BATCH, LARGE_WARM, LARGE_STEPS,
                           1, compare=False)
+    sp_rec = phase_sp_train_main_path(torch, np, attention, model, sp,
+                                      ring_attention)
     phase_small_exact(torch, np, model, serving, paged, decode)
     phase_small_train(torch, np, model)
+    phase_small_sp(torch, np, model, sp, decode)
     phase_cli(model, decode, DrainReceipt)
     kernels = []
     for kname, source, replaces, launches, kchecks in (
@@ -1521,6 +1909,32 @@ def main() -> None:
             library_ms=at_main["library_ms"],
             plain_and_library_scope="whole backward",
             cases_passed=len(bwd_checks), shape=at_main["shape"]))
+    # K5 and K6: each kernel at the SP main path's unmasked hop (its
+    # diagonal hop beside it), launches per SP train step; K6's plain and
+    # library times are the whole backward hop's.
+    at_main, at_diag = ring_checks[0], ring_checks[1]
+    for kname, part, whole, replaces, source, grads in (
+            ("ring_flash_step", "fwd", "fwd", 585, "ring_flash_step.cu",
+             ("m", "l", "acc")),
+            ("ring_flash_bwd_dq", "dq", "bwd", 651, "ring_flash_bwd.cu",
+             ("dq",)),
+            ("ring_flash_bwd_dkv", "dkv", "bwd", 672, "ring_flash_bwd.cu",
+             ("dk", "dv"))):
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source=f"tpu_autoscaler_torch/csrc/{source}",
+            replaces=f"tpu_autoscaler/workloads/attention.py:{replaces}",
+            launches=sp_rec["launches_per_step"][kname],
+            launches_per="sp train step",
+            max_abs_err=max(at_main["max_abs_err"][g] for g in grads),
+            ms=at_main[f"ms_{part}"], plain_ms=at_main[f"plain_ms_{whole}"],
+            bound_ms=at_main[f"bound_ms_{part}"],
+            bound_by=at_main[f"bound_by_{part}"],
+            library_ms=at_main[f"library_ms_{whole}"],
+            library=at_main["library"],
+            plain_and_library_scope="whole hop" if whole == "bwd"
+            else "kernel", hop="unmasked", diag_hop_ms=at_diag[f"ms_{part}"],
+            cases_passed=len(ring_checks), shape=at_main["shape"]))
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,7 +12,12 @@ from __future__ import annotations
 import pytest
 import torch
 
-from chip_smoke import TOL_REASON, err_over_tol, grad_err_over_tol
+from chip_smoke import (
+    TOL_REASON,
+    err_over_tol,
+    grad_err_over_tol,
+    hop_err_over_tol,
+)
 from tpu_autoscaler_torch.workloads import attention
 
 
@@ -201,4 +206,101 @@ def test_flash_attention_function_backward_on_cuda(dtype):
                                                         window=50)
     torch.cuda.synchronize()
     for gt, wt in zip(got, want):
+        assert grad_err_over_tol(torch, gt, wt)[1] <= 1.0
+
+
+# (b, h, hkv, sq, sk, offset, masked, window, carry): K5/K6 cases on the
+# card: the ring's hop kinds (diagonal, earlier blocks, window-cut, a
+# window inside the block), MHA/GQA/MQA, sq != sk, tails that are not a
+# multiple of the 32-row tiles, and rows that see no key of a masked hop
+# with a fresh carry (K5 must give the reference's P = 1 for them).
+HOP_CASES = [(2, 4, 4, 100, 100, 0, True, None, "fresh"),
+             (2, 4, 2, 100, 100, 100, False, None, "random"),
+             (2, 4, 1, 77, 77, 154, False, None, "random"),
+             (2, 4, 2, 100, 100, 100, True, 130, "random"),
+             (2, 4, 2, 100, 100, 0, True, 17, "random"),
+             (1, 8, 2, 70, 40, 3, True, 9, "random"),
+             (1, 4, 4, 64, 64, -20, True, None, "fresh"),
+             (3, 4, 2, 1, 33, 32, True, None, "random")]
+
+
+def _hop_tensors(g, dtype, b, h, hkv, sq, sk, d, carry):
+    def rnd(*shape, dt=dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    q, k, v = rnd(b, h, sq, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, d)
+    if carry == "fresh":
+        m = torch.full((b, h, sq, 1), -1e30, device="cuda")
+        l_ = torch.zeros((b, h, sq, 1), device="cuda")
+        acc = torch.zeros((b, h, sq, d), device="cuda")
+    else:
+        m = rnd(b, h, sq, 1, dt=torch.float32)
+        l_ = rnd(b, h, sq, 1, dt=torch.float32).abs() + 0.5
+        acc = rnd(b, h, sq, d, dt=torch.float32)
+    return q, k, v, m, l_, acc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", HEAD_DIMS)
+def test_ring_hop_cuda_kernels_match_plain_versions(dtype, d):
+    """K5 (m, l, acc) and K6 (dq_add, dk_add, dv_add) against their plain
+    versions on the card; K5 leaves the carry it was given as it was."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for b, h, hkv, sq, sk, offset, masked, window, carry in HOP_CASES:
+        kw = dict(offset=offset, masked=masked, window=window)
+        q, k, v, m, l_, acc = _hop_tensors(g, dtype, b, h, hkv, sq, sk, d,
+                                           carry)
+        before = [t.clone() for t in (m, l_, acc)]
+        got = attention.ring_flash_step(q, k, v, m, l_, acc, **kw)
+        want = attention.ring_flash_step_reference(q, k, v, m, l_, acc, **kw)
+        torch.cuda.synchronize()
+        for t, t0 in zip((m, l_, acc), before):
+            assert torch.equal(t, t0)
+        for name, gt, wt in zip(("m", "l", "acc"), got, want):
+            err, share = hop_err_over_tol(torch, gt, wt, dtype)
+            assert share <= 1.0, (name, sq, sk, kw, err, share)
+        do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+        lse = torch.rand((b, h, sq, 1), generator=g, device="cuda") * 3 + 1
+        delta = torch.randn((b, h, sq, 1), generator=g, device="cuda")
+        got = attention.ring_flash_bwd_step(q, k, v, do, lse, delta, **kw)
+        want = attention.ring_flash_bwd_step_reference(q, k, v, do, lse,
+                                                       delta, **kw)
+        torch.cuda.synchronize()
+        for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
+            assert gt.dtype == torch.float32 and gt.shape == wt.shape
+            err, share = grad_err_over_tol(torch, gt, wt, dtype)
+            assert share <= 1.0, (name, sq, sk, kw, err, share)
+
+
+@pytest.mark.cuda
+def test_ring_attention_function_on_cuda():
+    """make_ring_attention's kernel impl over 4 ranks on one card: each
+    visible hop launches K5 once forward and K6 (dq, dk/dv) once
+    backward, 10 each for 4 causal ranks, and the output and gradients
+    agree with the einsum ring (f32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from tpu_autoscaler_torch.workloads import ring_attention
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v, do = _bwd_inputs(g, torch.float32, 2, 8, 2, 256, 64)
+    outs, grads = [], []
+    for impl in ("pallas", "einsum"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        attention.reset_launch_counts()
+        out = ring_attention.make_ring_attention(
+            ["cuda"] * 4, impl=impl, window=100)(*leaves)
+        grads.append(torch.autograd.grad(out, leaves, do))
+        outs.append(out)
+        if impl == "pallas":
+            counts = dict(attention.LAUNCHES)
+    # window 100 over s_loc 64: each rank sees its diagonal and up to two
+    # earlier blocks (the second cut by the window): 4 + 3 + 2 = 9 hops.
+    assert counts["ring_flash_step"] == 9
+    assert counts["ring_flash_bwd_dq"] == counts["ring_flash_bwd_dkv"] == 9
+    torch.cuda.synchronize()
+    assert (outs[0] - outs[1]).abs().max().item() <= 2e-5
+    for gt, wt in zip(*grads):
         assert grad_err_over_tol(torch, gt, wt)[1] <= 1.0

@@ -337,5 +337,6 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "dataio", "serving.drain", "serving.stats", "workloads._cli",
             "workloads.attention", "workloads.checkpoint",
             "workloads.decode", "workloads.generate", "workloads.model",
-            "workloads.paged",
-            "workloads.serve", "workloads.serving", "workloads.train")}
+            "workloads.paged", "workloads.ring_attention",
+            "workloads.serve", "workloads.serving", "workloads.sp",
+            "workloads.train", "workloads.ulysses")}

@@ -1,8 +1,9 @@
 """The port's trainer against the JAX package's, on the CPU: the
 flash-attention backward's plain version (K2) and the autograd.Function
 around K1/K2, the loss and its gradient, the optimizer recipe, the train
-step, checkpoints and resume, the drain loop, the token loader and the
-``train`` CLI.
+step and the sequence-parallel train step (``sp.py``, every impl),
+checkpoints and resume, the drain loop, the token loader and the
+``train`` CLI (``--sp`` too).
 
 The same weights (JAX ``init_params``, carried across with
 ``params_from_jax``) and the same numpy-made inputs go through both
@@ -15,7 +16,9 @@ gradients and, relative to each leaf's largest |grad|, for the loss's
 (f32, summation order only); 2e-5 for the loss; 1e-6 relative for the
 optimizer (the same f32 arithmetic as optax); 1e-3 relative for losses
 after five steps (Adam's first steps move every parameter by about the
-LR whatever the gradient's size, so small gradient differences grow).
+LR whatever the gradient's size, so small gradient differences grow);
+for the SP step, 2e-4 for its three losses and JAX's own sp-parity
+bounds (rtol 1e-3, atol 1e-5) for the params after them.
 """
 
 from __future__ import annotations
@@ -38,11 +41,13 @@ from tpu_autoscaler import dataio as jax_dataio  # noqa: E402
 from tpu_autoscaler.workloads import attention as jax_attention  # noqa: E402
 from tpu_autoscaler.workloads import checkpoint as jax_checkpoint  # noqa: E402
 from tpu_autoscaler.workloads import model as jax_model  # noqa: E402
+from tpu_autoscaler.workloads import sp as jax_sp  # noqa: E402
 from tpu_autoscaler_torch import dataio  # noqa: E402
 from tpu_autoscaler_torch.workloads import (  # noqa: E402
     attention,
     checkpoint,
     model,
+    sp,
 )
 from tpu_autoscaler_torch.workloads import train as train_cli  # noqa: E402
 
@@ -387,6 +392,99 @@ def test_train_steps_match_jax(request, impl, train_kw, arch_kw):
     assert topt["count"] == 5
 
 
+SP_ARCH = dict(ARCH, seq_len=32)
+SP_LOSS_TOL = 2e-4
+
+
+@pytest.mark.parametrize("impl,world,arch_kw", [
+    ("einsum", 2, {}),
+    ("pallas", 4, {}),
+    ("ulysses", 2, {}),
+    ("pallas", 2, {"n_kv_heads": 2, "attention_window": 12, "remat": True}),
+    ("einsum", 4, {"ce_chunk": 4}),
+], ids=["einsum-sp2", "pallas-sp4", "ulysses-sp2",
+        "pallas-sp2-gqa-window-remat", "einsum-sp4-chunk4"])
+def test_sp_train_steps_match_jax(impl, world, arch_kw):
+    """Three make_sp_train_step steps against JAX make_sp_train_step on a
+    (1, sp) mesh of the virtual CPU devices, from the same params
+    (params_from_jax) and batches: the losses within 2e-4 and the params
+    after them within JAX's own sp-parity bounds.  The port's ranks are
+    CPU devices, so "pallas" runs the plain versions of K5 and K6."""
+    jcfg = jax_model.ModelConfig(**SP_ARCH, dtype=jnp.float32, **arch_kw)
+    tcfg = model.ModelConfig(**SP_ARCH, dtype=torch.float32, **arch_kw)
+    mesh = jax_sp.make_sp_mesh(jax.devices()[:world], sp=world)
+    jinit, jstep = jax_sp.make_sp_train_step(mesh, jcfg, impl=impl)
+    jparams, jopt = jinit(jax.random.PRNGKey(0))
+    tparams = model.params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    devices = sp.make_sp_mesh(["cpu"], sp=world)
+    assert devices == [torch.device("cpu")] * world
+    _, tstep = sp.make_sp_train_step(devices, tcfg, impl=impl)
+    topt = model.make_optimizer(model.TrainConfig()).init(tparams)
+    rng = np.random.default_rng(world)
+    for step in range(3):
+        tokens = rng.integers(0, SP_ARCH["vocab"],
+                              (2, SP_ARCH["seq_len"] + 1)).astype(np.int32)
+        jparams, jopt, jl = jstep(jparams, jopt, jnp.asarray(tokens))
+        tparams, topt, tl = tstep(tparams, topt, tokens)
+        np.testing.assert_allclose(float(tl), float(jl), rtol=SP_LOSS_TOL,
+                                   atol=SP_LOSS_TOL, err_msg=f"{step}")
+    want = dict(model._flatten(jax.tree.map(np.asarray, jparams)))
+    for path, t in model._flatten(tparams):
+        np.testing.assert_allclose(_np(t), want[path], rtol=1e-3, atol=1e-5,
+                                   err_msg=path)
+
+
+def test_sp_step_equals_single_device_step():
+    """The kernel ring over 4 ranks of one device and the single-device
+    step: the same loss and params after two steps (f32, summation
+    order only)."""
+    cfg = model.ModelConfig(**SP_ARCH, dtype=torch.float32, n_kv_heads=2)
+    init_fn, step_fn = model.make_train_step(cfg, device="cpu")
+    params, opt = init_fn(torch.Generator().manual_seed(3))
+    _, sp_step = sp.make_sp_train_step(["cpu"] * 4, cfg, impl="pallas")
+    a = b = (params, opt)
+    for seed in range(2):
+        tokens = np.random.default_rng(seed).integers(
+            0, 64, (2, 33)).astype(np.int32)
+        *a, la = step_fn(*a, tokens)
+        *b, lb = sp_step(*b, tokens)
+        np.testing.assert_allclose(float(la), float(lb), rtol=1e-5)
+    for (path, x), (_, y) in zip(model._flatten(a[0]),
+                                 model._flatten(b[0])):
+        np.testing.assert_allclose(_np(x), _np(y), rtol=1e-4, atol=1e-6,
+                                   err_msg=path)
+
+
+def test_sp_refusals_match_jax_and_name_slice_6():
+    """JAX's usage errors, and what waits for the port's mesh: sp×tp,
+    ZeRO-1 and MoE under sp (slice 6)."""
+    cfg = model.ModelConfig(**SP_ARCH, dtype=torch.float32)
+    jcfg = jax_model.ModelConfig(**SP_ARCH, dtype=jnp.float32)
+    jmesh = jax_sp.make_sp_mesh(jax.devices()[:4], sp=4)
+    for kw, match in [({"shard": "fsdp"}, "fsdp belongs to the dp/tp step"),
+                      ({"impl": "ring"}, "unknown sp impl")]:
+        with pytest.raises(ValueError, match=match):
+            sp.make_sp_train_step(["cpu"] * 4, cfg, **kw)
+        with pytest.raises(ValueError, match=match):
+            jax_sp.make_sp_train_step(jmesh, jcfg, **kw)
+    gqa = dict(n_kv_heads=2)
+    with pytest.raises(ValueError, match="impl='ulysses' needs"):
+        sp.make_sp_train_step(["cpu"] * 4, model.ModelConfig(
+            **SP_ARCH, **gqa), impl="ulysses")
+    with pytest.raises(ValueError, match="impl='ulysses' needs"):
+        jax_sp.make_sp_train_step(jmesh, jax_model.ModelConfig(
+            **SP_ARCH, **gqa), impl="ulysses")
+    with pytest.raises(ValueError, match="not divisible by the sp axis"):
+        sp.make_sp_train_step(["cpu"] * 3, cfg)
+    with pytest.raises(ValueError, match="slice 6"):
+        sp.make_sp_mesh(["cpu"], sp=2, tp=2)
+    with pytest.raises(ValueError, match="slice 6"):
+        sp.make_sp_train_step(["cpu"] * 2, cfg, shard="zero1")
+    with pytest.raises(ValueError, match="slice 6"):
+        sp.make_sp_train_step(["cpu"] * 2, model.ModelConfig(
+            **SP_ARCH, moe_experts=4))
+
+
 def test_init_fn_is_seeded_and_on_device():
     init_fn, _ = model.make_train_step(model.ModelConfig(**ARCH),
                                        device="cpu")
@@ -653,8 +751,10 @@ def test_cli_bad_n_kv_heads_is_rejected(tmp_path):
 @pytest.mark.parametrize("flags,slice_no", [
     (["--tp", "2"], 6), (["--ep", "2"], 6), (["--pp-stages", "2"], 6),
     (["--zero1"], 6), (["--shard", "fsdp"], 6), (["--shard", "zero1"], 6),
-    (["--sp", "2"], 5), (["--moe-experts", "4"], 6)],
-    ids=["tp", "ep", "pp", "zero1", "fsdp", "shard-zero1", "sp", "moe"])
+    (["--sp", "2", "--shard", "zero1"], 6), (["--sp", "2", "--tp", "2"], 6),
+    (["--moe-experts", "4"], 6)],
+    ids=["tp", "ep", "pp", "zero1", "fsdp", "shard-zero1", "sp", "sp-tp",
+         "moe"])
 def test_cli_refuses_unported_parallelism(tmp_path, flags, slice_no):
     res = CliRunner().invoke(train_cli.main, [
         "--platform", "cpu", "--steps", "1", "--checkpoint-dir",
@@ -670,3 +770,46 @@ def test_cli_refuses_a_missing_gpu(tmp_path, monkeypatch):
         "--steps", "1", "--checkpoint-dir", str(tmp_path)])
     assert res.exit_code == 2, res.output
     assert "--platform cpu" in res.output
+
+
+def test_cli_sp_trains_resumes_and_drains(tmp_path):
+    """--sp 2 on the CPU (the einsum ring, auto): 4 steps with a
+    checkpoint every 2, resume to 6, then drain with a checkpoint; the
+    checkpoints hold the single-device layout (generate and serve read
+    them)."""
+    first = _train(tmp_path, "--sp", "2", "--steps", "4",
+                   "--checkpoint-every", "2")
+    assert first.returncode == 0, first.stderr
+    assert "sp 2 ranks (auto) on cpu, cpu" in first.stderr
+    assert "training complete at step 4" in first.stderr
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["step_2", "step_4"]
+    second = _train(tmp_path, "--sp", "2", "--steps", "6",
+                    "--checkpoint-every", "2", "--sp-impl", "ulysses")
+    assert second.returncode == 0, second.stderr
+    assert "resumed from checkpoint step 4" in second.stderr
+    assert "training complete at step 6" in second.stderr
+    annotations = tmp_path / "annotations"
+    annotations.write_text('autoscaler.tpu.dev/checkpoint-requested="1"\n')
+    drain = _train(tmp_path, "--sp", "2", "--steps", "5000",
+                   "--annotations-file", str(annotations))
+    assert drain.returncode == 0, drain.stderr
+    assert "drain requested: checkpointed at step 6" in drain.stderr
+    params = model.load_params(str(tmp_path / "ckpt"), 6, "cpu")
+    assert tuple(params["blocks"]["qkv"].shape) == (1, 32, 96)
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--sp", "2", "--sp-impl", "pallas"], "needs --platform cuda"),
+    (["--sp", "3"], "--sp 3 must divide --seq-len 64"),
+    (["--sp", "4", "--sp-impl", "ulysses", "--n-kv-heads", "2"],
+     "impl='ulysses' needs"),
+    (["--sp", "2", "--shard", "fsdp"], "--shard fsdp composes with the "
+                                       "dp+tp step, not --sp"),
+], ids=["pallas-on-cpu", "seq-len", "ulysses-heads", "fsdp"])
+def test_cli_sp_usage_errors(tmp_path, flags, match):
+    res = CliRunner().invoke(train_cli.main, [
+        "--platform", "cpu", "--steps", "1", "--checkpoint-dir",
+        str(tmp_path), *flags])
+    assert res.exit_code == 2, res.output
+    assert match in " ".join(res.output.split())
+    assert not os.listdir(tmp_path)

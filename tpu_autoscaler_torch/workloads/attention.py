@@ -1,7 +1,8 @@
 """Attention kernels: ``flash_attention`` (the whole-sequence forward
-and its backward) and the one-token ``flash_decode`` and
-``paged_flash_decode``, as CUDA kernels beside their plain PyTorch
-versions, and the build that makes them.
+and its backward), the one-token ``flash_decode`` and
+``paged_flash_decode``, and the ring-attention hop ``ring_flash_step``
+and its backward ``ring_flash_bwd_step``, as CUDA kernels beside their
+plain PyTorch versions, and the build that makes them.
 
 ``flash_attention`` keeps the signature and the layout of the JAX
 package's ``workloads/attention.py::flash_attention``: q ``[b, h, s,
@@ -20,7 +21,11 @@ max_len, d]`` with the new k/v already written, and ``length`` a scalar
 or a per-row ``[b]`` count of filled positions.  ``paged_flash_decode``
 keeps those of the JAX ``paged_flash_decode``: the same q, one layer's
 block pools ``[num_blocks, kv_heads, block_size, d]``, per-row block
-tables ``[slots, tpr]`` (-1 = no block) and lengths ``[slots]``.  On
+tables ``[slots, tpr]`` (-1 = no block) and lengths ``[slots]``.
+``ring_flash_step`` and ``ring_flash_bwd_step`` keep those of the JAX
+functions of the same names, less ``block_q`` and ``interpret``: one
+rank's q against a visiting K/V block at a host-int ``offset``, merged
+into (or differentiating) the f32 online-softmax carry.  On
 CUDA tensors each launches its hand-written Hopper kernel (``csrc/``);
 on CPU tensors it runs its plain PyTorch version.  There is no fallback
 from one to the other: a CUDA tensor a kernel does not take raises.
@@ -57,7 +62,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES: dict[str, int] = {"flash_attention": 0,
                              "flash_attention_bwd_dq": 0,
                              "flash_attention_bwd_dkv": 0,
-                             "flash_decode": 0, "paged_flash_decode": 0}
+                             "flash_decode": 0, "paged_flash_decode": 0,
+                             "ring_flash_step": 0, "ring_flash_bwd_dq": 0,
+                             "ring_flash_bwd_dkv": 0}
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -67,7 +74,10 @@ KERNEL_SOURCES = {"flash_attention": CSRC / "flash_attention.cu",
                   "flash_attention_bwd_dq": CSRC / "flash_attention_bwd.cu",
                   "flash_attention_bwd_dkv": CSRC / "flash_attention_bwd.cu",
                   "flash_decode": CSRC / "flash_decode.cu",
-                  "paged_flash_decode": CSRC / "paged_flash_decode.cu"}
+                  "paged_flash_decode": CSRC / "paged_flash_decode.cu",
+                  "ring_flash_step": CSRC / "ring_flash_step.cu",
+                  "ring_flash_bwd_dq": CSRC / "ring_flash_bwd.cu",
+                  "ring_flash_bwd_dkv": CSRC / "ring_flash_bwd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Each library exports a C function of each entry's name: pointers
@@ -82,6 +92,12 @@ _ARGTYPES = {
     "flash_decode": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
     "paged_flash_decode": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+    + [ctypes.c_void_p],
+    "ring_flash_step": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+    + [ctypes.c_void_p],
+    "ring_flash_bwd_dq": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+    + [ctypes.c_void_p],
+    "ring_flash_bwd_dkv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
     + [ctypes.c_void_p]}
 _LIBS: dict[Path, ctypes.CDLL] = {}
 _ENTRIES: dict[str, object] = {}
@@ -498,6 +514,223 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
     delta = _delta(o, do)
     return (_bwd_dq(q, k, v, do, lse, delta, causal, window),
             *_bwd_dkv(q, k, v, do, lse, delta, causal, window))
+
+
+def _check_ring_args(q, k_t, v_t, window) -> None:
+    """What a ring hop needs of its shapes: q [b, h, sq, d] against a
+    visiting block k_t/v_t [b, hkv, sk, d] with hkv dividing h."""
+    if q.dim() != 4 or k_t.dim() != 4:
+        raise ValueError(f"ring hop wants q [b, h, sq, d] and k/v [b, hkv, "
+                         f"sk, d]; got {tuple(q.shape)}, {tuple(k_t.shape)}")
+    if k_t.shape != v_t.shape:
+        raise ValueError(f"k/v shape mismatch: {k_t.shape} vs {v_t.shape}")
+    if q.shape[1] % k_t.shape[1]:
+        raise ValueError(
+            f"query heads ({q.shape[1]}) must be a multiple of kv heads "
+            f"({k_t.shape[1]})")
+    if (q.shape[0], q.shape[3]) != (k_t.shape[0], k_t.shape[3]):
+        raise ValueError(f"q and k/v must share batch and head_dim; got q "
+                         f"{tuple(q.shape)} vs kv {tuple(k_t.shape)}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+
+
+def _check_rows(q, rows: dict) -> None:
+    """Each named tensor is f32 and shaped [b, h, sq, 1] (a per-row
+    statistic) or like q (acc)."""
+    b, h, sq, d = q.shape
+    for name, t in rows.items():
+        want = (b, h, sq, d) if name == "acc" else (b, h, sq, 1)
+        if tuple(t.shape) != want or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be f32 {list(want)}, got "
+                             f"{t.dtype} {list(t.shape)}")
+
+
+def _check_kernel_rows(name: str, q, rows: dict) -> None:
+    """The f32 carry or statistics a ring kernel reads: on q's device and
+    contiguous."""
+    for tname, t in rows.items():
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} kernel needs a contiguous {tname} on "
+                             f"q's device")
+
+
+def ring_hop_mask(sq: int, sk: int, offset: int, window: int | None,
+                  device=None) -> torch.Tensor:
+    """[sq, sk] bool mask of a masked ring hop: key k visible to query
+    row i iff 0 <= offset + i - k (< window), where offset is
+    global(q block start) - global(k block start).  The single
+    definition of the hop mask (the JAX package's ``_rel_mask``),
+    shared by the einsum merge and the plain versions of K5 and K6."""
+    rel = (offset + torch.arange(sq, device=device)[:, None]
+           - torch.arange(sk, device=device)[None, :])
+    keep = rel >= 0
+    if window is not None:
+        keep &= rel < window
+    return keep
+
+
+def ring_flash_step_reference(q, k_t, v_t, m, l, acc, *, offset: int,
+                              masked: bool, window: int | None = None):
+    """The plain PyTorch version of the ring_flash_step kernel, with its
+    numerics in one pass: f32 scores scaled by d^-0.5 after the dot,
+    masked entries at -1e30, then ``_online_softmax_merge``: m' = max(m,
+    max s), P = exp(s - m'), l' = l exp(m - m') + sum P, acc' = acc
+    exp(m - m') + P.to(v's dtype) v with f32 sums.  A row that sees no
+    key while its m is -1e30 takes P = 1 for every key, as the JAX kernel
+    does.  Returns fresh (m', l', acc')."""
+    _check_ring_args(q, k_t, v_t, window)
+    _check_rows(q, {"m": m, "l": l, "acc": acc})
+    b, h, sq, d = q.shape
+    hkv, sk = k_t.shape[1], k_t.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, hkv, g, sq, d).float()
+    scores = torch.einsum("bngqd,bnkd->bngqk", qg, k_t.float()) * d ** -0.5
+    if masked:
+        scores = scores.masked_fill(
+            ~ring_hop_mask(sq, sk, offset, window, q.device), NEG_INF)
+    scores = scores.reshape(b, h, sq, sk)
+    m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+    p = torch.exp(scores - m_new)
+    corr = torch.exp(m - m_new)
+    pv = torch.einsum("bngqk,bnkd->bngqd",
+                      p.to(v_t.dtype).float().reshape(b, hkv, g, sq, sk),
+                      v_t.float()).reshape(b, h, sq, d)
+    return (m_new, l * corr + p.sum(dim=-1, keepdim=True),
+            acc * corr + pv)
+
+
+def ring_flash_step(q, k_t, v_t, m, l, acc, *, offset: int, masked: bool,
+                    window: int | None = None):
+    """Merge one visiting K/V block into a ring rank's online-softmax
+    carry (the JAX package's ``ring_flash_step``).
+
+    q [b, h, sq, d] (the rank's queries); k_t, v_t [b, hkv, sk, d] (the
+    visiting block, hkv dividing h); m, l [b, h, sq, 1] and acc [b, h,
+    sq, d] f32; ``offset`` = global(q block start) - global(k block
+    start), read only when ``masked`` (key k visible to row i iff 0 <=
+    offset + i - k, and < ``window`` when given).  Returns the merged
+    (m, l, acc) as fresh tensors: the carry passed in is not written.
+
+    CPU tensors run :func:`ring_flash_step_reference`.  CUDA tensors
+    launch the kernel (bf16 or f32, head_dim 32, 64, 128 or 256, any sq
+    and sk, contiguous) or raise."""
+    _check_ring_args(q, k_t, v_t, window)
+    _check_rows(q, {"m": m, "l": l, "acc": acc})
+    if not _on_cuda("ring_flash_step", q):
+        return ring_flash_step_reference(q, k_t, v_t, m, l, acc,
+                                         offset=offset, masked=masked,
+                                         window=window)
+    b, h, sq, d = q.shape
+    hkv, sk = k_t.shape[1], k_t.shape[2]
+    if not -2 ** 31 < offset < 2 ** 31:
+        raise ValueError(f"ring_flash_step kernel takes an int32 offset, "
+                         f"got {offset}")
+    _check_kernel_tensors("ring_flash_step", q, {"k_t": k_t, "v_t": v_t})
+    _check_kernel_rows("ring_flash_step", q, {"m": m, "l": l, "acc": acc})
+    m_out, l_out, acc_out = (torch.empty_like(t) for t in (m, l, acc))
+    _launch("ring_flash_step", q, q.data_ptr(), k_t.data_ptr(),
+            v_t.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+            m_out.data_ptr(), l_out.data_ptr(), acc_out.data_ptr(), b, h, hkv,
+            sq, sk, d, _DTYPE_CODES[q.dtype], int(offset), int(masked),
+            window or 0)
+    return m_out, l_out, acc_out
+
+
+def _check_hop_backward_args(q, do, lse, delta) -> None:
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} must match q "
+                         f"{tuple(q.shape)}")
+    _check_rows(q, {"lse": lse, "delta": delta})
+
+
+def ring_flash_bwd_step_reference(q, k_t, v_t, do, lse, delta, *,
+                                  offset: int, masked: bool,
+                                  window: int | None = None):
+    """The plain PyTorch version of the ring_flash_bwd kernels, with their
+    numerics in one pass: f32 scores scaled by d^-0.5 after the dot, P =
+    exp(s - lse) (0 outside the hop's mask), dP = do.v^T, dS = P * (dP -
+    delta); dv_add = sum P.to(do's dtype)^T do, dk_add = sum dS.to(q's
+    dtype)^T q * scale (over the GQA group too), dq_add = dS.to(k's
+    dtype) k * scale; f32 sums and f32 outputs.  Returns (dq_add [b, h,
+    sq, d], dk_add, dv_add [b, hkv, sk, d])."""
+    _check_ring_args(q, k_t, v_t, window)
+    _check_hop_backward_args(q, do, lse, delta)
+    b, h, sq, d = q.shape
+    hkv, sk = k_t.shape[1], k_t.shape[2]
+    scale = d ** -0.5
+
+    def grouped(t):
+        return t.reshape(b, hkv, h // hkv, sq, t.shape[-1])
+
+    qg, dog = grouped(q).float(), grouped(do).float()
+    scores = torch.einsum("bngqd,bnkd->bngqk", qg, k_t.float()) * scale
+    p = torch.exp(scores - grouped(lse))
+    if masked:
+        p = torch.where(ring_hop_mask(sq, sk, offset, window, q.device), p,
+                        0.0)
+    dp = torch.einsum("bngqd,bnkd->bngqk", dog, v_t.float())
+    ds = p * (dp - grouped(delta))
+    dv = torch.einsum("bngqk,bngqd->bnkd", p.to(do.dtype).float(), dog)
+    dk = torch.einsum("bngqk,bngqd->bnkd", ds.to(q.dtype).float(),
+                      qg) * scale
+    dq = torch.einsum("bngqk,bnkd->bngqd", ds.to(k_t.dtype).float(),
+                      k_t.float()) * scale
+    return dq.reshape(b, h, sq, d), dk, dv
+
+
+def _ring_bwd_dq(q, k_t, v_t, do, lse, delta, offset, masked, window):
+    """Launch the hop's dq kernel (inputs checked by the caller)."""
+    b, h, sq, d = q.shape
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _launch("ring_flash_bwd_dq", q, q.data_ptr(), k_t.data_ptr(),
+            v_t.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), b, h, k_t.shape[1], sq, k_t.shape[2], d,
+            _DTYPE_CODES[q.dtype], int(offset), int(masked), window or 0)
+    return dq
+
+
+def _ring_bwd_dkv(q, k_t, v_t, do, lse, delta, offset, masked, window):
+    """Launch the hop's dk/dv kernel (inputs checked by the caller)."""
+    b, h, sq, d = q.shape
+    dk = torch.empty(k_t.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(k_t.shape, dtype=torch.float32, device=q.device)
+    _launch("ring_flash_bwd_dkv", q, q.data_ptr(), k_t.data_ptr(),
+            v_t.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, k_t.shape[1], sq,
+            k_t.shape[2], d, _DTYPE_CODES[q.dtype], int(offset), int(masked),
+            window or 0)
+    return dk, dv
+
+
+def ring_flash_bwd_step(q, k_t, v_t, do, lse, delta, *, offset: int,
+                        masked: bool, window: int | None = None):
+    """One backward ring hop (the JAX package's ``ring_flash_bwd_step``):
+    given the rank's q, do [b, h, sq, d], the forward ring's f32 lse and
+    delta = rowsum(do * out) [b, h, sq, 1], and the visiting k_t, v_t
+    [b, hkv, sk, d], returns the f32 (dq_add [b, h, sq, d], dk_add,
+    dv_add [b, hkv, sk, d]) this hop adds to the rank's dq and to the
+    dk/dv buffers travelling with the block.  ``offset``, ``masked`` and
+    ``window`` as in :func:`ring_flash_step`.
+
+    CPU tensors run :func:`ring_flash_bwd_step_reference`.  CUDA tensors
+    launch the dq and the dk/dv kernels (bf16 or f32, head_dim 32, 64,
+    128 or 256, any sq and sk, contiguous) or raise."""
+    _check_ring_args(q, k_t, v_t, window)
+    _check_hop_backward_args(q, do, lse, delta)
+    if not _on_cuda("ring_flash_bwd_step", q):
+        return ring_flash_bwd_step_reference(
+            q, k_t, v_t, do, lse, delta, offset=offset, masked=masked,
+            window=window)
+    if not -2 ** 31 < offset < 2 ** 31:
+        raise ValueError(f"ring_flash_bwd_step kernels take an int32 "
+                         f"offset, got {offset}")
+    _check_kernel_tensors("ring_flash_bwd_step", q,
+                          {"k_t": k_t, "v_t": v_t, "do": do})
+    _check_kernel_rows("ring_flash_bwd_step", q,
+                       {"lse": lse, "delta": delta})
+    args = (q, k_t, v_t, do, lse, delta, offset, masked, window)
+    return (_ring_bwd_dq(*args), *_ring_bwd_dkv(*args))
 
 
 def flash_decode(q, k_cache, v_cache, length, *, window: int | None = None,

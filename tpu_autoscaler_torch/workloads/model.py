@@ -629,7 +629,17 @@ def make_train_step(cfg: ModelConfig, train: TrainConfig | None = None,
         raise NotImplementedError(
             "MoE training is not ported yet (ROADMAP.md, slice 6)")
     dev = resolve_device(device)
-    optimizer = make_optimizer(train or TrainConfig())
+    return _make_step(cfg, make_optimizer(train or TrainConfig()), dev,
+                      lambda tree, tokens: loss_fn(tree, tokens, cfg))
+
+
+def _make_step(cfg: ModelConfig, optimizer: Optimizer, dev: torch.device,
+               loss_of):
+    """(init_fn, step_fn) for the f32 master params on ``dev`` and the
+    loss ``loss_of(params, tokens)``: the gradient by
+    ``torch.autograd.grad`` with respect to the master params, then the
+    optimizer's update (shared by the single-device and the
+    sequence-parallel steps)."""
 
     def init_fn(generator: torch.Generator):
         params = init_params(generator, cfg, dev)
@@ -639,8 +649,7 @@ def make_train_step(cfg: ModelConfig, train: TrainConfig | None = None,
         tokens = torch.as_tensor(tokens, device=dev)
         paths, leaves = zip(*_flatten(params))
         leaves = [p.detach().requires_grad_() for p in leaves]
-        tree = _unflatten(dict(zip(paths, leaves)))
-        loss = loss_fn(tree, tokens, cfg)
+        loss = loss_of(_unflatten(dict(zip(paths, leaves))), tokens)
         grads = torch.autograd.grad(loss, leaves)
         grads = _unflatten(dict(zip(paths, grads)))
         updates, opt_state = optimizer.update(grads, opt_state, params)

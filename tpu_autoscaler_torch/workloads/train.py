@@ -14,10 +14,14 @@ Checkpoints are ``step_N/params.npz`` (the layout ``serve`` and
 ``generate`` read) plus ``step_N/opt.npz``; the JAX trainer's orbax
 checkpoints cannot be read here (orbax needs JAX).  Training runs on
 CUDA unless ``--platform cpu`` is given; without a GPU it refuses to
-start rather than run on the CPU.  The mesh flags (``--tp``, ``--ep``,
-``--pp-stages``, ``--zero1``, ``--shard``) and MoE wait for slice 6 of
-the port and ``--sp`` for slice 5 (ROADMAP.md): asking for one is a
-usage error.
+start rather than run on the CPU.
+
+``--sp N`` trains with the sequence cut over N ranks (``sp.py``: the
+ring, or ``--sp-impl ulysses``), one process, rank r on card r mod the
+number of cards, so ranks share a card when there are fewer cards than
+N.  The mesh flags (``--tp``, ``--ep``, ``--pp-stages``, ``--zero1``,
+``--shard``), data-parallel replicas beside the sp ranks, and MoE wait
+for slice 6 of the port (ROADMAP.md): asking for one is a usage error.
 """
 
 from __future__ import annotations
@@ -39,23 +43,31 @@ log = logging.getLogger(__name__)
 
 
 def _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
-                     shard_mode, moe_experts) -> None:
-    """Usage errors for what this single-device trainer does not run,
-    each naming the slice of the port that brings it."""
+                     shard_mode, sp_impl, platform, moe_experts) -> None:
+    """Usage errors for what this trainer does not run, each naming the
+    slice of the port that brings it, and the JAX trainer's usage errors
+    for --sp."""
+    if sp_degree > 1 and shard_mode == "fsdp":
+        raise click.UsageError(
+            "--shard fsdp composes with the dp+tp step, not --sp "
+            "(params replicate under sp; --shard zero1 composes)")
     refused = [
-        (tp_degree is not None and tp_degree > 1, "--tp", 6),
-        (ep_degree > 1, "--ep", 6),
-        (pp_stages > 1, "--pp-stages", 6),
-        (zero1, "--zero1", 6),
-        (shard_mode in ("zero1", "fsdp"), f"--shard {shard_mode}", 6),
-        (sp_degree > 1, "--sp", 5),
-        (moe_experts is not None, "--moe-experts", 6),
+        (tp_degree is not None and tp_degree > 1, "--tp"),
+        (ep_degree > 1, "--ep"),
+        (pp_stages > 1, "--pp-stages"),
+        (zero1, "--zero1"),
+        (shard_mode in ("zero1", "fsdp"), f"--shard {shard_mode}"),
+        (moe_experts is not None, "--moe-experts"),
     ]
-    for asked, flag, slice_no in refused:
+    for asked, flag in refused:
         if asked:
             raise click.UsageError(
-                f"{flag} is not ported yet: this trainer runs on one "
-                f"device (ROADMAP.md, slice {slice_no})")
+                f"{flag} is not ported yet: it needs the port's mesh "
+                f"(ROADMAP.md, slice 6)")
+    if sp_degree > 1 and sp_impl == "pallas" and platform == "cpu":
+        raise click.UsageError(
+            "--sp-impl pallas runs the ring's CUDA kernels: it needs "
+            "--platform cuda (auto or einsum run on the CPU)")
 
 
 @click.command()
@@ -97,11 +109,21 @@ def _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
 @click.option("--pp-microbatches", default=4, show_default=True,
               help="Microbatches per pipelined step (with --pp-stages).")
 @click.option("--sp", "sp_degree", default=1, show_default=True,
-              help="Context parallelism (> 1 not ported: slice 5).")
+              help="Context parallelism: shard the SEQUENCE over this "
+                   "many ranks of one process (ring attention), rank r "
+                   "on card r mod the card count, so ranks share a card "
+                   "when there are fewer cards.  Data-parallel replicas "
+                   "beside the sp ranks need the mesh (slice 6).  1 = "
+                   "off.")
 @click.option("--sp-impl",
               type=click.Choice(["auto", "einsum", "pallas", "ulysses"]),
               default="auto", show_default=True,
-              help="Sequence-parallel attention strategy (with --sp).")
+              help="Sequence-parallel attention strategy: einsum/pallas "
+                   "= ring (pallas: the hand-written CUDA hop kernels, "
+                   "CUDA only); ulysses = all-to-all to head sharding + "
+                   "local flash attention (needs heads divisible by "
+                   "--sp).  auto = the kernel ring on CUDA, einsum on "
+                   "the CPU.")
 @click.option("--data-file", default=None,
               help="Binary uint32 token shard to train on (numpy loader). "
                    "Default: synthetic random tokens.")
@@ -125,7 +147,8 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
          ep_degree, pp_stages, pp_microbatches, sp_degree, sp_impl,
          data_file, profile_dir, checkpoint_dir, checkpoint_every,
          annotations_file, platform):
-    """Train the in-tree model on one device (synthetic data)."""
+    """Train the in-tree model on one device, or with the sequence cut
+    over --sp ranks (synthetic data)."""
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(levelname)s: %(message)s")
     import torch
@@ -146,7 +169,10 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
     )
 
     _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
-                     shard_mode, moe_experts)
+                     shard_mode, sp_impl, platform, moe_experts)
+    if sp_degree > 1 and seq_len % sp_degree:
+        raise click.UsageError(
+            f"--sp {sp_degree} must divide --seq-len {seq_len}")
     try:
         cfg = model_config(vocab, seq_len, d_model, n_layers, n_kv_heads,
                            attention_window, no_rope, moe_experts,
@@ -160,8 +186,26 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
     except (ValueError, RuntimeError) as e:
         raise click.UsageError(str(e)) from e
 
-    init_fn, raw_step_fn = make_train_step(cfg, train=train_cfg,
-                                           device=device)
+    if sp_degree > 1:
+        from tpu_autoscaler_torch.workloads.sp import (
+            make_sp_mesh,
+            make_sp_train_step,
+        )
+
+        devices = make_sp_mesh(None if device.type == "cuda" else [device],
+                               sp=sp_degree)
+        try:  # e.g. ulysses head divisibility
+            init_fn, raw_step_fn = make_sp_train_step(
+                devices, cfg, train=train_cfg,
+                impl=None if sp_impl == "auto" else sp_impl)
+        except ValueError as e:
+            raise click.UsageError(str(e)) from e
+        device = devices[0]
+        log.info("sp %d ranks (%s) on %s", sp_degree, sp_impl,
+                 ", ".join(map(str, devices)))
+    else:
+        init_fn, raw_step_fn = make_train_step(cfg, train=train_cfg,
+                                               device=device)
     # A CPU generator: the same initial params on every device.
     params, opt_state = init_fn(torch.Generator().manual_seed(0))
     log.info("device %s; params initialized", device)
