@@ -172,6 +172,9 @@ SP_GRAD_NORM_RTOL = 0.005
 # the plain versions on the CPU differ by 1.2e-4 at 4 ranks).
 SMALL_SP_PARAM_RTOL = 1e-3
 RING_KERNELS = ("ring_flash_step", "ring_flash_bwd_dq", "ring_flash_bwd_dkv")
+# What each kernel runs its bf16 products on (the kernels line's design).
+FMA_DESIGN = "cuda-core fma"
+TC_DESIGN = "wgmma+tma"
 
 
 def emit(phase: str, **fields) -> None:
@@ -307,8 +310,10 @@ def check_case(torch, F, attention, flush, *, label, b, h, hkv, max_len,
 
 
 def phase_kernel_checks(torch, F, attention, flush, main_lengths):
-    """K3 in 14 cases; the first at the linear main path's shape with
-    the lengths of its median decode tick."""
+    """K3 in 16 cases; the first at the linear main path's shape with
+    the lengths of its median decode tick; head_dim 96 (read at its true
+    width by the d 128 build) and a GQA group of 64 (two CTAs of 32
+    heads a row) among them."""
     full = dict(b=4, h=16, hkv=2, max_len=1024, d=64, dtype=torch.bfloat16)
     window, chunk = 256, CHUNK
     ring = dict(full, max_len=window + chunk, window=window, ring=True)
@@ -331,6 +336,8 @@ def phase_kernel_checks(torch, F, attention, flush, main_lengths):
         dict(full, label="d256", d=256, lengths=[1, 300, 777, 1024]),
         dict(full, label="f32-d256", d=256, dtype=torch.float32,
              lengths=[0, 65, 513, 1024]),
+        dict(full, label="d96", d=96, lengths=[1, 300, 777, 1024]),
+        dict(full, label="group64", h=64, hkv=1, lengths=[1, 300, 777, 1024]),
     ]
     return [check_case(torch, F, attention, flush, seed=i, **c)
             for i, c in enumerate(cases)]
@@ -407,8 +414,9 @@ def check_paged_case(torch, F, attention, flush, *, label, slots, h, hkv,
 
 
 def phase_paged_kernel_checks(torch, F, attention, flush, main_tick):
-    """K4 in 15 cases; the first at the paged main path's shape with the
-    block tables and lengths of its median decode tick."""
+    """K4 in 17 cases; the first at the paged main path's shape with the
+    block tables and lengths of its median decode tick; head_dim 96 and
+    a GQA group of 64 among them."""
     tpr = MAX_LEN // BLOCK_SIZE
     full = dict(slots=PAGED_SLOTS, h=16, hkv=2, bs=BLOCK_SIZE, tpr=tpr,
                 nb=NUM_BLOCKS, d=64, dtype=torch.bfloat16)
@@ -446,6 +454,9 @@ def phase_paged_kernel_checks(torch, F, attention, flush, main_tick):
              edits=((3, 60, -1),)),
         dict(full, label="f32-d256", d=256, dtype=torch.float32,
              lengths=spread),
+        dict(full, label="d96-window", d=96, window=256, lengths=spread,
+             edits=((3, 60, -1),)),
+        dict(full, label="group64", h=64, hkv=1, lengths=spread),
     ]
     return [check_paged_case(torch, F, attention, flush, seed=100 + i, **c)
             for i, c in enumerate(cases)]
@@ -513,7 +524,8 @@ def check_attn_case(torch, F, attention, flush, *, label, b, h, hkv, s, d,
 
 
 def phase_attn_kernel_checks(torch, F, attention, flush):
-    """K1 in 14 cases; the first is the GQA generate path's prefill."""
+    """K1 in 15 cases; the first is the GQA generate path's prefill; the
+    last at head_dim 96 (run zero-padded to 128)."""
     main = dict(b=GEN_BATCH, h=16, hkv=2, s=GEN_PROMPT, d=64,
                 dtype=torch.bfloat16)
     cases = [
@@ -531,6 +543,7 @@ def phase_attn_kernel_checks(torch, F, attention, flush):
         dict(main, label="f32-d128", b=2, s=300, d=128, dtype=torch.float32),
         dict(main, label="f32-d32", b=2, s=200, d=32, dtype=torch.float32),
         dict(main, label="d256", b=2, s=333, d=256),
+        dict(main, label="d96", b=2, s=1000, d=96, window=300),
     ]
     return [check_attn_case(torch, F, attention, flush, seed=200 + i, **c)
             for i, c in enumerate(cases)]
@@ -584,10 +597,12 @@ def check_bwd_case(torch, F, attention, flush, *, label, b, h, hkv, s, d,
     del got, want
     dname = str(dtype)
     delta = attention._delta(out, do)
-    ms_dq = _time_ms(torch, lambda: attention._bwd_dq(
-        q, k, v, do, lse, delta, causal, window), flush)
-    ms_dkv = _time_ms(torch, lambda: attention._bwd_dkv(
-        q, k, v, do, lse, delta, causal, window), flush)
+    # Each kernel alone, through the same padding as the wrapper.
+    args, pad = (q, k, v, do, lse, delta), (0, 1, 2, 3)
+    ms_dq = _time_ms(torch, lambda: attention.call_padded(
+        attention._bwd_dq, args, pad, **kw), flush)
+    ms_dkv = _time_ms(torch, lambda: attention.call_padded(
+        attention._bwd_dkv, args, pad, **kw), flush)
     ms = _time_ms(torch, lambda: attention.flash_attention_backward(
         q, k, v, out, lse, do, **kw), flush)
     plain_ms = _time_ms(
@@ -627,8 +642,9 @@ def check_bwd_case(torch, F, attention, flush, *, label, b, h, hkv, s, d,
 
 
 def phase_bwd_kernel_checks(torch, F, attention, flush):
-    """K2 in 13 cases; the first is a layer of the training main path,
-    the second a layer of the long-sequence recipe."""
+    """K2 in 14 cases; the first is a layer of the training main path,
+    the second a layer of the long-sequence recipe; the last at head_dim
+    96 (run zero-padded to 128)."""
     gqa = dict(b=2, h=16, hkv=2, s=512, d=64, dtype=torch.bfloat16)
     cases = [
         dict(label="train-main-path", b=TRAIN_BATCH, h=16, hkv=16, s=1024,
@@ -646,6 +662,7 @@ def phase_bwd_kernel_checks(torch, F, attention, flush):
         dict(gqa, label="f32-d128", s=300, d=128, dtype=torch.float32),
         dict(gqa, label="f32-d32", s=200, d=32, dtype=torch.float32),
         dict(gqa, label="d256", s=333, d=256),
+        dict(gqa, label="d96", s=700, d=96, window=300),
     ]
     return [check_bwd_case(torch, F, attention, flush, seed=300 + i, **c)
             for i, c in enumerate(cases)]
@@ -1389,7 +1406,11 @@ def check_ring_case(torch, F, attention, flush, *, label, b, h, hkv, sq, sk,
     against ring_flash_bwd_step_reference with grad_err_over_tol by the
     inputs' dtype.
     ``timed``: each kernel timed alone beside its plain version and SDPA
-    on the same hop with its mask (forward, and its backward)."""
+    on the same hop with its mask (forward, and its backward), with the
+    TFLOP/s each reaches over the work its hop needs (4·d flops per
+    visible pair forward, 6·d dq, 8·d dk/dv, 10·d the backward); at a
+    head_dim no kernel is built for, also the zero-padding copy that
+    ``attention.call_padded`` makes of the forward's q, k, v and acc."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(*shape, dt=dtype):
@@ -1444,17 +1465,18 @@ def check_ring_case(torch, F, attention, flush, *, label, b, h, hkv, sq, sk,
                **{f"bound_ms_{n}": v[0] for n, v in bounds.items()},
                **{f"bound_by_{n}": v[1] for n, v in bounds.items()})
     if timed:
-        args = (q, k, v, do, lse, delta, offset, masked, window)
+        # Each K6 kernel alone, through the same padding as the wrapper.
+        args, pad = (q, k, v, do, lse, delta), (0, 1, 2, 3)
         rec.update(
             ms_fwd=_time_ms(torch, lambda: attention.ring_flash_step(
                 q, k, v, m, l_, acc, **kw), flush),
             plain_ms_fwd=_time_ms(
                 torch, lambda: attention.ring_flash_step_reference(
                     q, k, v, m, l_, acc, **kw), flush),
-            ms_dq=_time_ms(torch, lambda: attention._ring_bwd_dq(*args),
-                           flush),
-            ms_dkv=_time_ms(torch, lambda: attention._ring_bwd_dkv(*args),
-                            flush),
+            ms_dq=_time_ms(torch, lambda: attention.call_padded(
+                attention._ring_bwd_dq, args, pad, **kw), flush),
+            ms_dkv=_time_ms(torch, lambda: attention.call_padded(
+                attention._ring_bwd_dkv, args, pad, **kw), flush),
             ms_bwd=_time_ms(torch, lambda: attention.ring_flash_bwd_step(
                 q, k, v, do, lse, delta, **kw), flush),
             plain_ms_bwd=_time_ms(
@@ -1481,6 +1503,15 @@ def check_ring_case(torch, F, attention, flush, *, label, b, h, hkv, sq, sk,
                           "and mask (normalised output, no carry), and its "
                           "backward")
         del lout, leaves
+        for part, per_pair in (("fwd", 4), ("dq", 6), ("dkv", 8),
+                               ("bwd", 10)):
+            rec[f"tflops_{part}"] = per_pair * d * b * h * pairs \
+                / (rec[f"ms_{part}"] * 1e-3) / 1e12
+        width = attention.kernel_width(d)
+        if width != d:
+            rec["pad_copy_ms"] = _time_ms(torch, lambda: [
+                attention.pad_head_dim(t, width) for t in (q, k, v, acc)],
+                flush)
     emit("ring_kernel_check", **rec)
     worst = max(e[1] for e in errs.values())
     if not worst <= 1.0:
@@ -1491,9 +1522,11 @@ def check_ring_case(torch, F, attention, flush, *, label, b, h, hkv, sq, sk,
 
 
 def phase_ring_kernel_checks(torch, F, attention, flush):
-    """K5 and K6 in 14 cases each; the first two are the SP main path's
+    """K5 and K6 in 16 cases each; the first two are the SP main path's
     hops (b 2, h 8, s_loc 2048, d 128, bf16), timed: an unmasked hop (6
-    of each layer's 10 visible hops) and a diagonal one (4 of 10)."""
+    of each layer's 10 visible hops) and a diagonal one (4 of 10).  The
+    last two: the main hop at head_dim 96 (zero-padded to 128, timed
+    with its padding copy) and an unmasked bf16 hop at d 256."""
     s_loc = SP_FULL["seq_len"] // SP_RANKS
     main = dict(b=SP_BATCH, h=8, hkv=8, sq=s_loc, sk=s_loc, d=128,
                 dtype=torch.bfloat16)
@@ -1523,6 +1556,10 @@ def phase_ring_kernel_checks(torch, F, attention, flush):
         dict(small, label="no-key-rows-fresh", sq=64, sk=64, offset=-20,
              masked=True, carry="fresh"),
         dict(small, label="s1", b=3, sq=1, sk=33, offset=32, masked=True),
+        dict(main, label="main-unmasked-d96", d=96, offset=s_loc,
+             masked=False, timed=True),
+        dict(small, label="d256-unmasked", d=256, sq=500, sk=700, offset=700,
+             masked=False),
     ]
     return [check_ring_case(torch, F, attention, flush, seed=400 + i, **c)
             for i, c in enumerate(cases)]
@@ -1673,8 +1710,9 @@ def phase_small_sp(torch, np, model, sp, decode):
 
 def phase_cli(model, decode, DrainReceipt):
     """The CLIs on the card: serve with the linear cache and with
-    ``--paged`` (a 6-block pool, so it preempts); then, at the CLIs'
-    default architecture flags (head_dim 32), generate, which must
+    ``--paged`` (a 6-block pool, so it preempts), and ``serve --random 4
+    --d-model 384`` (head_dim 96, which no kernel is built for); then,
+    at the CLIs' default architecture flags (head_dim 32), generate, which must
     print the tokens decode.generate gives in-process, and serve; then
     train (20 steps, checkpoints every 10), resume to 30, drain (a
     checkpoint request in the annotations file: exit 0 with a
@@ -1697,18 +1735,18 @@ def phase_cli(model, decode, DrainReceipt):
                                  f"{missing}:\n{res.stderr[-4000:]}")
         return time.perf_counter() - t0, res.stdout.strip().splitlines()
 
-    def serve(ckpt, cache, flags):
+    def serve(ckpt, cache, flags, requests=6):
         cmd = [sys.executable, "-m", "tpu_autoscaler_torch.workloads.serve",
-               "--checkpoint-dir", ckpt, "--random", "6", "--platform",
-               "cuda", "--annotations-file",
+               "--checkpoint-dir", ckpt, "--random", str(requests),
+               "--platform", "cuda", "--annotations-file",
                os.path.join(tmp, "annotations"), *flags]
         dt, lines = run(cmd, f"serve CLI ({cache})")
         receipt = DrainReceipt.parse_line(lines[-1])
-        emit("cli", command="serve", cache=cache, seconds=dt,
+        emit("cli", command="serve", cache=cache, flags=flags, seconds=dt,
              served=receipt.served, unserved=receipt.unserved,
              ticks=receipt.ticks, decode_tokens=receipt.decode_tokens,
              preempted=receipt.stats["preempted_total"])
-        if receipt.unserved != 0 or receipt.served != 6:
+        if receipt.unserved != 0 or receipt.served != requests:
             raise AssertionError(f"serve CLI ({cache}) receipt: {receipt}")
 
     def checkpoint(cfg, name):
@@ -1728,6 +1766,10 @@ def phase_cli(model, decode, DrainReceipt):
         serve(ckpt, "paged", arch + ["--paged", "--block-size", "16",
                                      "--num-blocks", "6",
                                      "--max-new-tokens", "48"])
+        # --d-model 384 over the CLIs' 4 heads: head_dim 96, which no
+        # kernel is built for (K1 padded to 128, K3 at its true width).
+        ckpt, _ = checkpoint(model.ModelConfig(d_model=384), "d384")
+        serve(ckpt, "linear-d384", ["--d-model", "384"], requests=4)
         # The CLIs' defaults: vocab 256, d_model 128, 2 layers, 4 heads.
         cfg = model.ModelConfig()
         ckpt, params = checkpoint(cfg, "defaults")
@@ -1880,7 +1922,7 @@ def main() -> None:
              paged_rec["paged_flash_decode_launches"], paged_checks)):
         at_main = kchecks[0]
         kernels.append(dict(
-            name=kname, route="cuda",
+            name=kname, route="cuda", design=FMA_DESIGN,
             source=f"tpu_autoscaler_torch/csrc/{source}",
             replaces=f"tpu_autoscaler/workloads/attention.py:{replaces}",
             launches=launches, max_abs_err=at_main["max_abs_err"],
@@ -1897,7 +1939,7 @@ def main() -> None:
             ("flash_attention_bwd_dq", "dq", 310, ("dq",)),
             ("flash_attention_bwd_dkv", "dkv", 344, ("dk", "dv"))):
         kernels.append(dict(
-            name=kname, route="cuda",
+            name=kname, route="cuda", design=FMA_DESIGN,
             source="tpu_autoscaler_torch/csrc/flash_attention_bwd.cu",
             replaces=f"tpu_autoscaler/workloads/attention.py:{replaces}",
             launches=train_rec["launches_per_step"][kname],
@@ -1921,7 +1963,7 @@ def main() -> None:
             ("ring_flash_bwd_dkv", "dkv", "bwd", 672, "ring_flash_bwd.cu",
              ("dk", "dv"))):
         kernels.append(dict(
-            name=kname, route="cuda",
+            name=kname, route="cuda", design=TC_DESIGN,
             source=f"tpu_autoscaler_torch/csrc/{source}",
             replaces=f"tpu_autoscaler/workloads/attention.py:{replaces}",
             launches=sp_rec["launches_per_step"][kname],
@@ -1934,6 +1976,7 @@ def main() -> None:
             library=at_main["library"],
             plain_and_library_scope="whole hop" if whole == "bwd"
             else "kernel", hop="unmasked", diag_hop_ms=at_diag[f"ms_{part}"],
+            tflops=at_main[f"tflops_{part}"],
             cases_passed=len(ring_checks), shape=at_main["shape"]))
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -138,7 +138,8 @@ def test_auto_resolves_by_device_and_head_dim():
     assert cfg.resolved_attention(torch.device("cpu")) == "einsum"
     assert cfg.resolved_attention(torch.device("cuda")) == "kernel"
     # A head_dim the kernel is not built for still resolves to the
-    # kernel on CUDA, whose wrapper then raises: never a plain run there.
+    # kernel on CUDA, which runs it zero-padded to a built width: never a
+    # plain run there.
     odd = ModelConfig(d_model=192, n_heads=4)           # head_dim 48
     assert odd.head_dim not in attention.KERNEL_HEAD_DIMS
     assert odd.resolved_attention(torch.device("cuda")) == "kernel"

@@ -86,13 +86,17 @@ def test_paged_cuda_kernel_matches_plain_version(dtype, d, bs):
         err, share = err_over_tol(torch, got, want)
         assert share <= 1.0, (window, err, share, TOL_REASON[str(dtype)])
     with pytest.raises(ValueError, match="head_dim"):
-        attention.paged_flash_decode(q[..., :16].contiguous(),
-                                     k[..., :16].contiguous(),
-                                     v[..., :16].contiguous(), tables,
-                                     lengths)
+        attention.paged_flash_decode(*_too_wide(q, k, v), tables, lengths)
 
 
 LSE_TOL = 1e-4   # f32 in both versions; only the summation order differs
+
+
+def _too_wide(*tensors):
+    """The tensors zero-padded to head_dim 264: wider than any kernel
+    takes (256), so the wrappers must raise."""
+    return [torch.nn.functional.pad(t, (0, 264 - t.shape[-1]))
+            for t in tensors]
 
 
 @pytest.mark.cuda
@@ -122,9 +126,7 @@ def test_flash_attention_cuda_kernel_matches_plain_version(dtype, d):
         assert share <= 1.0, (s, kw, err, share, TOL_REASON[str(dtype)])
         assert (lse - want_lse).abs().max().item() <= LSE_TOL, (s, kw)
     with pytest.raises(ValueError, match="head_dim"):
-        attention.flash_attention(q[..., :16].contiguous(),
-                                  k[..., :16].contiguous(),
-                                  v[..., :16].contiguous())
+        attention.flash_attention(*_too_wide(q, k, v))
     with pytest.raises(ValueError, match="bf16 or f32"):
         attention.flash_attention(q.half(), k.half(), v.half())
     # Inputs that require grad take the autograd.Function: K1 forward,
@@ -175,9 +177,9 @@ def test_flash_attention_backward_cuda_kernels_match_plain_version(dtype, d):
             assert gt.shape == wt.shape and gt.dtype == wt.dtype
             err, share = grad_err_over_tol(torch, gt, wt)
             assert share <= 1.0, (name, s, kw, err, share)
-    cut = [t[..., :16].contiguous() for t in (q, k, v, out, do)]
+    wide = _too_wide(q, k, v, out, do)
     with pytest.raises(ValueError, match="head_dim"):
-        attention.flash_attention_backward(*cut[:4], lse, cut[4])
+        attention.flash_attention_backward(*wide[:4], lse, wide[4])
     with pytest.raises(ValueError, match="bf16 or f32"):
         attention.flash_attention_backward(q.half(), k.half(), v.half(),
                                            out.half(), lse, do.half())
@@ -240,15 +242,12 @@ def _hop_tensors(g, dtype, b, h, hkv, sq, sk, d, carry):
     return q, k, v, m, l_, acc
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d", HEAD_DIMS)
-def test_ring_hop_cuda_kernels_match_plain_versions(dtype, d):
+def _check_hops(dtype, d, cases, seed):
     """K5 (m, l, acc) and K6 (dq_add, dk_add, dv_add) against their plain
-    versions on the card; K5 leaves the carry it was given as it was."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    g = torch.Generator(device="cuda").manual_seed(5)
-    for b, h, hkv, sq, sk, offset, masked, window, carry in HOP_CASES:
+    versions on the card in each case; K5 leaves the carry it was given
+    as it was."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for b, h, hkv, sq, sk, offset, masked, window, carry in cases:
         kw = dict(offset=offset, masked=masked, window=window)
         q, k, v, m, l_, acc = _hop_tensors(g, dtype, b, h, hkv, sq, sk, d,
                                            carry)
@@ -272,6 +271,114 @@ def test_ring_hop_cuda_kernels_match_plain_versions(dtype, d):
             assert gt.dtype == torch.float32 and gt.shape == wt.shape
             err, share = grad_err_over_tol(torch, gt, wt, dtype)
             assert share <= 1.0, (name, sq, sk, kw, err, share)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", HEAD_DIMS)
+def test_ring_hop_cuda_kernels_match_plain_versions(dtype, d):
+    """K5 (m, l, acc) and K6 (dq_add, dk_add, dv_add) against their plain
+    versions on the card; K5 leaves the carry it was given as it was."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _check_hops(dtype, d, HOP_CASES, seed=5)
+
+
+# Hops of many tiles, past the tensor-core kernels' rings of 2-3 stages:
+# a diagonal hop, an unmasked one with sq != sk, a window-cut one, and a
+# GQA group of 4 streaming through the dk/dv kernel.
+LONG_HOP_CASES = [(1, 4, 2, 700, 700, 0, True, None, "fresh"),
+                  (1, 4, 2, 300, 500, 400, False, None, "random"),
+                  (1, 4, 2, 600, 600, 600, True, 650, "random"),
+                  (1, 8, 2, 257, 257, 257, False, None, "random")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
+def test_ring_hop_tensor_core_kernels_match_plain_versions(d):
+    """The bf16 ring kernels (K5 and K6 on wgmma) at every built head_dim
+    and at 96 (run padded to 128): unmasked, diagonal, windowed, sq !=
+    sk, tails (sq 100, 77), lone rows with a fresh carry, and hops of
+    many tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _check_hops(torch.bfloat16, d, HOP_CASES + LONG_HOP_CASES, seed=7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_every_kernel_at_head_dim_96(dtype):
+    """Head_dim 96, which no kernel is built for: K1 and K2 (padded to
+    128), K3 and K4 (the cache read at its true width) and K5/K6 (padded)
+    against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    d = 96
+    g = torch.Generator(device="cuda").manual_seed(8)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    q, k, v, do = _bwd_inputs(g, dtype, 2, 4, 2, 100, d)
+    out, lse = attention.flash_attention_forward(q, k, v, window=40)
+    want, want_lse = attention.flash_attention_reference(q, k, v, window=40)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape
+    assert err_over_tol(torch, out, want)[1] <= 1.0
+    assert (lse - want_lse).abs().max().item() <= LSE_TOL
+    got = attention.flash_attention_backward(q, k, v, out, lse, do, window=40)
+    want = attention.flash_attention_backward_reference(q, k, v, out, lse, do,
+                                                        window=40)
+    for gt, wt in zip(got, want):
+        assert gt.shape == wt.shape
+        assert grad_err_over_tol(torch, gt, wt)[1] <= 1.0
+    qd, kc, vc = rnd(4, 16, 1, d), rnd(4, 2, 384, d), rnd(4, 2, 384, d)
+    lengths = torch.tensor([1, 100, 383, 384], dtype=torch.int32,
+                           device="cuda")
+    for kw in ({}, {"window": 256}):
+        got = attention.flash_decode(qd, kc, vc, lengths, **kw)
+        want = attention.flash_decode_reference(qd, kc, vc, lengths, **kw)
+        assert err_over_tol(torch, got, want)[1] <= 1.0
+    pool_k, pool_v = rnd(100, 2, 16, d), rnd(100, 2, 16, d)
+    tables = torch.randperm(100, generator=g, device="cuda")[:4 * 24] \
+        .reshape(4, 24).to(torch.int32)
+    got = attention.paged_flash_decode(qd, pool_k, pool_v, tables, lengths)
+    want = attention.paged_flash_decode_reference(qd, pool_k, pool_v, tables,
+                                                  lengths)
+    assert err_over_tol(torch, got, want)[1] <= 1.0
+    _check_hops(dtype, d, HOP_CASES[:3], seed=9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.float32, 48)])
+def test_decode_kernels_at_group_64(dtype, d):
+    """K3 and K4 with 64 query heads on one KV head (two CTAs of 32
+    heads each per row), against their plain versions, at a head_dim
+    whose rows are whole 16-byte vectors and at d 20 (40 bytes in bf16,
+    80 in f32), whose rows are staged element-wise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(10)
+    for width in (d, 20):
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+        q, kc, vc = rnd(3, 64, 1, width), rnd(3, 1, 300, width), \
+            rnd(3, 1, 300, width)
+        lengths = torch.tensor([1, 150, 300], dtype=torch.int32,
+                               device="cuda")
+        got = attention.flash_decode(q, kc, vc, lengths)
+        want = attention.flash_decode_reference(q, kc, vc, lengths)
+        assert err_over_tol(torch, got, want)[1] <= 1.0, width
+        pool_k, pool_v = rnd(80, 1, 8, width), rnd(80, 1, 8, width)
+        tables = torch.randperm(80, generator=g, device="cuda")[:3 * 25] \
+            .reshape(3, 25).to(torch.int32)
+        tables[1, 3] = -1
+        got = attention.paged_flash_decode(q, pool_k, pool_v, tables,
+                                           lengths, window=100)
+        want = attention.paged_flash_decode_reference(
+            q, pool_k, pool_v, tables, lengths, window=100)
+        assert err_over_tol(torch, got, want)[1] <= 1.0, width
 
 
 @pytest.mark.cuda

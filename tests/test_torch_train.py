@@ -253,10 +253,11 @@ def test_remat_gradient_equals_plain_gradient():
 
 def test_moe_and_sharded_modes_name_their_slice():
     cfg = model.ModelConfig(**ARCH, dtype=torch.float32, moe_experts=4)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1: MoE on one device"):
         model.loss_and_metrics({}, torch.zeros((1, 3), dtype=torch.int32),
                                cfg)
-    with pytest.raises(ValueError, match="slice 6"):
+    with pytest.raises(ValueError, match="Queue 1: the mesh"):
         model.make_train_step(model.ModelConfig(), device="cpu",
                               shard="fsdp")
 
@@ -457,7 +458,8 @@ def test_sp_step_equals_single_device_step():
 
 def test_sp_refusals_match_jax_and_name_slice_6():
     """JAX's usage errors, and what waits for the port's mesh: sp×tp,
-    ZeRO-1 and MoE under sp (slice 6)."""
+    ZeRO-1 and MoE under sp (ROADMAP.md, Queue 1: EP and the SP
+    compositions)."""
     cfg = model.ModelConfig(**SP_ARCH, dtype=torch.float32)
     jcfg = jax_model.ModelConfig(**SP_ARCH, dtype=jnp.float32)
     jmesh = jax_sp.make_sp_mesh(jax.devices()[:4], sp=4)
@@ -476,11 +478,11 @@ def test_sp_refusals_match_jax_and_name_slice_6():
             **SP_ARCH, **gqa), impl="ulysses")
     with pytest.raises(ValueError, match="not divisible by the sp axis"):
         sp.make_sp_train_step(["cpu"] * 3, cfg)
-    with pytest.raises(ValueError, match="slice 6"):
+    with pytest.raises(ValueError, match="EP and the SP compositions"):
         sp.make_sp_mesh(["cpu"], sp=2, tp=2)
-    with pytest.raises(ValueError, match="slice 6"):
+    with pytest.raises(ValueError, match="EP and the SP compositions"):
         sp.make_sp_train_step(["cpu"] * 2, cfg, shard="zero1")
-    with pytest.raises(ValueError, match="slice 6"):
+    with pytest.raises(ValueError, match="EP and the SP compositions"):
         sp.make_sp_train_step(["cpu"] * 2, model.ModelConfig(
             **SP_ARCH, moe_experts=4))
 
@@ -748,19 +750,24 @@ def test_cli_bad_n_kv_heads_is_rejected(tmp_path):
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("flags,slice_no", [
-    (["--tp", "2"], 6), (["--ep", "2"], 6), (["--pp-stages", "2"], 6),
-    (["--zero1"], 6), (["--shard", "fsdp"], 6), (["--shard", "zero1"], 6),
-    (["--sp", "2", "--shard", "zero1"], 6), (["--sp", "2", "--tp", "2"], 6),
-    (["--moe-experts", "4"], 6)],
+MESH, EP, PP, MOE = ("the mesh", "EP and the SP compositions",
+                     "pipeline parallelism", "MoE on one device")
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--tp", "2"], MESH), (["--ep", "2"], EP), (["--pp-stages", "2"], PP),
+    (["--zero1"], MESH), (["--shard", "fsdp"], MESH),
+    (["--shard", "zero1"], MESH), (["--sp", "2", "--shard", "zero1"], MESH),
+    (["--sp", "2", "--tp", "2"], MESH), (["--moe-experts", "4"], MOE)],
     ids=["tp", "ep", "pp", "zero1", "fsdp", "shard-zero1", "sp", "sp-tp",
          "moe"])
-def test_cli_refuses_unported_parallelism(tmp_path, flags, slice_no):
+def test_cli_refuses_unported_parallelism(tmp_path, flags, item):
+    """Each refusal names the ROADMAP.md Queue 1 item that brings it."""
     res = CliRunner().invoke(train_cli.main, [
         "--platform", "cpu", "--steps", "1", "--checkpoint-dir",
         str(tmp_path), *flags])
     assert res.exit_code == 2, res.output
-    assert f"slice {slice_no}" in res.output
+    assert f"Queue 1: {item}" in " ".join(res.output.split())
     assert not os.listdir(tmp_path)
 
 

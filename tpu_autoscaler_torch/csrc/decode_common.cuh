@@ -3,14 +3,24 @@
 // (flash_attention.cu) takes the element types, the cp.async and warp
 // helpers and the dispatch over dtype and head_dim from here too.
 //
-// Both kernels run one CTA per (row, KV head) and one warp per query
-// head of the GQA group.  K and V tiles are staged in shared memory with
-// cp.async, double-buffered; each warp merges a staged tile into its own
-// online-softmax carry (m, l, acc) with merge_tile below.  Only how a
-// tile's keys are found in device memory differs between the kernels.
+// Both kernels run one CTA per (row, KV head, up to kMaxGroup query heads
+// of its GQA group) and one warp per query head.  K and V tiles are
+// staged in shared memory with cp.async, double-buffered; each warp
+// merges a staged tile into its own online-softmax carry (m, l, acc) with
+// merge_tile below.  Only how a tile's keys are found in device memory
+// differs between the kernels.
+//
+// Head dims: each kernel is built for D = 32, 64, 128 and 256 and takes
+// any d <= D at run time (the true width of the cache rows, which a
+// padded copy would have to rewrite on every step).  Columns past d are
+// zeros in shared memory and in q, so they change no score, and are
+// never written out.  A row of d * sizeof(T) bytes that is a multiple of
+// 16 is staged by cp.async in 16-byte vectors; any other width by
+// element-wide loads (the copy is then not in flight across the merge).
 //
 // Numerics, matching the TPU kernels: scores are f32 dot products scaled
-// by d^-0.5 after the dot; online softmax in f32 starting from m = -1e30;
+// after the dot by the caller's scale (d^-0.5 of the true d); online
+// softmax in f32 starting from m = -1e30;
 // P is rounded to v's dtype before PV; PV accumulates in f32; l is
 // clamped to 1e-30 by the caller so a row with no visible key yields
 // zeros; the output is written in q's dtype.
@@ -109,8 +119,8 @@ struct Tile {
   static constexpr int kKStride = kVpr + 1;           // padded K row
   static constexpr int kKeys = kTileBytes / (D * sizeof(T));
   static constexpr int kStageVecs = kKeys * (kKStride + kVpr);
-  // Dynamic shared memory for the stages and, for a group of g query
-  // heads, each warp's P and q.
+  // Dynamic shared memory for the stages and, for g warps (query heads),
+  // each warp's P and q.
   static size_t bytes(int g) {
     return static_cast<size_t>(kStages) * kStageVecs * 16 +
            static_cast<size_t>(g) * (kKeys + D) * sizeof(float);
@@ -180,6 +190,74 @@ __device__ __forceinline__ void merge_tile(const uint4* kst, int n,
     for (int e = 0; e < E; ++e) acc[e] += p * Elem<T>::load(vr[e]);
   }
   m = m_new;
+}
+
+// Zero `vecs` 16-byte vectors of shared memory with the whole CTA.
+__device__ __forceinline__ void zero_smem(uint4* p, int vecs) {
+  for (int i = threadIdx.x; i < vecs; i += blockDim.x)
+    p[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Stage the K and V rows of one tile into shared memory: n keys, key r
+// in row row(r) of k and of v, rows d elements apart (row(r) < 0: not
+// copied), into K rows every kKStride vectors from kst and V rows every
+// kVpr vectors from vst; seen(r, row(r)) is called once for each key.
+// Rows of the built width D go by cp.async in 16-byte vectors, their
+// count and stride known at compile time; a narrower row by cp.async
+// vectors when it is a whole number of them, else element by element.
+// The columns past d are left as they are (zeros).
+template <typename T, int D, typename Row, typename Seen>
+__device__ __forceinline__ void stage_kv(uint4* kst, uint4* vst,
+                                         const T* k, const T* v, int n,
+                                         int d, Row row, Seen seen) {
+  constexpr int VPR = Tile<T, D>::kVpr;
+  constexpr int KS = Tile<T, D>::kKStride;
+  if (d == D) {
+    const uint4* kg = reinterpret_cast<const uint4*>(k);
+    const uint4* vg = reinterpret_cast<const uint4*>(v);
+    for (int i = threadIdx.x; i < n * VPR; i += blockDim.x) {
+      const int r = i / VPR;
+      const int c = i % VPR;
+      const long long j = row(r);
+      if (c == 0) seen(r, j);
+      if (j < 0) continue;
+      const size_t src = static_cast<size_t>(j) * VPR + c;
+      cp_async16(kst + r * KS + c, kg + src);
+      cp_async16(vst + r * VPR + c, vg + src);
+    }
+  } else if ((d * sizeof(T)) % 16 == 0) {
+    const int vpr = d * static_cast<int>(sizeof(T)) / 16;
+    for (int i = threadIdx.x; i < n * vpr; i += blockDim.x) {
+      const int r = i / vpr;
+      const int c = i % vpr;
+      const long long j = row(r);
+      if (c == 0) seen(r, j);
+      if (j < 0) continue;
+      cp_async16(kst + r * KS + c,
+                 reinterpret_cast<const uint4*>(k + j * d) + c);
+      cp_async16(vst + r * VPR + c,
+                 reinterpret_cast<const uint4*>(v + j * d) + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n * d; i += blockDim.x) {
+      const int r = i / d;
+      const int c = i % d;
+      const long long j = row(r);
+      if (c == 0) seen(r, j);
+      if (j < 0) continue;
+      reinterpret_cast<T*>(kst + r * KS)[c] = k[j * d + c];
+      reinterpret_cast<T*>(vst + r * VPR)[c] = v[j * d + c];
+    }
+  }
+}
+
+// The built width a d-wide call runs at: the least of 32, 64, 128 and 256
+// that holds d; 0 for none.
+inline int built_width(int d) {
+  if (d < 1) return 0;
+  for (int w = 32; w <= 256; w *= 2)
+    if (d <= w) return w;
+  return 0;
 }
 
 // Raise a kernel's dynamic shared-memory limit when it needs more than

@@ -40,10 +40,13 @@
 // neither computed nor written; keys past s are never copied or read.
 //
 // Numerics, matching the TPU kernel: scores are f32 dot products scaled
-// by d^-0.5 after the dot; masked keys are left out of the max and get
-// P = 0; the carry starts at m = -1e30, l = 0; P is rounded to v's dtype
-// before PV and PV accumulates in f32; out = acc / l in q's dtype and
-// lse = m + log(l).  The diagonal key is always visible, so l >= 1.
+// after the dot by the caller's scale (d^-0.5 of the model's true
+// head_dim; a head_dim outside 32, 64, 128 and 256 comes zero-padded to
+// the next of them, which changes no score); masked keys are left out of
+// the max and get P = 0; the carry starts at m = -1e30, l = 0; P is
+// rounded to v's dtype before PV and PV accumulates in f32; out = acc / l
+// in q's dtype and lse = m + log(l).  The diagonal key is always visible,
+// so l >= 1.
 //
 // Known weaknesses, left to later changes: CUDA-core FMA where wgmma
 // (bf16 tensor cores) would be ~15x the rate; the GQA group's query heads
@@ -251,12 +254,10 @@ __global__ void __launch_bounds__(32 * kWarps)
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int b, int h, int hkv, int s, int causal,
-                   int window, cudaStream_t stream) {
+                   int window, float scale, cudaStream_t stream) {
   const size_t smem = AttnTile<T, D>::kBytes;
   const cudaError_t err = allow_smem(flash_attention_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
-  const float scale =
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   const int n_qt = (s + kBQ - 1) / kBQ;
   flash_attention_kernel<T, D><<<n_qt * b * h, 32 * kWarps, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -269,12 +270,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 // q, out [b, h, s, d] and k, v [b, hkv, s, d], all contiguous and 16-byte
 // aligned, in one dtype (0: f32, 1: bf16); lse [b, h, s] f32.  causal 0
-// or 1; window 0 means no window (a window needs causal).  Returns a
-// cudaError_t: 0 on a successful launch.
+// or 1; window 0 means no window (a window needs causal); scale multiplies
+// q.k.  Returns a cudaError_t: 0 on a successful launch.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, float* lse, int b, int h, int hkv,
                                int s, int d, int dtype, int causal,
-                               int window, int device, void* stream) {
+                               int window, float scale, int device,
+                               void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b < 1 || h < 1 || hkv < 1 || s < 1 || h % hkv != 0 || window < 0 ||
@@ -285,6 +287,6 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   return static_cast<int>(dispatch(dtype, d, [&](auto tag, auto dim) {
     using T = std::remove_pointer_t<decltype(tag)>;
     return launch<T, decltype(dim)::value>(q, k, v, out, lse, b, h, hkv, s,
-                                           causal != 0, window, st);
+                                           causal != 0, window, scale, st);
   }));
 }

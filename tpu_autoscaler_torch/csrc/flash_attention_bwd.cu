@@ -7,7 +7,8 @@
 // [b, h, s, d], k/v [b, hkv, s, d], the output's gradient do [b, h, s, d],
 // the forward's f32 log-sum-exp lse [b, h, s] and delta = rowsum(do * out)
 // [b, h, s] (f32, computed by the caller), each kernel rebuilds the
-// probabilities P = exp(q.k * d^-0.5 - lse) of the pairs it visits and
+// probabilities P = exp(q.k * scale - lse) of the pairs it visits (scale
+// = d^-0.5 of the model's true head_dim, passed by the caller) and
 //
 //   dP = do.v,  dS = P * (dP - delta),
 //   dq = sum_k dS.k * scale           (dq kernel)
@@ -48,7 +49,7 @@
 // are never copied, read or written (resident tiles hold zeros there).
 //
 // Numerics, matching the TPU kernels: scores are f32 dot products scaled
-// by d^-0.5 after the dot, P = exp(score - lse) with masked pairs at
+// after the dot, P = exp(score - lse) with masked pairs at
 // P = 0; dP is an f32 dot product; P is rounded to do's dtype before
 // P.do and dS to q's dtype before dS.q and dS.k; every sum is f32; outputs
 // are written in the inputs' dtype.
@@ -470,10 +471,6 @@ __global__ void __launch_bounds__(32 * kWarps)
   }
 }
 
-float scale_of(int d) {
-  return static_cast<float>(1.0 / std::sqrt(static_cast<double>(d)));
-}
-
 // The checks both C entries make: 0 when the shape can launch.
 cudaError_t check_shape(int b, int h, int hkv, int s, int causal, int window,
                         long long ctas) {
@@ -487,14 +484,15 @@ cudaError_t check_shape(int b, int h, int hkv, int s, int causal, int window,
 
 // q, do, dq [b, h, s, d] and k, v [b, hkv, s, d], all contiguous and
 // 16-byte aligned, in one dtype (0: f32, 1: bf16); lse, delta [b, h, s]
-// f32.  causal 0 or 1; window 0 means no window (a window needs causal).
-// Returns a cudaError_t: 0 on a successful launch.
+// f32.  causal 0 or 1; window 0 means no window (a window needs causal);
+// scale multiplies q.k.  Returns a cudaError_t: 0 on a successful launch.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
                                       void* dq, int b, int h, int hkv, int s,
                                       int d, int dtype, int causal,
-                                      int window, int device, void* stream) {
+                                      int window, float scale, int device,
+                                      void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long ctas = static_cast<long long>((s + kBQ - 1) / kBQ) * b * h;
@@ -513,7 +511,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
             static_cast<const T*>(v), static_cast<const T*>(dout),
             static_cast<const float*>(lse), static_cast<const float*>(delta),
             static_cast<T*>(dq), b * h, h, hkv, s, causal != 0, window,
-            scale_of(D));
+            scale);
     return cudaGetLastError();
   }));
 }
@@ -524,8 +522,8 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* lse, const void* delta,
                                        void* dk, void* dv, int b, int h,
                                        int hkv, int s, int d, int dtype,
-                                       int causal, int window, int device,
-                                       void* stream) {
+                                       int causal, int window, float scale,
+                                       int device, void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long ctas =
@@ -545,7 +543,7 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
             static_cast<const T*>(v), static_cast<const T*>(dout),
             static_cast<const float*>(lse), static_cast<const float*>(delta),
             static_cast<T*>(dk), static_cast<T*>(dv), b * hkv, h, hkv, s,
-            causal != 0, window, scale_of(D));
+            causal != 0, window, scale);
     return cudaGetLastError();
   }));
 }

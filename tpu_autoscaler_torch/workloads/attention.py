@@ -30,6 +30,14 @@ CUDA tensors each launches its hand-written Hopper kernel (``csrc/``);
 on CPU tensors it runs its plain PyTorch version.  There is no fallback
 from one to the other: a CUDA tensor a kernel does not take raises.
 
+Head dims: the kernels are built for KERNEL_HEAD_DIMS and take any
+head_dim up to 256.  The whole-activation kernels (flash_attention, its
+backward and the ring hops) run a head_dim outside the set zero-padded to
+the next built width with the true scale (:func:`call_padded`); the
+decode kernels read the cache at its true width (a padded copy would
+rewrite the cache every step).  bf16 ring hops run on the tensor cores
+(wgmma), every other kernel on CUDA-core FMA.
+
 The kernels are compiled by ``nvcc`` for ``sm_90a`` into shared
 libraries with a plain C interface, at first use, under
 ``build/torch_kernels/`` of the checkout, and loaded with ``ctypes``.
@@ -50,10 +58,9 @@ import torch
 
 NEG_INF = -1e30
 
-#: head_dim values every kernel is instantiated for.
+#: head_dim values every kernel is instantiated for; a call takes any
+#: head_dim up to the last.
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
-#: The decode kernels run one warp per query head of a GQA group.
-MAX_GROUP = 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches per wrapper: each wrapper adds one where it launches
@@ -81,24 +88,19 @@ KERNEL_SOURCES = {"flash_attention": CSRC / "flash_attention.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Each library exports a C function of each entry's name: pointers
-# (and the stream) as c_void_p, so ctypes never cuts them to 32 bits.
-_ARGTYPES = {
-    "flash_attention": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
-    + [ctypes.c_void_p],
-    "flash_attention_bwd_dq": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
-    + [ctypes.c_void_p],
-    "flash_attention_bwd_dkv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-    + [ctypes.c_void_p],
-    "flash_decode": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
-    + [ctypes.c_void_p],
-    "paged_flash_decode": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
-    + [ctypes.c_void_p],
-    "ring_flash_step": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
-    + [ctypes.c_void_p],
-    "ring_flash_bwd_dq": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
-    + [ctypes.c_void_p],
-    "ring_flash_bwd_dkv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
-    + [ctypes.c_void_p]}
+# (and the stream) as c_void_p, so ctypes never cuts them to 32 bits;
+# the ints are followed by the float scale, then the device and stream.
+_ARGTYPES = {name: [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+             for name, ptrs, ints in (
+                 ("flash_attention", 5, 8),
+                 ("flash_attention_bwd_dq", 7, 8),
+                 ("flash_attention_bwd_dkv", 8, 8),
+                 ("flash_decode", 5, 8),
+                 ("paged_flash_decode", 6, 9),
+                 ("ring_flash_step", 9, 10),
+                 ("ring_flash_bwd_dq", 7, 10),
+                 ("ring_flash_bwd_dkv", 8, 10))}
 _LIBS: dict[Path, ctypes.CDLL] = {}
 _ENTRIES: dict[str, object] = {}
 
@@ -207,16 +209,22 @@ def _check_args(q, k_cache, v_cache, window, ring) -> None:
             f"kv_heads dividing the query heads")
 
 
-def _masked_decode(q, k_rows, v_rows, visible):
+def _scale_of(q, scale):
+    """The score scale: ``scale`` when given, else d^-0.5 of q's width."""
+    return q.shape[-1] ** -0.5 if scale is None else scale
+
+
+def _masked_decode(q, k_rows, v_rows, visible, scale=None):
     """The kernels' math in one pass over contiguous rows: q [b, h, 1,
     d], k/v rows [b, hkv, n, d], visible [b, n] bool.  f32 scores scaled
-    after the dot, f32 softmax with P cast to v's dtype before PV, f32
-    accumulation, output in q's dtype.  A row with no visible key
-    yields zeros."""
+    after the dot (by ``scale``, default d^-0.5), f32 softmax with P
+    cast to v's dtype before PV, f32 accumulation, output in q's dtype.
+    A row with no visible key yields zeros."""
     b, h, _, d = q.shape
     hkv = k_rows.shape[1]
     qg = q.reshape(b, hkv, h // hkv, d).float()
-    scores = torch.einsum("bngd,bnkd->bngk", qg, k_rows.float()) * d ** -0.5
+    scores = torch.einsum("bngd,bnkd->bngk", qg, k_rows.float()) \
+        * _scale_of(q, scale)
     visible = visible[:, None, None, :]
     scores = scores.masked_fill(~visible, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
@@ -229,9 +237,11 @@ def _masked_decode(q, k_rows, v_rows, visible):
 
 
 def flash_decode_reference(q, k_cache, v_cache, length, *,
-                           window: int | None = None, ring: bool = False):
+                           window: int | None = None, ring: bool = False,
+                           scale: float | None = None):
     """The plain PyTorch version of the flash_decode kernel: the same
-    math in one pass (:func:`_masked_decode`)."""
+    math in one pass (:func:`_masked_decode`); ``scale`` multiplies the
+    scores (default d^-0.5)."""
     _check_args(q, k_cache, v_cache, window, ring)
     b = q.shape[0]
     max_len = k_cache.shape[2]
@@ -247,15 +257,13 @@ def flash_decode_reference(q, k_cache, v_cache, length, *,
         visible = slot <= qpos
         if window is not None:
             visible &= slot > qpos - window
-    return _masked_decode(q, k_cache, v_cache, visible)
+    return _masked_decode(q, k_cache, v_cache, visible, scale)
 
 
-def _check_kernel_tensors(name: str, q, tensors: dict,
-                          group: int | None = None) -> None:
+def _check_kernel_tensors(name: str, q, tensors: dict) -> None:
     """What every kernel needs of its CUDA tensors: q's device and
-    dtype (bf16 or f32), a head_dim in KERNEL_HEAD_DIMS, at most
-    MAX_GROUP query heads per KV head (``group``, for the decode
-    kernels), contiguous and 16-byte aligned."""
+    dtype (bf16 or f32), a head_dim of at most 256 (the widest in
+    KERNEL_HEAD_DIMS), contiguous and 16-byte aligned."""
     d = q.shape[-1]
     for tname, t in tensors.items():
         if t.device != q.device:
@@ -264,12 +272,9 @@ def _check_kernel_tensors(name: str, q, tensors: dict,
             raise ValueError(f"{tname} is {t.dtype}, q is {q.dtype}")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name} kernel takes bf16 or f32, got {q.dtype}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name} kernel takes head_dim in "
-                         f"{KERNEL_HEAD_DIMS}, got {d}")
-    if group is not None and group > MAX_GROUP:
-        raise ValueError(f"{name} kernel takes at most {MAX_GROUP} query "
-                         f"heads per KV head, got {group}")
+    if not 1 <= d <= KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"{name} kernel takes head_dim 1 to "
+                         f"{KERNEL_HEAD_DIMS[-1]}, got {d}")
     for tname, t in {"q": q, **tensors}.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} kernel needs a contiguous {tname}")
@@ -286,6 +291,44 @@ def _launch(name: str, q, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
+
+
+def kernel_width(d: int) -> int:
+    """The built head_dim a d-wide call runs at: the least of
+    KERNEL_HEAD_DIMS that holds d."""
+    for width in KERNEL_HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"the kernels take head_dim up to "
+                     f"{KERNEL_HEAD_DIMS[-1]}, got {d}")
+
+
+def pad_head_dim(t, width: int):
+    """t zero-padded along its last dim to ``width`` (t itself when it
+    is already that wide)."""
+    d = t.shape[-1]
+    return t if d == width else torch.nn.functional.pad(t, (0, width - d))
+
+
+def call_padded(fn, args, pad, **kw):
+    """``fn(*args, scale=d**-0.5, **kw)`` run at head_dim
+    ``kernel_width(d)``: the args at the indices in ``pad`` (the ones
+    whose last dim is the head_dim d) are zero-padded to that width, the
+    true scale is passed, and every output that wide is sliced back to
+    d.  Zero columns change no dot product and give zero output columns,
+    so the result is the d-wide function; the cost is a copy of the
+    padded tensors when d is not a built width.  The whole-activation
+    wrappers run their kernels through it."""
+    d = args[pad[0]].shape[-1]
+    width = kernel_width(d)
+    out = fn(*(pad_head_dim(a, width) if i in pad else a
+               for i, a in enumerate(args)), scale=d ** -0.5, **kw)
+
+    def cut(t):
+        return t[..., :d].contiguous() if width != d \
+            and t.shape[-1] == width else t
+
+    return tuple(cut(t) for t in out) if isinstance(out, tuple) else cut(out)
 
 
 def _on_cuda(name: str, q) -> bool:
@@ -328,9 +371,11 @@ def causal_band_mask(s: int, window: int | None = None,
 
 
 def flash_attention_reference(q, k, v, *, causal: bool = True,
-                              window: int | None = None):
+                              window: int | None = None,
+                              scale: float | None = None):
     """The plain PyTorch version of the flash_attention kernel, with its
-    numerics in one pass: f32 scores scaled by d^-0.5 after the dot,
+    numerics in one pass: f32 scores scaled by ``scale`` (default
+    d^-0.5) after the dot,
     masked entries at -1e30, f32 softmax, P cast to v's dtype before PV
     with f32 accumulation, out = acc / l in q's dtype and lse = m +
     log(l) in f32.  Returns (out [b, h, s, d], lse [b, h, s, 1])."""
@@ -338,7 +383,8 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
     b, h, s, d = q.shape
     hkv = k.shape[1]
     qg = q.reshape(b, hkv, h // hkv, s, d).float()
-    scores = torch.einsum("bngqd,bnkd->bngqk", qg, k.float()) * d ** -0.5
+    scores = torch.einsum("bngqd,bnkd->bngqk", qg, k.float()) \
+        * _scale_of(q, scale)
     if causal:
         scores = scores.masked_fill(
             ~causal_band_mask(s, window, q.device), NEG_INF)
@@ -357,13 +403,20 @@ def _attention_forward(q, k, v, causal: bool, window):
     if not _on_cuda("flash_attention", q):
         return flash_attention_reference(q, k, v, causal=causal,
                                          window=window)
-    b, h, s, d = q.shape
     _check_kernel_tensors("flash_attention", q, {"k": k, "v": v})
+    return call_padded(_attention_kernel, (q, k, v), (0, 1, 2),
+                       causal=causal, window=window)
+
+
+def _attention_kernel(q, k, v, *, causal, window, scale):
+    """Launch the flash_attention kernel (inputs checked, head_dim
+    built)."""
+    b, h, s, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s, 1), dtype=torch.float32, device=q.device)
     _launch("flash_attention", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), b, h, k.shape[1], s, d,
-            _DTYPE_CODES[q.dtype], int(causal), window or 0)
+            _DTYPE_CODES[q.dtype], int(causal), window or 0, scale)
     return out, lse
 
 
@@ -395,7 +448,7 @@ def flash_attention_forward(q, k, v, *, causal: bool = True,
     (out [b, h, s, d] in q's dtype, lse [b, h, s, 1] f32).
 
     CPU tensors run :func:`flash_attention_reference`.  CUDA tensors
-    launch the kernel (bf16 or f32, head_dim 32, 64, 128 or 256, any s,
+    launch the kernel (bf16 or f32, head_dim up to 256, any s,
     contiguous) or raise.  When an input requires grad the call goes
     through :class:`_FlashAttention`, whose backward is
     :func:`flash_attention_backward`; the lse carries no gradient."""
@@ -434,9 +487,11 @@ def _delta(o, do):
 
 def flash_attention_backward_reference(q, k, v, o, lse, do, *,
                                        causal: bool = True,
-                                       window: int | None = None):
+                                       window: int | None = None,
+                                       scale: float | None = None):
     """The plain PyTorch version of the backward kernels, with their
-    numerics in one pass: f32 scores scaled by d^-0.5 after the dot,
+    numerics in one pass: f32 scores scaled by ``scale`` (default
+    d^-0.5) after the dot,
     masked entries at -1e30, P = exp(s - lse), dP = do.v^T and delta =
     rowsum(do * o) in f32, dS = P * (dP - delta); dv = sum P.to(do's
     dtype)^T do, dk = sum dS.to(q's dtype)^T q * scale (over the GQA
@@ -446,7 +501,7 @@ def flash_attention_backward_reference(q, k, v, o, lse, do, *,
     _check_backward_args(q, o, lse, do)
     b, h, s, d = q.shape
     hkv = k.shape[1]
-    scale = d ** -0.5
+    scale = _scale_of(q, scale)
 
     def grouped(t):
         return t.reshape(b, hkv, h // hkv, s, t.shape[-1])
@@ -468,26 +523,35 @@ def flash_attention_backward_reference(q, k, v, o, lse, do, *,
             dv.to(v.dtype))
 
 
-def _bwd_dq(q, k, v, do, lse, delta, causal, window):
-    """Launch the dq kernel (inputs checked by the caller)."""
+def _bwd_dq(q, k, v, do, lse, delta, causal, window, scale=None):
+    """Launch the dq kernel (inputs checked by the caller, head_dim
+    built; ``scale`` default d^-0.5)."""
     b, h, s, d = q.shape
     dq = torch.empty_like(q)
     _launch("flash_attention_bwd_dq", q, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), b, h, k.shape[1], s, d, _DTYPE_CODES[q.dtype],
-            int(causal), window or 0)
+            int(causal), window or 0, _scale_of(q, scale))
     return dq
 
 
-def _bwd_dkv(q, k, v, do, lse, delta, causal, window):
-    """Launch the dk/dv kernel (inputs checked by the caller)."""
+def _bwd_dkv(q, k, v, do, lse, delta, causal, window, scale=None):
+    """Launch the dk/dv kernel (inputs checked by the caller, head_dim
+    built; ``scale`` default d^-0.5)."""
     b, h, s, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_attention_bwd_dkv", q, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, h, k.shape[1], s, d,
-            _DTYPE_CODES[q.dtype], int(causal), window or 0)
+            _DTYPE_CODES[q.dtype], int(causal), window or 0,
+            _scale_of(q, scale))
     return dk, dv
+
+
+def _bwd_kernels(q, k, v, do, lse, delta, *, causal, window, scale):
+    """Both backward kernels: (dq, dk, dv)."""
+    args = (q, k, v, do, lse, delta, causal, window, scale)
+    return (_bwd_dq(*args), *_bwd_dkv(*args))
 
 
 def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
@@ -499,8 +563,8 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
 
     CPU tensors run :func:`flash_attention_backward_reference`.  CUDA
     tensors launch the dq and the dk/dv kernels on the lse the forward
-    wrote (bf16 or f32, head_dim 32, 64, 128 or 256, any s, contiguous)
-    or raise."""
+    wrote (bf16 or f32, head_dim up to 256, any s, contiguous) or
+    raise."""
     _validate_attention_args(q, k, v, causal, window)
     _check_backward_args(q, o, lse, do)
     if not _on_cuda("flash_attention_backward", q):
@@ -511,9 +575,8 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
     if lse.device != q.device or not lse.is_contiguous():
         raise ValueError("flash_attention_backward kernel needs a "
                          "contiguous f32 lse on q's device")
-    delta = _delta(o, do)
-    return (_bwd_dq(q, k, v, do, lse, delta, causal, window),
-            *_bwd_dkv(q, k, v, do, lse, delta, causal, window))
+    return call_padded(_bwd_kernels, (q, k, v, do, lse, _delta(o, do)),
+                       (0, 1, 2, 3), causal=causal, window=window)
 
 
 def _check_ring_args(q, k_t, v_t, window) -> None:
@@ -571,9 +634,11 @@ def ring_hop_mask(sq: int, sk: int, offset: int, window: int | None,
 
 
 def ring_flash_step_reference(q, k_t, v_t, m, l, acc, *, offset: int,
-                              masked: bool, window: int | None = None):
+                              masked: bool, window: int | None = None,
+                              scale: float | None = None):
     """The plain PyTorch version of the ring_flash_step kernel, with its
-    numerics in one pass: f32 scores scaled by d^-0.5 after the dot,
+    numerics in one pass: f32 scores scaled by ``scale`` (default
+    d^-0.5) after the dot,
     masked entries at -1e30, then ``_online_softmax_merge``: m' = max(m,
     max s), P = exp(s - m'), l' = l exp(m - m') + sum P, acc' = acc
     exp(m - m') + P.to(v's dtype) v with f32 sums.  A row that sees no
@@ -585,7 +650,8 @@ def ring_flash_step_reference(q, k_t, v_t, m, l, acc, *, offset: int,
     hkv, sk = k_t.shape[1], k_t.shape[2]
     g = h // hkv
     qg = q.reshape(b, hkv, g, sq, d).float()
-    scores = torch.einsum("bngqd,bnkd->bngqk", qg, k_t.float()) * d ** -0.5
+    scores = torch.einsum("bngqd,bnkd->bngqk", qg, k_t.float()) \
+        * _scale_of(q, scale)
     if masked:
         scores = scores.masked_fill(
             ~ring_hop_mask(sq, sk, offset, window, q.device), NEG_INF)
@@ -613,27 +679,36 @@ def ring_flash_step(q, k_t, v_t, m, l, acc, *, offset: int, masked: bool,
     (m, l, acc) as fresh tensors: the carry passed in is not written.
 
     CPU tensors run :func:`ring_flash_step_reference`.  CUDA tensors
-    launch the kernel (bf16 or f32, head_dim 32, 64, 128 or 256, any sq
-    and sk, contiguous) or raise."""
+    launch the kernel (bf16 on the tensor cores or f32, head_dim up to
+    256, any sq and sk, contiguous) or raise."""
     _check_ring_args(q, k_t, v_t, window)
     _check_rows(q, {"m": m, "l": l, "acc": acc})
     if not _on_cuda("ring_flash_step", q):
         return ring_flash_step_reference(q, k_t, v_t, m, l, acc,
                                          offset=offset, masked=masked,
                                          window=window)
-    b, h, sq, d = q.shape
-    hkv, sk = k_t.shape[1], k_t.shape[2]
     if not -2 ** 31 < offset < 2 ** 31:
         raise ValueError(f"ring_flash_step kernel takes an int32 offset, "
                          f"got {offset}")
     _check_kernel_tensors("ring_flash_step", q, {"k_t": k_t, "v_t": v_t})
     _check_kernel_rows("ring_flash_step", q, {"m": m, "l": l, "acc": acc})
+    return call_padded(_ring_step_kernel, (q, k_t, v_t, m, l, acc),
+                       (0, 1, 2, 5), offset=offset, masked=masked,
+                       window=window)
+
+
+def _ring_step_kernel(q, k_t, v_t, m, l, acc, *, offset, masked, window,
+                      scale):
+    """Launch the ring_flash_step kernel (inputs checked, head_dim
+    built) into fresh (m, l, acc)."""
+    b, h, sq, d = q.shape
+    hkv, sk = k_t.shape[1], k_t.shape[2]
     m_out, l_out, acc_out = (torch.empty_like(t) for t in (m, l, acc))
     _launch("ring_flash_step", q, q.data_ptr(), k_t.data_ptr(),
             v_t.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
             m_out.data_ptr(), l_out.data_ptr(), acc_out.data_ptr(), b, h, hkv,
             sq, sk, d, _DTYPE_CODES[q.dtype], int(offset), int(masked),
-            window or 0)
+            window or 0, scale)
     return m_out, l_out, acc_out
 
 
@@ -646,9 +721,11 @@ def _check_hop_backward_args(q, do, lse, delta) -> None:
 
 def ring_flash_bwd_step_reference(q, k_t, v_t, do, lse, delta, *,
                                   offset: int, masked: bool,
-                                  window: int | None = None):
+                                  window: int | None = None,
+                                  scale: float | None = None):
     """The plain PyTorch version of the ring_flash_bwd kernels, with their
-    numerics in one pass: f32 scores scaled by d^-0.5 after the dot, P =
+    numerics in one pass: f32 scores scaled by ``scale`` (default
+    d^-0.5) after the dot, P =
     exp(s - lse) (0 outside the hop's mask), dP = do.v^T, dS = P * (dP -
     delta); dv_add = sum P.to(do's dtype)^T do, dk_add = sum dS.to(q's
     dtype)^T q * scale (over the GQA group too), dq_add = dS.to(k's
@@ -658,7 +735,7 @@ def ring_flash_bwd_step_reference(q, k_t, v_t, do, lse, delta, *,
     _check_hop_backward_args(q, do, lse, delta)
     b, h, sq, d = q.shape
     hkv, sk = k_t.shape[1], k_t.shape[2]
-    scale = d ** -0.5
+    scale = _scale_of(q, scale)
 
     def grouped(t):
         return t.reshape(b, hkv, h // hkv, sq, t.shape[-1])
@@ -679,19 +756,24 @@ def ring_flash_bwd_step_reference(q, k_t, v_t, do, lse, delta, *,
     return dq.reshape(b, h, sq, d), dk, dv
 
 
-def _ring_bwd_dq(q, k_t, v_t, do, lse, delta, offset, masked, window):
-    """Launch the hop's dq kernel (inputs checked by the caller)."""
+def _ring_bwd_dq(q, k_t, v_t, do, lse, delta, offset, masked, window,
+                 scale=None):
+    """Launch the hop's dq kernel (inputs checked by the caller, head_dim
+    built; ``scale`` default d^-0.5)."""
     b, h, sq, d = q.shape
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     _launch("ring_flash_bwd_dq", q, q.data_ptr(), k_t.data_ptr(),
             v_t.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), b, h, k_t.shape[1], sq, k_t.shape[2], d,
-            _DTYPE_CODES[q.dtype], int(offset), int(masked), window or 0)
+            _DTYPE_CODES[q.dtype], int(offset), int(masked), window or 0,
+            _scale_of(q, scale))
     return dq
 
 
-def _ring_bwd_dkv(q, k_t, v_t, do, lse, delta, offset, masked, window):
-    """Launch the hop's dk/dv kernel (inputs checked by the caller)."""
+def _ring_bwd_dkv(q, k_t, v_t, do, lse, delta, offset, masked, window,
+                  scale=None):
+    """Launch the hop's dk/dv kernel (inputs checked by the caller,
+    head_dim built; ``scale`` default d^-0.5)."""
     b, h, sq, d = q.shape
     dk = torch.empty(k_t.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k_t.shape, dtype=torch.float32, device=q.device)
@@ -699,8 +781,15 @@ def _ring_bwd_dkv(q, k_t, v_t, do, lse, delta, offset, masked, window):
             v_t.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, h, k_t.shape[1], sq,
             k_t.shape[2], d, _DTYPE_CODES[q.dtype], int(offset), int(masked),
-            window or 0)
+            window or 0, _scale_of(q, scale))
     return dk, dv
+
+
+def _ring_bwd_kernels(q, k_t, v_t, do, lse, delta, *, offset, masked,
+                      window, scale):
+    """Both hop backward kernels: (dq_add, dk_add, dv_add)."""
+    args = (q, k_t, v_t, do, lse, delta, offset, masked, window, scale)
+    return (_ring_bwd_dq(*args), *_ring_bwd_dkv(*args))
 
 
 def ring_flash_bwd_step(q, k_t, v_t, do, lse, delta, *, offset: int,
@@ -714,8 +803,8 @@ def ring_flash_bwd_step(q, k_t, v_t, do, lse, delta, *, offset: int,
     ``window`` as in :func:`ring_flash_step`.
 
     CPU tensors run :func:`ring_flash_bwd_step_reference`.  CUDA tensors
-    launch the dq and the dk/dv kernels (bf16 or f32, head_dim 32, 64,
-    128 or 256, any sq and sk, contiguous) or raise."""
+    launch the dq and the dk/dv kernels (bf16 on the tensor cores or
+    f32, head_dim up to 256, any sq and sk, contiguous) or raise."""
     _check_ring_args(q, k_t, v_t, window)
     _check_hop_backward_args(q, do, lse, delta)
     if not _on_cuda("ring_flash_bwd_step", q):
@@ -729,8 +818,9 @@ def ring_flash_bwd_step(q, k_t, v_t, do, lse, delta, *, offset: int,
                           {"k_t": k_t, "v_t": v_t, "do": do})
     _check_kernel_rows("ring_flash_bwd_step", q,
                        {"lse": lse, "delta": delta})
-    args = (q, k_t, v_t, do, lse, delta, offset, masked, window)
-    return (_ring_bwd_dq(*args), *_ring_bwd_dkv(*args))
+    return call_padded(_ring_bwd_kernels, (q, k_t, v_t, do, lse, delta),
+                       (0, 1, 2, 3), offset=offset, masked=masked,
+                       window=window)
 
 
 def flash_decode(q, k_cache, v_cache, length, *, window: int | None = None,
@@ -743,8 +833,8 @@ def flash_decode(q, k_cache, v_cache, length, *, window: int | None = None,
     width.  Returns [b, h, 1, d] in q's dtype.
 
     CPU tensors run :func:`flash_decode_reference`.  CUDA tensors
-    launch the kernel (bf16 or f32, head_dim 32, 64, 128 or 256, at most
-    32 query heads per KV head, contiguous) or raise."""
+    launch the kernel (bf16 or f32, head_dim up to 256 read at its true
+    width, any GQA group, contiguous) or raise."""
     _check_args(q, k_cache, v_cache, window, ring)
     if not _on_cuda("flash_decode", q):
         return flash_decode_reference(q, k_cache, v_cache, length,
@@ -753,11 +843,12 @@ def flash_decode(q, k_cache, v_cache, length, *, window: int | None = None,
     hkv, max_len = k_cache.shape[1], k_cache.shape[2]
     lengths = _row_lengths(length, b, q.device)
     _check_kernel_tensors("flash_decode", q,
-                          {"k_cache": k_cache, "v_cache": v_cache}, h // hkv)
+                          {"k_cache": k_cache, "v_cache": v_cache})
     out = torch.empty_like(q)
     _launch("flash_decode", q, q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
-            hkv, max_len, d, _DTYPE_CODES[q.dtype], window or 0, int(ring))
+            hkv, max_len, d, _DTYPE_CODES[q.dtype], window or 0, int(ring),
+            d ** -0.5)
     return out
 
 
@@ -785,7 +876,8 @@ def _check_paged_args(q, k_pool, v_pool, tables, lengths, window) -> None:
 
 
 def paged_flash_decode_reference(q, k_pool, v_pool, tables, lengths, *,
-                                 window: int | None = None):
+                                 window: int | None = None,
+                                 scale: float | None = None):
     """The plain PyTorch version of the paged_flash_decode kernel.
 
     The kernel's table semantics, which differ from gathering the rows
@@ -793,7 +885,8 @@ def paged_flash_decode_reference(q, k_pool, v_pool, tables, lengths, *,
     even below the row's length; an entry >= num_blocks is clamped to
     num_blocks - 1 and read.  Key position p is visible when
     p <= length - 1 (and p > length - 1 - window) and its block is
-    live; a row with no visible key yields zeros."""
+    live; a row with no visible key yields zeros.  ``scale`` multiplies
+    the scores (default d^-0.5)."""
     lengths = torch.as_tensor(lengths, device=q.device)
     tables = torch.as_tensor(tables, device=q.device)
     _check_paged_args(q, k_pool, v_pool, tables, lengths, window)
@@ -805,7 +898,7 @@ def paged_flash_decode_reference(q, k_pool, v_pool, tables, lengths, *,
     visible = (kpos <= qpos) & (tables >= 0).repeat_interleave(bs, dim=1)
     if window is not None:
         visible &= kpos > qpos - window
-    return _masked_decode(q, k_rows, v_rows, visible)
+    return _masked_decode(q, k_rows, v_rows, visible, scale)
 
 
 def gather_pool_rows(pool, tables):
@@ -827,9 +920,9 @@ def paged_flash_decode(q, k_pool, v_pool, tables, lengths, *,
     dtype.
 
     CPU tensors run :func:`paged_flash_decode_reference`.  CUDA tensors
-    launch the kernel (bf16 or f32, head_dim 32, 64, 128 or 256, at
-    most 32 query heads per KV head, any block size, contiguous pools)
-    or raise; tables and lengths are taken as int32 on q's device."""
+    launch the kernel (bf16 or f32, head_dim up to 256 read at its true
+    width, any GQA group, any block size, contiguous pools) or raise;
+    tables and lengths are taken as int32 on q's device."""
     lengths = torch.as_tensor(lengths, device=q.device)
     tables = torch.as_tensor(tables, device=q.device)
     _check_paged_args(q, k_pool, v_pool, tables, lengths, window)
@@ -843,12 +936,12 @@ def paged_flash_decode(q, k_pool, v_pool, tables, lengths, *,
         raise ValueError(f"paged_flash_decode kernel indexes positions "
                          f"with int32; tpr * block_size = {tpr * bs}")
     _check_kernel_tensors("paged_flash_decode", q,
-                          {"k_pool": k_pool, "v_pool": v_pool}, h // hkv)
+                          {"k_pool": k_pool, "v_pool": v_pool})
     tables = tables.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     _launch("paged_flash_decode", q, q.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), slots, h, hkv, nb, bs, tpr, d,
-            _DTYPE_CODES[q.dtype], window or 0)
+            _DTYPE_CODES[q.dtype], window or 0, d ** -0.5)
     return out

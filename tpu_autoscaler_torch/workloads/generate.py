@@ -104,7 +104,7 @@ def main(checkpoint_dir, steps, prompt, prompt_len, batch, temperature,
     if moe_experts is not None:
         raise click.UsageError(
             "generating from MoE models is not ported yet (ROADMAP.md, "
-            "MoE slice)")
+            "Queue 1: MoE on one device)")
     try:
         device = resolve_device(platform)
     except RuntimeError as e:

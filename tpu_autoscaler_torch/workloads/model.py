@@ -67,7 +67,7 @@ class ModelConfig:
     remat: bool = False
     ce_chunk: int | None = None
     # Mixture-of-experts FFN: accepted here, but this port refuses it
-    # (see ROADMAP.md, slice 6).
+    # (see ROADMAP.md, Queue 1: MoE on one device).
     moe_experts: int | None = None
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -110,8 +110,8 @@ class ModelConfig:
 
     def resolved_attention(self, device: torch.device) -> str:
         """'kernel' or 'einsum' for tensors on ``device``.  'auto'
-        takes the kernel on every CUDA device, so a head_dim the kernel
-        does not take raises there instead of running plain; an
+        takes the kernel on every CUDA device (any head_dim up to 256;
+        a wider one raises there instead of running plain); an
         explicit 'kernel' off CUDA is refused, never run plain."""
         if self.attention == "kernel" and device.type != "cuda":
             raise ValueError(
@@ -147,7 +147,8 @@ def param_shapes(cfg: ModelConfig) -> dict:
     what a checkpoint for ``cfg`` must hold."""
     if cfg.moe_experts is not None:
         raise NotImplementedError(
-            "MoE params are not ported yet (ROADMAP.md, slice 6)")
+            "MoE params are not ported yet (ROADMAP.md, Queue 1: MoE on "
+            "one device)")
     L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
     return {
         "embed": (cfg.vocab, d),
@@ -308,7 +309,8 @@ def _ffn_residual(x: torch.Tensor, y: torch.Tensor, layer: dict,
     stream; y is the post-ln2 activations."""
     if cfg.moe_experts is not None:
         raise NotImplementedError(
-            "MoE FFN is not ported yet (ROADMAP.md, slice 6)")
+            "MoE FFN is not ported yet (ROADMAP.md, Queue 1: MoE on one "
+            "device)")
     hdn = F.gelu(y @ layer["w1"].to(cfg.dtype), approximate="tanh")
     return x + hdn @ layer["w2"].to(cfg.dtype)
 
@@ -357,7 +359,8 @@ def features_with_aux(params: dict, tokens: torch.Tensor,
     backward recomputes it instead of keeping its activations."""
     if cfg.moe_experts is not None:
         raise NotImplementedError(
-            "MoE FFN is not ported yet (ROADMAP.md, slice 6)")
+            "MoE FFN is not ported yet (ROADMAP.md, Queue 1: MoE on one "
+            "device)")
     x = params["embed"].to(cfg.dtype)[tokens]
     aux = []
     for i in range(cfg.n_layers):
@@ -413,7 +416,8 @@ def loss_and_metrics(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
     otherwise over the full [b, s, V] logits."""
     if cfg.moe_experts is not None:
         raise NotImplementedError(
-            "MoE losses are not ported yet (ROADMAP.md, slice 6)")
+            "MoE losses are not ported yet (ROADMAP.md, Queue 1: MoE on "
+            "one device)")
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     s = inputs.shape[1]
     x, aux = features_with_aux(params, inputs, cfg)
@@ -621,13 +625,15 @@ def make_train_step(cfg: ModelConfig, train: TrainConfig | None = None,
     ``torch.autograd.grad``, then the optimizer's update.  The step
     returns new params and state; the loss is a 0-d device tensor.
     Only ``shard="none"`` is ported: the sharded modes need the mesh
-    (ROADMAP.md, slice 6)."""
+    (ROADMAP.md, Queue 1: the mesh)."""
     if shard != "none":
         raise ValueError(f"shard={shard!r} needs the mesh, which is not "
-                         "ported yet (ROADMAP.md, slice 6); only 'none'")
+                         "ported yet (ROADMAP.md, Queue 1: the mesh); "
+                         "only 'none'")
     if cfg.moe_experts is not None:
         raise NotImplementedError(
-            "MoE training is not ported yet (ROADMAP.md, slice 6)")
+            "MoE training is not ported yet (ROADMAP.md, Queue 1: MoE on "
+            "one device)")
     dev = resolve_device(device)
     return _make_step(cfg, make_optimizer(train or TrainConfig()), dev,
                       lambda tree, tokens: loss_fn(tree, tokens, cfg))

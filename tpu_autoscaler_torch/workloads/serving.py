@@ -371,8 +371,8 @@ class ContinuousBatcher:
         submission count as SLO-attained in ``stats()``."""
         if cfg.moe_experts is not None:
             raise NotImplementedError(
-                "serving MoE models is not ported yet (ROADMAP.md, MoE "
-                "slice)")
+                "serving MoE models is not ported yet (ROADMAP.md, Queue 1: "
+                "MoE on one device)")
         self.device = resolve_device(device)
         # One compute-dtype copy of the params for the engine's
         # lifetime.  The JAX step casts every f32 master param on each

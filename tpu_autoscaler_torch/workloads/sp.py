@@ -21,7 +21,8 @@ share a card when there are fewer cards than ranks:
 
 With ``cfg.remat`` each layer, over all ranks at once, runs under
 ``torch.utils.checkpoint``.  Waiting for the port's mesh (ROADMAP.md,
-slice 6): a data axis beside ``sp``, sp×tp, sp×ep (MoE) and ZeRO-1.
+Queue 1: EP and the SP compositions): a data axis beside ``sp``, sp×tp,
+sp×ep (MoE) and ZeRO-1.
 """
 
 from __future__ import annotations
@@ -69,7 +70,8 @@ def make_sp_mesh(devices=None, sp: int | None = None,
     axis) waits for the port's mesh."""
     if tp != 1:
         raise ValueError(f"sp×tp (tp={tp}) is not ported yet: it needs the "
-                         f"port's mesh (ROADMAP.md, slice 6)")
+                         "port's mesh (ROADMAP.md, Queue 1: EP and the SP "
+                         "compositions)")
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass devices=['cpu'] "
@@ -132,7 +134,7 @@ def make_sp_loss(devices, cfg: ModelConfig, impl: str | None = None):
     :func:`make_sp_train_step`, which differentiates this loss."""
     if cfg.moe_experts is not None:
         raise ValueError("sp×ep (MoE blocks under sp) is not ported yet "
-                         "(ROADMAP.md, slice 6)")
+                         "(ROADMAP.md, Queue 1: EP and the SP compositions)")
     devices = [_device(dev) for dev in devices]
     world = len(devices)
     if impl is None:
@@ -211,7 +213,8 @@ def make_sp_train_step(devices, cfg: ModelConfig, *,
     takes the kernel ring on CUDA ranks and the einsum ring on CPU ranks.
     ``cfg.ce_chunk`` is honored on each rank's block.
 
-    Refused until the port's mesh (ROADMAP.md, slice 6): ``shard=
+    Refused until the port's mesh (ROADMAP.md, Queue 1: EP and the SP
+    compositions): ``shard=
     "zero1"`` and MoE blocks (sp×tp is refused by :func:`make_sp_mesh`).
     """
     if shard not in {"none", "zero1"}:
@@ -221,7 +224,8 @@ def make_sp_train_step(devices, cfg: ModelConfig, *,
             "step)")
     if shard == "zero1":
         raise ValueError("sp with shard='zero1' is not ported yet: it needs "
-                         "the port's mesh (ROADMAP.md, slice 6)")
+                         "the port's mesh (ROADMAP.md, Queue 1: EP and the "
+                         "SP compositions)")
     loss_of = make_sp_loss(devices, cfg, impl)
     optimizer = make_optimizer(train or TrainConfig())
     return _make_step(cfg, optimizer, _device(devices[0]), loss_of)

@@ -21,7 +21,8 @@ ring, or ``--sp-impl ulysses``), one process, rank r on card r mod the
 number of cards, so ranks share a card when there are fewer cards than
 N.  The mesh flags (``--tp``, ``--ep``, ``--pp-stages``, ``--zero1``,
 ``--shard``), data-parallel replicas beside the sp ranks, and MoE wait
-for slice 6 of the port (ROADMAP.md): asking for one is a usage error.
+for items of ROADMAP.md's Queue 1 (the mesh, MoE on one device, EP):
+asking for one is a usage error.
 """
 
 from __future__ import annotations
@@ -45,25 +46,25 @@ log = logging.getLogger(__name__)
 def _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
                      shard_mode, sp_impl, platform, moe_experts) -> None:
     """Usage errors for what this trainer does not run, each naming the
-    slice of the port that brings it, and the JAX trainer's usage errors
+    ROADMAP.md Queue 1 item that brings it, and the JAX trainer's usage errors
     for --sp."""
     if sp_degree > 1 and shard_mode == "fsdp":
         raise click.UsageError(
             "--shard fsdp composes with the dp+tp step, not --sp "
             "(params replicate under sp; --shard zero1 composes)")
     refused = [
-        (tp_degree is not None and tp_degree > 1, "--tp"),
-        (ep_degree > 1, "--ep"),
-        (pp_stages > 1, "--pp-stages"),
-        (zero1, "--zero1"),
-        (shard_mode in ("zero1", "fsdp"), f"--shard {shard_mode}"),
-        (moe_experts is not None, "--moe-experts"),
+        (tp_degree is not None and tp_degree > 1, "--tp", "the mesh"),
+        (ep_degree > 1, "--ep", "EP and the SP compositions"),
+        (pp_stages > 1, "--pp-stages", "pipeline parallelism"),
+        (zero1, "--zero1", "the mesh"),
+        (shard_mode in ("zero1", "fsdp"), f"--shard {shard_mode}",
+         "the mesh"),
+        (moe_experts is not None, "--moe-experts", "MoE on one device"),
     ]
-    for asked, flag in refused:
+    for asked, flag, item in refused:
         if asked:
             raise click.UsageError(
-                f"{flag} is not ported yet: it needs the port's mesh "
-                f"(ROADMAP.md, slice 6)")
+                f"{flag} is not ported yet (ROADMAP.md, Queue 1: {item})")
     if sp_degree > 1 and sp_impl == "pallas" and platform == "cpu":
         raise click.UsageError(
             "--sp-impl pallas runs the ring's CUDA kernels: it needs "
@@ -81,11 +82,11 @@ def _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
                    "chunks of this size (large-vocab memory lever).")
 @click.option("--zero1", is_flag=True,
               help="Deprecated alias for --shard zero1 (not ported: "
-                   "slice 6).")
+                   "ROADMAP.md, Queue 1: the mesh).")
 @click.option("--shard", "shard_mode",
               type=click.Choice(["none", "zero1", "fsdp"]), default=None,
               help="Data-axis state sharding; only none is ported (zero1 "
-                   "and fsdp: slice 6).")
+                   "and fsdp: ROADMAP.md, Queue 1: the mesh).")
 @click.option("--lr", default=1e-3, show_default=True,
               help="Peak learning rate.")
 @click.option("--warmup-steps", default=0, show_default=True,
@@ -101,11 +102,14 @@ def _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
                    "microbatch steps (k-times the effective batch).")
 @click.option("--weight-decay", default=1e-4, show_default=True)
 @click.option("--tp", "tp_degree", default=None, type=int,
-              help="Tensor parallelism degree (> 1 not ported: slice 6).")
+              help="Tensor parallelism degree (> 1 not ported: "
+                   "ROADMAP.md, Queue 1: the mesh).")
 @click.option("--ep", "ep_degree", default=1, show_default=True,
-              help="Expert parallelism (> 1 not ported: slice 6).")
+              help="Expert parallelism (> 1 not ported: ROADMAP.md, "
+                   "Queue 1: EP and the SP compositions).")
 @click.option("--pp-stages", default=1, show_default=True,
-              help="Pipeline stages (> 1 not ported: slice 6).")
+              help="Pipeline stages (> 1 not ported: ROADMAP.md, Queue "
+                   "1: pipeline parallelism).")
 @click.option("--pp-microbatches", default=4, show_default=True,
               help="Microbatches per pipelined step (with --pp-stages).")
 @click.option("--sp", "sp_degree", default=1, show_default=True,
@@ -113,7 +117,8 @@ def _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
                    "many ranks of one process (ring attention), rank r "
                    "on card r mod the card count, so ranks share a card "
                    "when there are fewer cards.  Data-parallel replicas "
-                   "beside the sp ranks need the mesh (slice 6).  1 = "
+                   "beside the sp ranks need the mesh (ROADMAP.md, Queue "
+                   "1: EP and the SP compositions).  1 = "
                    "off.")
 @click.option("--sp-impl",
               type=click.Choice(["auto", "einsum", "pallas", "ulysses"]),
