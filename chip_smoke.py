@@ -512,7 +512,7 @@ def check_attn_case(torch, F, attention, flush, *, label, b, h, hkv, s, d,
                plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               visible_pairs_per_head=pairs)
+               tflops=ops / ms * 1e-9, visible_pairs_per_head=pairs)
     emit("attn_kernel_check", **rec)
     if not share <= 1.0:
         raise AssertionError(f"flash_attention {label}: error {share} times "
@@ -524,12 +524,16 @@ def check_attn_case(torch, F, attention, flush, *, label, b, h, hkv, s, d,
 
 
 def phase_attn_kernel_checks(torch, F, attention, flush):
-    """K1 in 15 cases; the first is the GQA generate path's prefill; the
-    last at head_dim 96 (run zero-padded to 128)."""
+    """K1 in 17 cases; the first is the GQA generate path's prefill, the
+    next two a layer of the training main path and of the long-sequence
+    recipe; the last at head_dim 96 (run zero-padded to 128)."""
     main = dict(b=GEN_BATCH, h=16, hkv=2, s=GEN_PROMPT, d=64,
                 dtype=torch.bfloat16)
     cases = [
         dict(main, label="main-path-prefill"),
+        dict(main, label="train-main-path", b=TRAIN_BATCH, hkv=16, s=1024),
+        dict(main, label="train-large", b=LARGE_BATCH, h=12, hkv=12, s=2048,
+             d=128),
         dict(main, label="long-prompt", s=896),
         dict(main, label="seq-len", b=2, s=1024),
         dict(main, label="tail", b=2, s=1000),
@@ -549,24 +553,32 @@ def phase_attn_kernel_checks(torch, F, attention, flush):
             for i, c in enumerate(cases)]
 
 
+def _bwd_flops(b, h, d, pairs) -> dict:
+    """Flops the backward needs, for the whole backward and for each of
+    its two kernels: 2*d per visible (query head, key) pair for each
+    product of d-long vectors, 5 for the backward (q.k, do.v, P.do, dS.q,
+    dS.k), 3 for dq alone (q.k, do.v, dS.k), 4 for dk/dv alone (q.k,
+    do.v, P.do, dS.q)."""
+    return {name: products * 2 * d * b * h * pairs
+            for name, products in (("all", 5), ("dq", 3), ("dkv", 4))}
+
+
 def _bwd_bounds(b, h, hkv, s, d, elem, pairs, dtype_name):
     """Least times of the backward's work, as (ms, bound_by) for the
     whole backward and for each of its two kernels.  Bytes: each input
     read once and each output written once (q, out, do, dq over h heads;
-    k, v, dk, dv over hkv; the f32 lse and delta); operations: 2*d flops
-    per visible (query head, key) pair for each product of d-long
-    vectors: 5 for the backward (q.k, do.v, P.do, dS.q, dS.k), 3 for dq
-    alone (q.k, do.v, dS.k), 4 for dk/dv alone (q.k, do.v, P.do, dS.q)."""
+    k, v, dk, dv over hkv; the f32 lse and delta); operations:
+    :func:`_bwd_flops`."""
     peak = BF16_OPS_PER_S if dtype_name == "torch.bfloat16" \
         else F32_OPS_PER_S
     q_t, kv_t, row = b * h * s * d * elem, b * hkv * s * d * elem, b * h * s * 4
-    parts = {"all": ((4 * q_t + 4 * kv_t + 2 * row), 5),
-             "dq": ((3 * q_t + 2 * kv_t + 2 * row), 3),
-             "dkv": ((2 * q_t + 4 * kv_t + 2 * row), 4)}
+    moved = {"all": 4 * q_t + 4 * kv_t + 2 * row,
+             "dq": 3 * q_t + 2 * kv_t + 2 * row,
+             "dkv": 2 * q_t + 4 * kv_t + 2 * row}
     out = {}
-    for name, (moved, products) in parts.items():
-        t_bytes = moved / HBM_BYTES_PER_S
-        t_ops = products * 2 * d * b * h * pairs / peak
+    for name, flops in _bwd_flops(b, h, d, pairs).items():
+        t_bytes = moved[name] / HBM_BYTES_PER_S
+        t_ops = flops / peak
         out[name] = (max(t_bytes, t_ops) * 1e3,
                      "bytes" if t_bytes >= t_ops else "operations")
     return out
@@ -619,6 +631,7 @@ def check_bwd_case(torch, F, attention, flush, *, label, b, h, hkv, s, d,
     del lout, leaves
     pairs = _visible_pairs(s, causal, window)
     bounds = _bwd_bounds(b, h, hkv, s, d, q.element_size(), pairs, dname)
+    flops = _bwd_flops(b, h, d, pairs)
     rec = dict(case=label, shape=[b, h, hkv, s, d], dtype=dname,
                causal=causal, window=window,
                max_abs_err={n: e[0] for n, e in errs.items()},
@@ -631,7 +644,11 @@ def check_bwd_case(torch, F, attention, flush, *, label, b, h, hkv, s, d,
                library_ms=library_ms, bound_ms=bounds["all"][0],
                bound_by=bounds["all"][1], bound_ms_dq=bounds["dq"][0],
                bound_by_dq=bounds["dq"][1], bound_ms_dkv=bounds["dkv"][0],
-               bound_by_dkv=bounds["dkv"][1], visible_pairs_per_head=pairs)
+               bound_by_dkv=bounds["dkv"][1],
+               tflops=flops["all"] / ms * 1e-9,
+               tflops_dq=flops["dq"] / ms_dq * 1e-9,
+               tflops_dkv=flops["dkv"] / ms_dkv * 1e-9,
+               visible_pairs_per_head=pairs)
     emit("bwd_kernel_check", **rec)
     worst = max(e[1] for e in errs.values())
     if not worst <= 1.0:
@@ -1913,16 +1930,16 @@ def main() -> None:
     phase_small_sp(torch, np, model, sp, decode)
     phase_cli(model, decode, DrainReceipt)
     kernels = []
-    for kname, source, replaces, launches, kchecks in (
-            ("flash_attention", "flash_attention.cu", 192,
+    for kname, source, replaces, design, launches, kchecks in (
+            ("flash_attention", "flash_attention.cu", 192, TC_DESIGN,
              gen_recs[0]["launches"]["flash_attention"], attn_checks),
-            ("flash_decode", "flash_decode.cu", 773,
+            ("flash_decode", "flash_decode.cu", 773, FMA_DESIGN,
              main_rec["flash_decode_launches"], checks),
-            ("paged_flash_decode", "paged_flash_decode.cu", 898,
+            ("paged_flash_decode", "paged_flash_decode.cu", 898, FMA_DESIGN,
              paged_rec["paged_flash_decode_launches"], paged_checks)):
         at_main = kchecks[0]
         kernels.append(dict(
-            name=kname, route="cuda", design=FMA_DESIGN,
+            name=kname, route="cuda", design=design,
             source=f"tpu_autoscaler_torch/csrc/{source}",
             replaces=f"tpu_autoscaler/workloads/attention.py:{replaces}",
             launches=launches, max_abs_err=at_main["max_abs_err"],
@@ -1931,6 +1948,16 @@ def main() -> None:
             library_ms=at_main["library_ms"],
             gather_ms=at_main.get("gather_ms"), cases_passed=len(kchecks),
             shape=at_main["shape"], lengths=at_main.get("lengths")))
+    # K1 where the trainer calls it: a layer of the training main path,
+    # its launches per train step.
+    at_train = attn_checks[1]
+    kernels[0]["train_step"] = dict(
+        shape=at_train["shape"], ms=at_train["ms"],
+        plain_ms=at_train["plain_ms"], bound_ms=at_train["bound_ms"],
+        bound_by=at_train["bound_by"], library_ms=at_train["library_ms"],
+        tflops=at_train["tflops"], max_abs_err=at_train["max_abs_err"],
+        launches=train_rec["launches_per_step"]["flash_attention"],
+        launches_per="train step")
     # K2: each kernel at a layer of the training main path, its launches
     # per train step; plain and library times are the whole backward's
     # (neither splits into the two kernels).
@@ -1939,7 +1966,7 @@ def main() -> None:
             ("flash_attention_bwd_dq", "dq", 310, ("dq",)),
             ("flash_attention_bwd_dkv", "dkv", 344, ("dk", "dv"))):
         kernels.append(dict(
-            name=kname, route="cuda", design=FMA_DESIGN,
+            name=kname, route="cuda", design=TC_DESIGN,
             source="tpu_autoscaler_torch/csrc/flash_attention_bwd.cu",
             replaces=f"tpu_autoscaler/workloads/attention.py:{replaces}",
             launches=train_rec["launches_per_step"][kname],
@@ -1950,6 +1977,7 @@ def main() -> None:
             bound_by=at_main[f"bound_by_{part}"],
             library_ms=at_main["library_ms"],
             plain_and_library_scope="whole backward",
+            tflops=at_main[f"tflops_{part}"],
             cases_passed=len(bwd_checks), shape=at_main["shape"]))
     # K5 and K6: each kernel at the SP main path's unmasked hop (its
     # diagonal hop beside it), launches per SP train step; K6's plain and

@@ -137,6 +137,45 @@ def test_flash_attention_cuda_kernel_matches_plain_version(dtype, d):
     assert dq.shape == q.shape and bool(torch.isfinite(dq).all())
 
 
+# (b, h, hkv, s, kwargs): the bf16 tensor-core K1 and K2 at s 1, 17 and
+# 1000 (a tail past 7 full 128-row tiles), causal, windowed (1, and one
+# cutting the q-tiles' key ranges), non-causal, MHA, GQA and MQA.
+TC_ATTN_CASES = [(3, 4, 2, 1, {}), (2, 4, 2, 17, {}), (2, 4, 4, 17,
+                                                       {"causal": False}),
+                 (1, 4, 2, 1000, {}), (1, 4, 2, 1000, {"window": 1}),
+                 (1, 8, 1, 1000, {"window": 300}),
+                 (1, 4, 1, 1000, {"causal": False}), (2, 8, 1, 17,
+                                                       {"window": 1})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
+def test_flash_attention_tensor_core_kernels_match_plain_versions(d):
+    """The bf16 K1 (out and lse) and K2 (dq, dk, dv) on wgmma at every
+    built head_dim and at 96 (run padded to 128) against their plain
+    versions, K2 on K1's own out and lse; each gradient comes out in
+    bf16, as the plain version's does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for b, h, hkv, s, kw in TC_ATTN_CASES:
+        q, k, v, do = _bwd_inputs(g, torch.bfloat16, b, h, hkv, s, d)
+        out, lse = attention.flash_attention_forward(q, k, v, **kw)
+        want, want_lse = attention.flash_attention_reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err, share = err_over_tol(torch, out, want)
+        assert share <= 1.0, (s, kw, err, share)
+        assert (lse - want_lse).abs().max().item() <= LSE_TOL, (s, kw)
+        got = attention.flash_attention_backward(q, k, v, out, lse, do, **kw)
+        want = attention.flash_attention_backward_reference(
+            q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
+            assert gt.dtype == torch.bfloat16 and gt.shape == wt.shape
+            err, share = grad_err_over_tol(torch, gt, wt)
+            assert share <= 1.0, (name, s, kw, err, share)
+
+
 # (b, h, hkv, s, kwargs): causal, windowed (a window smaller than a tile,
 # and of 1), non-causal; MHA, GQA and MQA; s 1, 2, 33 and tails that are
 # not a multiple of the 32-row tiles.

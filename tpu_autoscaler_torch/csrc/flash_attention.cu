@@ -7,37 +7,42 @@
 // reads KV head g / (h / hkv); key j is visible to query i iff j <= i and
 // i - j < window (causal), or always (not causal).  It returns out
 // [b, h, s, d] in q's dtype and the f32 log-sum-exp lse [b, h, s] of each
-// row's scaled scores, which the backward (K2, a later change) needs.
+// row's scaled scores, which the backward (K2, flash_attention_bwd.cu)
+// reads.
 //
 // What bounds it.  The call must move q, k, v and out once and do 4*d
-// flops per visible (query, key) pair: causal GQA-8 at d 64 is ~57 flops
-// per byte at s 128 and ~450 at s 1024.  That is above the ~20 flops
-// per byte at which the card's f32 arithmetic, not its memory, becomes
-// the limit, and from s ~ 670 above bf16's ~295.  This first version does
-// the dot products on the CUDA cores in f32 (FMA), for bf16 as for f32,
-// so its ceiling is the 67 TFLOP/s f32 rate, not the tensor cores'.  The
-// design keeps the work to the visible pairs and every intermediate on
-// the chip:
+// flops per visible (query, key) pair.  At the trainer's layer (b 16,
+// h 16, s 1024, d 64, causal, bf16) that is 134 MB and 34 GFLOP, about
+// as much time on the memory (0.040 ms) as on the bf16 tensor cores
+// (0.035 ms); at the long-sequence recipe's (b 8, h 12, s 2048, d 128)
+// 201 MB and 103 GFLOP, bound by the tensor cores (0.104 ms).  Either
+// way the products must run on the tensor cores, and nothing but q, k,
+// v, out and lse may touch device memory.
 //
-// - one CTA per (row, query head, tile of kBQ = 32 query rows), 8 warps
-//   of kRowsPerWarp = 4 rows each; CTAs of the last q-tiles (the most
-//   keys, under causality) are scheduled first;
-// - the CTA loops ONLY over the k-tiles its q-tile can see: up to the
-//   diagonal under causality and, with a window, from the band's lower
-//   edge.  The TPU grid streams every k-block of the band and skips the
-//   compute with pl.when; here the loop bounds do the skipping;
-// - K/V tiles of kBK = 32 keys are staged in shared memory by cp.async,
-//   double-buffered (K3's scheme), with K rows padded by 16 bytes so the
-//   lanes' row reads fall in distinct banks;
-// - lane j scores key j of the tile against the warp's 4 rows, so each K
-//   vector read from shared memory serves 4 rows, and a row's max and sum
-//   are one warp reduction each; PV takes each key's P from its lane by
-//   shuffle and each lane accumulates d/32 output elements of every row;
-// - the f32 online-softmax carry (m, l, acc) stays in registers, and
-//   neither scores nor P ever leave the chip.
+// bf16: the ring hop's tensor-core tile (flash_fwd_tc.cuh, K5) at offset
+// 0 over its own block (masked = causal, sq = sk = s), instantiated with
+// the Normalised IO: the f32 carry starts in registers at (-1e30, 0, 0)
+// and never touches device memory, and the epilogue writes out = acc / l
+// in bf16 and lse = m + log(l).  One CTA per (row, query head, 128 query
+// rows), the last q-tiles (the most keys) first; two consumer warpgroups
+// run S = Q.K^T and O += P.V on wgmma with P in registers, a producer
+// warp streams q and a ring of K/V tiles by TMA; the CTA loops only over
+// the k-tiles its rows see.  Every row sees its diagonal key, so the
+// ring hop's lone-row case does not arise.  At d 32 and 64 a tile holds
+// 128 keys (the trainer's d 64: an S tile as wide as the O tile),
+// at d 128 64 keys and at d 256 32.
+//
+// f32: the CUDA-core kernel (flash_attention_fma_kernel): tensor cores
+// would run f32 as TF32 (about three decimal digits).  One CTA per (row,
+// query head, 32 query rows), 8 warps of 4 rows; K/V tiles of 32 keys
+// staged by cp.async, double-buffered, K rows padded by 16 bytes so the
+// lanes' row reads fall in distinct banks; lane j scores key j against
+// the warp's 4 rows, a row's max and sum are one warp reduction each, PV
+// takes each key's P from its lane by shuffle; the carry stays in
+// registers.  Its ceiling is the 67 TFLOP/s f32 rate.
 //
 // Any s: tiles are fixed and the tails are masked.  Query rows past s are
-// neither computed nor written; keys past s are never copied or read.
+// never written.
 //
 // Numerics, matching the TPU kernel: scores are f32 dot products scaled
 // after the dot by the caller's scale (d^-0.5 of the model's true
@@ -47,11 +52,6 @@
 // rounded to v's dtype before PV and PV accumulates in f32; out = acc / l
 // in q's dtype and lse = m + log(l).  The diagonal key is always visible,
 // so l >= 1.
-//
-// Known weaknesses, left to later changes: CUDA-core FMA where wgmma
-// (bf16 tensor cores) would be ~15x the rate; the GQA group's query heads
-// each read the same K/V tiles (sharing them, and TMA, are the next
-// steps).
 //
 // Interface: a plain C function (flash_attention at the bottom), built
 // with nvcc into a shared library and called through ctypes.  It launches
@@ -64,10 +64,15 @@
 #include <cmath>
 
 #include "decode_common.cuh"
+#include "flash_fwd_tc.cuh"
 
 namespace {
 
 using namespace decode;
+
+// Keys a bf16 tile holds at head_dim 32 and 64: at the trainer's layer
+// on an H100, 64-key tiles timed a little slower than 128.
+constexpr int kNarrowKeys = 128;
 
 constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = 4;
@@ -76,9 +81,9 @@ constexpr int kBK = 32;                     // keys per tile: one per lane
 
 // Shared memory: kStages stages of [K tile (padded rows) | V tile], then
 // the CTA's q rows as f32.
-template <typename T, int D>
+template <int D>
 struct AttnTile {
-  static constexpr int kVec = 16 / sizeof(T);      // elements per vector
+  static constexpr int kVec = 4;                   // floats per vector
   static constexpr int kVpr = D / kVec;            // vectors per row
   static constexpr int kKStride = kVpr + 1;        // padded K row
   static constexpr int kStageVecs = kBK * (kKStride + kVpr);
@@ -88,14 +93,16 @@ struct AttnTile {
 };
 
 // Block = kWarps warps; grid = n_qt * b * h, the last q-tiles first.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(32 * kWarps)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           float* __restrict__ lse, int bh_count, int h,
-                           int hkv, int s, int causal, int window,
-                           float scale) {
-  using G = AttnTile<T, D>;
+    flash_attention_fma_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               float* __restrict__ out,
+                               float* __restrict__ lse, int bh_count, int h,
+                               int hkv, int s, int causal, int window,
+                               float scale) {
+  using G = AttnTile<D>;
   constexpr int VPR = G::kVpr;
   constexpr int KS = G::kKStride;
   constexpr int VEC = G::kVec;
@@ -118,7 +125,7 @@ __global__ void __launch_bounds__(32 * kWarps)
   const size_t q_row0 = static_cast<size_t>(bh) * s + q0;
   for (int i = threadIdx.x; i < kBQ * D; i += blockDim.x) {
     const int r = i / D;
-    qs[i] = q0 + r < s ? Elem<T>::load(q[q_row0 * D + i]) : 0.f;
+    qs[i] = q0 + r < s ? q[q_row0 * D + i] : 0.f;
   }
 
   // The keys this q-tile can see, in whole tiles: [t_lo, t_hi].
@@ -173,7 +180,7 @@ __global__ void __launch_bounds__(32 * kWarps)
     const int start = (t_lo + t) * kBK;
     const int n = min(kBK, s - start);
     const uint4* kst = smem + (t % kStages) * G::kStageVecs;
-    const T* vs = reinterpret_cast<const T*>(kst + kBK * KS);
+    const float* vs = reinterpret_cast<const float*>(kst + kBK * KS);
 
     // Lane j scores key start + j against the warp's R rows.
     const int key = start + lane;
@@ -185,7 +192,7 @@ __global__ void __launch_bounds__(32 * kWarps)
 #pragma unroll 4
       for (int c = 0; c < VPR; ++c) {
         float kf[VEC];
-        Elem<T>::unpack(kr[c], kf);
+        Elem<float>::unpack(kr[c], kf);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float4* q4 =
@@ -200,7 +207,7 @@ __global__ void __launch_bounds__(32 * kWarps)
       }
     }
 
-    // Merge the tile into each row's carry; P rounded to v's dtype.
+    // Merge the tile into each row's carry.
     float pr[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -216,7 +223,7 @@ __global__ void __launch_bounds__(32 * kWarps)
       m[r] = m_new;
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[r][e] *= corr;
-      pr[r] = Elem<T>::round(p);
+      pr[r] = p;
     }
     for (int j = 0; j < n; ++j) {
       float pj[R];
@@ -227,10 +234,10 @@ __global__ void __launch_bounds__(32 * kWarps)
         any |= pj[r] != 0.f;
       }
       if (!any) continue;  // the same for every lane: j is masked for all
-      const T* vr = vs + j * D + lane * E;
+      const float* vr = vs + j * D + lane * E;
       float vf[E];
 #pragma unroll
-      for (int e = 0; e < E; ++e) vf[e] = Elem<T>::load(vr[e]);
+      for (int e = 0; e < E; ++e) vf[e] = vr[e];
 #pragma unroll
       for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -246,32 +253,36 @@ __global__ void __launch_bounds__(32 * kWarps)
     const size_t o = static_cast<size_t>(bh) * s + qpos;
 #pragma unroll
     for (int e = 0; e < E; ++e)
-      out[o * D + lane * E + e] = Elem<T>::store(acc[r][e] / l[r]);
+      out[o * D + lane * E + e] = acc[r][e] / l[r];
     if (lane == 0) lse[o] = m[r] + logf(l[r]);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int b, int h, int hkv, int s, int causal,
-                   int window, float scale, cudaStream_t stream) {
-  const size_t smem = AttnTile<T, D>::kBytes;
-  const cudaError_t err = allow_smem(flash_attention_kernel<T, D>, smem);
+template <int D>
+cudaError_t launch_fma(const void* q, const void* k, const void* v,
+                       void* out, float* lse, int b, int h, int hkv, int s,
+                       int causal, int window, float scale,
+                       cudaStream_t stream) {
+  const size_t smem = AttnTile<D>::kBytes;
+  const cudaError_t err =
+      allow_smem(flash_attention_fma_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const int n_qt = (s + kBQ - 1) / kBQ;
-  flash_attention_kernel<T, D><<<n_qt * b * h, 32 * kWarps, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, b * h, h, hkv, s,
-      causal, window, scale);
+  flash_attention_fma_kernel<D>
+      <<<n_qt * b * h, 32 * kWarps, smem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(out), lse,
+          b * h, h, hkv, s, causal, window, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, out [b, h, s, d] and k, v [b, hkv, s, d], all contiguous and 16-byte
-// aligned, in one dtype (0: f32, 1: bf16); lse [b, h, s] f32.  causal 0
-// or 1; window 0 means no window (a window needs causal); scale multiplies
-// q.k.  Returns a cudaError_t: 0 on a successful launch.
+// aligned, in one dtype (0: f32, on the CUDA cores; 1: bf16, on the
+// tensor cores); lse [b, h, s] f32.  causal 0 or 1; window 0 means no
+// window (a window needs causal); scale multiplies q.k.  Returns a
+// cudaError_t: 0 on a successful launch.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, float* lse, int b, int h, int hkv,
                                int s, int d, int dtype, int causal,
@@ -286,7 +297,15 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch(dtype, d, [&](auto tag, auto dim) {
     using T = std::remove_pointer_t<decltype(tag)>;
-    return launch<T, decltype(dim)::value>(q, k, v, out, lse, b, h, hkv, s,
-                                           causal != 0, window, scale, st);
+    constexpr int D = decltype(dim)::value;
+    if constexpr (std::is_same_v<T, float>) {
+      return launch_fma<D>(q, k, v, out, lse, b, h, hkv, s, causal != 0,
+                           window, scale, st);
+    } else {
+      constexpr int BK = D <= 64 ? kNarrowKeys : tc::FwdTile<D>::BK;
+      return tc::launch_fwd_tc<D, BK>(
+          q, k, v, tc::Normalised{static_cast<__nv_bfloat16*>(out), lse}, b,
+          h, hkv, s, s, 0, causal != 0, window, scale, st);
+    }
   }));
 }

@@ -6,9 +6,10 @@
 // (the custom_vjp backward of flash_attention).  Same function: given q
 // [b, h, s, d], k/v [b, hkv, s, d], the output's gradient do [b, h, s, d],
 // the forward's f32 log-sum-exp lse [b, h, s] and delta = rowsum(do * out)
-// [b, h, s] (f32, computed by the caller), each kernel rebuilds the
-// probabilities P = exp(q.k * scale - lse) of the pairs it visits (scale
-// = d^-0.5 of the model's true head_dim, passed by the caller) and
+// [b, h, s] (f32, computed by the caller, as the JAX package computes it
+// outside Pallas), each kernel rebuilds the probabilities P = exp(q.k *
+// scale - lse) of the pairs it visits (scale = d^-0.5 of the model's true
+// head_dim, passed by the caller) and
 //
 //   dP = do.v,  dS = P * (dP - delta),
 //   dq = sum_k dS.k * scale           (dq kernel)
@@ -20,33 +21,42 @@
 //
 // What bounds it.  The backward must move q, k, v, out, do, dq, dk, dv
 // once and do 10*d flops per visible (query head, key) pair (five products
-// of d-long vectors); at the trainer's layer (s 1024, d 64) that is ~460
-// flops per byte, above the ~295 at which even bf16 tensor cores, not the
-// memory, become the limit.  This first version does its products on the
-// CUDA cores in f32 (FMA), for bf16 as for f32, so its ceiling is the
-// 67 TFLOP/s f32 rate; recomputing P and dP in both kernels costs 14*d
-// flops per pair instead of 10*d.  The design keeps the work to the
-// visible pairs and every intermediate (S, P, dP, dS) on the chip:
+// of d-long vectors).  At the trainer's layer (b 16, h 16, s 1024, d 64,
+// causal, bf16) that is 86 GFLOP against 0.27 GB, bound by the bf16
+// tensor cores (0.087 ms); at the long-sequence recipe's (b 8, h 12,
+// s 2048, d 128) 258 GFLOP (0.261 ms).  The products must run on the
+// tensor cores; S, P, dP and dS must stay on the chip.
 //
-// - dq: one CTA per (row, query head, tile of kBQ = 32 query rows), 8 warps
-//   of 4 rows each, with q and do resident as f32; it loops only over the
-//   k-tiles its q-tile can see (as the forward does) with K and V tiles of
-//   kBK = 32 keys staged by cp.async, double-buffered.  Lane j scores key
-//   j against the warp's 4 rows (q.k and do.v), writes its dS to a warp
-//   scratch row, and every lane then adds dS * k into its d/32 elements
-//   of the 4 rows' dq, held in f32 registers and written once.
-// - dk/dv: one CTA per (row, KV head, tile of kBK = 32 keys), 8 warps of 4
-//   keys each, with the K and V tiles resident as f32.  It loops over every
-//   query head of the GQA group and, for each, over the q-tiles that can
-//   see the k-tile (from the diagonal up to the window's upper edge), each
-//   staged (q, do, lse, delta) by cp.async, double-buffered.  Lane j takes
-//   query row j against the warp's 4 keys; P and dS go to warp scratch and
-//   every lane adds P * do and dS * q into its d/32 elements of the 4 keys'
-//   dv and dk.  The reduction over the group and the q-tiles stays in
-//   registers: no atomics, and the result does not depend on scheduling.
+// bf16: the ring hop backward's tensor-core tiles (flash_bwd_tc.cuh, K6)
+// at offset 0 over their own block (masked = causal, sq = sk = s), with
+// dq, dk and dv written in bf16, each rounded once from its f32
+// accumulator.  dq: one CTA per (row, query head, 128 query rows), the
+// last q-tiles (the most keys) first, S = Q.K^T, dP = dO.V^T and dQ +=
+// dS.K on wgmma with dS in registers, K/V tiles streamed by TMA.  dk/dv:
+// one CTA per (row, KV head, 128 keys), the first k-tiles (seen by the
+// most rows) first, S^T, dP^T, dV += P^T.dO and dK += dS^T.Q on wgmma,
+// (q, do, lse, delta) tiles streamed by TMA for every query head of the
+// GQA group: the sum over the group stays in registers, with no atomics,
+// so the bits do not depend on scheduling.  Each kernel rebuilds P and
+// dP: 12*d flops per pair done for the 10*d needed.  At GQA and MQA the
+// dk/dv grid is b * hkv * s / 128 CTAs (16 at b 2, hkv 2, s 512), under
+// one wave of the card's 132 SMs: splitting the group across CTAs is
+// left to a later change.
+//
+// f32: the CUDA-core kernels (flash_attention_bwd_*_fma_kernel): tensor
+// cores would run f32 as TF32.  dq: one CTA per (row, query head, 32
+// query rows), 8 warps of 4 rows, q and do resident as f32, K/V tiles of
+// 32 keys by cp.async, double-buffered; lane j scores key j against the
+// warp's 4 rows, and every lane adds dS * k into its d/32 elements of the
+// rows' dq.  dk/dv: one CTA per (row, KV head, 32 keys), 8 warps of 4
+// keys, K and V resident as f32, (q, do, lse, delta) tiles by cp.async
+// for every query head of the group and every q-tile that sees the keys;
+// lane j takes query row j against the warp's 4 keys.  P and dP are
+// rebuilt in both (14*d flops per pair).  Their ceiling is the
+// 67 TFLOP/s f32 rate.
 //
 // Any s: tiles are fixed and the tails are masked.  Rows and keys past s
-// are never copied, read or written (resident tiles hold zeros there).
+// are never written.
 //
 // Numerics, matching the TPU kernels: scores are f32 dot products scaled
 // after the dot, P = exp(score - lse) with masked pairs at
@@ -65,6 +75,7 @@
 #include <cmath>
 
 #include "decode_common.cuh"
+#include "flash_bwd_tc.cuh"
 
 namespace {
 
@@ -75,9 +86,9 @@ constexpr int kPerWarp = 4;                 // query rows (dq) or keys (dk/dv)
 constexpr int kBQ = kWarps * kPerWarp;      // query rows per tile: 32
 constexpr int kBK = 32;                     // keys per tile: 32
 
-template <typename T, int D>
+template <int D>
 struct BwdTile {
-  static constexpr int kVec = 16 / sizeof(T);      // elements per vector
+  static constexpr int kVec = 4;                   // floats per vector
   static constexpr int kVpr = D / kVec;            // vectors per row
   static constexpr int kStride = kVpr + 1;         // padded row: lanes that
                                                    // read one row each hit
@@ -118,15 +129,15 @@ __device__ __forceinline__ float dot4(const float4& a, const float* b) {
 }
 
 // dq.  Block = kWarps warps; grid = n_qt * b * h, the last q-tiles first.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(32 * kWarps)
-    flash_attention_bwd_dq_kernel(
-        const T* __restrict__ q, const T* __restrict__ k,
-        const T* __restrict__ v, const T* __restrict__ dout,
+    flash_attention_bwd_dq_fma_kernel(
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ dout,
         const float* __restrict__ lse, const float* __restrict__ delta,
-        T* __restrict__ dq, int bh_count, int h, int hkv, int s, int causal,
+        float* __restrict__ dq, int bh_count, int h, int hkv, int s, int causal,
         int window, float scale) {
-  using G = BwdTile<T, D>;
+  using G = BwdTile<D>;
   constexpr int VPR = G::kVpr;
   constexpr int KS = G::kStride;
   constexpr int VEC = G::kVec;
@@ -151,8 +162,8 @@ __global__ void __launch_bounds__(32 * kWarps)
   const size_t q_row0 = static_cast<size_t>(bh) * s + q0;
   for (int i = threadIdx.x; i < kBQ * D; i += blockDim.x) {
     const bool in = q0 + i / D < s;
-    qs[i] = in ? Elem<T>::load(q[q_row0 * D + i]) : 0.f;
-    dos[i] = in ? Elem<T>::load(dout[q_row0 * D + i]) : 0.f;
+    qs[i] = in ? q[q_row0 * D + i] : 0.f;
+    dos[i] = in ? dout[q_row0 * D + i] : 0.f;
   }
   const int row0 = q0 + warp * R;       // position of the warp's first row
   float lse_r[R];
@@ -227,8 +238,8 @@ __global__ void __launch_bounds__(32 * kWarps)
       for (int c = 0; c < VPR; ++c) {
         float kf[VEC];
         float vf[VEC];
-        Elem<T>::unpack(kr[c], kf);
-        Elem<T>::unpack(vr[c], vf);
+        Elem<float>::unpack(kr[c], kf);
+        Elem<float>::unpack(vr[c], vf);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float4* q4 =
@@ -250,7 +261,7 @@ __global__ void __launch_bounds__(32 * kWarps)
       const bool vis = lane < n && qpos < s && visible(qpos, key, causal,
                                                        window);
       const float p = vis ? expf(sc[r] * scale - lse_r[r]) : 0.f;
-      ds[r] = vis ? Elem<T>::round(p * (dp[r] - delta_r[r])) : 0.f;
+      ds[r] = vis ? p * (dp[r] - delta_r[r]) : 0.f;
     }
     ds_w[lane] = make_float4(ds[0], ds[1], ds[2], ds[3]);
     __syncwarp();
@@ -260,10 +271,10 @@ __global__ void __launch_bounds__(32 * kWarps)
     for (int j = 0; j < n; ++j) {
       const float4 d4 = ds_w[j];
       if (all_zero(d4)) continue;  // the same for every lane
-      const T* kj = reinterpret_cast<const T*>(kst + j * KS) + lane * E;
+      const float* kj = reinterpret_cast<const float*>(kst + j * KS) + lane * E;
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        const float kf = Elem<T>::load(kj[e]);
+        const float kf = kj[e];
         acc[0][e] += d4.x * kf;
         acc[1][e] += d4.y * kf;
         acc[2][e] += d4.z * kf;
@@ -279,21 +290,21 @@ __global__ void __launch_bounds__(32 * kWarps)
     if (qpos >= s) continue;
     const size_t o = (static_cast<size_t>(bh) * s + qpos) * D + lane * E;
 #pragma unroll
-    for (int e = 0; e < E; ++e) dq[o + e] = Elem<T>::store(acc[r][e] * scale);
+    for (int e = 0; e < E; ++e) dq[o + e] = acc[r][e] * scale;
   }
 }
 
 // dk/dv.  Block = kWarps warps; grid = n_kt * b * hkv, the first k-tiles
 // (the most q-tiles under causality) first.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(32 * kWarps)
-    flash_attention_bwd_dkv_kernel(
-        const T* __restrict__ q, const T* __restrict__ k,
-        const T* __restrict__ v, const T* __restrict__ dout,
+    flash_attention_bwd_dkv_fma_kernel(
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ dout,
         const float* __restrict__ lse, const float* __restrict__ delta,
-        T* __restrict__ dk, T* __restrict__ dv, int bkv_count, int h,
+        float* __restrict__ dk, float* __restrict__ dv, int bkv_count, int h,
         int hkv, int s, int causal, int window, float scale) {
-  using G = BwdTile<T, D>;
+  using G = BwdTile<D>;
   constexpr int VPR = G::kVpr;
   constexpr int KS = G::kStride;
   constexpr int VEC = G::kVec;
@@ -319,8 +330,8 @@ __global__ void __launch_bounds__(32 * kWarps)
   const size_t kv_row0 = static_cast<size_t>(bkv) * s + k0;
   for (int i = threadIdx.x; i < kBK * D; i += blockDim.x) {
     const bool in = k0 + i / D < s;
-    ks[i] = in ? Elem<T>::load(k[kv_row0 * D + i]) : 0.f;
-    vs[i] = in ? Elem<T>::load(v[kv_row0 * D + i]) : 0.f;
+    ks[i] = in ? k[kv_row0 * D + i] : 0.f;
+    vs[i] = in ? v[kv_row0 * D + i] : 0.f;
   }
 
   // The query rows that can see this k-tile: [q_lo, q_hi], from the
@@ -399,8 +410,8 @@ __global__ void __launch_bounds__(32 * kWarps)
       for (int c = 0; c < VPR; ++c) {
         float qf[VEC];
         float df[VEC];
-        Elem<T>::unpack(qr[c], qf);
-        Elem<T>::unpack(dr[c], df);
+        Elem<float>::unpack(qr[c], qf);
+        Elem<float>::unpack(dr[c], df);
 #pragma unroll
         for (int kk = 0; kk < KPW; ++kk) {
           const float4* k4 =
@@ -425,8 +436,8 @@ __global__ void __launch_bounds__(32 * kWarps)
       const bool vis = lane < n && key < s && visible(qpos, key, causal,
                                                       window);
       const float p = vis ? expf(sc[kk] * scale - lse_j) : 0.f;
-      pl[kk] = vis ? Elem<T>::round(p) : 0.f;
-      dsl[kk] = vis ? Elem<T>::round(p * (dp[kk] - delta_j)) : 0.f;
+      pl[kk] = vis ? p : 0.f;
+      dsl[kk] = vis ? p * (dp[kk] - delta_j) : 0.f;
     }
     p_w[lane] = make_float4(pl[0], pl[1], pl[2], pl[3]);
     ds_w[lane] = make_float4(dsl[0], dsl[1], dsl[2], dsl[3]);
@@ -439,12 +450,12 @@ __global__ void __launch_bounds__(32 * kWarps)
       const float4 p4 = p_w[r];
       const float4 d4 = ds_w[r];
       if (all_zero(p4) && all_zero(d4)) continue;  // the same for every lane
-      const T* qr = reinterpret_cast<const T*>(qst + r * KS) + lane * E;
-      const T* dr = reinterpret_cast<const T*>(dst + r * KS) + lane * E;
+      const float* qr = reinterpret_cast<const float*>(qst + r * KS) + lane * E;
+      const float* dr = reinterpret_cast<const float*>(dst + r * KS) + lane * E;
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        const float qf = Elem<T>::load(qr[e]);
-        const float df = Elem<T>::load(dr[e]);
+        const float qf = qr[e];
+        const float df = dr[e];
         dva[0][e] += p4.x * df;
         dva[1][e] += p4.y * df;
         dva[2][e] += p4.z * df;
@@ -465,8 +476,8 @@ __global__ void __launch_bounds__(32 * kWarps)
     const size_t o = (static_cast<size_t>(bkv) * s + key) * D + lane * E;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      dk[o + e] = Elem<T>::store(dka[kk][e] * scale);
-      dv[o + e] = Elem<T>::store(dva[kk][e]);
+      dk[o + e] = dka[kk][e] * scale;
+      dv[o + e] = dva[kk][e];
     }
   }
 }
@@ -483,9 +494,10 @@ cudaError_t check_shape(int b, int h, int hkv, int s, int causal, int window,
 }  // namespace
 
 // q, do, dq [b, h, s, d] and k, v [b, hkv, s, d], all contiguous and
-// 16-byte aligned, in one dtype (0: f32, 1: bf16); lse, delta [b, h, s]
-// f32.  causal 0 or 1; window 0 means no window (a window needs causal);
-// scale multiplies q.k.  Returns a cudaError_t: 0 on a successful launch.
+// 16-byte aligned, in one dtype (0: f32, on the CUDA cores; 1: bf16, on
+// the tensor cores); lse, delta [b, h, s] f32.  causal 0 or 1; window 0
+// means no window (a window needs causal); scale multiplies q.k.  Returns
+// a cudaError_t: 0 on a successful launch.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
@@ -502,17 +514,25 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   return static_cast<int>(dispatch(dtype, d, [&](auto tag, auto dim) {
     using T = std::remove_pointer_t<decltype(tag)>;
     constexpr int D = decltype(dim)::value;
-    const size_t smem = BwdTile<T, D>::kDqBytes;
-    cudaError_t e = allow_smem(flash_attention_bwd_dq_kernel<T, D>, smem);
-    if (e != cudaSuccess) return e;
-    flash_attention_bwd_dq_kernel<T, D>
-        <<<static_cast<int>(ctas), 32 * kWarps, smem, st>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k),
-            static_cast<const T*>(v), static_cast<const T*>(dout),
-            static_cast<const float*>(lse), static_cast<const float*>(delta),
-            static_cast<T*>(dq), b * h, h, hkv, s, causal != 0, window,
-            scale);
-    return cudaGetLastError();
+    if constexpr (std::is_same_v<T, float>) {
+      const size_t smem = BwdTile<D>::kDqBytes;
+      cudaError_t e =
+          allow_smem(flash_attention_bwd_dq_fma_kernel<D>, smem);
+      if (e != cudaSuccess) return e;
+      flash_attention_bwd_dq_fma_kernel<D>
+          <<<static_cast<int>(ctas), 32 * kWarps, smem, st>>>(
+              static_cast<const float*>(q), static_cast<const float*>(k),
+              static_cast<const float*>(v), static_cast<const float*>(dout),
+              static_cast<const float*>(lse),
+              static_cast<const float*>(delta), static_cast<float*>(dq), b * h,
+              h, hkv, s, causal != 0, window, scale);
+      return cudaGetLastError();
+    } else {
+      return tc::launch_bwd_dq_tc<D>(
+          q, k, v, dout, static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<T*>(dq), b, h, hkv,
+          s, s, 0, causal != 0, window, scale, st);
+    }
   }));
 }
 
@@ -534,16 +554,26 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   return static_cast<int>(dispatch(dtype, d, [&](auto tag, auto dim) {
     using T = std::remove_pointer_t<decltype(tag)>;
     constexpr int D = decltype(dim)::value;
-    const size_t smem = BwdTile<T, D>::kDkvBytes;
-    cudaError_t e = allow_smem(flash_attention_bwd_dkv_kernel<T, D>, smem);
-    if (e != cudaSuccess) return e;
-    flash_attention_bwd_dkv_kernel<T, D>
-        <<<static_cast<int>(ctas), 32 * kWarps, smem, st>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k),
-            static_cast<const T*>(v), static_cast<const T*>(dout),
-            static_cast<const float*>(lse), static_cast<const float*>(delta),
-            static_cast<T*>(dk), static_cast<T*>(dv), b * hkv, h, hkv, s,
-            causal != 0, window, scale);
-    return cudaGetLastError();
+    if constexpr (std::is_same_v<T, float>) {
+      const size_t smem = BwdTile<D>::kDkvBytes;
+      cudaError_t e =
+          allow_smem(flash_attention_bwd_dkv_fma_kernel<D>, smem);
+      if (e != cudaSuccess) return e;
+      flash_attention_bwd_dkv_fma_kernel<D>
+          <<<static_cast<int>(ctas), 32 * kWarps, smem, st>>>(
+              static_cast<const float*>(q), static_cast<const float*>(k),
+              static_cast<const float*>(v), static_cast<const float*>(dout),
+              static_cast<const float*>(lse),
+              static_cast<const float*>(delta), static_cast<float*>(dk),
+              static_cast<float*>(dv), b * hkv, h, hkv, s, causal != 0, window,
+              scale);
+      return cudaGetLastError();
+    } else {
+      return tc::launch_bwd_dkv_tc<D>(
+          q, k, v, dout, static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<T*>(dk),
+          static_cast<T*>(dv), b, h, hkv, s, s, 0, causal != 0, window,
+          scale, st);
+    }
   }));
 }

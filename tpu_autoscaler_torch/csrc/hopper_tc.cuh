@@ -1,9 +1,10 @@
-// Pieces shared by the ring kernels (ring_flash_step.cu and
-// ring_flash_bwd.cu), for NVIDIA Hopper, sm_90a: the hop's mask, and for
-// their bf16 tensor-core paths TMA tile loads with mbarrier completion,
-// wgmma shared-memory descriptors and the wgmma instructions themselves,
-// written as inline PTX (each accumulator register named, since inline
-// PTX takes no arrays), and the host-side tensor maps.
+// Pieces shared by the bf16 tensor-core tiles of the attention kernels
+// (flash_fwd_tc.cuh: K1 and K5; flash_bwd_tc.cuh: K2 and K6), for NVIDIA
+// Hopper, sm_90a: the hop's mask (K1 and K2 are a hop at offset 0), TMA
+// tile loads with mbarrier completion, wgmma shared-memory descriptors
+// and the wgmma instructions themselves, written as inline PTX (each
+// accumulator register named, since inline PTX takes no arrays), the
+// CTA's shape, and the host-side tensor maps.
 //
 // Layout.  Every bf16 tile in shared memory is cut along its head_dim
 // into 64-column "atoms" of 128 bytes a row, each atom a block of
@@ -211,12 +212,27 @@ __device__ __forceinline__ void regs_inc() {
 // registers over: 2 x 128 x 232 + 128 x 40 of the SM's 65,536.
 constexpr int kConsumerRegs = 232;
 constexpr int kProducerRegs = 40;
+constexpr int kConsumers = 2;                       // warpgroups of 64 rows
+constexpr int kTcThreads = 128 * (kConsumers + 1);  // + the producer's
+constexpr int kTcRows = 64 * kConsumers;  // query rows (forward, dq) or
+                                          // keys (dk/dv) per CTA
 
 // Two floats as a bf16 pair (round to nearest even), the lower column in
 // the lower half: the A-fragment order.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two f32 values written to p[0], p[1] in the output's type: f32 as
+// they are, bf16 rounded once (to nearest even).
+__device__ __forceinline__ void store_pair(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float lo,
+                                           float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(lo, hi);
 }
 
 // The m64nNk16 accumulator fragment: register i*4 + j*2 + c of thread t of
@@ -254,6 +270,18 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B K-major in shared
+// memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

@@ -35,8 +35,11 @@ head_dim up to 256.  The whole-activation kernels (flash_attention, its
 backward and the ring hops) run a head_dim outside the set zero-padded to
 the next built width with the true scale (:func:`call_padded`); the
 decode kernels read the cache at its true width (a padded copy would
-rewrite the cache every step).  bf16 ring hops run on the tensor cores
-(wgmma), every other kernel on CUDA-core FMA.
+rewrite the cache every step).  In bf16, flash_attention, its backward
+and the ring hops run on the tensor cores (wgmma + TMA, one forward tile
+and one pair of backward tiles shared between the whole-sequence and the
+ring kernels); the decode kernels, and every kernel in f32, run on
+CUDA-core FMA.
 
 The kernels are compiled by ``nvcc`` for ``sm_90a`` into shared
 libraries with a plain C interface, at first use, under
@@ -448,9 +451,9 @@ def flash_attention_forward(q, k, v, *, causal: bool = True,
     (out [b, h, s, d] in q's dtype, lse [b, h, s, 1] f32).
 
     CPU tensors run :func:`flash_attention_reference`.  CUDA tensors
-    launch the kernel (bf16 or f32, head_dim up to 256, any s,
-    contiguous) or raise.  When an input requires grad the call goes
-    through :class:`_FlashAttention`, whose backward is
+    launch the kernel (bf16 on the tensor cores or f32, head_dim up to
+    256, any s, contiguous) or raise.  When an input requires grad the
+    call goes through :class:`_FlashAttention`, whose backward is
     :func:`flash_attention_backward`; the lse carries no gradient."""
     _validate_attention_args(q, k, v, causal, window)
     if q.requires_grad or k.requires_grad or v.requires_grad:
@@ -563,8 +566,8 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
 
     CPU tensors run :func:`flash_attention_backward_reference`.  CUDA
     tensors launch the dq and the dk/dv kernels on the lse the forward
-    wrote (bf16 or f32, head_dim up to 256, any s, contiguous) or
-    raise."""
+    wrote (bf16 on the tensor cores, each gradient rounded once from its
+    f32 sum, or f32; head_dim up to 256, any s, contiguous) or raise."""
     _validate_attention_args(q, k, v, causal, window)
     _check_backward_args(q, o, lse, do)
     if not _on_cuda("flash_attention_backward", q):
