@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -173,8 +174,21 @@ SP_GRAD_NORM_RTOL = 0.005
 SMALL_SP_PARAM_RTOL = 1e-3
 RING_KERNELS = ("ring_flash_step", "ring_flash_bwd_dq", "ring_flash_bwd_dkv")
 # What each kernel runs its bf16 products on (the kernels line's design).
-FMA_DESIGN = "cuda-core fma"
+SPLIT_DESIGN = "split-kv cluster + mma.sync (f32: cuda-core fma)"
 TC_DESIGN = "wgmma+tma"
+
+
+def decode_split(rows: int, h: int, hkv: int) -> tuple[int, int]:
+    """(splits, CTAs) of one K3 or K4 launch over ``rows`` rows of h
+    query heads on hkv KV heads: a cluster of kSplits CTAs for each (row,
+    KV head, chunk of up to kMaxGroup query heads), read from the header
+    the kernels are built from."""
+    text = (ROOT / "tpu_autoscaler_torch" / "csrc" /
+            "decode_common.cuh").read_text()
+    const = {name: int(value) for name, value in re.findall(
+        r"constexpr int (k\w+) = (\d+);", text)}
+    chunks = -(-(h // hkv) // const["kMaxGroup"])
+    return const["kSplits"], rows * hkv * chunks * const["kSplits"]
 
 
 def emit(phase: str, **fields) -> None:
@@ -247,6 +261,15 @@ def phase_device(torch) -> tuple[str, str]:
     return name, smi
 
 
+def phase_launch_floor(torch, flush) -> float:
+    """The time of an empty kernel (torch.cuda._sleep(0): one launch that
+    spins no cycles) under _time_ms: the floor K3's and K4's times sit
+    on."""
+    ms = _time_ms(torch, lambda: torch.cuda._sleep(0), flush)
+    emit("launch_floor", kernel="torch.cuda._sleep(0)", ms=ms)
+    return ms
+
+
 def phase_build(attention) -> None:
     t0 = time.perf_counter()
     report = attention.build_kernels()
@@ -281,9 +304,11 @@ def check_case(torch, F, attention, flush, *, label, b, h, hkv, max_len,
     ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     kw = dict(window=window, ring=ring)
     got = attention.flash_decode(q, k, v, ln, **kw)
+    again = attention.flash_decode(q, k, v, ln, **kw)
     want = attention.flash_decode_reference(q, k, v, ln, **kw)
     torch.cuda.synchronize()
     err, share = err_over_tol(torch, got, want)
+    deterministic = torch.equal(got, again)
     dname = str(dtype)
     mask = _visible_mask(torch, ln, max_len, window, ring)
     ms = _time_ms(torch, lambda: attention.flash_decode(q, k, v, ln, **kw),
@@ -296,24 +321,32 @@ def check_case(torch, F, attention, flush, *, label, b, h, hkv, max_len,
     live = _live_keys(lengths, max_len, window, ring)
     bound_ms, bound_by = _bound_ms(b, h, hkv, d, q.element_size(), live,
                                    dname)
+    splits, ctas = decode_split(b, h, hkv)
     rec = dict(case=label, shape=[b, h, hkv, max_len, d], dtype=dname,
                lengths=list(lengths), window=window, ring=ring,
                max_abs_err=err, err_over_tolerance=share,
                tolerance=TOL_REASON[dname], ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-               live_keys=live)
+               live_keys=live, deterministic=deterministic,
+               splits=splits, ctas=ctas)
     emit("kernel_check", **rec)
     if not share <= 1.0:
         raise AssertionError(f"flash_decode {label}: error {share} times "
                              f"its tolerance (max |err| {err})")
+    if not deterministic:
+        raise AssertionError(f"flash_decode {label}: two calls on the same "
+                             f"inputs differ")
     return rec
 
 
 def phase_kernel_checks(torch, F, attention, flush, main_lengths):
-    """K3 in 16 cases; the first at the linear main path's shape with
+    """K3 in 21 cases; the first at the linear main path's shape with
     the lengths of its median decode tick; head_dim 96 (read at its true
-    width by the d 128 build) and a GQA group of 64 (two CTAs of 32
-    heads a row) among them."""
+    width by the d 128 build) and a GQA group of 64 (two clusters a row)
+    among them; then the split's edges at bf16 d 64 (no key, one, fewer
+    keys than splits, exactly splits x 16 and one more, a window
+    starting inside a block, d 48) and the GQA generate call's shape.
+    Every case is also run twice and must repeat bit for bit."""
     full = dict(b=4, h=16, hkv=2, max_len=1024, d=64, dtype=torch.bfloat16)
     window, chunk = 256, CHUNK
     ring = dict(full, max_len=window + chunk, window=window, ring=True)
@@ -338,6 +371,13 @@ def phase_kernel_checks(torch, F, attention, flush, main_lengths):
              lengths=[0, 65, 513, 1024]),
         dict(full, label="d96", d=96, lengths=[1, 300, 777, 1024]),
         dict(full, label="group64", h=64, hkv=1, lengths=[1, 300, 777, 1024]),
+        dict(full, label="split-edges", lengths=[0, 1, 5, 128]),
+        dict(full, label="split-129", lengths=[129, 127, 17, 1000]),
+        dict(full, label="window-100-inside-blocks", window=100,
+             lengths=[150, 37, 301, 1024]),
+        dict(full, label="d48", d=48, lengths=[5, 129, 777, 1024]),
+        dict(full, label="generate-gqa", b=GEN_BATCH,
+             max_len=GEN_PROMPT + GEN_STEPS, lengths=[200] * GEN_BATCH),
     ]
     return [check_case(torch, F, attention, flush, seed=i, **c)
             for i, c in enumerate(cases)]
@@ -378,10 +418,12 @@ def check_paged_case(torch, F, attention, flush, *, label, slots, h, hkv,
     for row, entry, block in edits:
         tables[row, entry] = block
     got = attention.paged_flash_decode(q, k, v, tables, ln, window=window)
+    again = attention.paged_flash_decode(q, k, v, tables, ln, window=window)
     want = attention.paged_flash_decode_reference(q, k, v, tables, ln,
                                                   window=window)
     torch.cuda.synchronize()
     err, share = err_over_tol(torch, got, want)
+    deterministic = torch.equal(got, again)
     dname = str(dtype)
     vis = _paged_visible(torch, tables, ln, bs, window)
     ms = _time_ms(torch, lambda: attention.paged_flash_decode(
@@ -400,23 +442,30 @@ def check_paged_case(torch, F, attention, flush, *, label, slots, h, hkv,
     live = vis.sum(dim=1).tolist()
     bound_ms, bound_by = _bound_ms(slots, h, hkv, d, q.element_size(), live,
                                    dname, extra_bytes=tables.numel() * 4)
+    splits, ctas = decode_split(slots, h, hkv)
     rec = dict(case=label, shape=[slots, h, hkv, nb, bs, tpr, d],
                dtype=dname, lengths=list(lengths), window=window,
                edits=[list(e) for e in edits], max_abs_err=err,
                err_over_tolerance=share, tolerance=TOL_REASON[dname], ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, gather_ms=gather_ms,
-               bound_ms=bound_ms, bound_by=bound_by, live_keys=live)
+               bound_ms=bound_ms, bound_by=bound_by, live_keys=live,
+               deterministic=deterministic, splits=splits, ctas=ctas)
     emit("paged_kernel_check", **rec)
     if not share <= 1.0:
         raise AssertionError(f"paged_flash_decode {label}: error {share} "
                              f"times its tolerance (max |err| {err})")
+    if not deterministic:
+        raise AssertionError(f"paged_flash_decode {label}: two calls on "
+                             f"the same inputs differ")
     return rec
 
 
 def phase_paged_kernel_checks(torch, F, attention, flush, main_tick):
-    """K4 in 17 cases; the first at the paged main path's shape with the
+    """K4 in 19 cases; the first at the paged main path's shape with the
     block tables and lengths of its median decode tick; head_dim 96 and
-    a GQA group of 64 among them."""
+    a GQA group of 64 among them; then the split's edges at bf16 d 64:
+    parts whose blocks are all dead, and a row of each split edge.
+    Every case is also run twice and must repeat bit for bit."""
     tpr = MAX_LEN // BLOCK_SIZE
     full = dict(slots=PAGED_SLOTS, h=16, hkv=2, bs=BLOCK_SIZE, tpr=tpr,
                 nb=NUM_BLOCKS, d=64, dtype=torch.bfloat16)
@@ -457,6 +506,13 @@ def phase_paged_kernel_checks(torch, F, attention, flush, main_tick):
         dict(full, label="d96-window", d=96, window=256, lengths=spread,
              edits=((3, 60, -1),)),
         dict(full, label="group64", h=64, hkv=1, lengths=spread),
+        # Row 3's first 24 blocks dead (its first 3 parts of 8 blocks);
+        # row 1's every block but its last.
+        dict(full, label="parts-all-dead", lengths=spread,
+             edits=tuple((3, e, -1) for e in range(24))
+             + tuple((1, e, -1) for e in range(18))),
+        dict(full, label="split-edges",
+             lengths=[0, 1, 5, 128, 129, 16, 17, 1024] * 2),
     ]
     return [check_paged_case(torch, F, attention, flush, seed=100 + i, **c)
             for i, c in enumerate(cases)]
@@ -729,21 +785,62 @@ def _serve_ticks(eng, reqs) -> tuple[float, int]:
     return dt, peak
 
 
-def _agreement(reqs, ereqs) -> tuple[int, int]:
-    """(greedy tokens equal position by position, length of the equal
-    prefixes), summed over requests."""
+def _agreement(reqs, ereqs) -> tuple[int, list[int]]:
+    """Free-running greedy agreement of two engines on one traffic:
+    (tokens equal position by position, each request's equal prefix,
+    i.e. the step at which it first diverges)."""
     agree = sum(int(a == b) for r, e in zip(reqs, ereqs)
                 for a, b in zip(r.generated, e.generated))
-    prefix = sum(next((i for i, (a, b) in enumerate(
+    prefixes = [next((i for i, (a, b) in enumerate(
         zip(r.generated, e.generated)) if a != b), len(r.generated))
-        for r, e in zip(reqs, ereqs))
-    return agree, prefix
+        for r, e in zip(reqs, ereqs)]
+    return agree, prefixes
+
+
+def _compare_tick(torch, logits, want, rows) -> dict:
+    """One tick's kernel-route logits against the einsum route's on the
+    same inputs: |dlogits| over the active rows, whether every logit is
+    finite, and teacher-forced greedy agreement: rows whose argmax
+    differs (flips), with the einsum route's top-2 gap and the row's
+    largest |dlogits| at each, and the near ties, rows whose top-2 gap
+    is under twice their largest |dlogits| (only those can flip)."""
+    got, ref = logits[rows].float(), want[rows].float()
+    dl = (got - ref).abs()
+    row_max = dl.amax(dim=-1)
+    top = ref.topk(2, dim=-1).values
+    gap = top[:, 0] - top[:, 1]
+    flip = got.argmax(dim=-1) != ref.argmax(dim=-1)
+    near = int((gap < 2 * row_max).sum())
+    return dict(mean=dl.mean().item(), max=dl.max().item(),
+                finite=bool(torch.isfinite(logits).all()),
+                rows=int(rows.numel()), near_ties=near,
+                flips=list(zip(gap[flip].tolist(), row_max[flip].tolist())))
+
+
+def _compare_record(ticks: list[dict], firsts: list[int]) -> dict:
+    """The einsum comparison of a warm pass: |dlogits| over its first
+    COMPARE_TICKS ticks, teacher-forced agreement over all of them, and
+    the free-running first divergence of each request."""
+    head = ticks[:COMPARE_TICKS]
+    flips = [f for c in ticks for f in c["flips"]]
+    return dict(
+        compare_ticks=len(head),
+        dlogits_mean=statistics.fmean(c["mean"] for c in head),
+        dlogits_max=max(c["max"] for c in head),
+        teacher_forced=dict(
+            ticks=len(ticks), rows=sum(c["rows"] for c in ticks),
+            argmax_equal=sum(c["rows"] for c in ticks) - len(flips),
+            near_ties=sum(c["near_ties"] for c in ticks),
+            dlogits_max=max(c["max"] for c in ticks),
+            flips_gap_and_dlogits=sorted(flips)),
+        greedy_first_divergence=firsts)
 
 
 def phase_main_path(torch, np, attention, model, serving):
-    """The server at full width: warm pass (with the einsum comparison
-    on identical inputs), then the timed pass whose kernel launches are
-    counted."""
+    """The server at full width: warm pass (with the einsum route on
+    identical inputs every tick), then the timed pass whose kernel
+    launches are counted, then the same traffic through an einsum-route
+    engine for free-running greedy agreement."""
     import dataclasses
 
     cfg = model.ModelConfig(**FULL)
@@ -758,18 +855,15 @@ def phase_main_path(torch, np, attention, model, serving):
     diffs, tick_lengths = [], []
 
     def compared_step(p, cache, tokens, active):
-        # Same cache, tokens and mask through the einsum path first.
+        # Same cache, tokens and mask through the einsum path first, every
+        # tick (teacher-forced: both routes see the kernel route's tokens).
         tick_lengths.append((cache.lengths + 1).tolist())
-        if len(diffs) < COMPARE_TICKS:
-            ref = serving.SlotKVCache(cache.k.clone(), cache.v.clone(),
-                                      cache.lengths.clone())
-            want, _ = einsum_step(p, ref, tokens, active)
+        ref = serving.SlotKVCache(cache.k.clone(), cache.v.clone(),
+                                  cache.lengths.clone())
+        want, _ = einsum_step(p, ref, tokens, active)
         logits, cache = kernel_step(p, cache, tokens, active)
-        if len(diffs) < COMPARE_TICKS:
-            rows = active.nonzero()[:, 0]
-            dl = (logits[rows] - want[rows]).abs()
-            diffs.append((dl.mean().item(), dl.max().item(),
-                          bool(torch.isfinite(logits).all())))
+        diffs.append(_compare_tick(torch, logits, want,
+                                   active.nonzero()[:, 0]))
         return logits, cache
 
     eng._decode = compared_step
@@ -790,7 +884,7 @@ def phase_main_path(torch, np, attention, model, serving):
                                      device="cuda")
     ereqs = _requests(serving, np, cfg)
     einsum_s = _serve_all(eeng, ereqs)
-    agree, prefix = _agreement(reqs, ereqs)
+    agree, firsts = _agreement(reqs, ereqs)
     # The launch pattern of a tick in the middle of the run: the shape
     # the kernel timing below uses.
     by_live = sorted(tick_lengths, key=sum)
@@ -804,17 +898,15 @@ def phase_main_path(torch, np, attention, model, serving):
         flash_decode_launches=launches["flash_decode"],
         expected_launches=want_launches, einsum_seconds=einsum_s,
         einsum_tokens_per_s=decoded / einsum_s,
-        compare_ticks=len(diffs),
-        dlogits_mean=statistics.fmean(d[0] for d in diffs),
-        dlogits_max=max(d[1] for d in diffs),
-        greedy_tokens_agree=agree, greedy_prefix_agree=prefix,
+        **_compare_record(diffs, firsts),
+        greedy_tokens_agree=agree, greedy_prefix_agree=sum(firsts),
         greedy_tokens_total=decoded, mid_tick_lengths=mid_lengths)
     emit("main_path", **rec)
     if launches["flash_decode"] != want_launches or want_launches == 0:
         raise AssertionError(
             f"flash_decode launched {launches['flash_decode']} times, "
             f"want decode steps x layers = {want_launches}")
-    if not all(d[2] for d in diffs):
+    if not all(c["finite"] for c in diffs):
         raise AssertionError("non-finite logits on the main path")
     if not rec["dlogits_max"] < DLOGITS_MAX:
         raise AssertionError(f"kernel route logits differ from the einsum "
@@ -824,9 +916,9 @@ def phase_main_path(torch, np, attention, model, serving):
 
 def phase_paged_main_path(torch, np, attention, model, serving, paged):
     """The paged-KV server at full width: warm pass (with the einsum
-    gather route on identical inputs for COMPARE_TICKS ticks), then the
-    timed pass whose kernel launches are counted, then the same traffic
-    through an einsum-route engine for greedy agreement."""
+    gather route on identical inputs every tick), then the timed pass
+    whose kernel launches are counted, then the same traffic through an
+    einsum-route engine for free-running greedy agreement."""
     import dataclasses
 
     cfg = model.ModelConfig(**FULL)
@@ -844,18 +936,14 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged):
     def compared_step(p, cache, tables, tokens, active):
         # The kernel's inputs this tick (lengths after the write), then
         # the same cache, tables, tokens and mask through the einsum
-        # route first.
+        # route first, every tick (teacher-forced).
         ticks_seen.append((tables.clone(), (cache.lengths + 1).tolist()))
-        if len(diffs) < COMPARE_TICKS:
-            ref = paged.PagedKVCache(cache.k.clone(), cache.v.clone(),
-                                     cache.lengths.clone())
-            want, _ = einsum_step(p, ref, tables, tokens, active)
+        ref = paged.PagedKVCache(cache.k.clone(), cache.v.clone(),
+                                 cache.lengths.clone())
+        want, _ = einsum_step(p, ref, tables, tokens, active)
         logits, cache = kernel_step(p, cache, tables, tokens, active)
-        if len(diffs) < COMPARE_TICKS:
-            rows = active.nonzero()[:, 0].to(logits.device)
-            dl = (logits[rows] - want[rows]).abs()
-            diffs.append((dl.mean().item(), dl.max().item(),
-                          bool(torch.isfinite(logits).all())))
+        diffs.append(_compare_tick(torch, logits, want,
+                                   active.nonzero()[:, 0].to(logits.device)))
         return logits, cache
 
     eng._decode = compared_step
@@ -878,7 +966,7 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged):
     eeng = paged.PagedBatcher(params, ecfg, device="cuda", **geometry)
     ereqs = _requests(serving, np, cfg, PAGED_PROMPT_LENS)
     einsum_s = _serve_all(eeng, ereqs)
-    agree, prefix = _agreement(reqs, ereqs)
+    agree, firsts = _agreement(reqs, ereqs)
     by_live = sorted(ticks_seen, key=lambda t: sum(t[1]))
     mid_tables, mid_lengths = by_live[len(by_live) // 2]
     rec = dict(
@@ -893,10 +981,8 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged):
         expected_launches=want_launches, einsum_seconds=einsum_s,
         einsum_tokens_per_s=decoded / einsum_s,
         einsum_preemptions=eeng.preemptions,
-        compare_ticks=len(diffs),
-        dlogits_mean=statistics.fmean(d[0] for d in diffs),
-        dlogits_max=max(d[1] for d in diffs),
-        greedy_tokens_agree=agree, greedy_prefix_agree=prefix,
+        **_compare_record(diffs, firsts),
+        greedy_tokens_agree=agree, greedy_prefix_agree=sum(firsts),
         greedy_tokens_total=decoded, mid_tick_lengths=mid_lengths)
     emit("paged_main_path", **rec)
     if launches["paged_flash_decode"] != want_launches or want_launches == 0:
@@ -910,7 +996,7 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged):
                              f"paged path")
     if preemptions == 0:
         raise AssertionError("the paged main path never preempted")
-    if not all(d[2] for d in diffs):
+    if not all(c["finite"] for c in diffs):
         raise AssertionError("non-finite logits on the paged main path")
     if not rec["dlogits_max"] < DLOGITS_MAX:
         raise AssertionError(f"kernel route logits differ from the einsum "
@@ -1899,6 +1985,7 @@ def main() -> None:
     # 128 MB scratch, written before each timed launch: evicts the 50 MB L2.
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
+    floor_ms = phase_launch_floor(torch, flush)
     checks = phase_kernel_checks(torch, F, attention, flush,
                                  main_rec["mid_tick_lengths"])
     paged_checks = phase_paged_kernel_checks(torch, F, attention, flush,
@@ -1933,9 +2020,10 @@ def main() -> None:
     for kname, source, replaces, design, launches, kchecks in (
             ("flash_attention", "flash_attention.cu", 192, TC_DESIGN,
              gen_recs[0]["launches"]["flash_attention"], attn_checks),
-            ("flash_decode", "flash_decode.cu", 773, FMA_DESIGN,
+            ("flash_decode", "flash_decode.cu", 773, SPLIT_DESIGN,
              main_rec["flash_decode_launches"], checks),
-            ("paged_flash_decode", "paged_flash_decode.cu", 898, FMA_DESIGN,
+            ("paged_flash_decode", "paged_flash_decode.cu", 898,
+             SPLIT_DESIGN,
              paged_rec["paged_flash_decode_launches"], paged_checks)):
         at_main = kchecks[0]
         kernels.append(dict(
@@ -1948,6 +2036,10 @@ def main() -> None:
             library_ms=at_main["library_ms"],
             gather_ms=at_main.get("gather_ms"), cases_passed=len(kchecks),
             shape=at_main["shape"], lengths=at_main.get("lengths")))
+        if kname != "flash_attention":
+            kernels[-1].update(splits=at_main["splits"],
+                               ctas=at_main["ctas"],
+                               launch_floor_ms=floor_ms)
     # K1 where the trainer calls it: a layer of the training main path,
     # its launches per train step.
     at_train = attn_checks[1]

@@ -420,6 +420,93 @@ def test_decode_kernels_at_group_64(dtype, d):
         assert err_over_tol(torch, got, want)[1] <= 1.0, width
 
 
+# The decode kernels' split edges at bf16 d 64 (tests/test_torch_split_
+# decode.py holds the same split on the CPU): (b, h, hkv, max_len, d),
+# lengths, keyword arguments.
+SPLIT_CASES = [
+    ((4, 16, 2, 1024, 64), [0, 1, 5, 128], {}),        # < 8 keys; 8 x 16
+    ((4, 16, 2, 1024, 64), [129, 127, 17, 1000], {}),
+    ((4, 16, 2, 1024, 64), [150, 37, 301, 1024], {"window": 100}),
+    ((4, 16, 2, 384, 64), [1, 100, 255, 384], {"window": 256, "ring": True}),
+    ((4, 16, 2, 384, 64), [385, 700, 1024, 5000],
+     {"window": 256, "ring": True}),
+    ((8, 16, 2, 384, 64), [200] * 8, {}),               # generate's shape
+    ((2, 4, 4, 300, 64), [77, 300], {}),                # group 1
+    ((2, 64, 1, 300, 64), [77, 300], {}),               # group 64
+    ((2, 20, 1, 300, 64), [33, 250], {}),               # two m-tiles
+    ((4, 16, 2, 300, 48), [5, 63, 129, 300], {}),
+    ((4, 16, 2, 300, 96), [5, 63, 129, 300], {"window": 70}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(SPLIT_CASES)))
+def test_decode_kernel_split_edges(case):
+    """K3 at the split's edges against its plain version, and the same
+    inputs twice give equal outputs bit for bit (the cluster merge runs
+    in rank order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    (b, h, hkv, max_len, d), lengths, kw = SPLIT_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(20 + case)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v = rnd(b, h, 1, d), rnd(b, hkv, max_len, d), \
+        rnd(b, hkv, max_len, d)
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    got = attention.flash_decode(q, k, v, ln, **kw)
+    again = attention.flash_decode(q, k, v, ln, **kw)
+    want = attention.flash_decode_reference(q, k, v, ln, **kw)
+    torch.cuda.synchronize()
+    assert err_over_tol(torch, got, want)[1] <= 1.0
+    assert torch.equal(got, again)
+
+
+# K4's split edges at bf16 d 64: (bs, tpr, lengths, edits, window).
+PAGED_SPLIT_CASES = [
+    (16, 64, [1024, 300, 5, 128], tuple((0, e, -1) for e in range(24)),
+     None),                                             # parts all dead
+    (16, 64, [1024, 300, 129, 17], ((1, 3, -1), (2, 0, 10 ** 6)), None),
+    (8, 128, [0, 1, 700, 1024], ((2, 5, -1),), 300),
+    (64, 16, [0, 65, 700, 1024], ((3, 1, -1),), None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(PAGED_SPLIT_CASES)))
+def test_paged_decode_kernel_split_edges(case):
+    """K4 at the split's edges (parts whose blocks are all dead, a dead
+    block below the length, an entry past the pool, block sizes 8 and
+    64) against its plain version, bit for bit twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    bs, tpr, lengths, edits, window = PAGED_SPLIT_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(40 + case)
+    slots, h, hkv, d = 4, 16, 2, 64
+    nb = slots * tpr
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v = rnd(slots, h, 1, d), rnd(nb, hkv, bs, d), rnd(nb, hkv, bs, d)
+    tables = torch.randperm(nb, generator=g, device="cuda").reshape(
+        slots, tpr).to(torch.int32)
+    for row, entry, block in edits:
+        tables[row, entry] = block
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    got = attention.paged_flash_decode(q, k, v, tables, ln, window=window)
+    again = attention.paged_flash_decode(q, k, v, tables, ln, window=window)
+    want = attention.paged_flash_decode_reference(q, k, v, tables, ln,
+                                                  window=window)
+    torch.cuda.synchronize()
+    assert err_over_tol(torch, got, want)[1] <= 1.0
+    assert torch.equal(got, again)
+
+
 @pytest.mark.cuda
 def test_ring_attention_function_on_cuda():
     """make_ring_attention's kernel impl over 4 ranks on one card: each

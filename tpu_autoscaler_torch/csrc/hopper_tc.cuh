@@ -4,7 +4,8 @@
 // tile loads with mbarrier completion, wgmma shared-memory descriptors
 // and the wgmma instructions themselves, written as inline PTX (each
 // accumulator register named, since inline PTX takes no arrays), the
-// CTA's shape, and the host-side tensor maps.
+// CTA's shape, and the host-side tensor maps; and the mma.sync and
+// ldmatrix helpers of the decode kernels (decode_common.cuh: K3 and K4).
 //
 // Layout.  Every bf16 tile in shared memory is cut along its head_dim
 // into 64-column "atoms" of 128 bytes a row, each atom a block of
@@ -310,7 +311,59 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
+// ---- mma.sync (the decode kernels) ------------------------------------------
+//
+// m16n8k16, bf16 inputs, f32 accumulator, one warp.  Fragments, for lane l,
+// r = l / 4 and c = 2 * (l % 4): A (16 x 16, row-major) a0 = row r,
+// columns c and c + 1; a1 = row r + 8; a2, a3 = those rows at columns
+// c + 8, c + 9.  B (16 x 8, k by n) b0 = rows c, c + 1 of column r; b1 =
+// rows c + 8, c + 9.  C and D: d0, d1 = row r, columns c, c + 1; d2, d3 =
+// row r + 8.
 
+// Four 8 x 8 bf16 matrices from shared memory: lanes 8i .. 8i + 7 give the
+// addresses of matrix i's rows (16 bytes each), register i receives
+// matrix i in the fragment order (lane l: row l / 4, columns c, c + 1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// The same with each matrix transposed (lane l: rows c, c + 1 of column
+// l / 4): B fragments of a matrix stored k-major, as V is for P.V.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// Two transposed 8 x 8 bf16 matrices (lanes 0-7 and 8-15 give the row
+// addresses): the b0, b1 of one n8-tile.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr)
+      : "memory");
+}
+
+// D[16 x 8] += A[16 x 16] . B[16 x 8].
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 // ---- host --------------------------------------------------------------
 

@@ -17,24 +17,29 @@
 //
 // What bounds it.  As for flash_decode.cu: ~h/hkv flops per byte read,
 // far below the ~295 flops/byte at which an H100 stops being
-// memory-bound, so the cost is the live cache bytes.  The pool is read in
-// place, block by block through the table, with no gathered copy of each
-// row (which would move every live byte three times instead of once).
-// The design is K3's, with the table in front of every key:
+// memory-bound, and at serving widths few bytes (~0.8 MB of live K/V a
+// tick), so the cost is latency: the launch, the dependent loads
+// (lengths, the table, then the pool rows) and the rounds one CTA runs in
+// series.  The pool is read in place, block by block through the table,
+// with no gathered copy of each row (which would move every live byte
+// three times instead of once).  The design is K3's (decode_common.cuh),
+// with the table in front of every key:
 //
-// - one CTA per (row, KV head, chunk of up to 32 query heads of its GQA
-//   group), one warp per query head, so the chunk's heads share each K/V
-//   tile staged in shared memory;
-// - the CTA loads the table entries of its visible range [lo, hi] into
-//   shared memory once;
-// - a tile is BK consecutive positions, which may span several pool
-//   blocks (bs 8 or 16) or part of one (bs 64): each key's 16-byte
-//   vectors get their own cp.async source address through the table;
-//   keys of dead blocks are not copied at all, only flagged;
-// - tiles are double-buffered with cp.async, as in K3.
-//
-// Known weakness, left to a later change: the grid is slots * hkv CTAs
-// (32 at 16 slots x 2 KV heads on 132 SMs); split-KV is the fix.
+// - split-KV over a thread-block cluster: each (row, KV head, chunk of up
+//   to 32 query heads) is a cluster of kSplits CTAs, each over one
+//   contiguous part of the row's visible positions (256 CTAs at 16 slots
+//   x 2 KV heads, where one CTA per row and head gave 32); the ranks
+//   merge the parts through distributed shared memory, each a slice of
+//   the outputs in rank order, in the same launch;
+// - a CTA copies its row's table into shared memory by cp.async, in
+//   flight with the row's length and q, so the pool reads wait on one
+//   round trip to device memory, not two;
+// - a tile of consecutive positions may span several pool blocks (bs 8
+//   or 16) or part of one (bs 64): each key's 16-byte vectors get their
+//   own cp.async source address through the table; keys of dead blocks
+//   are not copied, only flagged (their rows zeroed, their P exactly 0);
+// - tiles are double-buffered with cp.async; bf16 products run on the
+//   tensor cores with mma.sync, f32 on CUDA cores, as in K3.
 //
 // Block sizes: any bs >= 1.  A key's row starts at a multiple of d
 // elements, so when a row is a whole number of 16-byte vectors every
@@ -43,8 +48,8 @@
 
 // Interface: a plain C function (paged_flash_decode at the bottom), built
 // with nvcc into a shared library and called through ctypes.  It launches
-// on the caller's stream, allocates nothing and returns
-// cudaGetLastError().
+// on the caller's stream (one cluster launch per call), allocates nothing
+// and returns the launch's CUDA error.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,117 +60,56 @@ namespace {
 
 using namespace decode;
 
-// Dynamic shared memory: the stages, P and q (Tile::bytes), then the
-// table slice (tpr ints at most) and one live flag per staged key.
+// Cluster = kSplits CTAs of one (row, KV head, chunk of at most kMaxGroup
+// query heads of the group); grid = slots * hkv * chunks * kSplits.
+// Dynamic shared memory: decode_common.cuh's Smem, then the row's table
+// (tpr ints).
 template <typename T, int D>
-size_t paged_smem_bytes(int warps, int tpr) {
-  return Tile<T, D>::bytes(warps) + static_cast<size_t>(tpr) * sizeof(int) +
-         static_cast<size_t>(kStages) * Tile<T, D>::kKeys;
-}
-
-// Block = one warp per query head of a chunk of at most kMaxGroup heads
-// of the group; grid = slots * hkv * chunks.
-template <typename T, int D>
-__global__ void __launch_bounds__(32 * kMaxGroup)
+__global__ void __launch_bounds__(Threads<T>::kMax)
     paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ tables,
                         const int* __restrict__ lengths, T* __restrict__ out,
                         int h, int hkv, int nb, int bs, int tpr, int d,
                         int window, float scale) {
-  using G = Tile<T, D>;
-  constexpr int BK = G::kKeys;
-  constexpr int KS = G::kKStride;
-  constexpr int E = D / 32;
-  extern __shared__ uint4 smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int group = h / hkv;
   const int chunks = (group + kMaxGroup - 1) / kMaxGroup;
-  const int warps = blockDim.x / 32;
-  // [stage][K tile | V tile], per warp P, per warp q, the table slice,
-  // then [stage][BK] live flags.
-  float* ps = reinterpret_cast<float*>(smem + kStages * G::kStageVecs);
-  float* qs = ps + warps * BK;
-  int* tab = reinterpret_cast<int*>(qs + warps * D);
-  unsigned char* live_flags = reinterpret_cast<unsigned char*>(tab + tpr);
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int cta = blockIdx.x / kSplits;
+  const int chunk = cta % chunks;
+  const int kvh = cta / chunks % hkv;
+  const int row = cta / chunks / hkv;
 
-  const int chunk = blockIdx.x % chunks;
-  const int row = blockIdx.x / chunks / hkv;
-  const int kvh = blockIdx.x / chunks % hkv;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int gh = chunk * kMaxGroup + warp;  // this warp's head in the group
-  const bool active = gh < group;
+  // The row's length, its table row (by cp.async, into shared memory) and
+  // q, all in flight together.
+  const int length = lengths[row];
+  int* tab = reinterpret_cast<int*>(smem + Smem<T, D>::bytes(blockDim.x / 32));
+  const int* trow = tables + static_cast<size_t>(row) * tpr;
+  for (int j = threadIdx.x; j < tpr; j += blockDim.x)
+    cp_async_word(tab + j, trow + j);
+  const int heads = min(kMaxGroup, group - chunk * kMaxGroup);
+  const size_t head = static_cast<size_t>(row) * h +
+                      static_cast<size_t>(kvh) * group + chunk * kMaxGroup;
+  stage_q<T, D>(smem, q + head * d, heads, d);
 
-  // Visible positions [lo, hi]: causal, windowed, and inside the table.
-  const int qpos = lengths[row] - 1;
+  // Visible positions [lo, hi]: causal, windowed, and inside the table;
+  // this CTA's part of them.
+  const int qpos = length - 1;
   const int hi = min(qpos, tpr * bs - 1);
   const int lo = window > 0 ? max(0, qpos - window + 1) : 0;
-  const int ntiles = hi >= lo ? (hi - lo) / BK + 1 : 0;
-  const int jlo = lo / bs;
-  if (ntiles > 0) {
-    const int* trow = tables + static_cast<size_t>(row) * tpr;
-    for (int j = threadIdx.x; j <= hi / bs - jlo; j += blockDim.x)
-      tab[j] = trow[jlo + j];
-  }
+  int first, last;
+  split_part(lo, hi, rank, first, last);
 
-  const size_t head = static_cast<size_t>(row) * h +
-                      static_cast<size_t>(kvh) * group + gh;
-  float* qw = qs + warp * D;
-  for (int i = lane; i < D; i += 32)
-    qw[i] = active && i < d ? Elem<T>::load(q[head * d + i]) : 0.f;
-  float* sc = ps + warp * BK;
-  if (d < D) zero_smem(smem, kStages * G::kStageVecs);  // columns past d
-  __syncthreads();  // the table slice is in place before the first copy
-
-  auto load_tile = [&](int t) {
-    if (t < ntiles) {
-      const int start = lo + t * BK;
-      const int n = min(BK, hi - start + 1);
-      const int stage = t % kStages;
-      uint4* kst = smem + stage * G::kStageVecs;
-      uint4* vst = kst + BK * KS;
-      unsigned char* flags = live_flags + stage * BK;
-      // Key r's row in a pool, or -1 for a dead block (not copied).
-      auto row_of = [&](int r) -> long long {
-        const int pos = start + r;
-        const int j = pos / bs;
-        const int entry = tab[j - jlo];
-        if (entry < 0) return -1;
-        const long long blk = min(entry, nb - 1);
-        return (blk * hkv + kvh) * bs + (pos - j * bs);
-      };
-      stage_kv<T, D>(kst, vst, k, v, n, d, row_of,
-                     [flags](int r, long long j) { flags[r] = j >= 0; });
-    }
-    cp_async_commit();  // an empty group past the end keeps the count
-  };
-
-  float m = kNegInf;
-  float l = 0.f;
-  float acc[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) acc[e] = 0.f;
-
-  load_tile(0);
-  for (int t = 0; t < ntiles; ++t) {
-    load_tile(t + 1);
-    cp_async_wait_one();  // tile t has landed (t + 1 may be in flight)
-    __syncthreads();
-    const int n = min(BK, hi - (lo + t * BK) + 1);
-    const unsigned char* flags = live_flags + (t % kStages) * BK;
-    if (active)
-      merge_tile<T, D>(smem + (t % kStages) * G::kStageVecs, n, qw, sc,
-                       scale, m, l, acc,
-                       [flags](int j) { return flags[j] != 0; });
-    __syncthreads();  // the stage is free for the copy issued next
-  }
-
-  if (!active) return;
-  const float l_safe = fmaxf(l, 1e-30f);
-#pragma unroll
-  for (int e = 0; e < E; ++e)
-    if (lane * E + e < d)
-      out[head * d + lane * E + e] = Elem<T>::store(acc[e] / l_safe);
+  split_decode<T, D>(smem, out + head * d, k, v, heads, d, scale, first, last,
+                     [=](int pos) -> long long {
+                       // Key pos's row in a pool, or -1 for a dead block.
+                       const int j = pos / bs;
+                       const int entry = tab[j];
+                       if (entry < 0) return -1;
+                       const long long blk = min(entry, nb - 1);
+                       return (blk * hkv + kvh) * bs + (pos - j * bs);
+                     });
 }
 
 template <typename T, int D>
@@ -174,17 +118,15 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int slots, int h, int hkv, int nb, int bs, int tpr, int d,
                    int window, float scale, cudaStream_t stream) {
   const int group = h / hkv;
-  const int warps = group < kMaxGroup ? group : kMaxGroup;
   const int chunks = (group + kMaxGroup - 1) / kMaxGroup;
-  const size_t smem = paged_smem_bytes<T, D>(warps, tpr);
-  const cudaError_t err = allow_smem(paged_decode_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  paged_decode_kernel<T, D>
-      <<<slots * hkv * chunks, 32 * warps, smem, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), tables, lengths, static_cast<T*>(out), h,
-          hkv, nb, bs, tpr, d, window, scale);
-  return cudaGetLastError();
+  const int threads = Threads<T>::of(group);
+  const size_t smem = Smem<T, D>::bytes(threads / 32) +
+                      static_cast<size_t>(tpr) * sizeof(int);
+  return launch_split(paged_decode_kernel<T, D>, slots * hkv * chunks,
+                      threads, smem, stream, static_cast<const T*>(q),
+                      static_cast<const T*>(k), static_cast<const T*>(v),
+                      tables, lengths, static_cast<T*>(out), h, hkv, nb, bs,
+                      tpr, d, window, scale);
 }
 
 }  // namespace
@@ -203,7 +145,8 @@ extern "C" int paged_flash_decode(const void* q, const void* k,
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (slots < 1 || hkv < 1 || nb < 1 || bs < 1 || tpr < 1 || h % hkv != 0 ||
-      window < 0 || static_cast<long long>(slots) * h > 0x7fffffffLL)
+      window < 0 ||
+      static_cast<long long>(slots) * h * kSplits > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(

@@ -38,8 +38,9 @@ decode kernels read the cache at its true width (a padded copy would
 rewrite the cache every step).  In bf16, flash_attention, its backward
 and the ring hops run on the tensor cores (wgmma + TMA, one forward tile
 and one pair of backward tiles shared between the whole-sequence and the
-ring kernels); the decode kernels, and every kernel in f32, run on
-CUDA-core FMA.
+ring kernels); the decode kernels split each row's keys over a
+thread-block cluster and run their bf16 products on ``mma.sync``; every
+kernel in f32 runs on CUDA-core FMA.
 
 The kernels are compiled by ``nvcc`` for ``sm_90a`` into shared
 libraries with a plain C interface, at first use, under
