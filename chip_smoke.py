@@ -4,17 +4,23 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, drives the port's
-five paths through their public entry points at the full width of
+paths through their public entry points at the full width of
 ``bench_tpu.py``: the continuous-batching server with the linear cache
 (its serving phase), the paged-KV server (its paged phase, whose pool
-is small enough to preempt), ``decode.generate`` (its decode phase, GQA
-and MHA, and a long prompt), the trainer's step (its step phase, and
-the long-sequence remat recipe of its step_large phase) and the
-sequence-parallel train step (its long-context step, the sequence cut
-over 4 ranks: the kernel ring, against one device, the einsum ring and
-Ulysses), and runs the ``serve`` CLI with each cache, the ``generate``
-CLI and the ``train`` CLI (train, resume, drain; on one device and with
-``--sp 2``).  Each phase prints one JSON line; a failed
+is small enough to preempt) and the same traffic through the
+speculative paged engine (the target's first layer drafting 4 tokens a
+round, then the whole target drafting for itself, so that rounds
+accept), ``decode.generate`` (its decode phase, GQA and MHA, and a long
+prompt) and ``decode.speculative_generate`` on the GQA shape, the
+trainer's step (its step phase, and the long-sequence remat recipe of
+its step_large phase), the sequence-parallel train step (its
+long-context step, the sequence cut over 4 ranks: the kernel ring,
+against one device, the einsum ring and Ulysses) and the speculative
+economics cell (its spec phase: a 6-layer target and a 1-layer draft
+trained by the port's trainer on a bigram shard), and runs the
+``serve`` CLI with each cache, speculatively and with request tracing,
+the ``generate`` CLI and the ``train`` CLI (train, resume, drain; on one
+device and with ``--sp 2``).  Each phase prints one JSON line; a failed
 phase raises and the script exits non-zero.  The last lines are the
 card's ``nvidia-smi`` name and power limit, the ``kernels`` summary, and
 ``{"ok": true, "device": {...}}``.
@@ -26,6 +32,7 @@ any result.  Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -173,6 +180,23 @@ SP_GRAD_NORM_RTOL = 0.005
 # the plain versions on the CPU differ by 1.2e-4 at 4 ranks).
 SMALL_SP_PARAM_RTOL = 1e-3
 RING_KERNELS = ("ring_flash_step", "ring_flash_bwd_dq", "ring_flash_bwd_dkv")
+# The speculative paths: the paged cell's traffic through the speculative
+# engine, speculative_generate on the GQA generate shape, both with the
+# target's first layer as the draft and k 4; then the reference's
+# economics cell (bench_tpu.py:695 _impl_spec) at its full size: a
+# 6-layer target and a 1-layer draft trained on bench_tpu.py:676-692's
+# bigram shard.
+SPEC_K, DRAFT_LAYERS = 4, 1
+# A speculative token is the argmax of einsum verify logits, a plain one
+# of K3/K4 decode logits.  At a sequence's first divergence both routes
+# have seen the same tokens, so the two logit rows that chose the token
+# are captured and compared: the argmaxes can differ only if the verify
+# top-2 gap is at most twice the rows' largest |dlogits|, and that must
+# be rounding (at most DLOGITS_MAX).  Such a divergence is a near tie;
+# any other is a fault.
+SPEC_VOCAB, SPEC_TOKENS, SPEC_TRAIN_STEPS = 4096, 2_000_000, 600
+SPEC_D_MODEL, SPEC_SEQ, SPEC_T_LAYERS, SPEC_D_LAYERS = 512, 256, 6, 1
+SPEC_GEN_STEPS, SPEC_TEMPS = 128, (0.3, 0.7, 1.0)
 # What each kernel runs its bf16 products on (the kernels line's design).
 SPLIT_DESIGN = "split-kv cluster + mma.sync (f32: cuda-core fma)"
 TC_DESIGN = "wgmma+tma"
@@ -460,12 +484,15 @@ def check_paged_case(torch, F, attention, flush, *, label, slots, h, hkv,
     return rec
 
 
-def phase_paged_kernel_checks(torch, F, attention, flush, main_tick):
-    """K4 in 19 cases; the first at the paged main path's shape with the
+def phase_paged_kernel_checks(torch, F, attention, flush, main_tick,
+                              draft_tick):
+    """K4 in 20 cases; the first at the paged main path's shape with the
     block tables and lengths of its median decode tick; head_dim 96 and
     a GQA group of 64 among them; then the split's edges at bf16 d 64:
-    parts whose blocks are all dead, and a row of each split edge.
-    Every case is also run twice and must repeat bit for bit."""
+    parts whose blocks are all dead, and a row of each split edge; last,
+    where the speculative engine's draft calls it: the draft pool's
+    tables and lengths of its median draft step.  Every case is also
+    run twice and must repeat bit for bit."""
     tpr = MAX_LEN // BLOCK_SIZE
     full = dict(slots=PAGED_SLOTS, h=16, hkv=2, bs=BLOCK_SIZE, tpr=tpr,
                 nb=NUM_BLOCKS, d=64, dtype=torch.bfloat16)
@@ -513,6 +540,8 @@ def phase_paged_kernel_checks(torch, F, attention, flush, main_tick):
              + tuple((1, e, -1) for e in range(18))),
         dict(full, label="split-edges",
              lengths=[0, 1, 5, 128, 129, 16, 17, 1024] * 2),
+        dict(full, label="spec-draft-tick", tables=draft_tick[0],
+             lengths=draft_tick[1]),
     ]
     return [check_paged_case(torch, F, attention, flush, seed=100 + i, **c)
             for i, c in enumerate(cases)]
@@ -767,9 +796,10 @@ def _serve_all(eng, reqs) -> float:
     return dt
 
 
-def _serve_ticks(eng, reqs) -> tuple[float, int]:
+def _serve_ticks(eng, reqs, check=False) -> tuple[float, int]:
     """Serve ``reqs`` to the end, tick by tick: (wall seconds, peak
-    count of sequences holding a slot after a tick)."""
+    count of sequences holding a slot after a tick); with ``check``,
+    the engine's block accounting must hold after every tick."""
     import torch
 
     t0 = time.perf_counter()
@@ -778,6 +808,8 @@ def _serve_ticks(eng, reqs) -> tuple[float, int]:
     peak = 0
     while not eng.idle:
         eng.tick()
+        if check:
+            eng.check_accounting()
         peak = max(peak, eng.stats().active)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -931,12 +963,15 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged):
     ecfg = dataclasses.replace(cfg, attention="einsum")
     einsum_step = paged.make_paged_decode_step(ecfg, MAX_LEN)
     kernel_step = eng._decode
-    diffs, ticks_seen = [], []
+    diffs, ticks_seen, rows = [], [], {}
+    warm = _requests(serving, np, cfg, PAGED_PROMPT_LENS)
+    index = {id(r): n for n, r in enumerate(warm)}
 
     def compared_step(p, cache, tables, tokens, active):
         # The kernel's inputs this tick (lengths after the write), then
         # the same cache, tables, tokens and mask through the einsum
-        # route first, every tick (teacher-forced).
+        # route first, every tick (teacher-forced).  The kernel route's
+        # logits rows are kept for the speculative paths' comparison.
         ticks_seen.append((tables.clone(), (cache.lengths + 1).tolist()))
         ref = paged.PagedKVCache(cache.k.clone(), cache.v.clone(),
                                  cache.lengths.clone())
@@ -944,10 +979,11 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged):
         logits, cache = kernel_step(p, cache, tables, tokens, active)
         diffs.append(_compare_tick(torch, logits, want,
                                    active.nonzero()[:, 0].to(logits.device)))
+        _note_plain_rows(eng, logits, active, index, rows)
         return logits, cache
 
     eng._decode = compared_step
-    warm_s = _serve_all(eng, _requests(serving, np, cfg, PAGED_PROMPT_LENS))
+    warm_s = _serve_all(eng, warm)
     eng._decode = kernel_step
 
     reqs = _requests(serving, np, cfg, PAGED_PROMPT_LENS)
@@ -1001,13 +1037,16 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged):
     if not rec["dlogits_max"] < DLOGITS_MAX:
         raise AssertionError(f"kernel route logits differ from the einsum "
                              f"gather route by {rec['dlogits_max']}")
-    return rec, (mid_tables, mid_lengths), eng
+    return (rec, (mid_tables, mid_lengths), eng,
+            ([r.generated for r in warm], rows))
 
 
-def phase_profile(torch, np, serving, eng, path, prompt_lens):
+def phase_profile(torch, np, serving, eng, path, prompt_lens, syncs=None):
     """Where a steady window of a main path spends device time:
     torch.profiler over PROFILE_TICKS engine ticks (after 5 warm ones)
-    of a fresh pass of the same traffic."""
+    of a fresh pass of the same traffic.  ``syncs``: counters of the
+    engine's host copies of logits, zeroed for the window and
+    reported with it."""
     from torch.profiler import ProfilerActivity, profile
 
     for r in _requests(serving, np, eng.cfg, prompt_lens):
@@ -1015,6 +1054,8 @@ def phase_profile(torch, np, serving, eng, path, prompt_lens):
     for _ in range(5):
         eng.tick()
     torch.cuda.synchronize()
+    for name in syncs or ():
+        syncs[name] = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1022,11 +1063,13 @@ def phase_profile(torch, np, serving, eng, path, prompt_lens):
             eng.tick()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    window = dict(syncs or {})
     eng.run()
-    _emit_profile(path, "ticks", PROFILE_TICKS, prof, wall_ms)
+    _emit_profile(path, "ticks", PROFILE_TICKS, prof, wall_ms,
+                  host_logit_syncs=window or None)
 
 
-def _emit_profile(path, unit, count, prof, wall_ms) -> dict:
+def _emit_profile(path, unit, count, prof, wall_ms, **extra) -> dict:
     """Device busy time, idle share and the top kernels of a window of
     ``count`` engine ticks, decode steps or train steps (``unit``)."""
     def dev_us(e):
@@ -1043,7 +1086,8 @@ def _emit_profile(path, unit, count, prof, wall_ms) -> dict:
                device_idle_share=(1 - busy_ms / wall_ms) if busy_ms > 0
                else None,
                top_kernels=[dict(name=e.key[:90], device_ms=dev_us(e) / 1e3,
-                                 calls=e.count) for e in top])
+                                 calls=e.count) for e in top],
+               **{k: v for k, v in extra.items() if v is not None})
     emit("profile", **rec)
     return rec
 
@@ -1193,6 +1237,640 @@ def phase_generate_profile(torch, model, decode, params, prompt, cfg, steps):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     _emit_profile("generate", "decode_steps", PROFILE_TICKS, prof, wall_ms)
+
+
+def _draft(params, layers):
+    """The draft model: the target's first ``layers`` layers (the
+    blocks hold stacked [n_layers, ...] tensors)."""
+    return {**params, "blocks": {name: w[:layers]
+                                 for name, w in params["blocks"].items()}}
+
+
+def _verify_entry(row):
+    """What a speculative token's check needs of the verify logits
+    ``row`` [vocab] that emitted it: (top-1 minus top-2, top-1, argmax,
+    the row itself)."""
+    import torch
+
+    r = torch.as_tensor(row).float()
+    top = r.topk(2).values.tolist()
+    return top[0] - top[1], top[0], int(torch.argmax(r)), row
+
+
+def _bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def _near_tie(gap, dl) -> bool:
+    """Whether rounding alone explains a divergence: the verify top-2
+    gap is at most twice the largest |dlogits| between the two routes'
+    rows that chose the token, and those differ by rounding only."""
+    return (gap is not None and dl is not None and dl <= DLOGITS_MAX
+            and gap <= 2 * dl)
+
+
+def _note_plain_rows(eng, logits, active, index, rows) -> None:
+    """Keep each active slot's decode logits row in ``rows``, keyed
+    (traffic index of its request, generated index of the token it
+    chooses); a re-run after preemption overwrites."""
+    for i in active.nonzero()[:, 0].tolist():
+        req = eng._slots[i].request
+        rows[(index[id(req)], len(req.generated))] = logits[i]
+
+
+def _watch_plain_rows(eng, index, rows):
+    """Wrap a PagedBatcher's decode step to keep its logits rows (see
+    _note_plain_rows).  Returns restore."""
+    step = eng._decode
+
+    def watched(p, cache, tables, tokens, active):
+        logits, cache = step(p, cache, tables, tokens, active)
+        _note_plain_rows(eng, logits, active, index, rows)
+        return logits, cache
+
+    eng._decode = watched
+
+    def restore():
+        eng._decode = step
+    return restore
+
+
+def _watch_spec_engine(eng, index=None, rows=None, draft_ticks=None):
+    """Wrap a SpeculativePagedBatcher's draft step, verify call, draft
+    replay and accept decision.  Returns (syncs, replays, restore):
+    ``syncs`` counts the draft steps and verify calls (each copies its
+    logits to the host: [slots, vocab] and [slots, k+1, vocab] f32),
+    ``replays`` the one-token draft replays and those that open a new
+    block.  While ``rows`` is given, it maps (traffic index from
+    ``index``, generated index) to _verify_entry of the verify logits
+    that emitted that token (a re-run after preemption overwrites), and
+    ``draft_ticks`` collects each draft step's tables and lengths after
+    its write."""
+    syncs = {"draft_decode": 0, "verify": 0}
+    replays = {"replays": 0, "replays_at_block_start": 0}
+    d_step, verify, replay, accept = (eng._d_decode, eng._verify,
+                                      eng._d_replay, eng._accept_row)
+
+    def draft_step(p, cache, tables, tokens, active):
+        syncs["draft_decode"] += 1
+        if draft_ticks is not None:
+            draft_ticks.append((tables.clone(), (cache.lengths + 1).tolist()))
+        return d_step(p, cache, tables, tokens, active)
+
+    def verify_step(p, cache, tables, tokens, offsets, n_valid):
+        syncs["verify"] += 1
+        return verify(p, cache, tables, tokens, offsets, n_valid)
+
+    def replay_step(p, cache, tables, tokens, offsets, n_valid):
+        live = n_valid > 0
+        replays["replays"] += int(live.sum())
+        replays["replays_at_block_start"] += int(
+            (live & (offsets % eng.block_size == 0)).sum())
+        return replay(p, cache, tables, tokens, offsets, n_valid)
+
+    def accept_row(T, drafts_i, qs_i, req, k_eff):
+        emitted, n_acc = accept(T, drafts_i, qs_i, req, k_eff)
+        if rows is not None:
+            n = len(req.generated)
+            for j in range(len(emitted)):
+                rows[(index[id(req)], n + j)] = _verify_entry(T[j].copy())
+        return emitted, n_acc
+
+    eng._d_decode, eng._verify = draft_step, verify_step
+    eng._d_replay, eng._accept_row = replay_step, accept_row
+
+    def restore():
+        eng._d_decode, eng._verify = d_step, verify
+        eng._d_replay, eng._accept_row = replay, accept
+    return syncs, replays, restore
+
+
+def _divergences(keys, got, want, spec_rows, plain_rows) -> list[dict]:
+    """Each sequence's first divergence from the plain route's tokens
+    (none where they agree): the verify logits' top-2 gap and top logit
+    there, that gap in bf16 ulps of the top logit, the largest |dlogits|
+    between the verify row and the plain route's row (``spec_rows``
+    holds _verify_entry, ``plain_rows`` the rows, both keyed (key,
+    generated index)), and whether it is a near tie (_near_tie)."""
+    import torch
+
+    out = []
+    for key, a, b in zip(keys, got, want):
+        a, b = [int(t) for t in a], [int(t) for t in b]
+        at = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                  None if len(a) == len(b) else min(len(a), len(b)))
+        if at is None:
+            continue
+        spec, plain = spec_rows.get((key, at)), plain_rows.get((key, at))
+        gap = top = dl = None
+        if spec is not None:
+            gap, top = spec[0], spec[1]
+            if plain is not None:
+                dl = (torch.as_tensor(spec[3]).float().cpu()
+                      - plain.float().cpu()).abs().max().item()
+        out.append(dict(sequence=key, index=at, verify_top2_gap=gap,
+                        verify_top1=top,
+                        gap_bf16_ulps=None if top is None
+                        else gap / _bf16_ulp(top),
+                        row_dlogits_max=dl, near_tie=_near_tie(gap, dl)))
+    return out
+
+
+def _argmax_faults(keys, got, spec_rows) -> list[tuple]:
+    """Greedy speculative tokens after the first (which prefill emits)
+    that are not the argmax of the verify logits that emitted them, or
+    that no verify call emitted: (key, index, token, argmax or None)."""
+    faults = []
+    for key, toks in zip(keys, got):
+        for g in range(1, len(toks)):
+            entry = spec_rows.get((key, g))
+            if entry is None or entry[2] != int(toks[g]):
+                faults.append((key, g, int(toks[g]),
+                               None if entry is None else entry[2]))
+    return faults
+
+
+def _spec_counters(eng) -> dict:
+    return {n: getattr(eng, n) for n in (
+        "ticks", "preemptions", "verify_passes", "drafted_tokens",
+        "accepted_tokens", "decode_tokens")}
+
+
+def _spec_economics(before, after) -> dict:
+    d = {n: after[n] - before[n] for n in after}
+    return dict(d, accept_rate=d["accepted_tokens"]
+                / max(1, d["drafted_tokens"]),
+                target_pass_ratio=d["verify_passes"]
+                / max(1, d["decode_tokens"]))
+
+
+def _spec_agreement(keys, got, want, spec_rows, plain_rows) -> dict:
+    """Greedy speculative tokens ``got`` against the plain route's
+    ``want``, sequence by sequence: tokens equal position by position,
+    each first divergence (_divergences) and every token that is not the
+    argmax of the verify logits that emitted it (_argmax_faults)."""
+    return dict(
+        tokens_equal=sum(int(a == b) for g, w in zip(got, want)
+                         for a, b in zip(g, w)),
+        tokens_total=sum(len(g) for g in got),
+        first_divergences=_divergences(keys, got, want, spec_rows,
+                                       plain_rows),
+        not_verify_argmax=_argmax_faults(keys, got, spec_rows),
+        near_tie_rule=f"verify top-2 gap <= 2 x the rows' max |dlogits| "
+                      f"<= {2 * DLOGITS_MAX}")
+
+
+def _check_agreement(what: str, agreement: dict) -> None:
+    if agreement["not_verify_argmax"]:
+        raise AssertionError(
+            f"{what}: tokens that are not the argmax of the verify logits "
+            f"that emitted them: {agreement['not_verify_argmax'][:8]}")
+    bad = [d for d in agreement["first_divergences"] if not d["near_tie"]]
+    if bad:
+        raise AssertionError(f"{what} diverges from the plain route away "
+                             f"from a near tie: {bad}")
+
+
+def _spec_engine(torch, model, spec_serving, draft_layers):
+    """The speculative paged engine on the paged cell's model (random
+    weights, seed 0) and pool; the draft is the target's first
+    ``draft_layers`` layers."""
+    import dataclasses
+
+    cfg = model.ModelConfig(**FULL)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, "cuda")
+    geometry = dict(slots=PAGED_SLOTS, max_len=MAX_LEN,
+                    block_size=BLOCK_SIZE, num_blocks=NUM_BLOCKS,
+                    chunk=CHUNK, prefill_lanes=PREFILL_LANES)
+    eng = spec_serving.SpeculativePagedBatcher(
+        params, cfg, _draft(params, draft_layers),
+        dataclasses.replace(cfg, n_layers=draft_layers), k=SPEC_K,
+        device="cuda", **geometry)
+    return eng, cfg, geometry
+
+
+def phase_spec_main_path(torch, np, attention, model, serving, spec_serving,
+                         plain):
+    """The speculative paged engine at full serving width: the paged
+    cell's model and traffic, the draft the target's first layer, k 4.
+    A warm pass (block accounting checked every tick) records each
+    emitted token's verify logits and the draft's decode inputs; its
+    greedy tokens are held against the plain paged engine's (``plain``:
+    its warm pass's tokens and decode logits rows, the K4 route), each
+    request's first divergence must be a near tie and every token the
+    argmax of its verify logits.  Then the timed pass, accounting
+    checked every tick, with the launch counts zeroed just before and
+    read just after: K4 once per draft layer per draft step, K1 and K3
+    never."""
+    eng, cfg, geometry = _spec_engine(torch, model, spec_serving,
+                                      DRAFT_LAYERS)
+    warm = _requests(serving, np, cfg, PAGED_PROMPT_LENS)
+    spec_rows, draft_ticks = {}, []
+    _, _, restore = _watch_spec_engine(
+        eng, {id(r): n for n, r in enumerate(warm)}, spec_rows, draft_ticks)
+    warm_s, _ = _serve_ticks(eng, warm, check=True)
+    restore()
+    syncs, _, _ = _watch_spec_engine(eng)
+
+    reqs = _requests(serving, np, cfg, PAGED_PROMPT_LENS)
+    before = _spec_counters(eng)
+    attention.reset_launch_counts()
+    dt, peak = _serve_ticks(eng, reqs, check=True)
+    launches = dict(attention.LAUNCHES)
+    econ = _spec_economics(before, _spec_counters(eng))
+    pass_syncs = dict(syncs)
+    if eng.allocator.used_blocks or eng.d_allocator.used_blocks:
+        raise AssertionError("drained speculative engine holds blocks")
+    decoded = sum(len(r.generated) for r in reqs)
+    want_k4 = pass_syncs["draft_decode"] * DRAFT_LAYERS
+    agreement = _spec_agreement(range(len(warm)), [r.generated for r in warm],
+                                plain[0], spec_rows, plain[1])
+    by_live = sorted(draft_ticks, key=lambda t: sum(t[1]))
+    draft_tick = by_live[len(by_live) // 2]
+    rec = dict(
+        config=FULL, draft_layers=DRAFT_LAYERS, k=SPEC_K, dtype="bfloat16",
+        **geometry, prompt_lens=PAGED_PROMPT_LENS, new_tokens=NEW_TOKENS,
+        warm_seconds=warm_s, seconds=dt, **econ,
+        verify_passes_per_tick=econ["verify_passes"] / econ["ticks"],
+        decoded_tokens=decoded, tokens_per_s=decoded / dt,
+        peak_concurrent_sequences=peak, accounting_checked_every_tick=True,
+        host_logit_syncs=pass_syncs,
+        paged_flash_decode_launches=launches["paged_flash_decode"],
+        flash_decode_launches=launches["flash_decode"],
+        flash_attention_launches=launches["flash_attention"],
+        expected_paged_flash_decode_launches=want_k4,
+        plain_engine_agreement=agreement,
+        draft_tick_lengths=draft_tick[1])
+    emit("spec_main_path", **rec)
+    if launches["paged_flash_decode"] != want_k4 or want_k4 == 0:
+        raise AssertionError(
+            f"paged_flash_decode launched {launches['paged_flash_decode']} "
+            f"times, want draft steps x draft layers = {want_k4}")
+    if launches["flash_decode"] or launches["flash_attention"]:
+        raise AssertionError(f"K1/K3 launched on the speculative paged "
+                             f"path: {launches}")
+    if not 0 < econ["verify_passes"] <= econ["ticks"]:
+        raise AssertionError(f"{econ['verify_passes']} verify passes in "
+                             f"{econ['ticks']} ticks")
+    _check_agreement("speculative engine", agreement)
+    return rec, draft_tick, eng, syncs
+
+
+def phase_spec_self_draft(torch, np, attention, model, serving, spec_serving,
+                          plain):
+    """The speculative engine at full serving width with a draft that
+    accepts: the target drafts for itself (all its layers, through K4),
+    so rounds accept several tokens, replay the draft on full acceptance
+    and reserve k_eff + 1 draft positions, under the paged cell's pool,
+    traffic and preemptions.  One pass, block accounting checked every
+    tick, launch counts zeroed just before and read just after (K4 once
+    per layer per draft step, K1 and K3 never); its greedy tokens held
+    against the plain engine's (``plain``) as in spec_main_path."""
+    eng, cfg, geometry = _spec_engine(torch, model, spec_serving,
+                                      FULL["n_layers"])
+    reqs = _requests(serving, np, cfg, PAGED_PROMPT_LENS)
+    spec_rows = {}
+    syncs, replays, restore = _watch_spec_engine(
+        eng, {id(r): n for n, r in enumerate(reqs)}, spec_rows)
+    before = _spec_counters(eng)
+    attention.reset_launch_counts()
+    dt, peak = _serve_ticks(eng, reqs, check=True)
+    launches = dict(attention.LAUNCHES)
+    restore()
+    econ = _spec_economics(before, _spec_counters(eng))
+    if eng.allocator.used_blocks or eng.d_allocator.used_blocks:
+        raise AssertionError("drained speculative engine holds blocks")
+    want_k4 = syncs["draft_decode"] * cfg.n_layers
+    agreement = _spec_agreement(range(len(reqs)), [r.generated for r in reqs],
+                                plain[0], spec_rows, plain[1])
+    rec = dict(
+        config=FULL, draft_layers=cfg.n_layers, k=SPEC_K, dtype="bfloat16",
+        **geometry, prompt_lens=PAGED_PROMPT_LENS, new_tokens=NEW_TOKENS,
+        instrumented_seconds=dt, **econ,
+        verify_passes_per_tick=econ["verify_passes"] / econ["ticks"],
+        peak_concurrent_sequences=peak, accounting_checked_every_tick=True,
+        host_logit_syncs=syncs, **replays,
+        paged_flash_decode_launches=launches["paged_flash_decode"],
+        flash_decode_launches=launches["flash_decode"],
+        flash_attention_launches=launches["flash_attention"],
+        expected_paged_flash_decode_launches=want_k4,
+        plain_engine_agreement=agreement)
+    emit("spec_self_draft", **rec)
+    if launches["paged_flash_decode"] != want_k4 or want_k4 == 0:
+        raise AssertionError(
+            f"paged_flash_decode launched {launches['paged_flash_decode']} "
+            f"times, want draft steps x layers = {want_k4}")
+    if launches["flash_decode"] or launches["flash_attention"]:
+        raise AssertionError(f"K1/K3 launched on the speculative paged "
+                             f"path: {launches}")
+    if not (econ["accepted_tokens"] and replays["replays"]
+            and econ["preemptions"]):
+        raise AssertionError(
+            f"the self-draft run did not accept, replay and preempt: "
+            f"{econ}, {replays}")
+    _check_agreement("self-drafting speculative engine", agreement)
+    return rec
+
+
+def _watch_spec_generate(decode, dcfg, prompt_len, rows):
+    """Wrap decode.decode_step and decode.extend_step, which
+    speculative_generate calls by name: counts of the draft's decode
+    steps and one-token replays (each launches K3 once per draft layer)
+    and of the target's verify calls in the returned dict; while
+    ``rows`` is not None, it maps (row, generated index) to
+    _verify_entry of the target's verify logits that emit that token (a
+    later round that re-verifies the index overwrites).  Returns
+    (counts, restore)."""
+    counts = {"draft_decode": 0, "draft_replay": 0, "verify": 0}
+    step, extend = decode.decode_step, decode.extend_step
+
+    def decode_step(p, cache, tokens, c):
+        counts["draft_decode"] += c is dcfg
+        return step(p, cache, tokens, c)
+
+    def extend_step(p, cache, tokens, c):
+        first = cache.length + 1 - prompt_len
+        logits, cache = extend(p, cache, tokens, c)
+        if c is dcfg:
+            counts["draft_replay"] += tokens.shape[1] == 1
+        else:
+            counts["verify"] += 1
+            if rows is not None:
+                top = logits.float().topk(2, dim=-1).values.cpu()
+                arg = logits.argmax(dim=-1).cpu()
+                for row in range(logits.shape[0]):
+                    for j in range(logits.shape[1]):
+                        rows[(row, first + j)] = (
+                            float(top[row, j, 0] - top[row, j, 1]),
+                            float(top[row, j, 0]), int(arg[row, j]),
+                            logits[row, j])
+        return logits, cache
+
+    def restore():
+        decode.decode_step, decode.extend_step = step, extend
+
+    decode.decode_step, decode.extend_step = decode_step, extend_step
+    return counts, restore
+
+
+def _watch_generate_rows(decode, rows):
+    """Wrap decode.decode_step, which generate calls by name, to keep
+    its logits rows in ``rows``, keyed (row, generated index): the n-th
+    step chooses token n (prefill chose token 0).  Returns restore."""
+    step = decode.decode_step
+    n = [0]
+
+    def decode_step(p, cache, tokens, c):
+        logits, cache = step(p, cache, tokens, c)
+        n[0] += 1
+        for row in range(logits.shape[0]):
+            rows[(row, n[0])] = logits[row]
+        return logits, cache
+
+    def restore():
+        decode.decode_step = step
+
+    decode.decode_step = decode_step
+    return restore
+
+
+def phase_spec_generate_main_path(torch, np, attention, model, decode):
+    """speculative_generate on the GQA generate shape (GEN_SHAPES[0]:
+    batch 8, prompt 128, 256 steps; its params and prompt), the draft
+    the target's first layer, k 4: a warm call that records the verify
+    logits, held against decode.generate (the K3 route, its decode
+    logits recorded) with every row's first divergence a near tie and
+    every token the argmax of its verify logits; then GEN_REPS timed
+    calls, each with the launch counts zeroed just before and read just
+    after: K1 once per target and draft layer (the two prefills), K3
+    once per draft layer per draft step and one-token replay, K4
+    never; prefill alone (target and draft) timed beside them."""
+    import dataclasses
+
+    _, arch, prompt_len, steps = GEN_SHAPES[0]
+    cfg = model.ModelConfig(**arch)
+    dcfg = dataclasses.replace(cfg, n_layers=DRAFT_LAYERS)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, "cuda")
+    dparams = _draft(params, DRAFT_LAYERS)
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (GEN_BATCH, prompt_len)).astype(np.int32)).cuda()
+    max_len = prompt_len + steps
+
+    def run():
+        return decode.speculative_generate(params, dparams, prompt, cfg,
+                                           steps, draft_cfg=dcfg, k=SPEC_K)
+
+    def prefills():
+        decode.prefill(model.cast_params(params, cfg.dtype, "cuda"), prompt,
+                       cfg, max_len)
+        decode.prefill(model.cast_params(dparams, cfg.dtype, "cuda"),
+                       prompt, dcfg, max_len)
+
+    spec_rows = {}
+    counts, restore = _watch_spec_generate(decode, dcfg, prompt_len,
+                                           spec_rows)
+    try:
+        warm_s, (out, stats) = _wall(torch, run)
+        restore()
+        counts, restore = _watch_spec_generate(decode, dcfg, prompt_len,
+                                               None)
+        gen_s, pf_s, launches, calls = [], [], [], []
+        for _ in range(GEN_REPS):
+            pf_s.append(_wall(torch, prefills)[0])
+            for name in counts:
+                counts[name] = 0
+            attention.reset_launch_counts()
+            dt, (tout, tstats) = _wall(torch, run)
+            launches.append(dict(attention.LAUNCHES))
+            calls.append(dict(counts))
+            gen_s.append(dt)
+    finally:
+        restore()
+    plain_rows = {}
+    restore = _watch_generate_rows(decode, plain_rows)
+    try:
+        plain = decode.generate(params, prompt, cfg, steps)
+    finally:
+        restore()
+    gen, want = out[:, prompt_len:].tolist(), plain[:, prompt_len:].tolist()
+    agreement = _spec_agreement(range(GEN_BATCH), gen, want, spec_rows,
+                                plain_rows)
+    del spec_rows, plain_rows
+    gen_dt, pf_dt = statistics.fmean(gen_s), statistics.fmean(pf_s)
+    want_launches = [{
+        "flash_attention": cfg.n_layers + dcfg.n_layers,
+        "flash_decode": (c["draft_decode"] + c["draft_replay"])
+        * dcfg.n_layers, "paged_flash_decode": 0} for c in calls]
+    got_launches = [{n: ln[n] for n in want_launches[0]} for ln in launches]
+    rec = dict(
+        config=arch, draft_layers=DRAFT_LAYERS, k=SPEC_K, dtype="bfloat16",
+        batch=GEN_BATCH, prompt_len=prompt_len, steps=steps,
+        rounds=tstats["rounds"], accept_rate=tstats["accept_rate"],
+        target_pass_ratio=tstats["rounds"] / steps, warm_seconds=warm_s,
+        generate_seconds=gen_s, prefill_seconds=pf_s, prefill_ms=pf_dt * 1e3,
+        decode_ms_per_step=(gen_dt - pf_dt) / steps * 1e3,
+        ms_per_emitted_token=(gen_dt - pf_dt) / (steps * GEN_BATCH) * 1e3,
+        decode_tokens_per_s=GEN_BATCH * steps / (gen_dt - pf_dt),
+        calls=calls[-1], launches=got_launches[-1],
+        expected_launches=want_launches[-1],
+        same_tokens_each_call=bool(torch.equal(out, tout)),
+        generate_agreement=agreement)
+    emit("spec_generate_main_path", **rec)
+    if got_launches != want_launches or not all(
+            n["flash_attention"] and n["flash_decode"] for n in got_launches):
+        raise AssertionError(f"speculative_generate launched "
+                             f"{got_launches}, want {want_launches}")
+    _check_agreement("speculative_generate", agreement)
+    if not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError("non-finite speculative_generate tokens")
+    return rec
+
+
+def _bigram_shard(np, dataio, path):
+    """bench_tpu.py:676-692's structured shard: 90 % the bigram
+    t -> (31t + 17) mod V, 10 % uniform noise, numpy seed 7."""
+    rng = np.random.default_rng(7)
+    n = SPEC_TOKENS
+    toks = np.empty(n, np.uint32)
+    toks[0] = 1
+    noise = rng.random(n) < 0.1
+    rand = rng.integers(0, SPEC_VOCAB, n, dtype=np.uint32)
+    for i in range(1, n):
+        toks[i] = rand[i] if noise[i] else (31 * int(toks[i - 1]) + 17) \
+            % SPEC_VOCAB
+    dataio.write_token_file(path, toks)
+    return toks
+
+
+def phase_spec_trained(torch, np, attention, model, decode, dataio, paged,
+                       serving, spec_serving):
+    """The reference's economics cell (bench_tpu.py:695 _impl_spec) at its
+    full size: the bigram shard, a 6-layer target and a 1-layer draft
+    trained by the port's train CLI (d_model 512, seq 256, batch 4, 600
+    steps, lr 3e-3, grad-clip 1.0); then greedy speculative_generate
+    against generate (prompt toks[:16], 128 steps, k 4), the sampled
+    accept rate at three temperatures, and the speculative engine
+    against the plain PagedBatcher over the reference's 6 requests.
+    Launch counts over the whole evaluation."""
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join(
+               [str(ROOT), os.environ.get("PYTHONPATH", "")])}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        shard = os.path.join(tmp, "shard.bin")
+        toks = _bigram_shard(np, dataio, shard)
+        shard_s = time.perf_counter() - t0
+        trained = {}
+        for name, layers in (("target", SPEC_T_LAYERS),
+                             ("draft", SPEC_D_LAYERS)):
+            ckpt = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "tpu_autoscaler_torch.workloads.train",
+                 "--steps", str(SPEC_TRAIN_STEPS), "--d-model",
+                 str(SPEC_D_MODEL), "--n-layers", str(layers), "--seq-len",
+                 str(SPEC_SEQ), "--batch", "4", "--vocab", str(SPEC_VOCAB),
+                 "--data-file", shard, "--checkpoint-dir", ckpt,
+                 "--checkpoint-every", str(SPEC_TRAIN_STEPS), "--lr", "3e-3",
+                 "--grad-clip", "1.0", "--platform", "cuda",
+                 "--annotations-file", os.path.join(tmp, "none")],
+                capture_output=True, text=True, env=env, cwd=ROOT,
+                timeout=600)
+            if res.returncode != 0:
+                raise AssertionError(f"train CLI ({name}) exited "
+                                     f"{res.returncode}:\n"
+                                     f"{res.stderr[-4000:]}")
+            losses = re.findall(r"step (\d+) loss ([0-9.]+)", res.stderr)
+            trained[name] = dict(
+                layers=layers, seconds=time.perf_counter() - t0,
+                first_loss=float(losses[0][1]) if losses else None,
+                last_loss=float(losses[-1][1]) if losses else None,
+                params=model.load_params(ckpt, SPEC_TRAIN_STEPS, "cuda"))
+    arch = dict(vocab=SPEC_VOCAB, d_model=SPEC_D_MODEL, seq_len=SPEC_SEQ)
+    t_cfg = model.ModelConfig(**arch, n_layers=SPEC_T_LAYERS)
+    d_cfg = model.ModelConfig(**arch, n_layers=SPEC_D_LAYERS)
+    t_params = trained["target"].pop("params")
+    d_params = trained["draft"].pop("params")
+    prompt = torch.from_numpy(toks[:16].astype(np.int32))[None].cuda()
+
+    attention.reset_launch_counts()
+    plain_rows, spec_rows = {}, {}
+    restore = _watch_generate_rows(decode, plain_rows)
+    try:
+        plain = decode.generate(t_params, prompt, t_cfg, SPEC_GEN_STEPS)
+    finally:
+        restore()
+    _, restore = _watch_spec_generate(decode, d_cfg, 16, spec_rows)
+    try:
+        spec, stats = decode.speculative_generate(
+            t_params, d_params, prompt, t_cfg, SPEC_GEN_STEPS,
+            draft_cfg=d_cfg, k=SPEC_K)
+    finally:
+        restore()
+    agreement = _spec_agreement([0], spec[:, 16:].tolist(),
+                                plain[:, 16:].tolist(), spec_rows, plain_rows)
+    sampled = {}
+    for temp in SPEC_TEMPS:
+        _, st = decode.speculative_sample_generate(
+            t_params, d_params, prompt, t_cfg, SPEC_GEN_STEPS,
+            generator=torch.Generator(device="cuda").manual_seed(0),
+            temperature=temp, draft_cfg=d_cfg, k=SPEC_K)
+        sampled[str(temp)] = st["accept_rate"]
+
+    eng_kw = dict(slots=4, max_len=128, block_size=16, chunk=16,
+                  device="cuda")
+    prompts = [toks[o:o + 12].astype(np.int32) for o in range(0, 240, 40)]
+    out = {}
+    for name, eng in (
+            ("spec", spec_serving.SpeculativePagedBatcher(
+                t_params, t_cfg, d_params, d_cfg, k=SPEC_K, **eng_kw)),
+            ("plain", paged.PagedBatcher(t_params, t_cfg, **eng_kw))):
+        reqs = [serving.Request(prompt=p, max_new_tokens=64) for p in prompts]
+        index, rows = {id(r): n for n, r in enumerate(reqs)}, {}
+        if name == "spec":
+            _watch_spec_engine(eng, index, rows)
+        else:
+            _watch_plain_rows(eng, index, rows)
+        dt, _ = _serve_ticks(eng, reqs, check=True)
+        out[name] = (eng, reqs, dt, rows)
+    launches = dict(attention.LAUNCHES)
+    seng, sreqs, sdt, srows = out["spec"]
+    engine_agreement = _spec_agreement(
+        range(len(sreqs)), [r.generated for r in sreqs],
+        [r.generated for r in out["plain"][1]], srows, out["plain"][3])
+    rec = dict(
+        config=dict(arch, target_layers=SPEC_T_LAYERS,
+                    draft_layers=SPEC_D_LAYERS), dtype="bfloat16",
+        shard_tokens=SPEC_TOKENS, shard_seconds=shard_s, train=trained,
+        train_steps=SPEC_TRAIN_STEPS, gen_steps=SPEC_GEN_STEPS, k=SPEC_K,
+        rounds=stats["rounds"], accept_rate=stats["accept_rate"],
+        target_pass_ratio=stats["rounds"] / SPEC_GEN_STEPS,
+        tokens_match_plain_greedy=bool(torch.equal(spec, plain)),
+        generate_agreement=agreement,
+        sampled_accept_rate_vs_temperature=sampled,
+        engine=dict(
+            requests=len(prompts), new_tokens_per_request=64,
+            accept_rate=seng.accept_rate,
+            target_pass_ratio=seng.target_pass_ratio,
+            ticks=seng.ticks, plain_ticks=out["plain"][0].ticks,
+            verify_passes=seng.verify_passes, seconds=sdt,
+            plain_seconds=out["plain"][2],
+            greedy_outputs_match_plain=not
+            engine_agreement["first_divergences"],
+            plain_engine_agreement=engine_agreement),
+        launches={n: launches[n] for n in (
+            "flash_attention", "flash_decode", "paged_flash_decode")})
+    emit("spec_trained", **rec)
+    _check_agreement("the trained pair's speculative_generate", agreement)
+    _check_agreement("the trained pair's speculative engine",
+                     engine_agreement)
+    if not all(r.done for r in sreqs):
+        raise AssertionError("the trained speculative engine left requests "
+                             "unserved")
+    return rec
 
 
 def _train_flops(n_params, cfg, batch) -> float:
@@ -1370,7 +2048,8 @@ def phase_small_train(torch, np, model):
                                  f"einsum losses differ by {r['max_gap']}")
 
 
-def phase_small_exact(torch, np, model, serving, paged, decode):
+def phase_small_exact(torch, np, model, serving, paged, decode,
+                      spec_serving):
     """A small f32 model on the card, in three cache modes: the linear
     cache, the ``--ring`` cache (window 16 + chunk 8 wide, so the
     prompts wrap it and the ring prefill scatter and decode write index
@@ -1379,7 +2058,10 @@ def phase_small_exact(torch, np, model, serving, paged, decode):
     route give the same greedy tokens, as the CPU tests demand of the
     port against JAX; the paged engine, and generate prompt by prompt,
     give the linear engine's tokens; a sampled generate stays in the
-    vocab; forward's logits equal prefill's through K1."""
+    vocab; forward's logits equal prefill's through K1.  Speculative
+    decoding with the first layer as the draft gives exactly the plain
+    tokens: the speculative paged engine the plain paged engine's (K4
+    route), speculative_generate generate's (K3 route)."""
     import dataclasses
 
     cfg = model.ModelConfig(vocab=256, d_model=128, n_layers=2, n_heads=2,
@@ -1421,6 +2103,18 @@ def phase_small_exact(torch, np, model, serving, paged, decode):
                         equal_to_linear=out[0] == linear_tokens,
                         preemptions=preempted)
     kcfg = dataclasses.replace(cfg, attention="kernel")
+    dcfg = dataclasses.replace(kcfg, n_layers=1)
+    dparams = _draft(params, 1)
+    eng = spec_serving.SpeculativePagedBatcher(
+        params, kcfg, dparams, dcfg, k=3, slots=3, max_len=64, block_size=8,
+        num_blocks=8, chunk=8, prefill_lanes=2, device="cuda")
+    reqs = [serving.Request(prompt=p, max_new_tokens=8) for p in prompts]
+    _serve_ticks(eng, reqs, check=True)
+    rec["spec"] = dict(tokens_equal=[r.generated for r in reqs] == out[0],
+                       tokens=sum(len(r.generated) for r in reqs),
+                       accept_rate=eng.accept_rate,
+                       target_pass_ratio=eng.target_pass_ratio,
+                       preemptions=eng.preemptions)
     ecfg = dataclasses.replace(cfg, attention="einsum")
     batch = torch.from_numpy(rng.integers(0, 256, (3, 40)).astype(np.int32))
     out = [decode.generate(params, batch, c, 10).tolist()
@@ -1435,6 +2129,10 @@ def phase_small_exact(torch, np, model, serving, paged, decode):
     forward_diff = {impl: (model.forward(params, tokens, c) - logits).abs()
                     .max().item() for impl, c in (("kernel", kcfg),
                                                   ("einsum", ecfg))}
+    spec_out, spec_stats = decode.speculative_generate(
+        params, dparams, batch, kcfg, 10, draft_cfg=dcfg, k=3)
+    rec["spec_generate"] = dict(tokens_equal=spec_out.tolist() == out[0],
+                                tokens=3 * 10, **spec_stats)
     rec["generate"] = dict(tokens_equal=out[0] == out[1],
                            tokens=3 * 10,
                            equal_to_linear=alone == linear_tokens,
@@ -1444,8 +2142,9 @@ def phase_small_exact(torch, np, model, serving, paged, decode):
     emit("small_exact", **rec)
     for mode, r in rec.items():
         if not r["tokens_equal"]:
-            raise AssertionError(f"f32 kernel route and einsum route "
-                                 f"disagree ({mode} cache)")
+            raise AssertionError(f"f32 {mode}: the kernel route and the "
+                                 f"einsum route, or speculative and plain "
+                                 f"decoding, disagree")
     if not rec["paged"]["equal_to_linear"]:
         raise AssertionError("f32 paged engine's tokens differ from the "
                              "linear engine's")
@@ -1838,19 +2537,27 @@ def phase_cli(model, decode, DrainReceipt):
                                  f"{missing}:\n{res.stderr[-4000:]}")
         return time.perf_counter() - t0, res.stdout.strip().splitlines()
 
-    def serve(ckpt, cache, flags, requests=6):
-        cmd = [sys.executable, "-m", "tpu_autoscaler_torch.workloads.serve",
-               "--checkpoint-dir", ckpt, "--random", str(requests),
-               "--platform", "cuda", "--annotations-file",
-               os.path.join(tmp, "annotations"), *flags]
-        dt, lines = run(cmd, f"serve CLI ({cache})")
+    def serve_cmd(ckpt, flags, requests=6):
+        return [sys.executable, "-m", "tpu_autoscaler_torch.workloads.serve",
+                "--checkpoint-dir", ckpt, "--random", str(requests),
+                "--platform", "cuda", "--annotations-file",
+                os.path.join(tmp, "annotations"), *flags]
+
+    def serve(ckpt, cache, flags, requests=6, expect=()):
+        """Serve ``requests``; every one must be served.  Returns the
+        receipt line as a dict."""
+        dt, lines = run(serve_cmd(ckpt, flags, requests),
+                        f"serve CLI ({cache})", expect)
         receipt = DrainReceipt.parse_line(lines[-1])
+        payload = json.loads(lines[-1])
         emit("cli", command="serve", cache=cache, flags=flags, seconds=dt,
              served=receipt.served, unserved=receipt.unserved,
              ticks=receipt.ticks, decode_tokens=receipt.decode_tokens,
-             preempted=receipt.stats["preempted_total"])
+             preempted=receipt.stats["preempted_total"],
+             trace=payload.get("trace"))
         if receipt.unserved != 0 or receipt.served != requests:
             raise AssertionError(f"serve CLI ({cache}) receipt: {receipt}")
+        return payload
 
     def checkpoint(cfg, name):
         params = model.init_params(
@@ -1866,9 +2573,27 @@ def phase_cli(model, decode, DrainReceipt):
                 "--seq-len", "64", "--slots", "2", "--max-len", "128",
                 "--chunk", "16"]
         serve(ckpt, "linear", arch)
-        serve(ckpt, "paged", arch + ["--paged", "--block-size", "16",
-                                     "--num-blocks", "6",
-                                     "--max-new-tokens", "48"])
+        paged_flags = arch + ["--paged", "--block-size", "16",
+                              "--max-new-tokens", "48"]
+        serve(ckpt, "paged", paged_flags + ["--num-blocks", "6"])
+        # Speculative serving (the first layer drafts), and request
+        # tracing on the preempting pool: every request traced.
+        serve(ckpt, "paged-spec", paged_flags + [
+            "--spec-k", "4", "--draft-layers", "1"],
+            expect=["speculative: accept_rate"])
+        traced = serve(ckpt, "paged-trace", paged_flags + [
+            "--num-blocks", "6", "--trace-sample", "1.0", "--slo-ticks", "4"])
+        if traced.get("trace", {}).get("sampled_total") != 6:
+            raise AssertionError(f"serve --trace-sample 1.0 receipt's trace: "
+                                 f"{traced.get('trace')}")
+        res = subprocess.run(serve_cmd(ckpt, arch + ["--spec-k", "4"]),
+                             capture_output=True, text=True, env=env,
+                             cwd=ROOT, timeout=600)
+        emit("cli", command="serve", cache="spec-without-paged",
+             exit_code=res.returncode, error=res.stderr.strip()[-200:])
+        if res.returncode != 2 or "add --paged" not in res.stderr:
+            raise AssertionError(f"serve --spec-k without --paged exited "
+                                 f"{res.returncode}: {res.stderr[-2000:]}")
         # --d-model 384 over the CLIs' 4 heads: head_dim 96, which no
         # kernel is built for (K1 padded to 128, K3 at its true width).
         ckpt, _ = checkpoint(model.ModelConfig(d_model=384), "d384")
@@ -1961,6 +2686,7 @@ def main() -> None:
     import numpy as np
     import torch.nn.functional as F
 
+    from tpu_autoscaler_torch import dataio
     from tpu_autoscaler_torch.serving.drain import DrainReceipt
     from tpu_autoscaler_torch.workloads import (
         attention,
@@ -1970,6 +2696,7 @@ def main() -> None:
         ring_attention,
         serving,
         sp,
+        spec_serving,
     )
 
     t_start = time.perf_counter()
@@ -1978,10 +2705,17 @@ def main() -> None:
     main_rec, eng = phase_main_path(torch, np, attention, model, serving)
     phase_profile(torch, np, serving, eng, "linear", PROMPT_LENS)
     del eng
-    paged_rec, paged_tick, eng = phase_paged_main_path(
+    paged_rec, paged_tick, eng, paged_plain = phase_paged_main_path(
         torch, np, attention, model, serving, paged)
     phase_profile(torch, np, serving, eng, "paged", PAGED_PROMPT_LENS)
     del eng
+    spec_rec, spec_tick, eng, syncs = phase_spec_main_path(
+        torch, np, attention, model, serving, spec_serving, paged_plain)
+    phase_profile(torch, np, serving, eng, "spec", PAGED_PROMPT_LENS, syncs)
+    del eng
+    self_draft_rec = phase_spec_self_draft(
+        torch, np, attention, model, serving, spec_serving, paged_plain)
+    del paged_plain
     # 128 MB scratch, written before each timed launch: evicts the 50 MB L2.
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
@@ -1989,7 +2723,7 @@ def main() -> None:
     checks = phase_kernel_checks(torch, F, attention, flush,
                                  main_rec["mid_tick_lengths"])
     paged_checks = phase_paged_kernel_checks(torch, F, attention, flush,
-                                             paged_tick)
+                                             paged_tick, spec_tick)
     attn_checks = phase_attn_kernel_checks(torch, F, attention, flush)
     bwd_checks = phase_bwd_kernel_checks(torch, F, attention, flush)
     ring_checks = phase_ring_kernel_checks(torch, F, attention, flush)
@@ -2004,6 +2738,8 @@ def main() -> None:
             phase_generate_profile(torch, model, decode, params, prompt, cfg,
                                    steps)
         del params, prompt
+    spec_gen_rec = phase_spec_generate_main_path(torch, np, attention, model,
+                                                 decode)
     train_rec = phase_train_main_path(
         torch, np, attention, model, "step", TRAIN_FULL, TRAIN_BATCH,
         TRAIN_WARM, TRAIN_STEPS, PROFILE_STEPS, compare=True)
@@ -2012,9 +2748,11 @@ def main() -> None:
                           1, compare=False)
     sp_rec = phase_sp_train_main_path(torch, np, attention, model, sp,
                                       ring_attention)
-    phase_small_exact(torch, np, model, serving, paged, decode)
+    phase_small_exact(torch, np, model, serving, paged, decode, spec_serving)
     phase_small_train(torch, np, model)
     phase_small_sp(torch, np, model, sp, decode)
+    trained_rec = phase_spec_trained(torch, np, attention, model, decode,
+                                     dataio, paged, serving, spec_serving)
     phase_cli(model, decode, DrainReceipt)
     kernels = []
     for kname, source, replaces, design, launches, kchecks in (
@@ -2040,6 +2778,16 @@ def main() -> None:
             kernels[-1].update(splits=at_main["splits"],
                                ctas=at_main["ctas"],
                                launch_floor_ms=floor_ms)
+    # Launches of K1, K3 and K4 on the speculative paths: per
+    # speculative_generate call, over the speculative engine's timed
+    # pass and its self-draft pass, over the trained pair's evaluation.
+    for kernel, key in zip(kernels, ("flash_attention", "flash_decode",
+                                     "paged_flash_decode")):
+        kernel["new_path_launches"] = {
+            "spec_generate_main_path": spec_gen_rec["launches"][key],
+            "spec_main_path": spec_rec[f"{key}_launches"],
+            "spec_self_draft": self_draft_rec[f"{key}_launches"],
+            "spec_trained": trained_rec["launches"][key]}
     # K1 where the trainer calls it: a layer of the training main path,
     # its launches per train step.
     at_train = attn_checks[1]

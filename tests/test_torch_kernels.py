@@ -537,3 +537,53 @@ def test_ring_attention_function_on_cuda():
     assert (outs[0] - outs[1]).abs().max().item() <= 2e-5
     for gt, wt in zip(*grads):
         assert grad_err_over_tol(torch, gt, wt)[1] <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_kernel_at_a_speculative_draft_tick(dtype):
+    """K4 where the speculative engine's draft calls it: a small
+    SpeculativePagedBatcher on the card serves mixed prompts; the draft
+    pool, block tables and lengths of its median draft step, with a
+    random q, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import dataclasses
+
+    import numpy as np
+
+    from tpu_autoscaler_torch.workloads import model, serving, spec_serving
+
+    cfg = model.ModelConfig(vocab=256, d_model=128, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=256, seq_len=128, dtype=dtype)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, "cuda")
+    dparams = {**params, "blocks": {n: w[:1]
+                                    for n, w in params["blocks"].items()}}
+    eng = spec_serving.SpeculativePagedBatcher(
+        params, cfg, dparams, dataclasses.replace(cfg, n_layers=1), k=3,
+        slots=4, max_len=128, block_size=16, chunk=16, device="cuda")
+    seen, step = [], eng._d_decode
+
+    def capture(p, cache, tables, tokens, active):
+        seen.append((tables.clone(), (cache.lengths + 1).clone()))
+        return step(p, cache, tables, tokens, active)
+
+    eng._d_decode = capture
+    rng = np.random.default_rng(0)
+    for n in (5, 40, 17, 90, 33):
+        eng.submit(serving.Request(prompt=rng.integers(0, 256, (n,)).astype(
+            np.int32), max_new_tokens=12))
+    eng.run()
+    assert seen
+    tables, lengths = (t.cuda() for t in seen[len(seen) // 2])
+    k_pool, v_pool = eng.d_cache.k[0], eng.d_cache.v[0]
+    q = torch.randn((4, 4, 1, cfg.head_dim), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1)
+                    ).to(dtype)
+    got = attention.paged_flash_decode(q, k_pool, v_pool, tables, lengths)
+    want = attention.paged_flash_decode_reference(q, k_pool, v_pool, tables,
+                                                  lengths)
+    torch.cuda.synchronize()
+    err, share = err_over_tol(torch, got, want)
+    assert share <= 1.0, (err, share, TOL_REASON[str(dtype)])

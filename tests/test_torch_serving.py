@@ -334,9 +334,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert bad.strip() == "[]"
     assert set(mods.split()) >= {
         f"tpu_autoscaler_torch.{m}" for m in (
-            "dataio", "serving.drain", "serving.stats", "workloads._cli",
+            "concurrency", "dataio", "obs.blackbox", "obs.recorder",
+            "obs.trace", "serving.drain", "serving.reqtrace",
+            "serving.stats", "workloads._cli",
             "workloads.attention", "workloads.checkpoint",
             "workloads.decode", "workloads.generate", "workloads.model",
             "workloads.paged", "workloads.ring_attention",
-            "workloads.serve", "workloads.serving", "workloads.sp",
+            "workloads.serve", "workloads.serving",
+            "workloads.spec_serving", "workloads.sp",
             "workloads.train", "workloads.ulysses")}

@@ -1,3 +1,4 @@
 """Serving signal export for the port: the engine's stats recorder
-(``stats``) and the drain receipt (``drain``), kept as copies of the
-JAX package's numpy-only modules."""
+(``stats``), the drain receipt (``drain``) and the request-trace
+sampler (``reqtrace``), kept as copies of the JAX package's
+numpy-only modules."""

@@ -2,8 +2,8 @@
 generate; and the logit warping and sampling the serving engines share.
 
 The counterpart of the JAX package's ``workloads/decode.py`` without
-its mesh (``cache_specs``, ``_constrain_cache``, ``make_sharded_generate``)
-and without speculative decoding (both a later slice, ROADMAP.md):
+its mesh (``cache_specs``, ``_constrain_cache``, ``make_sharded_generate``;
+ROADMAP.md, Queue 1: the mesh):
 
 - **KVCache**: a preallocated per-layer cache ``[layers, b, kv_heads,
   max_len, head_dim]``.  Its length is a host ``int``, so the overflow
@@ -20,6 +20,10 @@ and without speculative decoding (both a later slice, ROADMAP.md):
   everywhere.
 - **generate**: prefill, then ``steps - 1`` decode steps in a Python
   loop that leaves every token on the device until the end.
+- **speculative_generate** / **speculative_sample_generate**: a cheap
+  draft proposes k tokens with decode steps, the target scores them in
+  one ``extend_step``, and ``_rewind`` drops the rejected tail; the
+  JAX package's host loop, round for round.
 
 Sampling draws from an explicit ``torch.Generator``; it cannot
 reproduce ``jax.random`` bits, so tests compare greedy tokens and warped
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from tpu_autoscaler_torch.workloads.attention import (
@@ -290,3 +295,226 @@ def generate(params: dict, prompt, cfg: ModelConfig, steps: int, *,
         token = _sample(logits, generator, temperature, top_k, top_p)
         out[:, i] = token
     return torch.cat([prompt, out], dim=1)
+
+
+def _spec_setup(params, draft_params, prompt, cfg, draft_cfg, steps, k,
+                max_len, device):
+    """The speculative generators' shared checks and set-up: the
+    params cast once on the device, the prompt there, both caches
+    prefilled.  Returns (params, draft_params, prompt, draft_cfg,
+    target prompt logits, target cache, draft cache)."""
+    if draft_cfg is None:
+        draft_cfg = cfg
+    b, s = prompt.shape
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    max_len = max_len if max_len is not None else s + steps
+    if s + steps > max_len:
+        raise ValueError(
+            f"prompt {s} + steps {steps} exceeds max_len {max_len}")
+    dev = resolve_device(device)
+    params = cast_params(params, cfg.dtype, dev)
+    draft_params = cast_params(draft_params, draft_cfg.dtype, dev)
+    prompt = torch.as_tensor(prompt, device=dev)
+    logits_t, cache_t = prefill(params, prompt, cfg, max_len)
+    _, cache_d = prefill(draft_params, prompt, draft_cfg, max_len)
+    return (params, draft_params, prompt, draft_cfg, logits_t, cache_t,
+            cache_d)
+
+
+def _spec_realign(draft_params, draft_cfg, cache_t, cache_d, out, n_out,
+                  s):
+    """After a round: rewind both caches to the confirmed stream (the
+    prompt and every emitted token but the last, which the next round's
+    block re-appends).  The draft wrote [cur, d1..d_{k-1}]: valid on
+    the confirmed prefix, but when every draft was accepted the stream
+    ran one token past what the draft ever wrote (d_k was computed,
+    never cached), so that token is replayed through the draft."""
+    confirmed = s + n_out - 1
+    cache_t = _rewind(cache_t, confirmed)
+    cache_d = _rewind(cache_d, min(cache_d.length, confirmed))
+    behind = confirmed - cache_d.length
+    if behind > 0:
+        replay = out[:, n_out - behind - 1:n_out - 1]
+        _, cache_d = extend_step(draft_params, cache_d, replay, draft_cfg)
+    return cache_t, cache_d
+
+
+def speculative_generate(params: dict, draft_params: dict, prompt,
+                         cfg: ModelConfig, steps: int, *,
+                         draft_cfg: ModelConfig | None = None, k: int = 4,
+                         max_len: int | None = None, device=None):
+    """Greedy speculative decoding: the DRAFT proposes ``k`` tokens
+    autoregressively, the target scores all k in ONE cached forward
+    (extend_step), and the longest prefix agreeing with the target's
+    own greedy choices is accepted, plus one corrected token from the
+    target's logits: every round emits between 1 and k+1 tokens for a
+    single target pass.
+
+    Every emitted token is the argmax of the target's verification
+    logits, so the output is the target's greedy rollout; on the card
+    those logits come from the einsum ``_cached_attention`` while plain
+    ``generate`` reads its decode steps through the kernel, so a near
+    tie can argmax differently there.
+
+    Returns (tokens [b, prompt+steps], stats with ``rounds`` and
+    ``accept_rate``).  Batched rows share each round's accepted length
+    (the minimum over the rows) to keep one cache length.  Peak cache
+    use is exactly ``prompt + steps``: the last round's draft is capped
+    at the tokens still needed.  Runs on CUDA unless ``device`` says
+    otherwise."""
+    (params, draft_params, prompt, draft_cfg, logits_t, cache_t,
+     cache_d) = _spec_setup(params, draft_params, prompt, cfg, draft_cfg,
+                            steps, k, max_len, device)
+    b, s = prompt.shape
+    out = torch.empty((b, steps), dtype=prompt.dtype, device=prompt.device)
+    cur = torch.argmax(logits_t[:, -1], dim=-1).to(torch.int32)
+    out[:, 0] = cur
+    n_out = 1
+    rounds = accepted_total = drafted_total = 0
+    while n_out < steps:
+        rounds += 1
+        k_eff = min(k, steps - n_out)
+        drafted_total += k_eff
+        draft_toks = []
+        tok_d = cur
+        for _ in range(k_eff):
+            dlogits, cache_d = decode_step(draft_params, cache_d, tok_d,
+                                           draft_cfg)
+            tok_d = torch.argmax(dlogits, dim=-1).to(torch.int32)
+            draft_toks.append(tok_d)
+        drafts = torch.stack(draft_toks, dim=1)            # [b, k_eff]
+        # One target pass scores cur + the drafts: tlogits[:, i] is the
+        # target's prediction after seeing cur, d1..di.
+        block = torch.cat([cur[:, None], drafts], dim=1)
+        tlogits, cache_t = extend_step(params, cache_t, block, cfg)
+        targets = torch.argmax(tlogits, dim=-1).to(torch.int32)
+        match = (drafts == targets[:, :k_eff]).cpu().numpy()
+        # Accepted length shared across rows: the minimum over the batch.
+        n_acc = int(min(int(np.argmin(row)) if not row.all() else k_eff
+                        for row in match))
+        accepted_total += n_acc
+        m = min(n_acc + 1, steps - n_out)
+        out[:, n_out:n_out + m] = targets[:, :m].to(out.dtype)
+        n_out += m
+        cur = targets[:, n_acc]
+        cache_t, cache_d = _spec_realign(draft_params, draft_cfg, cache_t,
+                                         cache_d, out, n_out, s)
+    stats = {"rounds": rounds,
+             "accept_rate": accepted_total / max(drafted_total, 1)}
+    return torch.cat([prompt, out], dim=1), stats
+
+
+def speculative_sample_generate(
+        params: dict, draft_params: dict, prompt, cfg: ModelConfig,
+        steps: int, *, generator: torch.Generator | None = None,
+        temperature: float = 1.0, top_k: int | None = None,
+        top_p: float | None = None, draft_cfg: ModelConfig | None = None,
+        k: int = 4, max_len: int | None = None, device=None):
+    """Distribution-preserving speculative SAMPLING: the draft proposes
+    x_i ~ q_i, the target scores all k proposals in ONE cached pass,
+    and each x_i is accepted with probability min(1, p_i(x_i) /
+    q_i(x_i)); the first rejection resamples from the residual
+    norm(max(p_i - q_i, 0)) and ends the round.  The emitted stream is
+    distributed exactly as sampling from the target alone, whatever the
+    draft.  Temperature / top-k / top-p warp BOTH p and q through the
+    same _warp_logits the plain sampler uses; temperature 0 delegates
+    to the greedy speculative path.
+
+    Batched rows accept or reject independently; the shared cache
+    truncates every round at the batch's minimum accepted length (rows
+    that accepted further emit their accepted token there, still a
+    valid p-sample).  Draws come from ``generator`` (on the device),
+    which sampling needs.
+
+    Returns (tokens [b, prompt+steps], stats with ``rounds`` and
+    ``accept_rate``, the per-row acceptance)."""
+    if temperature == 0.0:
+        if top_k is not None or top_p is not None:
+            raise ValueError(
+                "top_k/top_p require temperature > 0 (temperature 0 is "
+                "greedy argmax; truncation would be silently ignored)")
+        return speculative_generate(
+            params, draft_params, prompt, cfg, steps, draft_cfg=draft_cfg,
+            k=k, max_len=max_len, device=device)
+    if generator is None:
+        raise ValueError("sampling (temperature != 0) needs a "
+                         "torch.Generator")
+    (params, draft_params, prompt, draft_cfg, logits_t, cache_t,
+     cache_d) = _spec_setup(params, draft_params, prompt, cfg, draft_cfg,
+                            steps, k, max_len, device)
+    b, s = prompt.shape
+
+    def warped_probs(logits):
+        return torch.softmax(_warp_logits(logits.float(), temperature,
+                                          top_k, top_p), dim=-1)
+
+    def draw(probs):
+        return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+            torch.int32)
+
+    out = torch.empty((b, steps), dtype=prompt.dtype, device=prompt.device)
+    cur = _sample(logits_t[:, -1], generator, temperature, top_k, top_p)
+    out[:, 0] = cur
+    n_out = 1
+    rounds = accepted_total = drafted_total = 0
+    while n_out < steps:
+        rounds += 1
+        k_eff = min(k, steps - n_out)
+        drafted_total += b * k_eff
+        draft_toks, draft_q = [], []
+        tok_d = cur
+        for _ in range(k_eff):
+            dlogits, cache_d = decode_step(draft_params, cache_d, tok_d,
+                                           draft_cfg)
+            q = warped_probs(dlogits)                      # [b, V]
+            tok_d = draw(q)
+            draft_toks.append(tok_d)
+            draft_q.append(q)
+        drafts = torch.stack(draft_toks, dim=1)            # [b, k_eff]
+        qs = torch.stack(draft_q, dim=1)                   # [b, k_eff, V]
+        block = torch.cat([cur[:, None], drafts], dim=1)
+        tlogits, cache_t = extend_step(params, cache_t, block, cfg)
+        ps = warped_probs(tlogits)                         # [b, k_eff+1, V]
+        # Accept x_i with probability min(1, p_i(x)/q_i(x)); a row's
+        # first rejection ends its accepted prefix.
+        idx = drafts.long()[..., None]
+        p_x = torch.gather(ps[:, :k_eff], -1, idx)[..., 0]
+        q_x = torch.gather(qs, -1, idx)[..., 0]
+        u = torch.rand(p_x.shape, generator=generator, device=p_x.device)
+        accept = (u * q_x < p_x).cpu().numpy()             # [b, k_eff]
+        acc_len = np.asarray([int(np.argmin(row)) if not row.all()
+                              else k_eff for row in accept])
+        n_acc = int(acc_len.min())
+        # accept_rate is per-row acceptance (the economics signal); the
+        # shared cache only truncates emission at the batch minimum.
+        accepted_total += int(acc_len.sum())
+        p_n = ps[:, n_acc]                                 # [b, V]
+        if n_acc < k_eff:
+            # Rejected rows draw from the residual; rows that accepted
+            # past the truncation point emit their accepted draft.  A
+            # zero residual (p == q) only arises where acceptance was
+            # certain; the p fallback keeps the draw well-defined.
+            residual = torch.clamp_min(p_n - qs[:, n_acc], 0.0)
+            rsum = residual.sum(dim=-1, keepdim=True)
+            residual = torch.where(rsum > 0, residual / rsum, p_n)
+            res_tok = draw(residual)
+            rejected_here = torch.from_numpy(acc_len == n_acc).to(
+                res_tok.device)
+            bonus = torch.where(rejected_here, res_tok, drafts[:, n_acc])
+        else:
+            # Every row accepted the whole block: the (k+1)-th logits
+            # row is a fresh target sample past the last draft.
+            bonus = draw(p_n)
+        emit = torch.cat([drafts[:, :n_acc], bonus[:, None]], dim=1)
+        m = min(n_acc + 1, steps - n_out)
+        out[:, n_out:n_out + m] = emit[:, :m].to(out.dtype)
+        n_out += m
+        cur = out[:, n_out - 1].to(torch.int32)
+        cache_t, cache_d = _spec_realign(draft_params, draft_cfg, cache_t,
+                                         cache_d, out, n_out, s)
+    stats = {"rounds": rounds,
+             "accept_rate": accepted_total / max(drafted_total, 1)}
+    return torch.cat([prompt, out], dim=1), stats

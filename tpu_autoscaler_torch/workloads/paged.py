@@ -347,7 +347,7 @@ class PagedBatcher(ContinuousBatcher):
                  num_blocks: int | None = None, chunk: int = 32,
                  prefill_lanes: int = 2, device=None,
                  generator: torch.Generator | None = None,
-                 slo_ticks: int | None = None):
+                 slo_ticks: int | None = None, reqtrace=None):
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         if max_len % block_size:
@@ -363,7 +363,7 @@ class PagedBatcher(ContinuousBatcher):
         self.preemptions = 0
         super().__init__(params, cfg, slots=slots, max_len=max_len,
                          chunk=chunk, device=device, generator=generator,
-                         ring=False, slo_ticks=slo_ticks)
+                         ring=False, slo_ticks=slo_ticks, reqtrace=reqtrace)
 
     def _build_device_state(self, cfg, slots, max_len, chunk, ring) -> None:
         self.allocator = BlockAllocator(self._num_blocks)
@@ -471,6 +471,8 @@ class PagedBatcher(ContinuousBatcher):
         self._release_slot(i)
         self.preemptions += 1
         self._stats.note_preempt()
+        if self._reqtrace is not None and req.request_id is not None:
+            self._reqtrace.note_preempt(req.request_id, self.ticks)
 
     # ---- engine loop ---------------------------------------------------
 
@@ -506,19 +508,35 @@ class PagedBatcher(ContinuousBatcher):
     def _tick(self) -> None:
         """One engine step: admit, one BATCHED prefill over up to
         ``prefill_lanes`` slots still holding prompt, then one batched
-        decode step for every slot with a pending token."""
+        decode step for every slot with a pending token.  The device
+        phases are hooks: spec_serving.py mirrors the prefill into the
+        draft cache (``_after_prefill``) and replaces the decode phase
+        with draft-propose / target-verify rounds."""
         self._admit()
         self.ticks += 1
-        for i in self._prefill_phase():
-            self._finish_if_done(i)
+        self._after_prefill(self._prefill_phase())
         if self._has_pending.any():
             self._decode_phase()
 
-    def _prefill_phase(self) -> list[int]:
+    def _after_prefill(self, served: list) -> None:
+        """Hook: called with the prefill phase's served chunks
+        ``[(slot, tokens, take, offset_before)]`` (possibly empty).  A
+        subclass that mirrors the prefill elsewhere (the draft cache)
+        does so BEFORE calling _prefill_finish, which may release
+        completed slots."""
+        self._prefill_finish(served)
+
+    def _prefill_finish(self, served: list) -> None:
+        """Completion checks for the lanes just prefilled."""
+        for i, _, _, _ in served:
+            self._finish_if_done(i)
+
+    def _prefill_phase(self) -> list:
         """Collect up to ``prefill_lanes`` slots holding prompt (growing
         their tables, preempting under pool pressure), prefill one chunk
         of each, and seed the slots whose prompt is complete.  Returns
-        the slots served."""
+        the served chunks, ``(slot, tokens [chunk], take, offset)``
+        each, offset being the slot's length before the chunk."""
         lanes: list[int] = []
         for i, slot in enumerate(self._slots):
             if len(lanes) == self.prefill_lanes:
@@ -545,6 +563,7 @@ class PagedBatcher(ContinuousBatcher):
                  and self._slots[i].remaining_prompt is not None]
         if not lanes:
             return []
+        served = []
         tok = np.zeros((self.prefill_lanes, self.chunk), np.int64)
         offs = np.zeros((self.prefill_lanes,), np.int32)
         nval = np.zeros((self.prefill_lanes,), np.int32)
@@ -557,6 +576,7 @@ class PagedBatcher(ContinuousBatcher):
             offs[lane] = self.cache.lengths[i]
             nval[lane] = take
             tabs[lane] = self.tables[i]
+            served.append((i, tok[lane].copy(), take, int(offs[lane])))
         logits, self.cache = self._prefill(
             self.params, self.cache, torch.from_numpy(tabs),
             torch.from_numpy(tok), torch.from_numpy(offs),
@@ -568,7 +588,7 @@ class PagedBatcher(ContinuousBatcher):
             if len(slot.remaining_prompt) == 0:
                 self._note_seeded(i, self._sample_host(logits[lane],
                                                        slot.request))
-        return lanes
+        return served
 
     def _decode_phase(self) -> None:
         """Grow every decoding slot's table by the block its next token

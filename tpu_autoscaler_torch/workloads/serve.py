@@ -29,6 +29,11 @@ Model flags must match the checkpoint (shared block in _cli.py);
 ``--ring`` turns on the O(window) ring cache for windowed models, and
 ``--paged`` the paged cache (workloads/paged.py): a block pool shared by
 all slots, per-slot block tables, preemption under pool pressure.
+``--spec-k K`` (with ``--paged``) serves speculatively
+(workloads/spec_serving.py): the target's first ``--draft-layers``
+layers propose K tokens a round and the target verifies them in one
+pass.  ``--trace-sample RATE`` samples per-request span trees
+(serving/reqtrace.py); the receipt then carries a ``trace`` field.
 """
 
 from __future__ import annotations
@@ -154,6 +159,14 @@ def _read_requests(requests_file, random_n, max_new_tokens, seed, cfg):
               help="Paged pool size in blocks (default: worst case "
                    "slots * max-len / block-size; smaller pools "
                    "oversubscribe memory and preempt under pressure).")
+@click.option("--spec-k", default=0, show_default=True,
+              help="Speculative decoding inside the paged engine "
+                   "(needs --paged): a draft proposes K tokens per "
+                   "round, the target verifies them in one pass per "
+                   "round.  0 = off.")
+@click.option("--draft-layers", default=1, show_default=True,
+              help="Draft model = the target's first N layers "
+                   "(with --spec-k).")
 @click.option("--seed", default=0, show_default=True)
 @click.option("--final-stats", "final_stats_file", default=None,
               help="Also write the final-stats JSON (the drain "
@@ -169,18 +182,27 @@ def _read_requests(requests_file, random_n, max_new_tokens, seed, cfg):
                    "requests the slice back, the server stops "
                    "admitting, finishes in-flight sequences, and "
                    "exits 0 inside the drain window.")
+@click.option("--trace-sample", default=0.0, show_default=True,
+              type=click.FloatRange(0.0, 1.0),
+              help="Request-trace head-sampling rate: sampled requests "
+                   "(plus the always-captured tail: SLO misses, "
+                   "preemptions, drain losses) emit span trees; counts "
+                   "ride the final-stats receipt.  0 disables the "
+                   "sampler entirely.")
 @click.option("--slo-ticks", default=None, type=int,
               help="Engine-tick latency target: completions within "
                    "this many ticks count as SLO-attained in the "
-                   "stats.")
+                   "stats, and slower ones are tail-captured when "
+                   "--trace-sample is on.")
 @model_arch_options
 @click.option("--platform", default="cuda", show_default=True,
               type=click.Choice(["cuda", "cpu"]),
               help="Device to serve on.")
 def main(checkpoint_dir, requests_file, random_n, max_new_tokens, slots,
-         max_len, chunk, ring, paged, block_size, num_blocks, seed,
-         final_stats_file, replica_id,
-         annotations_file, slo_ticks, vocab, seq_len, d_model, n_layers,
+         max_len, chunk, ring, paged, block_size, num_blocks, spec_k,
+         draft_layers, seed, final_stats_file, replica_id,
+         annotations_file, trace_sample, slo_ticks, vocab, seq_len,
+         d_model, n_layers,
          n_kv_heads, attention_window, no_rope, moe_experts, moe_top_k,
          platform):
     """Serve mixed-length requests from the latest checkpoint."""
@@ -211,6 +233,21 @@ def main(checkpoint_dir, requests_file, random_n, max_new_tokens, slots,
     if paged and ring:
         raise click.UsageError(
             "--paged and --ring are different cache layouts; pick one")
+    if spec_k:
+        if not paged:
+            raise click.UsageError(
+                "--spec-k runs inside the paged engine: add --paged")
+        if not 1 <= draft_layers < n_layers:
+            raise click.UsageError(
+                f"--draft-layers must be in [1, {n_layers - 1}] "
+                f"(a {n_layers}-layer target), got {draft_layers}")
+        if spec_k >= chunk:
+            raise click.UsageError(
+                f"--spec-k {spec_k} must be < --chunk {chunk}")
+        if moe_experts is not None:
+            raise click.UsageError(
+                "--spec-k with MoE targets is not wired (the layer-"
+                "prefix draft would need its own router scaling)")
     if paged:
         if block_size < 1:
             raise click.UsageError(
@@ -248,16 +285,42 @@ def main(checkpoint_dir, requests_file, random_n, max_new_tokens, slots,
     if not reqs:
         raise click.UsageError("no requests to serve")
     generator = torch.Generator(device=device).manual_seed(seed)
-    if paged:
+    sampler = None
+    if trace_sample > 0.0:
+        from tpu_autoscaler_torch.serving.reqtrace import (
+            RequestTraceSampler,
+        )
+
+        sampler = RequestTraceSampler("serve", sample_rate=trace_sample,
+                                      slo_ticks=slo_ticks)
+    if paged and spec_k:
+        import dataclasses
+
+        from tpu_autoscaler_torch.workloads.spec_serving import (
+            SpeculativePagedBatcher,
+        )
+
+        # The draft: the target's first N layers (the blocks hold
+        # stacked [n_layers, ...] tensors).
+        dparams = {**params, "blocks": {
+            name: w[:draft_layers] for name, w in params["blocks"].items()}}
+        dcfg = dataclasses.replace(cfg, n_layers=draft_layers)
+        engine = SpeculativePagedBatcher(
+            params, cfg, dparams, dcfg, k=spec_k, slots=slots,
+            max_len=max_len, block_size=block_size, num_blocks=num_blocks,
+            chunk=chunk, device=device, generator=generator, seed=seed,
+            slo_ticks=slo_ticks, reqtrace=sampler)
+    elif paged:
         engine = PagedBatcher(
             params, cfg, slots=slots, max_len=max_len,
             block_size=block_size, num_blocks=num_blocks, chunk=chunk,
-            device=device, generator=generator, slo_ticks=slo_ticks)
+            device=device, generator=generator, slo_ticks=slo_ticks,
+            reqtrace=sampler)
     else:
         engine = ContinuousBatcher(
             params, cfg, slots=slots, max_len=max_len, chunk=chunk,
             ring=ring, device=device, generator=generator,
-            slo_ticks=slo_ticks)
+            slo_ticks=slo_ticks, reqtrace=sampler)
 
     watcher = DrainWatcher(annotations_file or DEFAULT_ANNOTATIONS_PATH)
     t0 = time.perf_counter()
@@ -276,9 +339,15 @@ def main(checkpoint_dir, requests_file, random_n, max_new_tokens, slots,
     log.info("%d requests, %d tokens in %.2fs (%.0f tok/s, %d ticks)",
              len(reqs), decoded, dt, decoded / max(dt, 1e-9),
              engine.ticks)
+    if spec_k:
+        log.info("speculative: accept_rate %.3f, target_pass_ratio "
+                 "%.3f (plain decode = 1.0)", engine.accept_rate,
+                 engine.target_pass_ratio)
     # The drain contract's receipt: always the LAST stdout line.
     final = final_stats_receipt(reqs, engine, dt,
                                 replica_id=replica_id).to_payload()
+    if sampler is not None:
+        final["trace"] = sampler.debug_state()
     print(json.dumps(final))
     if final_stats_file:
         with open(final_stats_file, "w", encoding="utf-8") as f:

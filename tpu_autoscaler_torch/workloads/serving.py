@@ -357,7 +357,8 @@ class ContinuousBatcher:
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 4,
                  max_len: int = 256, chunk: int = 32, device=None,
                  generator: torch.Generator | None = None,
-                 ring: bool = False, slo_ticks: int | None = None):
+                 ring: bool = False, slo_ticks: int | None = None,
+                 reqtrace=None):
         """``device``: where the engine runs, CUDA unless the caller
         asks for the CPU (``device='cpu'``).  ``generator``: the
         sampling generator, on ``device`` (default: seeded with 0).
@@ -368,7 +369,13 @@ class ContinuousBatcher:
         per-request budget check, not the buffer.
 
         ``slo_ticks``: completions within this many engine ticks of
-        submission count as SLO-attained in ``stats()``."""
+        submission count as SLO-attained in ``stats()``.
+
+        ``reqtrace``: an optional
+        :class:`~tpu_autoscaler_torch.serving.reqtrace.RequestTraceSampler`,
+        sampled per-request span trees built from the host-side
+        bookkeeping this scheduler already does (submit, admit, seeded,
+        preempt, finish); None costs one ``if`` per event."""
         if cfg.moe_experts is not None:
             raise NotImplementedError(
                 "serving MoE models is not ported yet (ROADMAP.md, Queue 1: "
@@ -399,6 +406,11 @@ class ContinuousBatcher:
         # cache.lengths host-side so KV occupancy never reads the device.
         self._stats = ServingStatsRecorder(slots, slo_ticks=slo_ticks)
         self._stat_lengths = np.zeros(slots, np.int64)
+        # Request-trace sampler: wired to this recorder so promotion
+        # counters and exemplars ride the snapshot export.
+        self._reqtrace = reqtrace
+        if reqtrace is not None and reqtrace.stats is None:
+            reqtrace.stats = self._stats
         self._rid_seq = 0
 
     def _build_device_state(self, cfg, slots, max_len, chunk, ring) -> None:
@@ -452,6 +464,8 @@ class ContinuousBatcher:
         if request.request_id is None:
             self._rid_seq += 1
             request.request_id = f"r{self._rid_seq}"
+        if self._reqtrace is not None:
+            self._reqtrace.note_submit(request.request_id, self.ticks)
         self._queue.append(request)
 
     @property
@@ -460,8 +474,8 @@ class ContinuousBatcher:
             s.request is None for s in self._slots)
 
     def _note_admitted(self, req: Request) -> None:
-        """Wait-split bookkeeping for one admission, shared by every
-        engine's ``_admit``: the first admission closes the
+        """Wait-split and trace bookkeeping for one admission, shared
+        by every engine's ``_admit``: the first admission closes the
         submit→schedule wait, a re-admission closes a preemption's
         requeue wait."""
         if req.first_scheduled_tick is None:
@@ -470,6 +484,8 @@ class ContinuousBatcher:
                 self.ticks - (req.submitted_tick or 0))
         elif req.preempted_tick is not None:
             self._stats.note_requeue_wait(self.ticks - req.preempted_tick)
+        if self._reqtrace is not None and req.request_id is not None:
+            self._reqtrace.note_admit(req.request_id, self.ticks)
 
     def _note_seeded(self, i: int, tok: int) -> None:
         """Slot i's prompt is fully in the cache and ``tok``, sampled
@@ -480,6 +496,15 @@ class ContinuousBatcher:
         slot.seeded = True
         self._pending_token[i] = tok
         self._has_pending[i] = True
+        if self._reqtrace is not None \
+                and slot.request.request_id is not None:
+            self._reqtrace.note_seeded(slot.request.request_id, self.ticks)
+
+    def _trace_finish_attrs(self, req: Request) -> dict:
+        """Extra root-span attrs for a finished request's trace (the
+        speculative engine annotates its accept economics here)."""
+        del req
+        return {}
 
     def _admit(self) -> None:
         if self.draining:
@@ -535,6 +560,12 @@ class ContinuousBatcher:
             self._stat_lengths[i] = 0
             self._stats.note_finish(
                 self.ticks - (req.submitted_tick or 0))
+            if self._reqtrace is not None \
+                    and req.request_id is not None:
+                self._reqtrace.note_finish(
+                    req.request_id, self.ticks,
+                    tokens=len(req.generated),
+                    attrs=self._trace_finish_attrs(req) or None)
 
     def _kv_usage(self) -> tuple[int, int]:
         """(live KV token-slots, capacity), host-side only.  Ring
@@ -633,8 +664,20 @@ class ContinuousBatcher:
                 self.draining = True
             if self.draining and all(
                     s.request is None for s in self._slots):
+                self._note_drain_handoff()
                 return
             if self.idle:
                 return
             self.tick()
         raise RuntimeError(f"engine did not drain in {max_ticks} ticks")
+
+    def _note_drain_handoff(self) -> None:
+        """Drain exit with requests still queued: each one's trace (if
+        sampled) closes with a ``drain_handoff`` span; a lost request
+        is always tail-captured, whatever the head sampling said."""
+        if self._reqtrace is None:
+            return
+        for req in self._queue:
+            if req.request_id is not None:
+                self._reqtrace.note_drain_lost(req.request_id,
+                                               self.ticks)
