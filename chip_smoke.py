@@ -17,13 +17,17 @@ its step_large phase), the sequence-parallel train step (its
 long-context step, the sequence cut over 4 ranks: the kernel ring,
 against one device, the einsum ring and Ulysses) and the speculative
 economics cell (its spec phase: a 6-layer target and a 1-layer draft
-trained by the port's trainer on a bigram shard), and runs the
-``serve`` CLI with each cache, speculatively and with request tracing,
-the ``generate`` CLI and the ``train`` CLI (train, resume, drain; on one
-device and with ``--sp 2``).  Each phase prints one JSON line; a failed
-phase raises and the script exits non-zero.  The last lines are the
-card's ``nvidia-smi`` name and power limit, the ``kernels`` summary, and
-``{"ok": true, "device": {...}}``.
+trained by the port's trainer on a bigram shard), a mixture-of-experts
+model (8 experts, top 2) through the linear and paged servers,
+``decode.generate``, the train step, expert-parallel training over 4
+ranks and sp×ep, and runs the ``serve`` CLI with each cache,
+speculatively and with request tracing, the ``generate`` CLI and the
+``train`` CLI (train, resume, drain; on one device and with ``--sp 2``;
+a MoE model also with ``--ep 2``, then served and generated from).
+Each phase prints one JSON line; a failed phase raises and the script
+exits non-zero.  The last lines are the card's ``nvidia-smi`` name and
+power limit, the ``kernels`` summary, and ``{"ok": true, "device":
+{...}}``.
 
 Needs one CUDA device; without one it exits non-zero before printing
 any result.  Imports nothing of JAX and nothing of the JAX package.
@@ -197,6 +201,15 @@ SPEC_K, DRAFT_LAYERS = 4, 1
 SPEC_VOCAB, SPEC_TOKENS, SPEC_TRAIN_STEPS = 4096, 2_000_000, 600
 SPEC_D_MODEL, SPEC_SEQ, SPEC_T_LAYERS, SPEC_D_LAYERS = 512, 256, 6, 1
 SPEC_GEN_STEPS, SPEC_TEMPS = 128, (0.3, 0.7, 1.0)
+# The mixture-of-experts paths: the serving model and the step model
+# with 8 experts, top 2, capacity factor 1.25 (the ModelConfig defaults),
+# bf16 over f32 masters, random weights from seed 0; expert parallelism
+# over 4 ranks on the one card, checked against one device at capacity
+# factor E / k = 4 (no expert can overflow, so nothing drops).
+MOE = dict(moe_experts=8, moe_top_k=2, moe_capacity_factor=1.25)
+FULL_MOE = dict(FULL, **MOE)
+TRAIN_MOE = dict(TRAIN_FULL, **MOE)
+EP_RANKS, EP_NO_DROP = 4, 4.0
 # What each kernel runs its bf16 products on (the kernels line's design).
 SPLIT_DESIGN = "split-kv cluster + mma.sync (f32: cuda-core fma)"
 TC_DESIGN = "wgmma+tma"
@@ -829,6 +842,69 @@ def _agreement(reqs, ereqs) -> tuple[int, list[int]]:
     return agree, prefixes
 
 
+class _RouteLog:
+    """While in a with-block, model.route_topk (the one routing rule
+    moe_ffn calls) also keeps each call's f32 router logits and chosen
+    experts, in call order: one call per MoE layer of a step."""
+
+    def __init__(self, model):
+        self.model, self.calls = model, []
+
+    def __enter__(self):
+        real = self._real = self.model.route_topk
+
+        def logged(logits, k, capacity):
+            out = real(logits, k, capacity)
+            self.calls.append((logits.detach(), out[0]))
+            return out
+
+        self.model.route_topk = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.model.route_topk = self._real
+
+
+def _routed_apart(got, want, k, rows) -> dict:
+    """Rows (batch indices among ``rows``) whose top-k experts differ
+    between two routes' runs of the same step (_RouteLog calls, layer by
+    layer), each with (router top-(k+1) gap, router max |dlogits|, near
+    tie) over the positions that differ at the first layer where any
+    does.  Before that layer both routes routed alike, so their router
+    logits there differ by rounding only: each differing position must
+    be a near tie of its router logits (_near_tie, the smallest gap
+    between adjacent logits of its top k + 1).  A row routed apart may
+    then differ by more than rounding; the dense bounds hold elsewhere."""
+    apart = {}
+    for (gl, ge), (wl, we) in zip(got, want):
+        differ = (ge != we).any(dim=-1)                      # [b, s]
+        for r in differ.any(dim=-1).nonzero()[:, 0].tolist():
+            if r in apart or r not in rows:
+                continue
+            pos = differ[r]
+            top = wl[r][pos].sort(dim=-1, descending=True).values
+            gap = (top[:, :k] - top[:, 1:k + 1]).amin(dim=-1)
+            dl = (gl[r][pos] - wl[r][pos]).abs().amax(dim=-1)
+            apart[r] = (gap.max().item(), dl.max().item(), all(
+                _near_tie(g, d) for g, d in zip(gap.tolist(), dl.tolist())))
+    return apart
+
+
+def _compare_routed(torch, logits, want, rows, got, want_routes, k) -> dict:
+    """_compare_tick over the rows that both routes routed alike, and
+    the rows routed apart (_routed_apart): for a dense model, exactly
+    _compare_tick."""
+    apart = _routed_apart(got, want_routes, k, set(rows.tolist()))
+    same = rows[[r not in apart for r in rows.tolist()]]
+    if len(same):
+        rec = _compare_tick(torch, logits, want, same)
+    else:
+        rec = dict(mean=0.0, max=0.0, rows=0, near_ties=0, flips=[],
+                   finite=bool(torch.isfinite(logits).all()))
+    rec["routed_apart"] = list(apart.values())
+    return rec
+
+
 def _compare_tick(torch, logits, want, rows) -> dict:
     """One tick's kernel-route logits against the einsum route's on the
     same inputs: |dlogits| over the active rows, whether every logit is
@@ -855,7 +931,12 @@ def _compare_record(ticks: list[dict], firsts: list[int]) -> dict:
     the free-running first divergence of each request."""
     head = ticks[:COMPARE_TICKS]
     flips = [f for c in ticks for f in c["flips"]]
+    apart = [a for c in ticks for a in c.get("routed_apart", [])]
     return dict(
+        routed_apart=dict(
+            rows=len(apart), near_ties=sum(a[2] for a in apart),
+            router_dlogits_max=max((a[1] for a in apart), default=0.0),
+            router_gap_max=max((a[0] for a in apart), default=0.0)),
         compare_ticks=len(head),
         dlogits_mean=statistics.fmean(c["mean"] for c in head),
         dlogits_max=max(c["max"] for c in head),
@@ -868,14 +949,34 @@ def _compare_record(ticks: list[dict], firsts: list[int]) -> dict:
         greedy_first_divergence=firsts)
 
 
-def phase_main_path(torch, np, attention, model, serving):
+def _check_ticks(path, diffs) -> None:
+    """The teacher-forced checks of a compared pass: finite logits, the
+    rows routed alike within DLOGITS_MAX of the einsum route with every
+    argmax flip a near tie, and each row routed apart a router near
+    tie."""
+    if not all(c["finite"] for c in diffs):
+        raise AssertionError(f"non-finite logits on the {path}")
+    worst = max(c["max"] for c in diffs)
+    if not worst < DLOGITS_MAX:
+        raise AssertionError(f"{path}: kernel route logits differ from the "
+                             f"einsum route by {worst}")
+    bad = [f for c in diffs for f in c["flips"] if not _near_tie(*f)]
+    bad += [a for c in diffs for a in c.get("routed_apart", []) if not a[2]]
+    if bad:
+        raise AssertionError(f"{path}: divergences from the einsum route "
+                             f"away from a near tie: {bad[:8]}")
+
+
+def phase_main_path(torch, np, attention, model, serving, arch=FULL,
+                    path="main_path"):
     """The server at full width: warm pass (with the einsum route on
     identical inputs every tick), then the timed pass whose kernel
     launches are counted, then the same traffic through an einsum-route
-    engine for free-running greedy agreement."""
+    engine for free-running greedy agreement.  ``arch``: FULL, or
+    FULL_MOE for the MoE model (``path`` moe_main_path)."""
     import dataclasses
 
-    cfg = model.ModelConfig(**FULL)
+    cfg = model.ModelConfig(**arch)
     params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
                                cfg, "cuda")
     eng = serving.ContinuousBatcher(params, cfg, slots=SLOTS,
@@ -892,10 +993,13 @@ def phase_main_path(torch, np, attention, model, serving):
         tick_lengths.append((cache.lengths + 1).tolist())
         ref = serving.SlotKVCache(cache.k.clone(), cache.v.clone(),
                                   cache.lengths.clone())
-        want, _ = einsum_step(p, ref, tokens, active)
-        logits, cache = kernel_step(p, cache, tokens, active)
-        diffs.append(_compare_tick(torch, logits, want,
-                                   active.nonzero()[:, 0]))
+        with _RouteLog(model) as want_routes:
+            want, _ = einsum_step(p, ref, tokens, active)
+        with _RouteLog(model) as got_routes:
+            logits, cache = kernel_step(p, cache, tokens, active)
+        diffs.append(_compare_routed(torch, logits, want,
+                                     active.nonzero()[:, 0], got_routes.calls,
+                                     want_routes.calls, cfg.moe_top_k))
         return logits, cache
 
     eng._decode = compared_step
@@ -922,7 +1026,7 @@ def phase_main_path(torch, np, attention, model, serving):
     by_live = sorted(tick_lengths, key=sum)
     mid_lengths = by_live[len(by_live) // 2]
     rec = dict(
-        config=FULL, dtype="bfloat16", slots=SLOTS, max_len=MAX_LEN,
+        config=arch, dtype="bfloat16", slots=SLOTS, max_len=MAX_LEN,
         chunk=CHUNK, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
         warm_seconds=warm_s, seconds=dt, ticks=eng.ticks - ticks0,
         decode_steps=steps, decoded_tokens=decoded,
@@ -933,27 +1037,25 @@ def phase_main_path(torch, np, attention, model, serving):
         **_compare_record(diffs, firsts),
         greedy_tokens_agree=agree, greedy_prefix_agree=sum(firsts),
         greedy_tokens_total=decoded, mid_tick_lengths=mid_lengths)
-    emit("main_path", **rec)
+    emit(path, **rec)
     if launches["flash_decode"] != want_launches or want_launches == 0:
         raise AssertionError(
             f"flash_decode launched {launches['flash_decode']} times, "
             f"want decode steps x layers = {want_launches}")
-    if not all(c["finite"] for c in diffs):
-        raise AssertionError("non-finite logits on the main path")
-    if not rec["dlogits_max"] < DLOGITS_MAX:
-        raise AssertionError(f"kernel route logits differ from the einsum "
-                             f"route by {rec['dlogits_max']}")
+    _check_ticks(path, diffs)
     return rec, eng
 
 
-def phase_paged_main_path(torch, np, attention, model, serving, paged):
+def phase_paged_main_path(torch, np, attention, model, serving, paged,
+                          arch=FULL, path="paged_main_path"):
     """The paged-KV server at full width: warm pass (with the einsum
     gather route on identical inputs every tick), then the timed pass
     whose kernel launches are counted, then the same traffic through an
-    einsum-route engine for free-running greedy agreement."""
+    einsum-route engine for free-running greedy agreement.  ``arch``:
+    FULL, or FULL_MOE (``path`` moe_paged_main_path)."""
     import dataclasses
 
-    cfg = model.ModelConfig(**FULL)
+    cfg = model.ModelConfig(**arch)
     params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
                                cfg, "cuda")
     geometry = dict(slots=PAGED_SLOTS, max_len=MAX_LEN,
@@ -975,10 +1077,13 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged):
         ticks_seen.append((tables.clone(), (cache.lengths + 1).tolist()))
         ref = paged.PagedKVCache(cache.k.clone(), cache.v.clone(),
                                  cache.lengths.clone())
-        want, _ = einsum_step(p, ref, tables, tokens, active)
-        logits, cache = kernel_step(p, cache, tables, tokens, active)
-        diffs.append(_compare_tick(torch, logits, want,
-                                   active.nonzero()[:, 0].to(logits.device)))
+        with _RouteLog(model) as want_routes:
+            want, _ = einsum_step(p, ref, tables, tokens, active)
+        with _RouteLog(model) as got_routes:
+            logits, cache = kernel_step(p, cache, tables, tokens, active)
+        diffs.append(_compare_routed(
+            torch, logits, want, active.nonzero()[:, 0].to(logits.device),
+            got_routes.calls, want_routes.calls, cfg.moe_top_k))
         _note_plain_rows(eng, logits, active, index, rows)
         return logits, cache
 
@@ -1006,7 +1111,7 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged):
     by_live = sorted(ticks_seen, key=lambda t: sum(t[1]))
     mid_tables, mid_lengths = by_live[len(by_live) // 2]
     rec = dict(
-        config=FULL, dtype="bfloat16", **geometry,
+        config=arch, dtype="bfloat16", **geometry,
         prompt_lens=PAGED_PROMPT_LENS, new_tokens=NEW_TOKENS,
         warm_seconds=warm_s, seconds=dt, ticks=eng.ticks - ticks0,
         decode_steps=steps, decoded_tokens=decoded,
@@ -1020,7 +1125,7 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged):
         **_compare_record(diffs, firsts),
         greedy_tokens_agree=agree, greedy_prefix_agree=sum(firsts),
         greedy_tokens_total=decoded, mid_tick_lengths=mid_lengths)
-    emit("paged_main_path", **rec)
+    emit(path, **rec)
     if launches["paged_flash_decode"] != want_launches or want_launches == 0:
         raise AssertionError(
             f"paged_flash_decode launched "
@@ -1031,12 +1136,8 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged):
                              f"{launches['flash_decode']} times on the "
                              f"paged path")
     if preemptions == 0:
-        raise AssertionError("the paged main path never preempted")
-    if not all(c["finite"] for c in diffs):
-        raise AssertionError("non-finite logits on the paged main path")
-    if not rec["dlogits_max"] < DLOGITS_MAX:
-        raise AssertionError(f"kernel route logits differ from the einsum "
-                             f"gather route by {rec['dlogits_max']}")
+        raise AssertionError(f"the {path} never preempted")
+    _check_ticks(path, diffs)
     return (rec, (mid_tables, mid_lengths), eng,
             ([r.generated for r in warm], rows))
 
@@ -1101,34 +1202,55 @@ def _wall(torch, fn):
     return time.perf_counter() - t0, out
 
 
-def _decode_diffs(torch, decode, params, prompt, kcfg, ecfg, max_len):
+def _decode_diffs(torch, model, decode, params, prompt, kcfg, ecfg,
+                  max_len):
     """The kernel route against the einsum route on identical inputs:
     prefill's logits over every [b, s] position (K1's check on the
     path), then COMPARE_TICKS decode steps, each from a copy of the
-    kernel route's cache and the same token.  Returns (prefill max
-    |dlogits|, whether prefill's logits are finite, [(mean, max,
-    finite)] per step)."""
-    logits, cache = decode.prefill(params, prompt, kcfg, max_len)
-    want, _ = decode.prefill(params, prompt, ecfg, max_len)
-    prefill_max = (logits - want).abs().max().item()
+    kernel route's cache and the same token; with MoE layers only over
+    the rows both routes routed alike (_routed_apart; in prefill a
+    routing difference reaches the row's later positions through
+    attention and capacity, so the whole row is set apart).  Returns
+    (prefill max |dlogits| (None when every row was routed apart), the
+    rows it covers, whether prefill's logits are finite, [(mean, max,
+    finite)] per step, every row routed apart)."""
+    rows = set(range(prompt.shape[0]))
+    k = kcfg.moe_top_k
+    with _RouteLog(model) as got:
+        logits, cache = decode.prefill(params, prompt, kcfg, max_len)
+    with _RouteLog(model) as ref_routes:
+        want, _ = decode.prefill(params, prompt, ecfg, max_len)
+    apart = list(_routed_apart(got.calls, ref_routes.calls, k,
+                               rows).items())
+    same = sorted(rows - {r for r, _ in apart})
+    prefill_max = (logits[same] - want[same]).abs().max().item() \
+        if same else None
+    prefill_rows = len(same)
     finite = bool(torch.isfinite(logits).all())
     del want
     token = torch.argmax(logits[:, -1], -1).to(torch.int32)
     diffs = []
     for _ in range(COMPARE_TICKS):
         ref = decode.KVCache(cache.k.clone(), cache.v.clone(), cache.length)
-        want, _ = decode.decode_step(params, ref, token, ecfg)
-        logits, cache = decode.decode_step(params, cache, token, kcfg)
-        dl = (logits - want).abs()
-        diffs.append((dl.mean().item(), dl.max().item(),
+        with _RouteLog(model) as ref_routes:
+            want, _ = decode.decode_step(params, ref, token, ecfg)
+        with _RouteLog(model) as got:
+            logits, cache = decode.decode_step(params, cache, token, kcfg)
+        step_apart = _routed_apart(got.calls, ref_routes.calls, k, rows)
+        apart += list(step_apart.items())
+        same = sorted(rows - set(step_apart))
+        dl = (logits[same] - want[same]).abs()
+        diffs.append((dl.mean().item() if same else 0.0,
+                      dl.max().item() if same else 0.0,
                       bool(torch.isfinite(logits).all())))
         token = torch.argmax(logits, -1).to(torch.int32)
-    return prefill_max, finite, diffs
+    return prefill_max, prefill_rows, finite, diffs, [a for _, a in apart]
 
 
 def phase_generate_main_path(torch, np, attention, model, decode, label,
                              arch, prompt_len, steps):
-    """decode.generate at full width through its public API: a warm
+    """decode.generate at full width through its public API (a MoE
+    ``arch`` emits moe_generate_main_path): a warm
     call, the kernel route against the einsum route on identical inputs
     (prefill logits and COMPARE_TICKS decode steps), then GEN_REPS timed
     calls, each with the launch counts zeroed just before and read just
@@ -1155,8 +1277,8 @@ def phase_generate_main_path(torch, np, attention, model, decode, label,
 
     warm_s, _ = _wall(torch, lambda: run(cfg))
     cast = model.cast_params(params, cfg.dtype, "cuda")
-    prefill_max, prefill_finite, diffs = _decode_diffs(
-        torch, decode, cast, prompt, cfg, ecfg, max_len)
+    prefill_max, prefill_rows, prefill_finite, diffs, apart = _decode_diffs(
+        torch, model, decode, cast, prompt, cfg, ecfg, max_len)
     del cast
     want = {"flash_attention": cfg.n_layers,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
@@ -1191,12 +1313,22 @@ def phase_generate_main_path(torch, np, attention, model, decode, label,
         einsum_decode_ms_per_step=(einsum_s - einsum_pf) / steps * 1e3,
         einsum_decode_tokens_per_s=GEN_BATCH * steps / (einsum_s - einsum_pf),
         launches=launches[-1], expected_launches=want,
-        prefill_dlogits_max=prefill_max, compare_steps=len(diffs),
+        prefill_dlogits_max=prefill_max, prefill_rows_compared=prefill_rows,
+        compare_steps=len(diffs),
         dlogits_mean=statistics.fmean(d[0] for d in diffs),
         dlogits_max=max(d[1] for d in diffs),
         greedy_tokens_agree=int(equal.sum()), greedy_prefix_agree=prefix,
-        greedy_tokens_total=GEN_BATCH * steps)
-    emit("generate_main_path", **rec)
+        greedy_tokens_total=GEN_BATCH * steps,
+        routed_apart=dict(rows=len(apart),
+                          near_ties=sum(a[2] for a in apart),
+                          router_dlogits_max=max((a[1] for a in apart),
+                                                 default=0.0)))
+    moe = cfg.moe_experts is not None
+    emit("moe_generate_main_path" if moe else "generate_main_path", **rec)
+    if not all(a[2] for a in apart):
+        raise AssertionError(f"generate ({label}): rows routed apart from "
+                             f"the einsum route away from a near tie: "
+                             f"{apart}")
     if any(n != want for n in launches):
         raise AssertionError(f"generate ({label}) launched {launches}, "
                              f"want {want} per call")
@@ -1204,7 +1336,8 @@ def phase_generate_main_path(torch, np, attention, model, decode, label,
             and bool(torch.isfinite(out).all())):
         raise AssertionError(f"non-finite logits on the generate path "
                              f"({label})")
-    if not (prefill_max < DLOGITS_MAX and rec["dlogits_max"] < DLOGITS_MAX):
+    if not ((prefill_max is None or prefill_max < DLOGITS_MAX)
+            and rec["dlogits_max"] < DLOGITS_MAX):
         raise AssertionError(
             f"generate ({label}): kernel route logits differ from the "
             f"einsum route by {prefill_max} (prefill), "
@@ -1881,6 +2014,32 @@ def _train_flops(n_params, cfg, batch) -> float:
             + 6.0 * cfg.n_layers * batch * cfg.seq_len ** 2 * cfg.d_model)
 
 
+def _active_params(n_params, cfg) -> int:
+    """The params a token's forward reads: every param but the experts a
+    token does not visit (E - k of each MoE layer's E expert MLPs)."""
+    if cfg.moe_experts is None:
+        return n_params
+    unvisited = cfg.moe_experts - cfg.moe_top_k
+    return n_params - cfg.n_layers * unvisited * 2 * cfg.d_model * cfg.d_ff
+
+
+def _first_metrics(torch, model, params, tokens, kcfg, ecfg) -> dict:
+    """The router losses of the first step's forward on both routes, and
+    the batch rows the two routes routed apart (_routed_apart)."""
+    out = {}
+    with torch.no_grad():
+        for name, c in (("kernel", kcfg), ("einsum", ecfg)):
+            with _RouteLog(model) as log:
+                _, m = model.loss_and_metrics(params, tokens, c)
+            out[name] = ({k: m[k].item() for k in ("balance_loss", "z_loss")},
+                         log.calls)
+    apart = _routed_apart(out["kernel"][1], out["einsum"][1], kcfg.moe_top_k,
+                          set(range(tokens.shape[0])))
+    return dict(first_metrics=out["kernel"][0],
+                einsum_first_metrics=out["einsum"][0],
+                first_step_rows_routed_apart=len(apart))
+
+
 def _loss_and_grad_norm(torch, model, params, tokens, loss_of):
     """The loss ``loss_of(params, tokens)`` and the global norm of its
     gradient."""
@@ -1939,13 +2098,17 @@ def phase_train_main_path(torch, np, attention, model, path, arch, batch,
     ``compare``: the einsum route's first-step loss and gradient norm on
     the same params and batch, and its own run of the same steps; the
     loss must fall on both routes (the batch is fixed, so the model
-    memorises it)."""
+    memorises it).  A MoE ``arch`` (phase moe_train_main_path) also
+    reports both routes' first router losses, and counts its MFU on the
+    active params (_active_params)."""
     import dataclasses
 
     cfg = model.ModelConfig(**arch)
     init_fn, step_fn = model.make_train_step(cfg, device="cuda")
     params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
     n_params = sum(p.numel() for _, p in model._flatten(params))
+    n_active = _active_params(n_params, cfg)
+    moe = cfg.moe_experts is not None
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab, (batch, cfg.seq_len + 1)).astype(np.int32)).cuda()
     want = {"flash_attention": (2 if cfg.remat else 1) * cfg.n_layers,
@@ -1956,6 +2119,9 @@ def phase_train_main_path(torch, np, attention, model, path, arch, batch,
     ecfg = dataclasses.replace(cfg, attention="einsum")
     rec = dict(path=path, config=arch, dtype="bfloat16", batch=batch,
                n_params=n_params, warm_steps=warm, timed_steps=steps)
+    if moe:
+        rec.update(n_active_params=n_active, **_first_metrics(
+            torch, model, params, tokens, cfg, ecfg))
     if compare:
         kl, kn = _loss_and_grad_norm(
             torch, model, params, tokens,
@@ -1968,7 +2134,7 @@ def phase_train_main_path(torch, np, attention, model, path, arch, batch,
     torch.cuda.reset_peak_memory_stats()
     params, opt, losses, launches, step_s = _train_steps(
         torch, attention, step_fn, params, opt, tokens, warm, steps)
-    flops = _train_flops(n_params, cfg, batch)
+    flops = _train_flops(n_active, cfg, batch)
     rec.update(step_ms=step_s * 1e3,
                tokens_per_s=batch * cfg.seq_len / step_s,
                flops_per_step=flops, mfu=flops / (step_s * BF16_OPS_PER_S),
@@ -1989,7 +2155,7 @@ def phase_train_main_path(torch, np, attention, model, path, arch, batch,
                    einsum_tokens_per_s=batch * cfg.seq_len / estep_s,
                    einsum_losses=elosses)
     torch.cuda.empty_cache()
-    emit("train_main_path", **rec)
+    emit("moe_train_main_path" if moe else "train_main_path", **rec)
     if any(n != want for n in launches):
         raise AssertionError(f"train step ({path}) launched {launches}, "
                              f"want {want} per step")
@@ -2510,6 +2676,333 @@ def phase_small_sp(torch, np, model, sp, decode):
                                  f"params generate different tokens")
 
 
+def phase_ep_train_main_path(torch, np, attention, model, moe):
+    """Expert-parallel training (moe.make_ep_train_step) of the MoE step
+    model on the step's batch, EP_RANKS ranks on the one card (data 1):
+    at capacity factor EP_NO_DROP, nothing drops, and the first-step loss
+    and gradient norm must equal the one-device MoE step's within the
+    step's bf16 bounds; at the model's 1.25, TRAIN_WARM warm and
+    TRAIN_STEPS timed steps whose launches are counted per step (K1 and
+    each K2 kernel once per rank per layer; K3-K6 never), the loss
+    falling."""
+    import dataclasses
+
+    cfg = model.ModelConfig(**TRAIN_MOE)
+    mesh = moe.make_ep_mesh(["cuda"] * EP_RANKS, ep=EP_RANKS)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, "cuda")
+    n_params = sum(p.numel() for _, p in model._flatten(params))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (TRAIN_BATCH, cfg.seq_len + 1)).astype(np.int32)).cuda()
+    ncfg = dataclasses.replace(cfg, moe_capacity_factor=EP_NO_DROP)
+    ep_loss = moe.make_ep_loss(mesh, ncfg)
+    first = {}
+    for name, loss_of in (("ep", lambda p, t: ep_loss(p, t)[0]),
+                          ("single_device",
+                           lambda p, t: model.loss_fn(p, t, ncfg))):
+        first[name] = _loss_and_grad_norm(torch, model, params, tokens,
+                                          loss_of)
+        torch.cuda.empty_cache()
+    _, step4 = moe.make_ep_train_step(mesh, cfg)
+    opt = model.make_optimizer(model.TrainConfig()).init(params)
+    metrics = []
+
+    def step_fn(p, o, t):
+        p, o, loss, m = step4(p, o, t)
+        metrics.append(m)
+        return p, o, loss
+
+    zero = dict.fromkeys(attention.LAUNCHES, 0)
+    want = {**zero, "flash_attention": EP_RANKS * cfg.n_layers,
+            "flash_attention_bwd_dq": EP_RANKS * cfg.n_layers,
+            "flash_attention_bwd_dkv": EP_RANKS * cfg.n_layers}
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, losses, launches, step_s = _train_steps(
+        torch, attention, step_fn, params, opt, tokens, TRAIN_WARM,
+        TRAIN_STEPS)
+    flops = _train_flops(_active_params(n_params, cfg), cfg, TRAIN_BATCH)
+    last = metrics[-1]
+    rec = dict(config=TRAIN_MOE, dtype="bfloat16", batch=TRAIN_BATCH,
+               ranks=EP_RANKS, data=1, no_drop_capacity_factor=EP_NO_DROP,
+               first_loss={n: v[0] for n, v in first.items()},
+               first_grad_norm={n: v[1] for n, v in first.items()},
+               warm_steps=TRAIN_WARM, timed_steps=TRAIN_STEPS,
+               step_ms=step_s * 1e3,
+               tokens_per_s=TRAIN_BATCH * cfg.seq_len / step_s,
+               mfu=flops / (step_s * BF16_OPS_PER_S),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               losses=losses,
+               ce=[m["ce"].item() for m in metrics],
+               balance_loss=[m["balance_loss"].item() for m in metrics],
+               z_loss=[m["z_loss"].item() for m in metrics],
+               expert_fraction=last["expert_fraction"].tolist(),
+               launches_per_step=launches[-1],
+               expected_launches_per_step=want)
+    del params, opt
+    torch.cuda.empty_cache()
+    emit("ep_train_main_path", **rec)
+    if any(n != want for n in launches):
+        raise AssertionError(f"ep train step launched {launches}, want "
+                             f"{want} per step")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"ep: loss not finite or did not fall: "
+                             f"{losses}")
+    if not abs(sum(rec["expert_fraction"]) - 1.0) <= 1e-5:
+        raise AssertionError(f"ep: expert_fraction {rec['expert_fraction']}")
+    (el, en), (sl, sn) = first["ep"], first["single_device"]
+    if not (abs(el - sl) <= TRAIN_LOSS_GAP
+            and abs(en - sn) <= TRAIN_GRAD_NORM_RTOL * sn):
+        raise AssertionError(f"ep at no-drop capacity: loss {el}, grad norm "
+                             f"{en} vs one device {sl}, {sn}")
+    return rec
+
+
+def phase_small_moe_exact(torch, np, model, serving, paged, decode, moe):
+    """A small f32 MoE model on the card: the kernel route and the einsum
+    route give the same greedy tokens through the linear, ring and paged
+    engines (the paged pool preempts) and decode.generate, and route the
+    same way in generate (_RouteLog); route_topk on the card gives the
+    integers it gives on the CPU for the same logits (generate's
+    prefill logits, with uniform rows for ties and a capacity small
+    enough to drop)."""
+    import dataclasses
+
+    cfg = model.ModelConfig(vocab=256, d_model=128, n_layers=2, n_heads=2,
+                            d_ff=256, seq_len=64, dtype=torch.float32, **MOE)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(1),
+                               cfg, "cuda")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 256, (n,)).astype(np.int32)
+               for n in (5, 17, 33, 9, 41)]
+    rec = {}
+    for mode, window in (("linear", None), ("ring", 16), ("paged", None)):
+        out, preempted = [], []
+        for impl in ("kernel", "einsum"):
+            c = dataclasses.replace(cfg, attention=impl,
+                                    attention_window=window)
+            if mode == "paged":
+                eng = paged.PagedBatcher(
+                    params, c, slots=3, max_len=64, block_size=8,
+                    num_blocks=8, chunk=8, prefill_lanes=2, device="cuda")
+            else:
+                eng = serving.ContinuousBatcher(
+                    params, c, slots=3, max_len=64, chunk=8, device="cuda",
+                    ring=mode == "ring")
+            reqs = [serving.Request(prompt=p, max_new_tokens=8)
+                    for p in prompts]
+            _serve_all(eng, reqs)
+            out.append([r.generated for r in reqs])
+            preempted.append(getattr(eng, "preemptions", 0))
+        rec[mode] = dict(tokens_equal=out[0] == out[1],
+                         tokens=sum(len(t) for t in out[0]),
+                         preemptions=preempted)
+    batch = torch.from_numpy(rng.integers(0, 256, (3, 40)).astype(np.int32))
+    out, calls = [], []
+    for impl in ("kernel", "einsum"):
+        with _RouteLog(model) as log:
+            out.append(decode.generate(params, batch, dataclasses.replace(
+                cfg, attention=impl), 10).tolist())
+        calls.append(log.calls)
+    routes_equal = len(calls[0]) == len(calls[1]) and all(
+        torch.equal(a[1], b[1]) for a, b in zip(*calls))
+    logits = calls[0][0][0].reshape(-1, cfg.moe_experts).clone()
+    logits[::5] = 0.0                                # uniform rows: ties
+    same = {}
+    for cap in (logits.shape[0], 4):
+        dev = moe.route_topk(logits, cfg.moe_top_k, cap)
+        cpu = moe.route_topk(logits.cpu(), cfg.moe_top_k, cap)
+        same[cap] = all(torch.equal(dev[i].cpu(), cpu[i]) for i in (0, 1, 3))
+    rec["generate"] = dict(tokens_equal=out[0] == out[1], tokens=3 * 10,
+                           routes_equal=routes_equal)
+    emit("small_moe_exact", **rec, route_topk=dict(
+        rows=logits.shape[0], card_equals_cpu_at_capacity=same))
+    for mode, r in rec.items():
+        if not r["tokens_equal"]:
+            raise AssertionError(f"f32 MoE {mode}: the kernel route and the "
+                                 f"einsum route disagree: {r}")
+    if not routes_equal:
+        raise AssertionError("f32 MoE generate: the kernel route and the "
+                             "einsum route chose different experts")
+    if not all(same.values()):
+        raise AssertionError(f"route_topk on the card and on the CPU differ "
+                             f"on the same logits: {same}")
+    if not all(rec["paged"]["preemptions"]):
+        raise AssertionError(f"the small MoE paged engine never preempted: "
+                             f"{rec['paged']['preemptions']}")
+
+
+def phase_small_sp_ep(torch, np, attention, model, sp):
+    """sp×ep on the card: a small f32 MoE model (8 experts, top 2) with
+    the sequence over 4 ranks that double as the expert group, on the
+    kernel ring (K5, K6).  At capacity factor E / k (nothing drops) and
+    balance weight 0 (the pool and per-row balance estimators differ;
+    the z loss is a mean over tokens either way), its first-step loss
+    and gradient norm equal the one-device MoE step's and the einsum
+    ring's within SMALL_TRAIN_LOSS_GAP and GRAD_F32_RTOL; then one
+    kernel-ring step at the model's own capacity and weights, its K5/K6
+    launches counted and its router metrics finite."""
+    import dataclasses
+
+    cfg = model.ModelConfig(vocab=256, d_model=128, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=256, seq_len=64,
+                            dtype=torch.float32, **MOE)
+    ncfg = dataclasses.replace(cfg, moe_capacity_factor=EP_NO_DROP,
+                               moe_balance_weight=0.0)
+    devices = sp.make_sp_mesh(sp=4)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(1),
+                               cfg, "cuda")
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (4, 65)).astype(np.int32)).cuda()
+    first = {}
+    for name, loss_of in (
+            ("pallas", sp.make_sp_loss(devices, ncfg, "pallas")),
+            ("einsum", sp.make_sp_loss(devices, ncfg, "einsum")),
+            ("single_device", None)):
+        fn = (lambda p, t: model.loss_fn(p, t, ncfg)) if loss_of is None \
+            else (lambda p, t, f=loss_of: f(p, t)[0])
+        first[name] = _loss_and_grad_norm(torch, model, params, tokens, fn)
+    _, step4 = sp.make_sp_train_step(devices, cfg, impl="pallas")
+    opt = model.make_optimizer(model.TrainConfig()).init(params)
+    attention.reset_launch_counts()
+    _, _, loss, metrics = step4(params, opt, tokens)
+    launches = dict(attention.LAUNCHES)
+    rec = dict(ranks=4, config={k: v for k, v in dataclasses.asdict(
+        cfg).items() if k != "dtype"}, dtype="float32",
+        no_drop_capacity_factor=EP_NO_DROP,
+        first_loss={n: v[0] for n, v in first.items()},
+        first_grad_norm={n: v[1] for n, v in first.items()},
+        step_loss=loss.item(),
+        step_metrics={k: v.tolist() for k, v in metrics.items()},
+        launches_per_step=launches)
+    emit("small_sp_ep", **rec)
+    base_loss, base_norm = first["single_device"]
+    for name, (loss_v, norm) in first.items():
+        if not (abs(loss_v - base_loss) <= SMALL_TRAIN_LOSS_GAP
+                and abs(norm - base_norm) <= GRAD_F32_RTOL * base_norm):
+            raise AssertionError(f"sp×ep ({name}): first loss {loss_v}, grad "
+                                 f"norm {norm} vs one device {base_loss}, "
+                                 f"{base_norm}")
+    if not all(launches[k] > 0 for k in RING_KERNELS):
+        raise AssertionError(f"sp×ep kernel ring launched {launches}")
+    if not all(np.isfinite(v).all() for v in rec["step_metrics"].values()):
+        raise AssertionError(f"sp×ep router metrics: {rec['step_metrics']}")
+    return rec
+
+
+def phase_moe_cli(model, decode, DrainReceipt):
+    """The CLIs on a MoE model (--moe-experts 8 at the CLIs' default
+    architecture): train, resume and drain; train --ep 2 and --sp 2 (the
+    kernel ring); then serve (linear and --paged) and generate from the
+    trainer's checkpoint, generate printing the tokens decode.generate
+    gives in-process; and serve --spec-k 4 exits with its usage error.
+    The runs that share no checkpoint run at once, each a process."""
+    import concurrent.futures
+
+    import torch
+
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join(
+               [str(ROOT), os.environ.get("PYTHONPATH", "")])}
+    arch = ["--moe-experts", "8"]
+
+    def run(module, args, expect=(), code=0):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", f"tpu_autoscaler_torch.workloads.{module}",
+             "--platform", "cuda", *arch, *args], capture_output=True,
+            text=True, env=env, cwd=ROOT, timeout=600)
+        missing = [e for e in expect if e not in res.stderr]
+        if res.returncode != code or missing:
+            raise AssertionError(f"{module} {args} exited {res.returncode}, "
+                                 f"missing {missing}:\n{res.stderr[-4000:]}")
+        return time.perf_counter() - t0, res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        none = os.path.join(tmp, "annotations")
+        drain = os.path.join(tmp, "drain-annotations")
+        with open(drain, "w") as f:
+            f.write('autoscaler.tpu.dev/checkpoint-requested="1"\n')
+        ckpt = os.path.join(tmp, "train")
+
+        def train(tdir, steps, annotations, what, expect, flags=()):
+            dt, _ = run("train", ["--checkpoint-dir", tdir, "--steps",
+                                  str(steps), "--checkpoint-every", "10",
+                                  "--annotations-file", annotations,
+                                  *flags], expect)
+            emit("cli", command="train", flags=arch + list(flags), run=what,
+                 seconds=dt, checkpoints=sorted(os.listdir(tdir)))
+
+        def chain():
+            train(ckpt, 20, none, "train", ["step 10 loss",
+                                            "training complete at step 20"])
+            train(ckpt, 30, none, "resume", ["resumed from checkpoint step 20",
+                                             "training complete at step 30"])
+            train(ckpt, 5000, drain, "drain", [
+                "drain requested: checkpointed at step 30, exiting cleanly"])
+
+        def spec_refused():
+            _, res = run("serve", ["--checkpoint-dir", ckpt, "--random", "2",
+                                   "--paged", "--spec-k", "4",
+                                   "--annotations-file", none], code=2)
+            emit("cli", command="serve", cache="paged-spec-moe",
+                 exit_code=res.returncode, error=res.stderr.strip()[-200:])
+            if "--spec-k with MoE targets is not wired" not in res.stderr:
+                raise AssertionError(f"serve --spec-k with MoE: "
+                                     f"{res.stderr[-2000:]}")
+
+        def serve(flags, cache):
+            dt, res = run("serve", ["--checkpoint-dir", ckpt, "--random",
+                                    "6", "--annotations-file", none,
+                                    *flags], ["loaded step 30"])
+            receipt = DrainReceipt.parse_line(
+                res.stdout.strip().splitlines()[-1])
+            emit("cli", command="serve", cache=cache, flags=arch + flags,
+                 seconds=dt, served=receipt.served,
+                 unserved=receipt.unserved, ticks=receipt.ticks,
+                 preempted=receipt.stats["preempted_total"])
+            if receipt.unserved != 0 or receipt.served != 6:
+                raise AssertionError(f"serve CLI ({cache}, MoE) receipt: "
+                                     f"{receipt}")
+
+        prompt = [5, 17, 42, 9, 200]
+
+        def generate():
+            dt, res = run("generate", ["--checkpoint-dir", ckpt, "--prompt",
+                                       ",".join(map(str, prompt)), "--batch",
+                                       "2", "--steps", "8"],
+                          ["loaded step 30"])
+            cfg = model.ModelConfig(moe_experts=8)
+            want = decode.generate(model.load_params(ckpt, 30, "cuda"),
+                                   torch.tensor([prompt] * 2), cfg,
+                                   8).tolist()
+            want_lines = [f"{','.join(map(str, row[:5]))} | "
+                          f"{','.join(map(str, row[5:]))}" for row in want]
+            lines = res.stdout.strip().splitlines()
+            emit("cli", command="generate", checkpoint="moe train step_30",
+                 seconds=dt, lines=lines, in_process=want_lines)
+            if lines != want_lines:
+                raise AssertionError(f"generate CLI (MoE) printed {lines}, "
+                                     f"in-process {want_lines}")
+
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            first = [pool.submit(chain), pool.submit(
+                train, os.path.join(tmp, "ep"), 10, none, "train",
+                ["ep 2 ranks on cuda:0, cuda:0", "step 10 loss",
+                 " balance "], ["--ep", "2"]), pool.submit(
+                train, os.path.join(tmp, "sp"), 10, none, "train",
+                ["sp 2 ranks (pallas) on cuda:0, cuda:0", " balance "],
+                ["--sp", "2", "--sp-impl", "pallas"])]
+            for f in first:
+                f.result()
+            then = [pool.submit(serve, [], "linear-moe"),
+                    pool.submit(serve, ["--paged", "--block-size", "16",
+                                        "--max-new-tokens", "48",
+                                        "--num-blocks", "6"], "paged-moe"),
+                    pool.submit(generate), pool.submit(spec_refused)]
+            for f in then:
+                f.result()
+
+
 def phase_cli(model, decode, DrainReceipt):
     """The CLIs on the card: serve with the linear cache and with
     ``--paged`` (a 6-block pool, so it preempts), and ``serve --random 4
@@ -2692,6 +3185,7 @@ def main() -> None:
         attention,
         decode,
         model,
+        moe,
         paged,
         ring_attention,
         serving,
@@ -2716,6 +3210,13 @@ def main() -> None:
     self_draft_rec = phase_spec_self_draft(
         torch, np, attention, model, serving, spec_serving, paged_plain)
     del paged_plain
+    moe_rec, eng = phase_main_path(torch, np, attention, model, serving,
+                                   FULL_MOE, "moe_main_path")
+    phase_profile(torch, np, serving, eng, "moe_linear", PROMPT_LENS)
+    del eng
+    moe_paged_rec = phase_paged_main_path(
+        torch, np, attention, model, serving, paged, FULL_MOE,
+        "moe_paged_main_path")[0]
     # 128 MB scratch, written before each timed launch: evicts the 50 MB L2.
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
@@ -2738,6 +3239,9 @@ def main() -> None:
             phase_generate_profile(torch, model, decode, params, prompt, cfg,
                                    steps)
         del params, prompt
+    moe_gen_rec = phase_generate_main_path(
+        torch, np, attention, model, decode, "moe-gqa", FULL_MOE, GEN_PROMPT,
+        GEN_STEPS)[0]
     spec_gen_rec = phase_spec_generate_main_path(torch, np, attention, model,
                                                  decode)
     train_rec = phase_train_main_path(
@@ -2748,12 +3252,19 @@ def main() -> None:
                           1, compare=False)
     sp_rec = phase_sp_train_main_path(torch, np, attention, model, sp,
                                       ring_attention)
+    moe_train_rec = phase_train_main_path(
+        torch, np, attention, model, "moe_step", TRAIN_MOE, TRAIN_BATCH,
+        TRAIN_WARM, TRAIN_STEPS, 1, compare=True)
+    ep_rec = phase_ep_train_main_path(torch, np, attention, model, moe)
     phase_small_exact(torch, np, model, serving, paged, decode, spec_serving)
+    phase_small_moe_exact(torch, np, model, serving, paged, decode, moe)
     phase_small_train(torch, np, model)
     phase_small_sp(torch, np, model, sp, decode)
+    sp_ep_rec = phase_small_sp_ep(torch, np, attention, model, sp)
     trained_rec = phase_spec_trained(torch, np, attention, model, decode,
                                      dataio, paged, serving, spec_serving)
     phase_cli(model, decode, DrainReceipt)
+    phase_moe_cli(model, decode, DrainReceipt)
     kernels = []
     for kname, source, replaces, design, launches, kchecks in (
             ("flash_attention", "flash_attention.cu", 192, TC_DESIGN,
@@ -2846,6 +3357,24 @@ def main() -> None:
             else "kernel", hop="unmasked", diag_hop_ms=at_diag[f"ms_{part}"],
             tflops=at_main[f"tflops_{part}"],
             cases_passed=len(ring_checks), shape=at_main["shape"]))
+    # Launches of every kernel on the MoE paths: over the MoE linear and
+    # paged engines' timed passes, per MoE generate call, per MoE train
+    # step on one device and with expert parallelism, per sp×ep step.
+    moe_paths = {
+        "moe_main_path": {"flash_decode": moe_rec["flash_decode_launches"]},
+        "moe_paged_main_path": {
+            "paged_flash_decode": moe_paged_rec["paged_flash_decode_launches"]},
+        "moe_generate_main_path": moe_gen_rec["launches"],
+        "moe_train_main_path": moe_train_rec["launches_per_step"],
+        "ep_train_main_path": ep_rec["launches_per_step"],
+        "small_sp_ep": sp_ep_rec["launches_per_step"]}
+    for kernel in kernels:
+        kernel["moe_path_launches"] = {
+            path: n[kernel["name"]] for path, n in moe_paths.items()
+            if n.get(kernel["name"])}
+        if not kernel["moe_path_launches"]:
+            raise AssertionError(f"{kernel['name']} never launched on a MoE "
+                                 f"path: {moe_paths}")
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

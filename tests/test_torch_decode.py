@@ -403,11 +403,17 @@ def test_forward_matches_jax_and_teacher_forces_the_cache(request, impl,
 
 
 def test_forward_refuses_moe():
-    cfg = model.ModelConfig(**ARCH, dtype=torch.float32, moe_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        model.forward({}, torch.zeros((1, 2), dtype=torch.int32), cfg)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        model.param_shapes(cfg)
+    """A MoE config's forward: over its own params it equals JAX's
+    forward within 2e-5; over a dense params tree (no router) it raises
+    rather than run the dense MLP."""
+    jcfg, tcfg = _cfgs(moe_experts=4)
+    jp, tp = _params(jcfg, seed=3)
+    tokens = _prompt(b=2, s=9)
+    want = jax_model.forward(jp, jnp.asarray(tokens), jcfg)
+    _close(model.forward(tp, torch.from_numpy(tokens), tcfg), want, 2e-5)
+    _, dense = _params(_cfgs()[0])
+    with pytest.raises(KeyError, match="router"):
+        model.forward(dense, torch.from_numpy(tokens), tcfg)
 
 
 # -- the generate CLI --------------------------------------------------------

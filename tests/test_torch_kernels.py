@@ -587,3 +587,96 @@ def test_paged_decode_kernel_at_a_speculative_draft_tick(dtype):
     torch.cuda.synchronize()
     err, share = err_over_tol(torch, got, want)
     assert share <= 1.0, (err, share, TOL_REASON[str(dtype)])
+
+
+MOE_SMALL = dict(vocab=256, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+                 d_ff=256, seq_len=64, dtype=torch.float32, moe_experts=8,
+                 moe_top_k=2)
+
+
+@pytest.mark.cuda
+def test_moe_engine_tick_on_cuda():
+    """A small f32 MoE model's decode tick on the card: the kernel route
+    (K3) against the einsum route on the same cache and tokens, logits
+    within 2e-4; then the whole engine, whose greedy tokens equal the
+    einsum route's and whose K3 launches are decode steps x layers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import dataclasses
+
+    import numpy as np
+
+    from tpu_autoscaler_torch.workloads import model, serving
+
+    cfg = model.ModelConfig(**MOE_SMALL)
+    ecfg = dataclasses.replace(cfg, attention="einsum")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, "cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, (n,)).astype(np.int32)
+               for n in (5, 17, 33)]
+    out, steps = [], []
+    for c in (cfg, ecfg):
+        eng = serving.ContinuousBatcher(params, c, slots=3, max_len=64,
+                                        chunk=8, device="cuda")
+        reqs = [serving.Request(prompt=p, max_new_tokens=6) for p in prompts]
+        for r in reqs:
+            eng.submit(r)
+        attention.reset_launch_counts()
+        eng.run()
+        out.append([list(r.generated) for r in reqs])
+        steps.append((eng.decode_steps, attention.LAUNCHES["flash_decode"]))
+    assert out[0] == out[1]
+    assert steps[0][1] == steps[0][0] * cfg.n_layers > 0
+    assert steps[1][1] == 0
+    cache = eng.cache
+    tokens = torch.tensor([3, 7, 11], device="cuda")
+    active = torch.ones(3, dtype=torch.bool, device="cuda")
+    copy = serving.SlotKVCache(cache.k.clone(), cache.v.clone(),
+                               cache.lengths.clone())
+    cast = model.cast_params(params, cfg.dtype, "cuda")
+    got, _ = serving.make_slot_decode_step(cfg)(cast, cache, tokens, active)
+    want, _ = serving.make_slot_decode_step(ecfg)(cast, copy, tokens, active)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 2e-4
+
+
+@pytest.mark.cuda
+def test_moe_train_step_on_cuda():
+    """One make_train_step step of a small f32 MoE model on the card: the
+    kernel route (K1 forward, K2 backward) against the einsum route from
+    the same params and batch: losses within 1e-4, the router losses
+    within 1e-5, the params after the step within 1e-3 of each leaf's
+    largest |value| (Adam's first step moves a param by about the LR
+    whatever its gradient's size)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import dataclasses
+
+    import numpy as np
+
+    from tpu_autoscaler_torch.workloads import model
+
+    cfg = model.ModelConfig(**MOE_SMALL)
+    tokens = np.random.default_rng(1).integers(0, 256, (4, 65)).astype(
+        np.int32)
+    runs = []
+    for c in (cfg, dataclasses.replace(cfg, attention="einsum")):
+        init_fn, step_fn = model.make_train_step(c, device="cuda")
+        params, opt = init_fn(torch.Generator(device="cuda").manual_seed(1))
+        _, metrics = model.loss_and_metrics(
+            params, torch.from_numpy(tokens).cuda(), c)
+        attention.reset_launch_counts()
+        params, opt, loss = step_fn(params, opt, tokens)
+        runs.append((loss.item(), metrics, params,
+                     dict(attention.LAUNCHES)))
+    (kl, km, kp, kn), (el, em, ep, en) = runs
+    assert abs(kl - el) <= 1e-4
+    for name in ("balance_loss", "z_loss"):
+        assert abs(km[name].item() - em[name].item()) <= 1e-5, name
+    assert kn["flash_attention"] == kn["flash_attention_bwd_dq"] == 2
+    assert en["flash_attention"] == 0
+    ep = dict(model._flatten(ep))
+    for path, a in model._flatten(kp):
+        gap = ((a - ep[path]).abs().max() / ep[path].abs().max()).item()
+        assert gap <= 1e-3, (path, gap)

@@ -362,9 +362,12 @@ def test_paged_engine_refusals():
     with pytest.raises(ValueError, match="never be scheduled"):
         eng.submit(serving.Request(prompt=np.arange(40, dtype=np.int32),
                                    max_new_tokens=8))
-    moe = dataclasses.replace(tcfg, moe_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        paged.PagedBatcher(tp, moe, device="cpu")
+    moe = dataclasses.replace(tcfg, moe_experts=4, dtype=torch.bfloat16)
+    eng = paged.PagedBatcher(
+        model.init_params(torch.Generator().manual_seed(0), moe, "cpu"),
+        moe, device="cpu")
+    assert eng.params["blocks"]["router"].dtype == torch.float32
+    assert eng.params["blocks"]["w1"].dtype == torch.bfloat16
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             paged.PagedBatcher(tp, tcfg)

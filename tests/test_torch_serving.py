@@ -339,7 +339,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "serving.stats", "workloads._cli",
             "workloads.attention", "workloads.checkpoint",
             "workloads.decode", "workloads.generate", "workloads.model",
-            "workloads.paged", "workloads.ring_attention",
+            "workloads.moe", "workloads.paged", "workloads.ring_attention",
             "workloads.serve", "workloads.serving",
             "workloads.spec_serving", "workloads.sp",
             "workloads.train", "workloads.ulysses")}

@@ -47,6 +47,7 @@ from tpu_autoscaler_torch.workloads import (  # noqa: E402
     attention,
     checkpoint,
     model,
+    moe,
     sp,
 )
 from tpu_autoscaler_torch.workloads import train as train_cli  # noqa: E402
@@ -252,11 +253,15 @@ def test_remat_gradient_equals_plain_gradient():
 
 
 def test_moe_and_sharded_modes_name_their_slice():
+    """MoE trains on one device; what needs the mesh (ep×tp, the sharded
+    state modes) names it."""
     cfg = model.ModelConfig(**ARCH, dtype=torch.float32, moe_experts=4)
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1: MoE on one device"):
-        model.loss_and_metrics({}, torch.zeros((1, 3), dtype=torch.int32),
-                               cfg)
+    params = model.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    loss, metrics = model.loss_and_metrics(params, torch.from_numpy(
+        _tokens()), cfg)
+    assert float(loss) > float(metrics["ce"]) > 0
+    with pytest.raises(ValueError, match="Queue 1: the mesh"):
+        moe.make_ep_mesh(["cpu"] * 4, ep=2, tp=2)
     with pytest.raises(ValueError, match="Queue 1: the mesh"):
         model.make_train_step(model.ModelConfig(), device="cpu",
                               shard="fsdp")
@@ -457,9 +462,9 @@ def test_sp_step_equals_single_device_step():
 
 
 def test_sp_refusals_match_jax_and_name_slice_6():
-    """JAX's usage errors, and what waits for the port's mesh: sp×tp,
-    ZeRO-1 and MoE under sp (ROADMAP.md, Queue 1: EP and the SP
-    compositions)."""
+    """JAX's usage errors (sp×ep's expert divisibility among them), and
+    what waits for the port's mesh: sp×tp and ZeRO-1 under sp
+    (ROADMAP.md, Queue 1: EP and the SP compositions)."""
     cfg = model.ModelConfig(**SP_ARCH, dtype=torch.float32)
     jcfg = jax_model.ModelConfig(**SP_ARCH, dtype=jnp.float32)
     jmesh = jax_sp.make_sp_mesh(jax.devices()[:4], sp=4)
@@ -482,9 +487,13 @@ def test_sp_refusals_match_jax_and_name_slice_6():
         sp.make_sp_mesh(["cpu"], sp=2, tp=2)
     with pytest.raises(ValueError, match="EP and the SP compositions"):
         sp.make_sp_train_step(["cpu"] * 2, cfg, shard="zero1")
-    with pytest.raises(ValueError, match="EP and the SP compositions"):
-        sp.make_sp_train_step(["cpu"] * 2, model.ModelConfig(
-            **SP_ARCH, moe_experts=4))
+    moe_kw = dict(moe_experts=6)
+    with pytest.raises(ValueError, match="sp×ep needs moe_experts"):
+        sp.make_sp_train_step(["cpu"] * 4, model.ModelConfig(
+            **SP_ARCH, **moe_kw))
+    with pytest.raises(ValueError, match="sp×ep needs moe_experts"):
+        jax_sp.make_sp_train_step(jmesh, jax_model.ModelConfig(
+            **SP_ARCH, **moe_kw))
 
 
 def test_init_fn_is_seeded_and_on_device():
@@ -750,15 +759,17 @@ def test_cli_bad_n_kv_heads_is_rejected(tmp_path):
     assert not os.listdir(tmp_path)
 
 
-MESH, EP, PP, MOE = ("the mesh", "EP and the SP compositions",
-                     "pipeline parallelism", "MoE on one device")
+MESH, PP = "the mesh", "pipeline parallelism"
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tp", "2"], MESH), (["--ep", "2"], EP), (["--pp-stages", "2"], PP),
+    (["--tp", "2"], MESH),
+    (["--ep", "2", "--moe-experts", "4", "--tp", "2"], MESH),
+    (["--pp-stages", "2"], PP),
     (["--zero1"], MESH), (["--shard", "fsdp"], MESH),
     (["--shard", "zero1"], MESH), (["--sp", "2", "--shard", "zero1"], MESH),
-    (["--sp", "2", "--tp", "2"], MESH), (["--moe-experts", "4"], MOE)],
+    (["--sp", "2", "--tp", "2"], MESH),
+    (["--moe-experts", "4", "--sp", "2", "--tp", "2"], MESH)],
     ids=["tp", "ep", "pp", "zero1", "fsdp", "shard-zero1", "sp", "sp-tp",
          "moe"])
 def test_cli_refuses_unported_parallelism(tmp_path, flags, item):

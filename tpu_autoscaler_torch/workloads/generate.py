@@ -101,10 +101,6 @@ def main(checkpoint_dir, steps, prompt, prompt_len, batch, temperature,
         raise click.UsageError(
             "--top-k/--top-p need --temperature > 0 (the default 0 is "
             "greedy decoding, which ignores truncation)")
-    if moe_experts is not None:
-        raise click.UsageError(
-            "generating from MoE models is not ported yet (ROADMAP.md, "
-            "Queue 1: MoE on one device)")
     try:
         device = resolve_device(platform)
     except RuntimeError as e:

@@ -10,6 +10,9 @@ the loss (``loss_and_metrics``, with the chunked cross-entropy),
 ``TrainConfig`` and its hand-written schedules, ``make_optimizer``
 (optax's clip + adamw inside ``MultiSteps``, over plain tensors) and
 ``make_train_step``, the single-device ``make_sharded_train_step``.
+With ``moe_experts`` set, every block's MLP is a top-k mixture of
+experts (``moe_ffn``, routed by ``moe.route_topk``) and the loss adds
+the weighted router losses.
 
 bf16 compute over f32 master parameters, as in the JAX package.  The
 numbers follow the JAX code where the two frameworks would otherwise
@@ -33,6 +36,12 @@ from torch.utils.checkpoint import checkpoint
 from tpu_autoscaler_torch.workloads.attention import (
     causal_band_mask,
     flash_attention,
+)
+from tpu_autoscaler_torch.workloads.moe import (
+    combine as moe_combine,
+    dispatch as moe_dispatch,
+    expert_mlp,
+    route_topk,
 )
 
 
@@ -66,8 +75,11 @@ class ModelConfig:
     # (torch.utils.checkpoint), and the chunked cross-entropy.
     remat: bool = False
     ce_chunk: int | None = None
-    # Mixture-of-experts FFN: accepted here, but this port refuses it
-    # (see ROADMAP.md, Queue 1: MoE on one device).
+    # Mixture-of-experts FFN: when set, every block's dense MLP becomes
+    # ``moe_experts`` expert MLPs with top-``moe_top_k`` routing
+    # (moe.route_topk), dispatched per sequence with capacity
+    # moe_capacity_factor * seq * k / E per expert per row; the router's
+    # balance and z losses join the loss with the weights below.
     moe_experts: int | None = None
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -145,18 +157,17 @@ def resolve_device(device=None) -> torch.device:
 def param_shapes(cfg: ModelConfig) -> dict:
     """The params tree's leaf shapes: what :func:`init_params` makes and
     what a checkpoint for ``cfg`` must hold."""
-    if cfg.moe_experts is not None:
-        raise NotImplementedError(
-            "MoE params are not ported yet (ROADMAP.md, Queue 1: MoE on "
-            "one device)")
-    L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    L, d, f, E = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.moe_experts
+    if E is None:
+        ffn = {"w1": (L, d, f), "w2": (L, f, d)}
+    else:
+        ffn = {"router": (L, d, E), "w1": (L, E, d, f), "w2": (L, E, f, d)}
     return {
         "embed": (cfg.vocab, d),
         "blocks": {
             "qkv": (L, d, d + 2 * cfg.kv_heads * cfg.head_dim),
             "attn_out": (L, d, d),
-            "w1": (L, d, f),
-            "w2": (L, f, d),
+            **ffn,
             "ln1": (L, d),
             "ln2": (L, d),
         },
@@ -169,11 +180,13 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
                 device=None) -> dict:
     """Stacked-layer f32 params (leading dim = layer), drawn from
     ``generator`` on its own device and placed on ``device``: normal
-    weights scaled by fan-in (embed 0.02), gains of one."""
+    weights scaled by fan-in (embed and the MoE router 0.02), gains of
+    one."""
     shapes = param_shapes(cfg)
     d, f = cfg.d_model, cfg.d_ff
     scale = {"embed": 0.02, "qkv": d ** -0.5, "attn_out": d ** -0.5,
-             "w1": d ** -0.5, "w2": f ** -0.5, "unembed": d ** -0.5}
+             "router": 0.02, "w1": d ** -0.5, "w2": f ** -0.5,
+             "unembed": d ** -0.5}
     dev = resolve_device(device)
 
     def leaf(name, shape):
@@ -208,8 +221,13 @@ def params_from_jax(tree, device=None) -> dict:
 
 def cast_params(params: dict, dtype: torch.dtype, device=None) -> dict:
     """Every leaf in ``dtype`` (on ``device`` when given): the engine's
-    one compute-dtype copy."""
-    return _map_tree(lambda x: x.to(device=device, dtype=dtype), params)
+    one compute-dtype copy.  The MoE router stays f32: :func:`moe_ffn`
+    routes in f32 from the f32 master router, as the JAX engines do."""
+    out = _map_tree(lambda x: x.to(device=device, dtype=dtype), params)
+    if "router" in params.get("blocks", {}):
+        out["blocks"]["router"] = params["blocks"]["router"].to(
+            device=device, dtype=torch.float32)
+    return out
 
 
 def _flatten(tree, prefix=""):
@@ -303,25 +321,47 @@ def _split_qkv(y: torch.Tensor, layer_qkv: torch.Tensor,
     return q, k, v
 
 
+def moe_ffn(y: torch.Tensor, layer: dict, cfg: ModelConfig):
+    """Top-k MoE FFN over [b, s, d] normed activations.
+
+    Routing is ``moe.route_topk`` on f32 logits of the f32 activations
+    and router; dispatch is per sequence: each row routes its s tokens
+    into [E, cap, d] buffers (cap = capacity_factor·s·k/E), the experts
+    run as one batched product per weight over the expert dim, and the
+    combine gathers each token's k outputs gate-weighted.  Rows route
+    independently, so a chunk's pad tokens take capacity only in their
+    own row.  Returns (out [b, s, d], aux) with the balance and z
+    losses averaged over rows."""
+    b, s, d = y.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    cap = max(1, int(cfg.moe_capacity_factor * s * k / E))
+    logits = y.float() @ layer["router"].float()             # [b, s, E]
+    expert, rank, gate, keep, aux = route_topk(logits, k, cap)
+    buf = moe_dispatch(y, expert, rank, keep, E, cap)        # [b, E, cap, d]
+    out_buf = expert_mlp(buf, layer["w1"].to(cfg.dtype),
+                         layer["w2"].to(cfg.dtype))
+    out = moe_combine(out_buf, expert, rank, gate, keep)
+    return out, {"balance_loss": aux["balance_loss"].mean(),
+                 "z_loss": aux["z_loss"].mean()}
+
+
 def _ffn_residual(x: torch.Tensor, y: torch.Tensor, layer: dict,
                   cfg: ModelConfig) -> torch.Tensor:
-    """The dense gelu MLP half of a block added onto the residual
-    stream; y is the post-ln2 activations."""
+    """The FFN half of a block (the dense gelu MLP or :func:`moe_ffn`)
+    added onto the residual stream; y is the post-ln2 activations.
+    The serving and decode bodies share it with :func:`_block`."""
     if cfg.moe_experts is not None:
-        raise NotImplementedError(
-            "MoE FFN is not ported yet (ROADMAP.md, Queue 1: MoE on one "
-            "device)")
+        return x + moe_ffn(y, layer, cfg)[0]
     hdn = F.gelu(y @ layer["w1"].to(cfg.dtype), approximate="tanh")
     return x + hdn @ layer["w2"].to(cfg.dtype)
 
 
-def _block(x: torch.Tensor, layer: dict, cfg: ModelConfig):
-    """One transformer block over x [batch, seq, d_model] in compute
-    dtype, without the JAX package's mesh branch and ``ffn`` hook.
-    Attention is the flash_attention kernel when the config resolves to
-    it on x's device, else the grouped einsum with the band mask.
-    Returns ``(x, aux)``; aux holds the MoE router losses, zeros for
-    the dense FFN."""
+def _attention_residual(x: torch.Tensor, layer: dict,
+                        cfg: ModelConfig) -> torch.Tensor:
+    """The attention half of a block over x [batch, seq, d_model] in
+    compute dtype, added onto the residual stream: the flash_attention
+    kernel when the config resolves to it on x's device, else the
+    grouped einsum with the band mask."""
     b, s, d = x.shape
     h, hd, hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     y = _rmsnorm(x, layer["ln1"])
@@ -343,24 +383,31 @@ def _block(x: torch.Tensor, layer: dict, cfg: ModelConfig):
         attn = torch.einsum("bngqk,bnkd->bngqd", probs, v).reshape(
             b, h, s, hd)
     attn = attn.transpose(1, 2).reshape(b, s, d)
-    x = x + attn @ layer["attn_out"].to(cfg.dtype)
+    return x + attn @ layer["attn_out"].to(cfg.dtype)
+
+
+def _block(x: torch.Tensor, layer: dict, cfg: ModelConfig):
+    """One transformer block over x [batch, seq, d_model] in compute
+    dtype, without the JAX package's mesh branch and ``ffn`` hook.
+    Returns ``(x, aux)``; aux holds the MoE router losses, zeros for
+    the dense FFN."""
+    x = _attention_residual(x, layer, cfg)
     y = _rmsnorm(x, layer["ln2"])
-    x = _ffn_residual(x, y, layer, cfg)
+    if cfg.moe_experts is not None:
+        out, aux = moe_ffn(y, layer, cfg)
+        return x + out, aux
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, {"balance_loss": zero, "z_loss": zero}
+    return _ffn_residual(x, y, layer, cfg), {"balance_loss": zero,
+                                             "z_loss": zero}
 
 
 def features_with_aux(params: dict, tokens: torch.Tensor,
                       cfg: ModelConfig):
     """tokens [batch, seq] int -> (final-norm features [batch, seq,
     d_model] in compute dtype, aux dict of per-layer-mean router
-    losses: zeros, since MoE is not ported).  With ``cfg.remat`` each
-    block runs under ``torch.utils.checkpoint`` (non-reentrant): the
-    backward recomputes it instead of keeping its activations."""
-    if cfg.moe_experts is not None:
-        raise NotImplementedError(
-            "MoE FFN is not ported yet (ROADMAP.md, Queue 1: MoE on one "
-            "device)")
+    losses, zeros for the dense FFN).  With ``cfg.remat`` each block
+    runs under ``torch.utils.checkpoint`` (non-reentrant): the backward
+    recomputes it instead of keeping its activations."""
     x = params["embed"].to(cfg.dtype)[tokens]
     aux = []
     for i in range(cfg.n_layers):
@@ -410,14 +457,11 @@ def _chunked_ce(x: torch.Tensor, unembed: torch.Tensor,
 
 def loss_and_metrics(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
     """Training loss and its decomposition: ``(loss, metrics)``, loss =
-    next-token cross-entropy of tokens [batch, seq + 1]; metrics holds
-    ``ce`` and the (zero) router losses.  With ``cfg.ce_chunk`` set and
-    dividing seq the cross-entropy runs chunked (:func:`_chunked_ce`);
-    otherwise over the full [b, s, V] logits."""
-    if cfg.moe_experts is not None:
-        raise NotImplementedError(
-            "MoE losses are not ported yet (ROADMAP.md, Queue 1: MoE on "
-            "one device)")
+    next-token cross-entropy of tokens [batch, seq + 1], plus for MoE
+    configs the weighted router balance and z losses; metrics holds
+    ``ce`` and the unweighted router losses.  With ``cfg.ce_chunk`` set
+    and dividing seq the cross-entropy runs chunked
+    (:func:`_chunked_ce`); otherwise over the full [b, s, V] logits."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     s = inputs.shape[1]
     x, aux = features_with_aux(params, inputs, cfg)
@@ -428,12 +472,17 @@ def loss_and_metrics(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
         logits = (x @ params["unembed"].to(cfg.dtype)).float()
         logp = torch.log_softmax(logits, dim=-1)
         ce = -logp.gather(-1, targets[..., None].long()).mean()
-    return ce, {"ce": ce, **aux}
+    loss = ce
+    if cfg.moe_experts is not None:
+        loss = (loss + cfg.moe_balance_weight * aux["balance_loss"]
+                + cfg.moe_z_weight * aux["z_loss"])
+    return loss, {"ce": ce, **aux}
 
 
 def loss_fn(params: dict, tokens: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
-    """Next-token cross-entropy of tokens [batch, seq + 1]."""
+    """Next-token cross-entropy of tokens [batch, seq + 1] (+ the
+    weighted MoE router losses)."""
     return loss_and_metrics(params, tokens, cfg)[0]
 
 
@@ -630,22 +679,20 @@ def make_train_step(cfg: ModelConfig, train: TrainConfig | None = None,
         raise ValueError(f"shard={shard!r} needs the mesh, which is not "
                          "ported yet (ROADMAP.md, Queue 1: the mesh); "
                          "only 'none'")
-    if cfg.moe_experts is not None:
-        raise NotImplementedError(
-            "MoE training is not ported yet (ROADMAP.md, Queue 1: MoE on "
-            "one device)")
     dev = resolve_device(device)
     return _make_step(cfg, make_optimizer(train or TrainConfig()), dev,
                       lambda tree, tokens: loss_fn(tree, tokens, cfg))
 
 
 def _make_step(cfg: ModelConfig, optimizer: Optimizer, dev: torch.device,
-               loss_of):
+               loss_of, has_aux: bool = False):
     """(init_fn, step_fn) for the f32 master params on ``dev`` and the
     loss ``loss_of(params, tokens)``: the gradient by
     ``torch.autograd.grad`` with respect to the master params, then the
-    optimizer's update (shared by the single-device and the
-    sequence-parallel steps)."""
+    optimizer's update (shared by the single-device, sequence-parallel
+    and expert-parallel steps).  ``has_aux``: ``loss_of`` returns
+    ``(loss, metrics)`` and step_fn ``(params, opt_state, loss,
+    metrics)``, the metrics detached."""
 
     def init_fn(generator: torch.Generator):
         params = init_params(generator, cfg, dev)
@@ -656,9 +703,15 @@ def _make_step(cfg: ModelConfig, optimizer: Optimizer, dev: torch.device,
         paths, leaves = zip(*_flatten(params))
         leaves = [p.detach().requires_grad_() for p in leaves]
         loss = loss_of(_unflatten(dict(zip(paths, leaves))), tokens)
+        if has_aux:
+            loss, metrics = loss
         grads = torch.autograd.grad(loss, leaves)
         grads = _unflatten(dict(zip(paths, grads)))
         updates, opt_state = optimizer.update(grads, opt_state, params)
-        return apply_updates(params, updates), opt_state, loss.detach()
+        params = apply_updates(params, updates)
+        if has_aux:
+            return params, opt_state, loss.detach(), {
+                name: m.detach() for name, m in metrics.items()}
+        return params, opt_state, loss.detach()
 
     return init_fn, step_fn

@@ -262,10 +262,6 @@ def main(checkpoint_dir, requests_file, random_n, max_new_tokens, slots,
                 f"--num-blocks {num_blocks} cannot hold even one "
                 f"prefill chunk (--chunk {chunk} needs >= {min_blocks} "
                 f"blocks of {block_size}); admission would livelock")
-    if moe_experts is not None:
-        raise click.UsageError(
-            "serving MoE models is not ported yet (ROADMAP.md, Queue 1: "
-            "MoE on one device)")
     try:
         device = resolve_device(platform)
     except RuntimeError as e:

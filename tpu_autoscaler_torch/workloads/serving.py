@@ -376,10 +376,6 @@ class ContinuousBatcher:
         sampled per-request span trees built from the host-side
         bookkeeping this scheduler already does (submit, admit, seeded,
         preempt, finish); None costs one ``if`` per event."""
-        if cfg.moe_experts is not None:
-            raise NotImplementedError(
-                "serving MoE models is not ported yet (ROADMAP.md, Queue 1: "
-                "MoE on one device)")
         self.device = resolve_device(device)
         # One compute-dtype copy of the params for the engine's
         # lifetime.  The JAX step casts every f32 master param on each

@@ -19,10 +19,13 @@ share a card when there are fewer cards than ranks:
   through ``.to(devices[r])``, so autograd sums the replicated params'
   gradients (JAX's "broadcast transposes to psum").
 
-With ``cfg.remat`` each layer, over all ranks at once, runs under
-``torch.utils.checkpoint``.  Waiting for the port's mesh (ROADMAP.md,
-Queue 1: EP and the SP compositions): a data axis beside ``sp``, sp×tp,
-sp×ep (MoE) and ZeRO-1.
+With MoE blocks (sp×ep) the sp ranks double as the expert group: each
+rank routes its shard's tokens over every expert and the exchange of
+``moe._ep_moe_ffn`` moves them to the rank that owns their expert and
+back (``_sp_moe_ffn``).  With ``cfg.remat`` each layer, over all ranks
+at once, runs under ``torch.utils.checkpoint``.  Waiting for the port's
+mesh (ROADMAP.md, Queue 1: EP and the SP compositions): a data axis
+beside ``sp``, sp×tp and ZeRO-1.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from tpu_autoscaler_torch.workloads.model import (
     _split_qkv,
     make_optimizer,
 )
+from tpu_autoscaler_torch.workloads.moe import _ep_moe_ffn, _ranks_loss
 from tpu_autoscaler_torch.workloads.ring_attention import (
     _ring_attn_local,
     make_local_ring_attention,
@@ -87,11 +91,28 @@ def make_sp_mesh(devices=None, sp: int | None = None,
     return [devices[r % len(devices)] for r in range(sp)]
 
 
-def _sp_block(xs, layers, cfg: ModelConfig, *, attn):
+def _sp_moe_ffn(ys, layers, cfg: ModelConfig, devices):
+    """The MoE FFN under sequence parallelism: the sp ranks are also the
+    expert group.  Rank t slices its experts [t·E/sp, (t+1)·E/sp) from
+    the replicated weights (so expert compute drops by sp, the weights
+    stay replicated like every sp param), routes its shard's tokens
+    over every expert, and ``moe._ep_moe_ffn``'s exchange moves them to
+    their experts' ranks and back.  Returns (outs, aux per rank)."""
+    e_loc = cfg.moe_experts // len(ys)
+    local = [{**layer, "w1": layer["w1"][t * e_loc:(t + 1) * e_loc],
+              "w2": layer["w2"][t * e_loc:(t + 1) * e_loc]}
+             for t, layer in enumerate(layers)]
+    return _ep_moe_ffn(ys, local, devices, top_k=cfg.moe_top_k,
+                       capacity_factor=cfg.moe_capacity_factor,
+                       dtype=cfg.dtype)
+
+
+def _sp_block(xs, layers, cfg: ModelConfig, *, attn, devices):
     """``model._block`` over every rank's sequence shard, the attention
     mix replaced by ``attn(qs, ks, vs) -> outs`` over all ranks: xs[r]
     [b, s_loc, d] and layers[r] (the layer's weights) on rank r's
-    device.  Returns the ranks' new residual streams."""
+    device (``devices[r]``).  Returns the ranks' new residual streams,
+    with MoE blocks ``(streams, aux per rank)``."""
     qs, ks, vs = [], [], []
     for r, (x, layer) in enumerate(zip(xs, layers)):
         q, k, v = _split_qkv(_rmsnorm(x, layer["ln1"]), layer["qkv"], cfg)
@@ -103,13 +124,17 @@ def _sp_block(xs, layers, cfg: ModelConfig, *, attn):
         qs.append(q)
         ks.append(k)
         vs.append(v)
-    out = []
+    mixed = []
     for x, a, layer in zip(xs, attn(qs, ks, vs), layers):
         b, s_loc, _ = x.shape
         a = a.transpose(1, 2).reshape(b, s_loc, a.shape[1] * a.shape[3])
-        x = x + a.to(cfg.dtype) @ layer["attn_out"].to(cfg.dtype)
-        out.append(_ffn_residual(x, _rmsnorm(x, layer["ln2"]), layer, cfg))
-    return out
+        mixed.append(x + a.to(cfg.dtype) @ layer["attn_out"].to(cfg.dtype))
+    ys = [_rmsnorm(x, layer["ln2"]) for x, layer in zip(mixed, layers)]
+    if cfg.moe_experts is not None:
+        outs, auxs = _sp_moe_ffn(ys, layers, cfg, devices)
+        return [x + o for x, o in zip(mixed, outs)], auxs
+    return [_ffn_residual(x, y, layer, cfg)
+            for x, y, layer in zip(mixed, ys, layers)]
 
 
 def _local_ce_sum(x, params: dict, targets, cfg: ModelConfig):
@@ -130,13 +155,20 @@ def make_sp_loss(devices, cfg: ModelConfig, impl: str | None = None):
     """``loss_of(params, tokens) -> loss``: the global mean next-token NLL
     of tokens [b, s + 1] with the sequence cut over ``devices`` (one rank
     each, from :func:`make_sp_mesh`), on the first rank's device;
-    ``params`` is the f32 master copy.  ``impl`` as in
-    :func:`make_sp_train_step`, which differentiates this loss."""
-    if cfg.moe_experts is not None:
-        raise ValueError("sp×ep (MoE blocks under sp) is not ported yet "
-                         "(ROADMAP.md, Queue 1: EP and the SP compositions)")
+    ``params`` is the f32 master copy.  With MoE blocks (sp×ep) it
+    returns ``(loss, metrics)``: the loss adds the weighted router
+    losses, and metrics holds ``ce``, ``balance_loss``, ``z_loss`` and
+    ``expert_fraction``, each the mean over layers, then over ranks.
+    ``impl`` as in :func:`make_sp_train_step`, which differentiates this
+    loss."""
     devices = [_device(dev) for dev in devices]
     world = len(devices)
+    moe = cfg.moe_experts is not None
+    if moe and cfg.moe_experts % world:
+        raise ValueError(
+            f"sp×ep needs moe_experts ({cfg.moe_experts}) divisible by the "
+            f"sp axis ({world}) — the sp axis is reused as the expert axis "
+            "(_sp_moe_ffn)")
     if impl is None:
         impl = "pallas" if devices[0].type == "cuda" else "einsum"
     if impl not in {"einsum", "pallas", "ulysses"}:
@@ -162,7 +194,7 @@ def make_sp_loss(devices, cfg: ModelConfig, impl: str | None = None):
         def attn(qs, ks, vs):
             return _ring_attn_local(qs, ks, vs, devices, causal=True,
                                     window=window)[0]
-    block = functools.partial(_sp_block, cfg=cfg, attn=attn)
+    block = functools.partial(_sp_block, cfg=cfg, attn=attn, devices=devices)
     distinct = list(dict.fromkeys(devices))
 
     def loss_of(params: dict, tokens):
@@ -180,6 +212,7 @@ def make_sp_loss(devices, cfg: ModelConfig, impl: str | None = None):
 
         xs = [p["embed"].to(cfg.dtype)[cut(inputs, r)]
               for r, p in enumerate(shard)]
+        per_layer = []
         for i in range(cfg.n_layers):
             layers = [{name: w[i] for name, w in p["blocks"].items()}
                       for p in shard]
@@ -187,9 +220,13 @@ def make_sp_loss(devices, cfg: ModelConfig, impl: str | None = None):
                 xs = checkpoint(block, xs, layers, use_reentrant=False)
             else:
                 xs = block(xs, layers)
+            if moe:
+                xs, auxs = xs
+                per_layer.append(auxs)
         total = sum(_local_ce_sum(x, p, cut(targets, r), cfg).to(devices[0])
                     for r, (x, p) in enumerate(zip(xs, shard)))
-        return total / (b * s)
+        ce = total / (b * s)
+        return _ranks_loss(ce, per_layer, cfg, devices[0]) if moe else ce
 
     return loss_of
 
@@ -211,11 +248,14 @@ def make_sp_train_step(devices, cfg: ModelConfig, *,
     "ulysses" (the all-to-all and local flash attention at full
     sequence: needs heads and kv heads divisible by the ranks); None
     takes the kernel ring on CUDA ranks and the einsum ring on CPU ranks.
-    ``cfg.ce_chunk`` is honored on each rank's block.
+    ``cfg.ce_chunk`` is honored on each rank's block.  With MoE blocks
+    (sp×ep, needing moe_experts divisible by the ranks) step_fn returns
+    ``(params, opt_state, loss, metrics)``, the expert-parallel step's
+    signature (:func:`make_sp_loss`'s metrics).
 
     Refused until the port's mesh (ROADMAP.md, Queue 1: EP and the SP
-    compositions): ``shard=
-    "zero1"`` and MoE blocks (sp×tp is refused by :func:`make_sp_mesh`).
+    compositions): ``shard="zero1"`` (sp×tp is refused by
+    :func:`make_sp_mesh`).
     """
     if shard not in {"none", "zero1"}:
         raise ValueError(
@@ -228,4 +268,5 @@ def make_sp_train_step(devices, cfg: ModelConfig, *,
                          "SP compositions)")
     loss_of = make_sp_loss(devices, cfg, impl)
     optimizer = make_optimizer(train or TrainConfig())
-    return _make_step(cfg, optimizer, _device(devices[0]), loss_of)
+    return _make_step(cfg, optimizer, _device(devices[0]), loss_of,
+                      has_aux=cfg.moe_experts is not None)

@@ -16,13 +16,16 @@ checkpoints cannot be read here (orbax needs JAX).  Training runs on
 CUDA unless ``--platform cpu`` is given; without a GPU it refuses to
 start rather than run on the CPU.
 
-``--sp N`` trains with the sequence cut over N ranks (``sp.py``: the
-ring, or ``--sp-impl ulysses``), one process, rank r on card r mod the
-number of cards, so ranks share a card when there are fewer cards than
-N.  The mesh flags (``--tp``, ``--ep``, ``--pp-stages``, ``--zero1``,
-``--shard``), data-parallel replicas beside the sp ranks, and MoE wait
-for items of ROADMAP.md's Queue 1 (the mesh, MoE on one device, EP):
-asking for one is a usage error.
+``--moe-experts E`` trains a mixture-of-experts model.  ``--sp N``
+trains with the sequence cut over N ranks (``sp.py``: the ring, or
+``--sp-impl ulysses``; with ``--moe-experts`` the ranks are also the
+expert group, sp×ep), and ``--ep N`` with the batch cut over N ranks
+that split the experts (``moe.make_ep_train_step``), one process, rank
+r on card r mod the number of cards, so ranks share a card when there
+are fewer cards than N.  The MoE steps log the router's balance and z
+losses.  The mesh flags (``--tp``, ``--pp-stages``, ``--zero1``,
+``--shard``) and data-parallel replicas beside the sp or ep ranks wait
+for items of ROADMAP.md's Queue 1: asking for one is a usage error.
 """
 
 from __future__ import annotations
@@ -44,22 +47,32 @@ log = logging.getLogger(__name__)
 
 
 def _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
-                     shard_mode, sp_impl, platform, moe_experts) -> None:
-    """Usage errors for what this trainer does not run, each naming the
-    ROADMAP.md Queue 1 item that brings it, and the JAX trainer's usage errors
-    for --sp."""
+                     shard_mode, sp_impl, platform, moe_experts,
+                     batch) -> None:
+    """The JAX trainer's usage errors for --sp and --ep, then usage
+    errors for what this trainer does not run, each naming the
+    ROADMAP.md Queue 1 item that brings it."""
     if sp_degree > 1 and shard_mode == "fsdp":
         raise click.UsageError(
             "--shard fsdp composes with the dp+tp step, not --sp "
             "(params replicate under sp; --shard zero1 composes)")
+    if ep_degree > 1:
+        if pp_stages > 1 or sp_degree > 1:
+            raise click.UsageError(
+                "--ep composes with data parallelism (dp×ep); pick it OR "
+                "--pp-stages/--sp")
+        if moe_experts is None:
+            raise click.UsageError("--ep needs --moe-experts")
+        if (shard_mode or ("zero1" if zero1 else "none")) != "none":
+            raise click.UsageError(
+                "--shard composes with the dp+tp step, not --ep "
+                "(expert state is already partitioned)")
     refused = [
         (tp_degree is not None and tp_degree > 1, "--tp", "the mesh"),
-        (ep_degree > 1, "--ep", "EP and the SP compositions"),
         (pp_stages > 1, "--pp-stages", "pipeline parallelism"),
         (zero1, "--zero1", "the mesh"),
         (shard_mode in ("zero1", "fsdp"), f"--shard {shard_mode}",
          "the mesh"),
-        (moe_experts is not None, "--moe-experts", "MoE on one device"),
     ]
     for asked, flag, item in refused:
         if asked:
@@ -69,6 +82,11 @@ def _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
         raise click.UsageError(
             "--sp-impl pallas runs the ring's CUDA kernels: it needs "
             "--platform cuda (auto or einsum run on the CPU)")
+    if ep_degree > 1 and batch % ep_degree:
+        # The ep ranks are the data×ep devices: one data row of them.
+        raise click.UsageError(
+            f"--batch {batch} must divide over the {ep_degree} data×ep "
+            f"devices")
 
 
 @click.command()
@@ -105,8 +123,11 @@ def _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
               help="Tensor parallelism degree (> 1 not ported: "
                    "ROADMAP.md, Queue 1: the mesh).")
 @click.option("--ep", "ep_degree", default=1, show_default=True,
-              help="Expert parallelism (> 1 not ported: ROADMAP.md, "
-                   "Queue 1: EP and the SP compositions).")
+              help="Expert parallelism (dp×ep, needs --moe-experts): the "
+                   "batch over this many ranks of one process that split "
+                   "the experts, rank r on card r mod the card count.  "
+                   "Data-parallel replicas beside them and --tp need the "
+                   "mesh (ROADMAP.md, Queue 1: the mesh).  1 = off.")
 @click.option("--pp-stages", default=1, show_default=True,
               help="Pipeline stages (> 1 not ported: ROADMAP.md, Queue "
                    "1: pipeline parallelism).")
@@ -152,8 +173,8 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
          ep_degree, pp_stages, pp_microbatches, sp_degree, sp_impl,
          data_file, profile_dir, checkpoint_dir, checkpoint_every,
          annotations_file, platform):
-    """Train the in-tree model on one device, or with the sequence cut
-    over --sp ranks (synthetic data)."""
+    """Train the in-tree model on one device, with the sequence cut over
+    --sp ranks, or expert-parallel over --ep ranks (synthetic data)."""
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(levelname)s: %(message)s")
     import torch
@@ -174,7 +195,7 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
     )
 
     _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
-                     shard_mode, sp_impl, platform, moe_experts)
+                     shard_mode, sp_impl, platform, moe_experts, batch)
     if sp_degree > 1 and seq_len % sp_degree:
         raise click.UsageError(
             f"--sp {sp_degree} must divide --seq-len {seq_len}")
@@ -191,23 +212,54 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
     except (ValueError, RuntimeError) as e:
         raise click.UsageError(str(e)) from e
 
-    if sp_degree > 1:
+    last_moe_metrics: dict = {}
+
+    def wrap_moe_step(step4):
+        """Adapt a 4-tuple MoE step (params, opt, loss, metrics) to the
+        training loop's 3-tuple, keeping the router losses for the log."""
+        def raw_step_fn(params, opt_state, tokens):
+            params, opt_state, loss, metrics = step4(params, opt_state,
+                                                     tokens)
+            last_moe_metrics.update(balance=float(metrics["balance_loss"]),
+                                    z=float(metrics["z_loss"]))
+            return params, opt_state, loss
+        return raw_step_fn
+
+    if sp_degree > 1 or ep_degree > 1:
+        from tpu_autoscaler_torch.workloads.moe import (
+            make_ep_mesh,
+            make_ep_train_step,
+        )
         from tpu_autoscaler_torch.workloads.sp import (
             make_sp_mesh,
             make_sp_train_step,
         )
 
+        # Rank r on card r mod the card count (all on the CPU there).
         devices = make_sp_mesh(None if device.type == "cuda" else [device],
-                               sp=sp_degree)
-        try:  # e.g. ulysses head divisibility
-            init_fn, raw_step_fn = make_sp_train_step(
-                devices, cfg, train=train_cfg,
-                impl=None if sp_impl == "auto" else sp_impl)
+                               sp=max(sp_degree, ep_degree))
+        try:  # e.g. ulysses head or sp×ep expert divisibility
+            if ep_degree > 1:
+                init_fn, step4 = make_ep_train_step(
+                    make_ep_mesh(devices, ep=ep_degree), cfg,
+                    train=train_cfg)
+            else:
+                init_fn, step4 = make_sp_train_step(
+                    devices, cfg, train=train_cfg,
+                    impl=None if sp_impl == "auto" else sp_impl)
         except ValueError as e:
             raise click.UsageError(str(e)) from e
+        # --sp with --moe-experts is sp×ep: its step returns the router
+        # metrics, as the ep step does.
+        raw_step_fn = (wrap_moe_step(step4) if moe_experts is not None
+                       else step4)
         device = devices[0]
-        log.info("sp %d ranks (%s) on %s", sp_degree, sp_impl,
-                 ", ".join(map(str, devices)))
+        if ep_degree > 1:
+            log.info("ep %d ranks on %s", ep_degree,
+                     ", ".join(map(str, devices)))
+        else:
+            log.info("sp %d ranks (%s) on %s", sp_degree, sp_impl,
+                     ", ".join(map(str, devices)))
     else:
         init_fn, raw_step_fn = make_train_step(cfg, train=train_cfg,
                                                device=device)
@@ -293,8 +345,12 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
             tok_s = (tokens_per_step * dsteps
                      / max(now - tp_state["t"], 1e-9)) if dsteps else 0.0
             tp_state.update(t=now, step=step)
-            log.info("step %d loss %.4f (%.0f tok/s)", step, last_loss[0],
-                     tok_s)
+            moe_note = ""
+            if last_moe_metrics:
+                moe_note = (f" balance {last_moe_metrics['balance']:.3f}"
+                            f" z {last_moe_metrics['z']:.3f}")
+            log.info("step %d loss %.4f (%.0f tok/s)%s", step, last_loss[0],
+                     tok_s, moe_note)
 
     writer = AsyncCheckpointWriter()
     try:
