@@ -20,10 +20,13 @@ economics cell (its spec phase: a 6-layer target and a 1-layer draft
 trained by the port's trainer on a bigram shard), a mixture-of-experts
 model (8 experts, top 2) through the linear and paged servers,
 ``decode.generate``, the train step, expert-parallel training over 4
-ranks and sp×ep, and runs the ``serve`` CLI with each cache,
+ranks and sp×ep, the training mesh (the step cell over a dp 4 × tp 2
+mesh of 8 ranks on the card, in each shard mode: none, zero1, fsdp;
+K1/K2 per shard), and runs the ``serve`` CLI with each cache,
 speculatively and with request tracing, the ``generate`` CLI and the
-``train`` CLI (train, resume, drain; on one device and with ``--sp 2``;
-a MoE model also with ``--ep 2``, then served and generated from).
+``train`` CLI (train, resume, drain; on one device, with ``--sp 2`` and
+with ``--tp 2 --shard fsdp``; a MoE model also with ``--ep 2``, then
+served and generated from).
 Each phase prints one JSON line; a failed phase raises and the script
 exits non-zero.  The last lines are the card's ``nvidia-smi`` name and
 power limit, the ``kernels`` summary, and ``{"ok": true, "device":
@@ -210,6 +213,22 @@ MOE = dict(moe_experts=8, moe_top_k=2, moe_capacity_factor=1.25)
 FULL_MOE = dict(FULL, **MOE)
 TRAIN_MOE = dict(TRAIN_FULL, **MOE)
 EP_RANKS, EP_NO_DROP = 4, 4.0
+# The training mesh: the step cell's model and batch on a dp 4 × tp 2
+# mesh of the one card (8 ranks), so each K1/K2 shard is [4, 8, 1024,
+# 64]; each shard mode 2 warm and 3 timed steps from the same params.
+# The three modes compute the same bf16 products on the same shards,
+# sum the same gradient pieces in the same order and run the same
+# elementwise AdamW (only where the state is stored differs, and no
+# clip norm is taken), so their losses agree to the last bit; the bound
+# leaves one f32 ulp at a loss of ~10.4 and nothing for a misplaced
+# moment slice.  The card's allocation after init must equal the state
+# bytes the placement counts, up to ALLOC_SLACK a block: the caching
+# allocator rounds a block up and gives it a whole cached chunk unless
+# more than 1 MiB of the chunk would be left.
+MESH_RANKS, MESH_TP, MESH_WARM, MESH_STEPS = 8, 2, 2, 3
+MESH_MODES = ("none", "zero1", "fsdp")
+MESH_MODE_GAP = 1e-6
+ALLOC_SLACK = 1 << 20
 # What each kernel runs its bf16 products on (the kernels line's design).
 SPLIT_DESIGN = "split-kv cluster + mma.sync (f32: cuda-core fma)"
 TC_DESIGN = "wgmma+tma"
@@ -622,9 +641,12 @@ def check_attn_case(torch, F, attention, flush, *, label, b, h, hkv, s, d,
 
 
 def phase_attn_kernel_checks(torch, F, attention, flush):
-    """K1 in 17 cases; the first is the GQA generate path's prefill, the
+    """K1 in 19 cases; the first is the GQA generate path's prefill, the
     next two a layer of the training main path and of the long-sequence
-    recipe; the last at head_dim 96 (run zero-padded to 128)."""
+    recipe, the next two one rank's shard of the mesh step (dp 4 × tp 2:
+    [4, 8, 1024, 64]) and of its GQA form (16 q / 2 KV heads cut by tp
+    2: 8 q heads on 1 KV head); the last at head_dim 96 (run zero-padded
+    to 128)."""
     main = dict(b=GEN_BATCH, h=16, hkv=2, s=GEN_PROMPT, d=64,
                 dtype=torch.bfloat16)
     cases = [
@@ -632,6 +654,10 @@ def phase_attn_kernel_checks(torch, F, attention, flush):
         dict(main, label="train-main-path", b=TRAIN_BATCH, hkv=16, s=1024),
         dict(main, label="train-large", b=LARGE_BATCH, h=12, hkv=12, s=2048,
              d=128),
+        dict(main, label="mesh-shard", b=TRAIN_BATCH // 4, h=8, hkv=8,
+             s=1024),
+        dict(main, label="mesh-shard-gqa", b=TRAIN_BATCH // 4, h=8, hkv=1,
+             s=1024),
         dict(main, label="long-prompt", s=896),
         dict(main, label="seq-len", b=2, s=1024),
         dict(main, label="tail", b=2, s=1000),
@@ -757,15 +783,20 @@ def check_bwd_case(torch, F, attention, flush, *, label, b, h, hkv, s, d,
 
 
 def phase_bwd_kernel_checks(torch, F, attention, flush):
-    """K2 in 14 cases; the first is a layer of the training main path,
-    the second a layer of the long-sequence recipe; the last at head_dim
-    96 (run zero-padded to 128)."""
+    """K2 in 16 cases; the first is a layer of the training main path,
+    the second a layer of the long-sequence recipe, the next two one
+    rank's shard of the mesh step and of its GQA form (as K1's); the
+    last at head_dim 96 (run zero-padded to 128)."""
     gqa = dict(b=2, h=16, hkv=2, s=512, d=64, dtype=torch.bfloat16)
     cases = [
         dict(label="train-main-path", b=TRAIN_BATCH, h=16, hkv=16, s=1024,
              d=64, dtype=torch.bfloat16),
         dict(label="train-large", b=LARGE_BATCH, h=12, hkv=12, s=2048, d=128,
              dtype=torch.bfloat16),
+        dict(gqa, label="mesh-shard", b=TRAIN_BATCH // 4, h=8, hkv=8,
+             s=1024),
+        dict(gqa, label="mesh-shard-gqa", b=TRAIN_BATCH // 4, h=8, hkv=1,
+             s=1024),
         dict(gqa, label="gqa8"),
         dict(gqa, label="mqa", hkv=1),
         dict(gqa, label="window-256", s=1024, window=256),
@@ -2757,6 +2788,207 @@ def phase_ep_train_main_path(torch, np, attention, model, moe):
     return rec
 
 
+def _mesh_loss_and_grad_norm(torch, model, mesh, cfg, params, tokens):
+    """The mesh step's loss on ``params`` (Sharded trees) and the global
+    norm of its gradient, every block counted once."""
+    import dataclasses
+
+    loss_of = model._make_mesh_loss(mesh, cfg.resolved_for_mesh(mesh))
+    flat = dict(model._flatten(params))
+    live = {path: dataclasses.replace(leaf, blocks={
+        i: t.detach().requires_grad_() for i, t in leaf.blocks.items()})
+        for path, leaf in flat.items()}
+    leaves = [t for leaf in live.values() for t in leaf.blocks.values()]
+    loss = loss_of(model._unflatten(live), tokens)
+    grads = torch.autograd.grad(loss, leaves)
+    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    return loss.item(), norm.item()
+
+
+def phase_mesh_train_main_path(torch, np, attention, model):
+    """``model.make_sharded_train_step`` of the step cell (TRAIN_FULL,
+    batch TRAIN_BATCH) on a dp 4 × tp 2 mesh of MESH_RANKS ranks on the
+    one card, in each shard mode from the same params (seed 0) and batch
+    (numpy seed 1): the first-step loss and gradient norm against the
+    one-device ``make_train_step``'s; MESH_WARM warm and MESH_STEPS timed
+    steps whose launches are counted per step (K1 and each K2 kernel
+    once per rank per layer, K3-K6 never); one profiled step; the bytes
+    of params and optimizer state each rank stores as placed
+    (``model.rank_state_bytes``: a block once, on its first holder), and
+    the card's allocation after init.  The modes' losses must agree
+    within MESH_MODE_GAP, the loss must fall, the allocation must be the
+    counted bytes (all ranks share the card, so it is one copy of the
+    state in every mode), and the busiest rank's bytes must rank fsdp <
+    zero1 < none."""
+    cfg = model.ModelConfig(**TRAIN_FULL)
+    mesh = model.make_mesh(["cuda:0"] * MESH_RANKS, tp=MESH_TP)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (TRAIN_BATCH, cfg.seq_len + 1)).astype(np.int32)).cuda()
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, "cuda")
+    n_params = sum(p.numel() for _, p in model._flatten(params))
+    one = _loss_and_grad_norm(torch, model, params, tokens,
+                              lambda p, t: model.loss_fn(p, t, cfg))
+    del params
+    torch.cuda.empty_cache()
+    zero = dict.fromkeys(attention.LAUNCHES, 0)
+    per_step = MESH_RANKS * cfg.n_layers
+    want = {**zero, "flash_attention": per_step,
+            "flash_attention_bwd_dq": per_step,
+            "flash_attention_bwd_dkv": per_step}
+    flops = _train_flops(n_params, cfg, TRAIN_BATCH)
+    modes = {}
+    for shard in MESH_MODES:
+        init_fn, step_fn = model.make_sharded_train_step(mesh, cfg,
+                                                         shard=shard)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        card = torch.cuda.memory_allocated() - base
+        held = model.rank_state_bytes(mesh, params, opt)
+        n_blocks = sum(len(leaf.blocks) for tree in (params, opt["mu"],
+                                                     opt["nu"])
+                       for _, leaf in model._flatten(tree))
+        first = _mesh_loss_and_grad_norm(torch, model, mesh, cfg, params,
+                                         tokens)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, losses, launches, step_s = _train_steps(
+            torch, attention, step_fn, params, opt, tokens, MESH_WARM,
+            MESH_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = _profile_train(torch, step_fn, params, opt, tokens,
+                              f"mesh_{shard}", 1)
+        modes[shard] = dict(
+            first_loss=first[0], first_grad_norm=first[1],
+            step_ms=step_s * 1e3,
+            tokens_per_s=TRAIN_BATCH * cfg.seq_len / step_s,
+            mfu=flops / (step_s * BF16_OPS_PER_S), peak_memory_gb=peak,
+            device_idle_share=prof["device_idle_share"],
+            device_busy_ms=prof["device_busy_ms"],
+            kernel_launches_per_step=prof["kernel_launches"],
+            rank_state_bytes=held, card_state_bytes=card,
+            state_blocks=n_blocks, losses=losses,
+            launches_per_step=launches)
+        del params, opt, init_fn, step_fn
+        torch.cuda.empty_cache()
+    gap = max(abs(a - b) for m in modes.values()
+              for a, b in zip(m["losses"], modes["none"]["losses"]))
+    rec = dict(config=TRAIN_FULL, dtype="bfloat16", batch=TRAIN_BATCH,
+               mesh=dict(mesh.shape), ranks=MESH_RANKS, n_params=n_params,
+               shard_shape=[TRAIN_BATCH // (MESH_RANKS // MESH_TP),
+                            cfg.n_heads // MESH_TP, cfg.seq_len,
+                            cfg.head_dim],
+               warm_steps=MESH_WARM, timed_steps=MESH_STEPS,
+               single_device_first_loss=one[0],
+               single_device_first_grad_norm=one[1], modes=modes,
+               max_mode_loss_gap=gap, mode_loss_gap_bound=MESH_MODE_GAP,
+               launches_per_step=modes["none"]["launches_per_step"][-1],
+               expected_launches_per_step=want)
+    emit("mesh_train_main_path", **rec)
+    for shard, m in modes.items():
+        if any(n != want for n in m["launches_per_step"]):
+            raise AssertionError(f"mesh step ({shard}) launched "
+                                 f"{m['launches_per_step']}, want {want}")
+        if not all(np.isfinite(m["losses"])) \
+                or not m["losses"][-1] < m["losses"][0]:
+            raise AssertionError(f"mesh step ({shard}): loss not finite or "
+                                 f"did not fall: {m['losses']}")
+        if not (abs(m["first_loss"] - one[0]) <= TRAIN_LOSS_GAP
+                and abs(m["first_grad_norm"] - one[1])
+                <= TRAIN_GRAD_NORM_RTOL * one[1]):
+            raise AssertionError(
+                f"mesh step ({shard}): first loss {m['first_loss']}, grad "
+                f"norm {m['first_grad_norm']} vs one device {one}")
+    if not gap <= MESH_MODE_GAP:
+        raise AssertionError(f"mesh shard modes' losses differ by {gap}")
+    for shard, m in modes.items():
+        counted = sum(m["rank_state_bytes"])
+        if not counted <= m["card_state_bytes"] \
+                <= counted + ALLOC_SLACK * m["state_blocks"]:
+            raise AssertionError(
+                f"mesh step ({shard}): init allocated "
+                f"{m['card_state_bytes']} bytes on the card, the placement "
+                f"counts {counted} in {m['state_blocks']} blocks")
+    held = {shard: max(m["rank_state_bytes"]) for shard, m in modes.items()}
+    if not held["fsdp"] < held["zero1"] < held["none"]:
+        raise AssertionError(f"busiest rank's state bytes {held}: want "
+                             f"fsdp < zero1 < none")
+    return rec
+
+
+def phase_small_mesh(torch, np, attention, model):
+    """Small f32 models on a dp 4 × tp 2 mesh of the card (the kernel
+    route) against the one-device step (K1/K2 whole), 5 steps from the
+    same params and batches: losses within SMALL_TRAIN_LOSS_GAP and the
+    params after them within SMALL_SP_PARAM_RTOL of each leaf's largest
+    |value|; a MoE model (4 experts, top 2) in mode none, a GQA model
+    under fsdp, MHA under zero1, and MQA (one KV head, which tp 2 cannot
+    cut) under zero1.  Each mesh step must launch K1 and both K2
+    kernels once per rank per layer (MQA: once per data row per layer,
+    on the row's whole heads) and K3-K6 never."""
+    base = dict(vocab=256, d_model=128, n_layers=2, d_ff=256, seq_len=64,
+                dtype=torch.float32)
+    mesh = model.make_mesh(["cuda:0"] * MESH_RANKS, tp=MESH_TP)
+    rec = {}
+    for label, extra, shard, attends in (
+            ("moe-tp2-none", dict(n_heads=4, moe_experts=4, moe_top_k=2),
+             "none", MESH_RANKS),
+            ("gqa-fsdp", dict(n_heads=4, n_kv_heads=2), "fsdp", MESH_RANKS),
+            ("mha-zero1", dict(n_heads=4), "zero1", MESH_RANKS),
+            ("mqa-zero1", dict(n_heads=4, n_kv_heads=1), "zero1",
+             MESH_RANKS // MESH_TP)):
+        cfg = model.ModelConfig(**base, **extra)
+        per_step = attends * cfg.n_layers
+        want = {**dict.fromkeys(attention.LAUNCHES, 0),
+                "flash_attention": per_step,
+                "flash_attention_bwd_dq": per_step,
+                "flash_attention_bwd_dkv": per_step}
+        init_fn, one_step = model.make_train_step(cfg, device="cuda")
+        params, opt = init_fn(
+            torch.Generator(device="cuda").manual_seed(1))
+        _, mesh_step = model.make_sharded_train_step(mesh, cfg, shard=shard)
+        a = (params, opt)
+        b = (model.shard_params(mesh, cfg, params, shard),
+             model.shard_opt_state(mesh, cfg, opt, shard))
+        rng = np.random.default_rng(2)
+        losses = {"one_device": [], "mesh": []}
+        launches = []
+        for _ in range(5):
+            tokens = torch.from_numpy(rng.integers(0, 256, (8, 65)).astype(
+                np.int32)).cuda()
+            *a, la = one_step(*a, tokens)
+            attention.reset_launch_counts()
+            *b, lb = mesh_step(*b, tokens)
+            launches.append(dict(attention.LAUNCHES))
+            losses["one_device"].append(la.item())
+            losses["mesh"].append(lb.item())
+        got = dict(model._flatten(model.gather_params(mesh, b[0])))
+        param_err = max(
+            ((got[p] - t).abs().max() / t.abs().max()).item()
+            for p, t in model._flatten(a[0]))
+        rec[label] = dict(shard=shard, losses=losses, param_rel_err=param_err,
+                          max_gap=max(abs(x - y) for x, y in zip(
+                              losses["one_device"], losses["mesh"])),
+                          launches_per_step=launches[-1],
+                          expected_launches_per_step=want,
+                          launches_as_expected=all(n == want
+                                                   for n in launches))
+    emit("small_mesh", mesh=dict(mesh.shape), **rec)
+    for label, r in rec.items():
+        if not r["launches_as_expected"]:
+            raise AssertionError(f"f32 mesh steps ({label}): launched "
+                                 f"{r['launches_per_step']}, want "
+                                 f"{r['expected_launches_per_step']}")
+        if not r["max_gap"] <= SMALL_TRAIN_LOSS_GAP:
+            raise AssertionError(f"f32 mesh steps ({label}): losses differ "
+                                 f"from one device by {r['max_gap']}")
+        if not r["param_rel_err"] <= SMALL_SP_PARAM_RTOL:
+            raise AssertionError(f"f32 mesh steps ({label}): params differ "
+                                 f"from one device by {r['param_rel_err']}")
+
+
 def phase_small_moe_exact(torch, np, model, serving, paged, decode, moe):
     """A small f32 MoE model on the card: the kernel route and the einsum
     route give the same greedy tokens through the linear, ring and paged
@@ -3012,7 +3244,12 @@ def phase_cli(model, decode, DrainReceipt):
     train (20 steps, checkpoints every 10), resume to 30, drain (a
     checkpoint request in the annotations file: exit 0 with a
     checkpoint), and generate from the trainer's checkpoint; then the
-    same with ``train --sp 2 --sp-impl pallas`` (the kernel ring)."""
+    same with ``train --sp 2 --sp-impl pallas`` (the kernel ring) and
+    with ``train --tp 2 --shard fsdp`` (a dp 1 × tp 2 mesh on the card,
+    K1/K2 per shard).  Runs that share no checkpoint run at once, each a
+    process."""
+    import concurrent.futures
+
     import torch
 
     env = {**os.environ,
@@ -3059,70 +3296,70 @@ def phase_cli(model, decode, DrainReceipt):
         return os.path.join(tmp, name), params
 
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt, _ = checkpoint(model.ModelConfig(vocab=256, d_model=256,
+        d256, _ = checkpoint(model.ModelConfig(vocab=256, d_model=256,
                                                n_layers=2, seq_len=64),
                              "d256")
+        # --d-model 384 over the CLIs' 4 heads: head_dim 96, which no
+        # kernel is built for (K1 padded to 128, K3 at its true width).
+        d384, _ = checkpoint(model.ModelConfig(d_model=384), "d384")
+        # The CLIs' defaults: vocab 256, d_model 128, 2 layers, 4 heads.
+        cfg = model.ModelConfig()
+        defaults, params = checkpoint(cfg, "defaults")
         arch = ["--vocab", "256", "--d-model", "256", "--n-layers", "2",
                 "--seq-len", "64", "--slots", "2", "--max-len", "128",
                 "--chunk", "16"]
-        serve(ckpt, "linear", arch)
         paged_flags = arch + ["--paged", "--block-size", "16",
                               "--max-new-tokens", "48"]
-        serve(ckpt, "paged", paged_flags + ["--num-blocks", "6"])
-        # Speculative serving (the first layer drafts), and request
-        # tracing on the preempting pool: every request traced.
-        serve(ckpt, "paged-spec", paged_flags + [
-            "--spec-k", "4", "--draft-layers", "1"],
-            expect=["speculative: accept_rate"])
-        traced = serve(ckpt, "paged-trace", paged_flags + [
-            "--num-blocks", "6", "--trace-sample", "1.0", "--slo-ticks", "4"])
-        if traced.get("trace", {}).get("sampled_total") != 6:
-            raise AssertionError(f"serve --trace-sample 1.0 receipt's trace: "
-                                 f"{traced.get('trace')}")
-        res = subprocess.run(serve_cmd(ckpt, arch + ["--spec-k", "4"]),
-                             capture_output=True, text=True, env=env,
-                             cwd=ROOT, timeout=600)
-        emit("cli", command="serve", cache="spec-without-paged",
-             exit_code=res.returncode, error=res.stderr.strip()[-200:])
-        if res.returncode != 2 or "add --paged" not in res.stderr:
-            raise AssertionError(f"serve --spec-k without --paged exited "
-                                 f"{res.returncode}: {res.stderr[-2000:]}")
-        # --d-model 384 over the CLIs' 4 heads: head_dim 96, which no
-        # kernel is built for (K1 padded to 128, K3 at its true width).
-        ckpt, _ = checkpoint(model.ModelConfig(d_model=384), "d384")
-        serve(ckpt, "linear-d384", ["--d-model", "384"], requests=4)
-        # The CLIs' defaults: vocab 256, d_model 128, 2 layers, 4 heads.
-        cfg = model.ModelConfig()
-        ckpt, params = checkpoint(cfg, "defaults")
         prompt = [5, 17, 42, 9, 200]
-        dt, lines = run([sys.executable, "-m",
-                         "tpu_autoscaler_torch.workloads.generate",
-                         "--checkpoint-dir", ckpt, "--prompt",
-                         ",".join(map(str, prompt)), "--batch", "2",
-                         "--steps", "8", "--platform", "cuda"],
-                        "generate CLI")
-        want = decode.generate(params, torch.tensor([prompt] * 2), cfg,
-                               8).tolist()
-        want_lines = [f"{','.join(map(str, row[:5]))} | "
-                      f"{','.join(map(str, row[5:]))}" for row in want]
-        emit("cli", command="generate", head_dim=cfg.head_dim, seconds=dt,
-             lines=lines, in_process=want_lines)
-        if lines != want_lines:
-            raise AssertionError(f"generate CLI printed {lines}, "
-                                 f"in-process {want_lines}")
-        serve(ckpt, "linear-defaults", [])
+
+        def traced():
+            # Request tracing on the preempting pool: every request traced.
+            payload = serve(d256, "paged-trace", paged_flags + [
+                "--num-blocks", "6", "--trace-sample", "1.0",
+                "--slo-ticks", "4"])
+            if payload.get("trace", {}).get("sampled_total") != 6:
+                raise AssertionError(f"serve --trace-sample 1.0 receipt's "
+                                     f"trace: {payload.get('trace')}")
+
+        def spec_refused():
+            res = subprocess.run(serve_cmd(d256, arch + ["--spec-k", "4"]),
+                                 capture_output=True, text=True, env=env,
+                                 cwd=ROOT, timeout=600)
+            emit("cli", command="serve", cache="spec-without-paged",
+                 exit_code=res.returncode, error=res.stderr.strip()[-200:])
+            if res.returncode != 2 or "add --paged" not in res.stderr:
+                raise AssertionError(f"serve --spec-k without --paged exited "
+                                     f"{res.returncode}: {res.stderr[-2000:]}")
+
+        def generate(ckpt, what, want_params, expect=()):
+            """The generate CLI on ``ckpt`` must print the tokens
+            decode.generate gives in-process from ``want_params``."""
+            dt, lines = run([sys.executable, "-m",
+                             "tpu_autoscaler_torch.workloads.generate",
+                             "--checkpoint-dir", ckpt, "--prompt",
+                             ",".join(map(str, prompt)), "--batch", "2",
+                             "--steps", "8", "--platform", "cuda"],
+                            f"generate CLI on {what}", expect)
+            want = decode.generate(want_params(), torch.tensor([prompt] * 2),
+                                   cfg, 8).tolist()
+            want_lines = [f"{','.join(map(str, row[:5]))} | "
+                          f"{','.join(map(str, row[5:]))}" for row in want]
+            emit("cli", command="generate", checkpoint=what,
+                 head_dim=cfg.head_dim, seconds=dt, lines=lines,
+                 in_process=want_lines)
+            if lines != want_lines:
+                raise AssertionError(f"generate CLI printed {lines} from "
+                                     f"{what}, in-process {want_lines}")
 
         # The train CLI at its defaults: train, resume, drain; then the
-        # generate CLI on the trainer's last checkpoint.  Once on one
-        # device, once with the sequence over 2 ranks (the kernel ring).
+        # generate CLI on the trainer's last checkpoint.  On one device,
+        # with the sequence over 2 ranks (the kernel ring) and over a
+        # dp 1 × tp 2 mesh with FSDP state (K1/K2 per shard).
         drain = os.path.join(tmp, "drain-annotations")
         with open(drain, "w") as f:
             f.write('autoscaler.tpu.dev/checkpoint-requested="1"\n')
 
-        for label, flags, first in (
-                ("", [], []),
-                ("sp ", ["--sp", "2", "--sp-impl", "pallas"],
-                 ["sp 2 ranks (pallas)"])):
+        def train_chain(label, flags, first):
             tdir = os.path.join(tmp, f"train{label.strip()}")
 
             def train(steps, annotations, what, expect):
@@ -3148,25 +3385,37 @@ def phase_cli(model, decode, DrainReceipt):
             if sorted(os.listdir(tdir)) != ["step_10", "step_20", "step_30"]:
                 raise AssertionError(f"{label}train CLI left "
                                      f"{os.listdir(tdir)}")
-            dt, lines = run([sys.executable, "-m",
-                             "tpu_autoscaler_torch.workloads.generate",
-                             "--checkpoint-dir", tdir, "--prompt",
-                             ",".join(map(str, prompt)), "--batch", "2",
-                             "--steps", "8", "--platform", "cuda"],
-                            f"generate CLI on the {label}trainer's "
-                            f"checkpoint", ["loaded step 30"])
-            want = decode.generate(model.load_params(tdir, 30, "cuda"),
-                                   torch.tensor([prompt] * 2), cfg,
-                                   8).tolist()
-            want_lines = [f"{','.join(map(str, row[:5]))} | "
-                          f"{','.join(map(str, row[5:]))}" for row in want]
-            emit("cli", command="generate",
-                 checkpoint=f"{label}train step_30", seconds=dt, lines=lines,
-                 in_process=want_lines)
-            if lines != want_lines:
-                raise AssertionError(f"generate CLI printed {lines} from the "
-                                     f"{label}trainer's checkpoint, "
-                                     f"in-process {want_lines}")
+            generate(tdir, f"{label}train step_30",
+                     lambda: model.load_params(tdir, 30, "cuda"),
+                     ["loaded step 30"])
+
+        # Every run reads or writes its own checkpoint: they run at once,
+        # each a process.
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            jobs = [
+                pool.submit(train_chain, "", [], []),
+                pool.submit(train_chain, "sp ",
+                            ["--sp", "2", "--sp-impl", "pallas"],
+                            ["sp 2 ranks (pallas)"]),
+                pool.submit(train_chain, "mesh ",
+                            ["--tp", "2", "--shard", "fsdp"],
+                            ["mesh {'data': 1, 'model': 2}, shard fsdp on "
+                             "cuda:0, cuda:0", "attention kernel"]),
+                pool.submit(serve, d256, "linear", arch),
+                pool.submit(serve, d256, "paged",
+                            paged_flags + ["--num-blocks", "6"]),
+                # Speculative serving: the first layer drafts.
+                pool.submit(serve, d256, "paged-spec", paged_flags + [
+                    "--spec-k", "4", "--draft-layers", "1"],
+                    expect=["speculative: accept_rate"]),
+                pool.submit(traced), pool.submit(spec_refused),
+                pool.submit(serve, d384, "linear-d384", ["--d-model", "384"],
+                            requests=4),
+                pool.submit(generate, defaults, "the defaults checkpoint",
+                            lambda: params),
+                pool.submit(serve, defaults, "linear-defaults", [])]
+            for job in jobs:
+                job.result()
 
 
 def main() -> None:
@@ -3256,10 +3505,12 @@ def main() -> None:
         torch, np, attention, model, "moe_step", TRAIN_MOE, TRAIN_BATCH,
         TRAIN_WARM, TRAIN_STEPS, 1, compare=True)
     ep_rec = phase_ep_train_main_path(torch, np, attention, model, moe)
+    mesh_rec = phase_mesh_train_main_path(torch, np, attention, model)
     phase_small_exact(torch, np, model, serving, paged, decode, spec_serving)
     phase_small_moe_exact(torch, np, model, serving, paged, decode, moe)
     phase_small_train(torch, np, model)
     phase_small_sp(torch, np, model, sp, decode)
+    phase_small_mesh(torch, np, attention, model)
     sp_ep_rec = phase_small_sp_ep(torch, np, attention, model, sp)
     trained_rec = phase_spec_trained(torch, np, attention, model, decode,
                                      dataio, paged, serving, spec_serving)
@@ -3309,6 +3560,27 @@ def main() -> None:
         tflops=at_train["tflops"], max_abs_err=at_train["max_abs_err"],
         launches=train_rec["launches_per_step"]["flash_attention"],
         launches_per="train step")
+    # K1 and K2 per shard of the mesh step: one rank's shard and its GQA
+    # form, launches per mesh train step (all 8 ranks).
+    def mesh_shard(checks, part=None, grads=None):
+        out = {}
+        for case in ("mesh-shard", "mesh-shard-gqa"):
+            c = next(c for c in checks if c["case"] == case)
+            key = "" if part is None else f"_{part}"
+            err = c["max_abs_err"] if grads is None else max(
+                c["max_abs_err"][g] for g in grads)
+            out[case] = dict(shape=c["shape"], ms=c[f"ms{key}"],
+                             plain_ms=c["plain_ms"],
+                             bound_ms=c[f"bound_ms{key}"],
+                             bound_by=c[f"bound_by{key}"],
+                             library_ms=c["library_ms"], max_abs_err=err,
+                             tflops=c[f"tflops{key}"])
+        return out
+
+    kernels[0]["mesh_shard"] = dict(
+        mesh_shard(attn_checks),
+        launches=mesh_rec["launches_per_step"]["flash_attention"],
+        launches_per="mesh train step (dp 4 x tp 2, 8 ranks)")
     # K2: each kernel at a layer of the training main path, its launches
     # per train step; plain and library times are the whole backward's
     # (neither splits into the two kernels).
@@ -3329,7 +3601,11 @@ def main() -> None:
             library_ms=at_main["library_ms"],
             plain_and_library_scope="whole backward",
             tflops=at_main[f"tflops_{part}"],
-            cases_passed=len(bwd_checks), shape=at_main["shape"]))
+            cases_passed=len(bwd_checks), shape=at_main["shape"],
+            mesh_shard=dict(
+                mesh_shard(bwd_checks, part, grads),
+                launches=mesh_rec["launches_per_step"][kname],
+                launches_per="mesh train step (dp 4 x tp 2, 8 ranks)")))
     # K5 and K6: each kernel at the SP main path's unmasked hop (its
     # diagonal hop beside it), launches per SP train step; K6's plain and
     # library times are the whole backward hop's.

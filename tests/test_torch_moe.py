@@ -378,7 +378,7 @@ def test_ep_mesh_grid_and_refusals():
     assert moe.make_ep_mesh(["cpu"] * 4) == [[torch.device("cpu")] * 4]
     with pytest.raises(ValueError, match="not divisible by ep"):
         moe.make_ep_mesh(["cpu"] * 6, ep=4)
-    with pytest.raises(ValueError, match="Queue 1: the mesh"):
+    with pytest.raises(ValueError, match="Queue 1: EP and the SP"):
         moe.make_ep_mesh(["cpu"] * 4, ep=2, tp=2)
     _, tcfg = _cfgs()
     with pytest.raises(ValueError, match="moe_experts"):
@@ -589,4 +589,5 @@ def test_train_cli_ep_with_tp_names_the_mesh(tmp_path):
         "--platform", "cpu", "--steps", "1", "--checkpoint-dir",
         str(tmp_path), "--ep", "2", "--moe-experts", "4", "--tp", "2"])
     assert res.exit_code == 2
-    assert "ROADMAP.md, Queue 1: the mesh" in " ".join(res.output.split())
+    assert "ROADMAP.md, Queue 1: EP and the SP compositions" in " ".join(
+        res.output.split())

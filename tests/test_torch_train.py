@@ -253,18 +253,20 @@ def test_remat_gradient_equals_plain_gradient():
 
 
 def test_moe_and_sharded_modes_name_their_slice():
-    """MoE trains on one device; what needs the mesh (ep×tp, the sharded
-    state modes) names it."""
+    """MoE trains on one device and the sharded state modes run there
+    (a one-device mesh); ep×tp names the item that brings it."""
     cfg = model.ModelConfig(**ARCH, dtype=torch.float32, moe_experts=4)
     params = model.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     loss, metrics = model.loss_and_metrics(params, torch.from_numpy(
         _tokens()), cfg)
     assert float(loss) > float(metrics["ce"]) > 0
-    with pytest.raises(ValueError, match="Queue 1: the mesh"):
+    with pytest.raises(ValueError, match="Queue 1: EP and the SP"):
         moe.make_ep_mesh(["cpu"] * 4, ep=2, tp=2)
-    with pytest.raises(ValueError, match="Queue 1: the mesh"):
-        model.make_train_step(model.ModelConfig(), device="cpu",
-                              shard="fsdp")
+    init_fn, step_fn = model.make_train_step(cfg, device="cpu",
+                                             shard="fsdp")
+    params, opt = init_fn(torch.Generator().manual_seed(0))
+    params, opt, loss = step_fn(params, opt, _tokens())
+    assert opt["count"] == 1 and np.isfinite(float(loss))
 
 
 # -- TrainConfig, schedules and the optimizer against optax -------------
@@ -759,19 +761,15 @@ def test_cli_bad_n_kv_heads_is_rejected(tmp_path):
     assert not os.listdir(tmp_path)
 
 
-MESH, PP = "the mesh", "pipeline parallelism"
+COMPOSE, PP = "EP and the SP compositions", "pipeline parallelism"
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tp", "2"], MESH),
-    (["--ep", "2", "--moe-experts", "4", "--tp", "2"], MESH),
-    (["--pp-stages", "2"], PP),
-    (["--zero1"], MESH), (["--shard", "fsdp"], MESH),
-    (["--shard", "zero1"], MESH), (["--sp", "2", "--shard", "zero1"], MESH),
-    (["--sp", "2", "--tp", "2"], MESH),
-    (["--moe-experts", "4", "--sp", "2", "--tp", "2"], MESH)],
-    ids=["tp", "ep", "pp", "zero1", "fsdp", "shard-zero1", "sp", "sp-tp",
-         "moe"])
+    (["--ep", "2", "--moe-experts", "4", "--tp", "2"], COMPOSE),
+    (["--pp-stages", "2"], PP), (["--sp", "2", "--shard", "zero1"], COMPOSE),
+    (["--sp", "2", "--tp", "2"], COMPOSE),
+    (["--moe-experts", "4", "--sp", "2", "--tp", "2"], COMPOSE)],
+    ids=["ep", "pp", "sp", "sp-tp", "moe"])
 def test_cli_refuses_unported_parallelism(tmp_path, flags, item):
     """Each refusal names the ROADMAP.md Queue 1 item that brings it."""
     res = CliRunner().invoke(train_cli.main, [
@@ -780,6 +778,28 @@ def test_cli_refuses_unported_parallelism(tmp_path, flags, item):
     assert res.exit_code == 2, res.output
     assert f"Queue 1: {item}" in " ".join(res.output.split())
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("flags,mesh", [
+    (["--tp", "2"], "{'data': 1, 'model': 2}, shard none"),
+    (["--zero1"], "{'data': 1, 'model': 1}, shard zero1"),
+    (["--shard", "fsdp"], "{'data': 1, 'model': 1}, shard fsdp"),
+    (["--shard", "zero1", "--tp", "2"],
+     "{'data': 1, 'model': 2}, shard zero1")],
+    ids=["tp", "zero1", "fsdp", "shard-zero1"])
+def test_cli_runs_the_mesh_flags(tmp_path, caplog, flags, mesh):
+    """--tp, --zero1 and --shard train on the (data, model) mesh (ranks
+    repeat the one CPU) and checkpoint the one-device layout."""
+    caplog.set_level("INFO")
+    res = CliRunner().invoke(train_cli.main, [
+        "--platform", "cpu", "--vocab", "64", "--d-model", "32",
+        "--n-layers", "1", "--seq-len", "16", "--batch", "4", "--steps",
+        "2", "--checkpoint-dir", str(tmp_path), *flags])
+    assert res.exit_code == 0, res.output
+    assert f"mesh {mesh} on cpu" in caplog.text
+    assert os.listdir(tmp_path) == ["step_2"]
+    params = model.load_params(str(tmp_path), 2, "cpu")
+    assert tuple(params["blocks"]["qkv"].shape) == (1, 32, 96)
 
 
 def test_cli_refuses_a_missing_gpu(tmp_path, monkeypatch):

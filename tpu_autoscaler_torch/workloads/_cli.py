@@ -53,3 +53,30 @@ def model_config(vocab, seq_len, d_model, n_layers, n_kv_heads,
                        attention_window=attention_window,
                        rope=not no_rope, moe_experts=moe_experts,
                        moe_top_k=moe_top_k, **extra)
+
+
+def device_count(platform: str) -> int:
+    """The devices a serving command could spread over: the visible CUDA
+    cards, or the one CPU."""
+    if platform == "cpu":
+        return 1
+    import torch
+
+    return torch.cuda.device_count()
+
+
+def refuse_tp(tp_degree, n_devices: int) -> None:
+    """``--tp`` of serve and generate, checked in the JAX CLIs' order:
+    None or 1 serves on one device; a degree that does not divide the
+    devices is refused in the JAX CLIs' words; any other degree > 1
+    needs serving under a mesh, which waits for ROADMAP.md, Queue 1:
+    the mesh."""
+    if tp_degree is None or tp_degree <= 1:
+        return
+    if n_devices % tp_degree:
+        raise click.UsageError(
+            f"--tp {tp_degree} must divide the {n_devices} available "
+            f"devices")
+    raise click.UsageError(
+        f"--tp {tp_degree} serves under a (data, model) mesh, which is not "
+        f"ported yet (ROADMAP.md, Queue 1: the mesh)")

@@ -472,6 +472,31 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return flash_attention_forward(q, k, v, causal=causal, window=window)[0]
 
 
+def make_sharded_flash_attention(mesh, *, causal: bool = True,
+                                 window: int | None = None):
+    """K1 forward and K2 backward per shard of a mesh held in one
+    process (``model.Mesh``): the JAX package's shard_map wrapper.
+    Attention is embarrassingly parallel over batch and heads, so
+    ``attn(qs, ks, vs) -> outs`` takes one shard per rank of the mesh,
+    in rank order, each on its rank's device and already cut: q [b', h',
+    s, d], k/v [b', hkv', s, d] with whole KV-head groups (on the
+    training mesh b/dp and h/tp, hkv/tp), and runs
+    :func:`flash_attention` on each: no collectives."""
+
+    def attn(qs, ks, vs):
+        if not len(qs) == len(ks) == len(vs) == mesh.size:
+            raise ValueError(
+                f"need one q, k and v shard per rank of the {mesh.size}-rank "
+                f"mesh, got {len(qs)}, {len(ks)}, {len(vs)}")
+        if len({(tuple(q.shape), tuple(k.shape)) for q, k in zip(qs, ks)}) > 1:
+            raise ValueError("every rank's shard must have one shape")
+        return [flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                causal=causal, window=window)
+                for q, k, v in zip(qs, ks, vs)]
+
+    return attn
+
+
 def _check_backward_args(q, o, lse, do) -> None:
     b, h, s, _ = q.shape
     for name, t in (("out", o), ("do", do)):

@@ -11,7 +11,8 @@ The model flags must match the checkpoint (shared block in _cli.py); the
 prompt is token ids (comma-separated) or random with ``--prompt-len``
 (drawn with numpy from ``--seed``).  Generation runs on CUDA unless
 ``--platform cpu`` is given; without a GPU it refuses to start rather
-than run on the CPU.
+than run on the CPU.  ``--tp`` None or 1 generates on one device;
+generating under a mesh (> 1) waits for ROADMAP.md, Queue 1: the mesh.
 """
 
 from __future__ import annotations
@@ -23,8 +24,10 @@ import click
 import numpy as np
 
 from tpu_autoscaler_torch.workloads._cli import (
+    device_count,
     model_arch_options,
     model_config,
+    refuse_tp,
 )
 
 log = logging.getLogger(__name__)
@@ -73,13 +76,20 @@ def _check_tree(params: dict, cfg) -> None:
               help="Nucleus sampling: keep the smallest token set with "
                    "cumulative probability >= this.")
 @click.option("--seed", default=0, show_default=True)
+@click.option("--tp", "tp_degree", default=None, type=int,
+              help="Serve under a (data, model) mesh via "
+                   "make_sharded_generate: prompts shard over data, "
+                   "params + KV cache over 'model' (the trainer's TP "
+                   "layout).  Default: single-device.  > 1 is not ported "
+                   "yet (ROADMAP.md, Queue 1: the mesh).")
 @model_arch_options
 @click.option("--platform", default="cuda", show_default=True,
               type=click.Choice(["cuda", "cpu"]),
               help="Device to generate on.")
 def main(checkpoint_dir, steps, prompt, prompt_len, batch, temperature,
-         top_k, top_p, seed, vocab, seq_len, d_model, n_layers, n_kv_heads,
-         attention_window, no_rope, moe_experts, moe_top_k, platform):
+         top_k, top_p, seed, tp_degree, vocab, seq_len, d_model, n_layers,
+         n_kv_heads, attention_window, no_rope, moe_experts, moe_top_k,
+         platform):
     """Generate tokens from the latest checkpoint in --checkpoint-dir."""
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(levelname)s: %(message)s")
@@ -131,6 +141,7 @@ def main(checkpoint_dir, steps, prompt, prompt_len, batch, temperature,
         tokens = np.random.default_rng(seed).integers(
             0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
 
+    refuse_tp(tp_degree, device_count(platform))
     generator = (torch.Generator(device=device).manual_seed(seed)
                  if temperature > 0 else None)
     out = generate(params, torch.from_numpy(tokens), cfg, steps,

@@ -1,18 +1,20 @@
 """The in-tree decoder-only transformer LM, on PyTorch.
 
-The counterpart of the JAX package's ``workloads/model.py`` without the
-mesh: the same ``ModelConfig`` fields, the same stacked parameter layout
-(leading dim = layer; packed ``qkv`` of width
-``d + 2*kv_heads*head_dim``), and the same block math, so a JAX
-parameter tree carries across one to one (``params_from_jax``) and the
-tests can hold every function to its JAX twin.  The training half is
-the loss (``loss_and_metrics``, with the chunked cross-entropy),
-``TrainConfig`` and its hand-written schedules, ``make_optimizer``
-(optax's clip + adamw inside ``MultiSteps``, over plain tensors) and
-``make_train_step``, the single-device ``make_sharded_train_step``.
-With ``moe_experts`` set, every block's MLP is a top-k mixture of
-experts (``moe_ffn``, routed by ``moe.route_topk``) and the loss adds
-the weighted router losses.
+The counterpart of the JAX package's ``workloads/model.py``: the same
+``ModelConfig`` fields, the same stacked parameter layout (leading dim =
+layer; packed ``qkv`` of width ``d + 2*kv_heads*head_dim``), and the
+same block math, so a JAX parameter tree carries across one to one
+(``params_from_jax``) and the tests can hold every function to its JAX
+twin.  The training half is the loss (``loss_and_metrics``, with the
+chunked cross-entropy), ``TrainConfig`` and its hand-written schedules,
+``make_optimizer`` (optax's clip + adamw inside ``MultiSteps``, over
+plain tensors), ``make_train_step`` on one device and
+``make_sharded_train_step`` over a (data, model) mesh (``make_mesh``):
+Megatron tensor parallelism over ``model``, the batch over the data
+axes, and the state replicated, its AdamW moments cut over data
+(ZeRO-1) or everything cut over data (FSDP).  With ``moe_experts`` set,
+every block's MLP is a top-k mixture of experts (``moe_ffn``, routed by
+``moe.route_topk``) and the loss adds the weighted router losses.
 
 bf16 compute over f32 master parameters, as in the JAX package.  The
 numbers follow the JAX code where the two frameworks would otherwise
@@ -23,7 +25,10 @@ approximation (``jax.nn.gelu``'s default).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
+import logging
 import math
 import os
 from typing import Any
@@ -36,13 +41,17 @@ from torch.utils.checkpoint import checkpoint
 from tpu_autoscaler_torch.workloads.attention import (
     causal_band_mask,
     flash_attention,
+    make_sharded_flash_attention,
 )
 from tpu_autoscaler_torch.workloads.moe import (
+    _ranks_loss,
     combine as moe_combine,
     dispatch as moe_dispatch,
     expert_mlp,
     route_topk,
 )
+
+log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +141,26 @@ class ModelConfig:
             return self.attention
         return "kernel" if device.type == "cuda" else "einsum"
 
+    def mesh_shardable(self, mesh: "Mesh") -> bool:
+        """Whether attention can be cut by heads under ``mesh``: every
+        model rank must hold whole KV-head groups, so both n_heads and
+        kv_heads must divide by the 'model' axis size (which also keeps
+        each rank's query heads aligned to its own KV heads).  When they
+        do not, the step gathers qkv per data row and attends over whole
+        heads instead (:func:`_mesh_layer`)."""
+        tp = mesh.shape.get("model", 1)
+        return self.n_heads % tp == 0 and self.kv_heads % tp == 0
+
+    def resolved_for_mesh(self, mesh: "Mesh") -> "ModelConfig":
+        """The config a mesh-sharded step should build: 'auto' resolved
+        on the mesh's ranks (:meth:`resolved_attention`: the kernel on
+        CUDA, the einsum off it).  Unlike the JAX package, whose
+        shard_map needs heads that divide, the kernel runs under any
+        mesh: on head shards when :meth:`mesh_shardable` holds, else on
+        each data row's whole heads."""
+        return dataclasses.replace(
+            self, attention=self.resolved_attention(mesh.ranks[0]))
+
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
@@ -151,6 +180,15 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' (--platform cpu) "
             "to run on the CPU")
+    return dev
+
+
+def _device(dev) -> torch.device:
+    """``dev`` as a torch.device with its index (a bare "cuda" is the
+    current card), so ranks on one card compare equal."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -308,20 +346,23 @@ def _rmsnorm(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
 
 
 def _split_qkv(y: torch.Tensor, layer_qkv: torch.Tensor,
-               cfg: ModelConfig):
+               cfg: ModelConfig, heads: tuple[int, int] | None = None):
     """Project [b, s, d] through the packed qkv weight -> q [b, h, s, hd],
-    k/v [b, hkv, s, hd] (q | k | v, split at [d, d + hkv*hd])."""
-    b, s, d = y.shape
-    h, hd, hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    k/v [b, hkv, s, hd] (q | k | v, split at [h*hd, (h + hkv)*hd]).
+    ``heads``: (h, hkv) of a tensor-parallel rank's head-aligned columns
+    (:func:`_qkv_order`); default the config's."""
+    b, s, _ = y.shape
+    h, hkv = heads or (cfg.n_heads, cfg.kv_heads)
+    hd = cfg.head_dim
     qkv = y @ layer_qkv.to(cfg.dtype)
-    q, k, v = torch.split(qkv, [d, hkv * hd, hkv * hd], dim=-1)
+    q, k, v = torch.split(qkv, [h * hd, hkv * hd, hkv * hd], dim=-1)
     q = q.reshape(b, s, h, hd).transpose(1, 2)
     k = k.reshape(b, s, hkv, hd).transpose(1, 2)
     v = v.reshape(b, s, hkv, hd).transpose(1, 2)
     return q, k, v
 
 
-def moe_ffn(y: torch.Tensor, layer: dict, cfg: ModelConfig):
+def moe_ffn(y: torch.Tensor, layer: dict, cfg: ModelConfig, experts=None):
     """Top-k MoE FFN over [b, s, d] normed activations.
 
     Routing is ``moe.route_topk`` on f32 logits of the f32 activations
@@ -331,15 +372,21 @@ def moe_ffn(y: torch.Tensor, layer: dict, cfg: ModelConfig):
     combine gathers each token's k outputs gate-weighted.  Rows route
     independently, so a chunk's pad tokens take capacity only in their
     own row.  Returns (out [b, s, d], aux) with the balance and z
-    losses averaged over rows."""
+    losses averaged over rows.  ``experts(buf) -> out_buf``, when given,
+    replaces the expert MLPs over the [b, E, cap, d] buffers (the
+    tensor-parallel step sums them over the model ranks); ``layer`` then
+    needs only the router."""
     b, s, d = y.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
     cap = max(1, int(cfg.moe_capacity_factor * s * k / E))
     logits = y.float() @ layer["router"].float()             # [b, s, E]
     expert, rank, gate, keep, aux = route_topk(logits, k, cap)
     buf = moe_dispatch(y, expert, rank, keep, E, cap)        # [b, E, cap, d]
-    out_buf = expert_mlp(buf, layer["w1"].to(cfg.dtype),
-                         layer["w2"].to(cfg.dtype))
+    if experts is not None:
+        out_buf = experts(buf)
+    else:
+        out_buf = expert_mlp(buf, layer["w1"].to(cfg.dtype),
+                             layer["w2"].to(cfg.dtype))
     out = moe_combine(out_buf, expert, rank, gate, keep)
     return out, {"balance_loss": aux["balance_loss"].mean(),
                  "z_loss": aux["z_loss"].mean()}
@@ -356,6 +403,29 @@ def _ffn_residual(x: torch.Tensor, y: torch.Tensor, layer: dict,
     return x + hdn @ layer["w2"].to(cfg.dtype)
 
 
+def _einsum_attention(q, k, v, cfg: ModelConfig) -> torch.Tensor:
+    """The grouped einsum (n = KV head, g = query heads per KV head):
+    GQA without repeating K/V, masked by the causal band, the softmax in
+    f32 -> [b, h, s, hd] in the compute dtype."""
+    b, h, s, hd = q.shape
+    hkv = k.shape[1]
+    qg = q.reshape(b, hkv, h // hkv, s, hd)
+    scores = torch.einsum("bngqd,bnkd->bngqk", qg, k) / math.sqrt(hd)
+    mask = causal_band_mask(s, cfg.attention_window, q.device)
+    scores = torch.where(mask, scores.float(), -1e30)
+    probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
+    return torch.einsum("bngqk,bnkd->bngqd", probs, v).reshape(b, h, s, hd)
+
+
+def _attend(q, k, v, cfg: ModelConfig, kernel: bool) -> torch.Tensor:
+    """Causal (windowed) attention of rotated q [b, h, s, hd] over k/v
+    [b, hkv, s, hd]: the flash_attention kernel or the grouped einsum."""
+    if kernel:
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=True, window=cfg.attention_window)
+    return _einsum_attention(q, k, v, cfg)
+
+
 def _attention_residual(x: torch.Tensor, layer: dict,
                         cfg: ModelConfig) -> torch.Tensor:
     """The attention half of a block over x [batch, seq, d_model] in
@@ -363,32 +433,20 @@ def _attention_residual(x: torch.Tensor, layer: dict,
     kernel when the config resolves to it on x's device, else the
     grouped einsum with the band mask."""
     b, s, d = x.shape
-    h, hd, hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     y = _rmsnorm(x, layer["ln1"])
     q, k, v = _split_qkv(y, layer["qkv"], cfg)
     if cfg.rope:
         q = _rope(q, cfg.rope_theta)
         k = _rope(k, cfg.rope_theta)
-    if cfg.resolved_attention(x.device) == "kernel":
-        attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=True, window=cfg.attention_window)
-    else:
-        # Grouped einsum (n = KV head, g = query heads per KV head): GQA
-        # without repeating K/V.
-        qg = q.reshape(b, hkv, h // hkv, s, hd)
-        scores = torch.einsum("bngqd,bnkd->bngqk", qg, k) / math.sqrt(hd)
-        mask = causal_band_mask(s, cfg.attention_window, x.device)
-        scores = torch.where(mask, scores.float(), -1e30)
-        probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
-        attn = torch.einsum("bngqk,bnkd->bngqd", probs, v).reshape(
-            b, h, s, hd)
-    attn = attn.transpose(1, 2).reshape(b, s, d)
+    kernel = cfg.resolved_attention(x.device) == "kernel"
+    attn = _attend(q, k, v, cfg, kernel).transpose(1, 2).reshape(b, s, d)
     return x + attn @ layer["attn_out"].to(cfg.dtype)
 
 
 def _block(x: torch.Tensor, layer: dict, cfg: ModelConfig):
     """One transformer block over x [batch, seq, d_model] in compute
-    dtype, without the JAX package's mesh branch and ``ffn`` hook.
+    dtype, without the JAX package's ``ffn`` hook (its mesh branch is
+    :func:`_mesh_layer`).
     Returns ``(x, aux)``; aux holds the MoE router losses, zeros for
     the dense FFN."""
     x = _attention_residual(x, layer, cfg)
@@ -601,12 +659,16 @@ class Optimizer:
         return self._sched(count * self.train.accum_steps)
 
     def _clip(self, grads: dict) -> dict:
+        # The leaves may lie on several devices (a mesh's blocks): the
+        # norm is summed on the first leaf's and read back on each.
         leaves = [g for _, g in _flatten(grads)]
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in leaves))
+        dev = leaves[0].device
+        norm = torch.sqrt(sum(torch.sum(g * g).to(dev) for g in leaves))
         max_norm = self.train.grad_clip
         keep = norm < max_norm
         return _map_tree(
-            lambda g: torch.where(keep, g, g / norm * max_norm), grads)
+            lambda g: torch.where(keep.to(g.device), g,
+                                  g / norm.to(g.device) * max_norm), grads)
 
     def _adamw(self, grads: dict, state: dict, params: dict):
         t = self.train
@@ -661,6 +723,693 @@ def apply_updates(params: dict, updates: dict) -> dict:
     return _map_tree(lambda p, u: p + u, params, updates)
 
 
+# ---- sharding -----------------------------------------------------------
+#
+# The JAX package declares its (data, model) layout with NamedSharding
+# and lets XLA place the collectives.  Here one process holds the mesh as
+# a grid of devices (a device may repeat, so ranks share a card, as the
+# JAX tests' virtual CPU devices do), every tensor of the state lives as
+# the blocks its partition spec cuts it into (Sharded), the Megatron
+# products run on the model ranks of each data row, and the collectives
+# are ``.to()`` copies, cats and adds, which autograd transposes.
+
+
+class P(tuple):
+    """A partition spec, the port's ``jax.sharding.PartitionSpec``: one
+    entry per tensor axis from the front, each None (replicated), a mesh
+    axis name, or a tuple of names (their product, the first major; a
+    one-name tuple is the name, as JAX normalises it); missing trailing
+    entries are None."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+class Mesh:
+    """A grid of devices with named axes, the port's
+    ``jax.sharding.Mesh``, held in one process.  ``devices`` is a numpy
+    object array of torch.devices with one dimension per name; a device
+    may appear more than once, so ranks share a card.  Rank r is the
+    r-th device in row-major order (``ranks[r]``); ``shape`` maps each
+    axis name to its size, in order."""
+
+    def __init__(self, devices, axis_names):
+        devices = np.asarray(devices, dtype=object)
+        if devices.ndim != len(axis_names):
+            raise ValueError(f"a {devices.ndim}-d device grid needs "
+                             f"{devices.ndim} axis names, got {axis_names}")
+        self.devices = devices
+        self.axis_names = tuple(axis_names)
+        self.shape = collections.OrderedDict(zip(self.axis_names,
+                                                 devices.shape))
+        self.size = devices.size
+        self.ranks = [_device(dev) for dev in devices.flat]
+
+    def coords(self, rank: int) -> dict:
+        """Rank ``rank``'s coordinate along each axis."""
+        return dict(zip(self.axis_names,
+                        np.unravel_index(rank, self.devices.shape)))
+
+
+def make_mesh(devices=None, tp: int | None = None) -> Mesh:
+    """2-D (data, model) mesh over ``devices`` (default: every visible
+    CUDA card; a device may repeat).  tp defaults to 2 when the device
+    count is even, as in the JAX package, the rest data-parallel; a
+    count tp does not divide leaves the last devices out."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass devices=['cpu'] "
+                               "(--platform cpu) to run on the CPU")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [_device(dev) for dev in devices]
+    n = len(devices)
+    if tp is None:
+        tp = 2 if n % 2 == 0 and n >= 2 else 1
+    if not 1 <= tp <= n:
+        raise ValueError(f"tp must be in [1, {n}] for {n} devices, got {tp}")
+    dp = n // tp
+    grid = np.empty((dp, tp), dtype=object)
+    for r in range(dp * tp):
+        grid[r // tp, r % tp] = devices[r]
+    return Mesh(grid, ("data", "model"))
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Partition specs: Megatron TP over the 'model' axis."""
+    if cfg.moe_experts is None:
+        ffn = {
+            "w1": P(None, None, "model"),        # column-parallel
+            "w2": P(None, "model", None),        # row-parallel
+        }
+    else:
+        # Experts replicate over 'model'; TP splits each expert's d_ff.
+        # The router is tiny and replicates.
+        ffn = {
+            "router": P(None, None, None),
+            "w1": P(None, None, None, "model"),
+            "w2": P(None, None, "model", None),
+        }
+    return {
+        "embed": P(None, "model"),
+        "blocks": {
+            "qkv": P(None, None, "model"),       # heads split
+            "attn_out": P(None, "model", None),  # row-parallel
+            **ffn,
+            "ln1": P(None, None),
+            "ln2": P(None, None),
+        },
+        "ln_f": P(None),
+        "unembed": P(None, "model"),
+    }
+
+
+def data_axes(mesh: Mesh) -> tuple:
+    """The mesh axes that carry batch: every axis except 'model' (on a
+    multi-slice (dcn, data, model) mesh, dcn and data)."""
+    return tuple(n for n in mesh.axis_names if n != "model")
+
+
+def batch_spec(mesh: Mesh | None = None) -> P:
+    """Batch sharding: every mesh axis except 'model' is data-parallel."""
+    if mesh is None:
+        return P("data", None)
+    return P(data_axes(mesh), None)
+
+
+def _zero1_spec(spec: P, shape: tuple, mesh: Mesh,
+                skip_axes: tuple = ()) -> P:
+    """Data-axis sharding for one param-shaped buffer (ZeRO/FSDP): keep
+    the param's TP sharding and also cut the first still-replicated axis
+    (not in ``skip_axes``) whose size divides the data parallelism over
+    the data axes.  If none qualifies, the buffer stays param-sharded."""
+    daxes = data_axes(mesh)
+    dp = int(np.prod([mesh.shape[a] for a in daxes])) if daxes else 1
+    if dp <= 1:
+        return spec
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (dim, entry) in enumerate(zip(shape, entries)):
+        if i in skip_axes:
+            continue
+        if entry is None and dim % dp == 0:
+            entries[i] = daxes if len(daxes) > 1 else daxes[0]
+            return P(*entries)
+    return spec
+
+
+def fsdp_param_specs(cfg: ModelConfig, mesh: Mesh) -> dict:
+    """FSDP/ZeRO-3 partition specs: TP sharding plus a data-axis cut on
+    each param's first eligible replicated axis; the stacked-layer axis
+    (axis 0 of every ``blocks`` leaf) is never cut, so the step gathers
+    one layer at a time."""
+    shapes = param_shapes(cfg)
+    return {name: ({k: _zero1_spec(spec, shapes[name][k], mesh,
+                                   skip_axes=(0,))
+                    for k, spec in tree.items()}
+                   if isinstance(tree, dict)
+                   else _zero1_spec(tree, shapes[name], mesh))
+            for name, tree in param_specs(cfg).items()}
+
+
+def _state_specs(state: dict, p_specs: dict, mesh: Mesh, zero1: bool):
+    """Specs for an :class:`Optimizer` state dict: each moment tree
+    (``mu``, ``nu``, and ``acc`` under accumulation) takes its params'
+    specs, plus the ZeRO-1 data-axis cut when asked; the counts are host
+    ints and replicate."""
+    def one(leaf, spec):
+        if leaf.ndim == 0:
+            return P()
+        return _zero1_spec(spec, tuple(leaf.shape), mesh) if zero1 else spec
+
+    return {key: (_map_tree(one, value, p_specs) if isinstance(value, dict)
+                  else P())
+            for key, value in state.items()}
+
+
+def opt_state_shardings(cfg: ModelConfig, optimizer: Optimizer,
+                        p_specs: dict, mesh: Mesh, zero1: bool) -> dict:
+    """Specs for ``optimizer``'s state given the params' specs, read off
+    its state over the config's shapes on meta tensors."""
+    meta = _map_tree(lambda shape: torch.empty(shape, device="meta"),
+                     param_shapes(cfg))
+    return _state_specs(optimizer.init(meta), p_specs, mesh, zero1)
+
+
+def _cut_axes(spec: P, ndim: int) -> list[tuple]:
+    """The mesh axes each of ``ndim`` tensor axes is cut over."""
+    entries = list(spec) + [None] * (ndim - len(spec))
+    return [() if e is None else (e,) if isinstance(e, str) else tuple(e)
+            for e in entries]
+
+
+@dataclasses.dataclass(eq=False)
+class Sharded:
+    """One leaf of a tree sharded over ``mesh``: the global ``shape`` cut
+    by ``spec`` into blocks, ``blocks[index]`` (index: the block's
+    position along each tensor axis) held once, on the device of the
+    first rank that holds it; the other ranks of its replica group read
+    it through ``.to()``, so autograd sums their gradients (JAX's psum).
+    ``order``, when set, permutes the last axis before the cut (qkv's
+    head-aligned columns, :func:`_qkv_order`)."""
+
+    mesh: Mesh
+    spec: P
+    shape: tuple
+    blocks: dict
+    order: torch.Tensor | None = None
+
+    @property
+    def cut_axes(self) -> list[tuple]:
+        return _cut_axes(self.spec, len(self.shape))
+
+    @property
+    def counts(self) -> list[int]:
+        """Blocks along each tensor axis."""
+        return [int(np.prod([self.mesh.shape[a] for a in axes]))
+                for axes in self.cut_axes]
+
+    def index_of(self, rank: int) -> tuple:
+        """The index of the block rank ``rank`` holds."""
+        coords = self.mesh.coords(rank)
+        out = []
+        for axes in self.cut_axes:
+            i = 0
+            for a in axes:
+                i = i * self.mesh.shape[a] + int(coords[a])
+            out.append(i)
+        return tuple(out)
+
+    def region(self, index: tuple) -> tuple:
+        """Block ``index``'s slices of the (ordered) global tensor."""
+        return tuple(slice(i * (n // c), (i + 1) * (n // c))
+                     for i, n, c in zip(index, self.shape, self.counts))
+
+
+def shard_tensor(mesh: Mesh, x: torch.Tensor, spec: P,
+                 order: torch.Tensor | None = None) -> Sharded:
+    """``x`` cut by ``spec`` over ``mesh`` (after ``order`` permutes its
+    last axis), each block on its first holder's device: a copy of its
+    own, so no block keeps the whole of ``x`` alive."""
+    leaf = Sharded(mesh, P(*spec), tuple(x.shape), {}, order)
+    for d, (n, c) in enumerate(zip(leaf.shape, leaf.counts)):
+        if n % c:
+            raise ValueError(f"axis {d} of a {leaf.shape} tensor does not "
+                             f"divide over the {c} ranks of {spec}")
+    if order is not None:
+        x = x.index_select(-1, order.to(x.device))
+    for r, dev in enumerate(mesh.ranks):
+        index = leaf.index_of(r)
+        if index not in leaf.blocks:
+            leaf.blocks[index] = x[leaf.region(index)].to(
+                dev, copy=True, memory_format=torch.contiguous_format)
+    return leaf
+
+
+def gather_tensor(leaf: Sharded, device=None) -> torch.Tensor:
+    """The whole tensor of ``leaf`` on ``device`` (default: the first
+    rank's), in the one-device layout."""
+    dev = leaf.mesh.ranks[0] if device is None else _device(device)
+    blocks = list(leaf.blocks.items())
+    if len(blocks) == 1 and leaf.order is None:
+        return blocks[0][1].to(dev)
+    out = torch.empty(leaf.shape, dtype=blocks[0][1].dtype, device=dev)
+    for index, t in blocks:
+        out[leaf.region(index)] = t.to(dev)
+    if leaf.order is not None:
+        out = out.index_select(-1, torch.argsort(leaf.order).to(dev))
+    return out
+
+
+def gather_params(mesh: Mesh, tree):
+    """A tree of :class:`Sharded` leaves (params, or an optimizer state
+    whose counts pass through) in the one-device layout, on the mesh's
+    first rank: what a checkpoint holds."""
+    if isinstance(tree, dict):
+        return {k: gather_params(mesh, v) for k, v in tree.items()}
+    return gather_tensor(tree) if isinstance(tree, Sharded) else tree
+
+
+def _qkv_order(cfg: ModelConfig, mesh: Mesh) -> torch.Tensor | None:
+    """The column order that makes each model rank's contiguous block of
+    the packed qkv weight head-aligned: rank j's h/tp query heads, then
+    its hkv/tp KV heads' k and v columns, ``[q_j | k_j | v_j]``.  JAX's
+    spec cuts ``[q | k | v]`` contiguously, which GSPMD may do because
+    it only lays memory out; a rank that computes needs whole heads.
+    None when tp is 1 or the heads do not divide (the step then gathers
+    qkv and attends per data row)."""
+    tp = mesh.shape.get("model", 1)
+    if tp == 1 or not cfg.mesh_shardable(mesh):
+        return None
+    d, kv = cfg.d_model, cfg.kv_heads * cfg.head_dim
+    qw, kw = d // tp, kv // tp
+    cols = []
+    for j in range(tp):
+        cols += [torch.arange(j * qw, (j + 1) * qw),
+                 d + torch.arange(j * kw, (j + 1) * kw),
+                 d + kv + torch.arange(j * kw, (j + 1) * kw)]
+    return torch.cat(cols)
+
+
+def _shard_tree(mesh: Mesh, cfg: ModelConfig, tree: dict, specs: dict):
+    order = _qkv_order(cfg, mesh)
+    flat_specs = dict(_flatten(specs))
+    return _unflatten({
+        path: shard_tensor(mesh, x, flat_specs[path],
+                           order if path == "blocks/qkv" else None)
+        for path, x in _flatten(tree)})
+
+
+def _shard_specs(cfg: ModelConfig, mesh: Mesh, shard: str) -> dict:
+    return fsdp_param_specs(cfg, mesh) if shard == "fsdp" \
+        else param_specs(cfg)
+
+
+def shard_params(mesh: Mesh, cfg: ModelConfig, tree: dict,
+                 shard: str = "none") -> dict:
+    """A one-device params tree at the specs of ``shard`` ("none" and
+    "zero1": :func:`param_specs`; "fsdp": :func:`fsdp_param_specs`):
+    each distinct block once, on its first holder's device."""
+    return _shard_tree(mesh, cfg, tree, _shard_specs(cfg, mesh, shard))
+
+
+def shard_opt_state(mesh: Mesh, cfg: ModelConfig, state: dict,
+                    shard: str = "none") -> dict:
+    """A one-device :class:`Optimizer` state at the specs of ``shard``:
+    the moments take their params' specs, cut over data under "zero1"
+    as well; the counts pass through."""
+    return _shard_state(mesh, cfg, state, _state_specs(
+        state, _shard_specs(cfg, mesh, shard), mesh, shard == "zero1"))
+
+
+def _shard_state(mesh: Mesh, cfg: ModelConfig, state: dict, specs: dict):
+    return {key: (_shard_tree(mesh, cfg, value, specs[key])
+                  if isinstance(value, dict) else value)
+            for key, value in state.items()}
+
+
+def rank_state_bytes(mesh: Mesh, params: dict, opt_state: dict) -> list:
+    """The bytes of params and optimizer tensors each rank stores, in
+    rank order, as :func:`shard_tensor` places them: every block counts
+    once, on its first holder, and nothing on the other ranks of its
+    replica group, which read it through ``.to()``.  So the ranks' sum
+    is one copy of the state in every mode, and a replicated block
+    weighs on the first data row only."""
+    out = [0] * mesh.size
+    for tree in (params, *(v for v in opt_state.values()
+                           if isinstance(v, dict))):
+        for _, leaf in _flatten(tree):
+            seen = set()
+            for r in range(mesh.size):
+                index = leaf.index_of(r)
+                if index not in seen:
+                    seen.add(index)
+                    t = leaf.blocks[index]
+                    out[r] += t.numel() * t.element_size()
+    return out
+
+
+def _tp_view(leaf: Sharded, j: int, dev, layer: int | None = None):
+    """What model rank ``j`` computes with, on ``dev``: ``leaf``'s block
+    ``j`` along its 'model'-cut axis (the whole axis if none is), at
+    layer ``layer`` of a stacked ``blocks`` leaf, gathered over the data
+    axes FSDP cuts (a cat, which autograd transposes into the
+    reduce-scatter)."""
+    base, cut = [], None
+    for d, axes in enumerate(leaf.cut_axes):
+        base.append(j if axes == ("model",) else 0)
+        if axes and axes != ("model",):
+            cut = d
+
+    def block(k):
+        index = list(base)
+        if cut is not None:
+            index[cut] = k
+        t = leaf.blocks[tuple(index)]
+        return (t if layer is None else t[layer]).to(dev)
+
+    if cut is None:
+        return block(0)
+    return torch.cat([block(k) for k in range(leaf.counts[cut])],
+                     dim=cut - (layer is not None))
+
+
+def _vocab_parallel_ce_sum(x, targets, unembeds, row, cfg: ModelConfig):
+    """The summed next-token NLL of one data row's [b, s] block with the
+    unembedding's vocab cut over the row's model ranks (``unembeds[j]``
+    [d, V/tp] in the compute dtype on ``row[j]``): each rank's logits
+    stay on it; the log-sum-exps and the target logit are combined
+    across ranks on the row's first.  Chunked over the sequence when
+    ``cfg.ce_chunk`` divides it."""
+    b, s = targets.shape
+    head = row[0]
+    chunk = cfg.ce_chunk if cfg.ce_chunk is not None \
+        and s % cfg.ce_chunk == 0 else s
+    v_loc = unembeds[0].shape[-1]
+    total = torch.zeros((), dtype=torch.float32, device=head)
+    for start in range(0, s, chunk):
+        xc, tc = x[:, start:start + chunk], targets[:, start:start + chunk]
+        lses, tgts = [], []
+        for j, (u, dev) in enumerate(zip(unembeds, row)):
+            logits = (xc.to(dev) @ u).float()
+            lses.append(torch.logsumexp(logits, dim=-1).to(head))
+            local = tc.to(dev).long() - j * v_loc
+            picked = logits.gather(
+                -1, local.clamp(0, v_loc - 1)[..., None])[..., 0]
+            inside = (local >= 0) & (local < v_loc)
+            tgts.append(torch.where(inside, picked, 0.0).to(head))
+        lse = torch.logsumexp(torch.stack(lses), dim=0)
+        total = total + (lse - sum(tgts)).sum()
+    return total
+
+
+_PRODUCTS = ("qkv", "attn_out", "w1", "w2")
+
+
+def _mesh_layer(xs, params: dict, layer: int, *, cfg: ModelConfig, rows,
+                attn):
+    """Layer ``layer`` of the block, tensor-parallel over every data
+    row: ``xs[i]`` [b/dp, s, d] in compute dtype on the row's first
+    rank (``rows[i][0]``).  qkv is column-parallel by heads (each rank
+    its head-aligned columns, attention on its heads: K1/K2 through
+    ``attn``, or the einsum; when the heads do not divide, qkv gathered
+    on the row's first rank and attention over whole heads, K1/K2 there
+    on CUDA), attn_out and w2 are row-parallel (the partial products
+    summed on the row's first rank: the all-reduce), w1
+    column-parallel; a MoE layer routes once per row (the router
+    replicates) and sums the experts' d_ff-cut MLPs over the row's
+    ranks.  Returns (new streams, each row's router aux; zeros for the
+    dense FFN)."""
+    tp = len(rows[0])
+    dt = cfg.dtype
+    blocks = params["blocks"]
+    views: dict = {}
+
+    def w(name, j, dev):
+        # Each rank's weight once per layer and device; the products'
+        # weights already in the compute dtype (norm gains and the
+        # router stay f32, as one device reads them).
+        if (name, j, dev) not in views:
+            t = _tp_view(blocks[name], j, dev, layer)
+            views[name, j, dev] = t.to(dt) if name in _PRODUCTS else t
+        return views[name, j, dev]
+
+    split = cfg.n_heads % tp == 0 and cfg.kv_heads % tp == 0
+    heads = (cfg.n_heads // tp, cfg.kv_heads // tp)
+    kernel = cfg.resolved_attention(rows[0][0]) == "kernel"
+    ys, qs, ks, vs = [], [], [], []
+    for x, row in zip(xs, rows):
+        ys.append(_rmsnorm(x, w("ln1", 0, row[0])))
+        if not split:
+            continue
+        for j, dev in enumerate(row):
+            q, k, v = _split_qkv(ys[-1].to(dev), w("qkv", j, dev), cfg, heads)
+            if cfg.rope:
+                q = _rope(q, cfg.rope_theta)
+                k = _rope(k, cfg.rope_theta)
+            qs.append(q)
+            ks.append(k)
+            vs.append(v)
+    if split:
+        outs = attn(qs, ks, vs) if kernel else [
+            _einsum_attention(q, k, v, cfg) for q, k, v in zip(qs, ks, vs)]
+    new, auxs = [], []
+    for i, (x, y, row) in enumerate(zip(xs, ys, rows)):
+        head = row[0]
+        b, s, d = x.shape
+        if split:
+            parts = [a.transpose(1, 2).reshape(b, s, d // tp)
+                     for a in outs[i * tp:(i + 1) * tp]]
+        else:
+            # The heads do not divide over the model ranks: attend per
+            # row with qkv gathered, then cut the features for attn_out.
+            qkv = torch.cat([w("qkv", j, head) for j in range(tp)], dim=-1)
+            q, k, v = _split_qkv(y, qkv, cfg)
+            if cfg.rope:
+                q = _rope(q, cfg.rope_theta)
+                k = _rope(k, cfg.rope_theta)
+            a = _attend(q, k, v, cfg, kernel).transpose(1, 2).reshape(b, s, d)
+            parts = torch.split(a, d // tp, dim=-1)
+        x = x + sum((a.to(dev) @ w("attn_out", j, dev)).to(head)
+                    for j, (a, dev) in enumerate(zip(parts, row)))
+        y = _rmsnorm(x, w("ln2", 0, head))
+        if cfg.moe_experts is not None:
+            def experts(buf, row=row):
+                return sum(expert_mlp(buf.to(dev), w("w1", j, dev),
+                                      w("w2", j, dev)).to(buf.device)
+                           for j, dev in enumerate(row))
+
+            out, aux = moe_ffn(y, {"router": w("router", 0, head)}, cfg,
+                               experts)
+        else:
+            out = sum((F.gelu(y.to(dev) @ w("w1", j, dev),
+                              approximate="tanh")
+                       @ w("w2", j, dev)).to(head)
+                      for j, dev in enumerate(row))
+            zero = torch.zeros((), dtype=torch.float32, device=head)
+            aux = {"balance_loss": zero, "z_loss": zero}
+        new.append(x + out)
+        auxs.append(aux)
+    return new, auxs
+
+
+def _make_mesh_loss(mesh: Mesh, cfg: ModelConfig):
+    """``loss_of(params, tokens) -> loss``: :func:`loss_fn` of tokens
+    [b, s + 1] with ``params`` a tree of :class:`Sharded` leaves over
+    ``mesh``, on the first rank's device.  The batch is cut by
+    :func:`batch_spec`, row-major over the data rows (every mesh axis
+    but 'model'); each row's block and residual stream live on its
+    first model rank.  The embedding's d_model cut is gathered per row,
+    the cross-entropy is vocab-parallel (:func:`_vocab_parallel_ce_sum`),
+    and with ``cfg.remat`` each layer, over all ranks, runs under
+    ``torch.utils.checkpoint``.  FSDP's gathers happen inside each
+    layer, so one layer's weights are whole at a time."""
+    tp = mesh.shape.get("model", 1)
+    rows = [mesh.ranks[i:i + tp] for i in range(0, mesh.size, tp)]
+    attn = make_sharded_flash_attention(mesh, causal=True,
+                                        window=cfg.attention_window)
+    layer_fn = functools.partial(_mesh_layer, cfg=cfg, rows=rows, attn=attn)
+    first = mesh.ranks[0]
+
+    def loss_of(params: dict, tokens):
+        b, s = tokens.shape[0], tokens.shape[1] - 1
+        if b % len(rows):
+            raise ValueError(f"global batch {b} is not divisible by the "
+                             f"{len(rows)}-way data parallelism")
+        batch = shard_tensor(mesh, tokens, batch_spec(mesh))
+        row_tokens = [batch.blocks[i, 0] for i in range(len(rows))]
+        views: dict = {}
+
+        def w(name, j, dev):
+            if (name, j, dev) not in views:
+                t = _tp_view(params[name], j, dev)
+                views[name, j, dev] = t if name == "ln_f" else t.to(cfg.dtype)
+            return views[name, j, dev]
+
+        xs = [torch.cat([w("embed", j, dev)[t[:, :-1].to(dev)].to(row[0])
+                         for j, dev in enumerate(row)], dim=-1)
+              for t, row in zip(row_tokens, rows)]
+        per_layer = []
+        for layer in range(cfg.n_layers):
+            fn = functools.partial(layer_fn, params=params, layer=layer)
+            if cfg.remat:
+                xs, auxs = checkpoint(fn, xs, use_reentrant=False)
+            else:
+                xs, auxs = fn(xs)
+            per_layer.append(auxs)
+        total = sum(_vocab_parallel_ce_sum(
+            _rmsnorm(x, w("ln_f", 0, row[0])), t[:, 1:],
+            [w("unembed", j, dev) for j, dev in enumerate(row)], row,
+            cfg).to(first) for x, t, row in zip(xs, row_tokens, rows))
+        ce = total / (b * s)
+        if cfg.moe_experts is None:
+            return ce
+        return _ranks_loss(ce, per_layer, cfg, first)[0]
+
+    return loss_of
+
+
+def _enclosing(p: Sharded, m: Sharded, mi: tuple):
+    """The block of ``p`` that holds block ``mi`` of ``m`` (a buffer of
+    p's shape whose spec refines p's), and mi's slices inside it."""
+    pi, local = [], []
+    for i, a, c, n in zip(mi, p.counts, m.counts, p.shape):
+        pi.append(i * a // c)
+        start = i * (n // c) - pi[-1] * (n // a)
+        local.append(slice(start, start + n // c))
+    return tuple(pi), tuple(local)
+
+
+@torch.no_grad()
+def _sharded_update(optimizer: Optimizer, params: dict, grads: dict,
+                    opt_state: dict):
+    """The optimizer's update over sharded state: ``params`` maps each
+    path to its :class:`Sharded` leaf, ``grads`` each (path, block
+    index) to that block's gradient.  The update runs per block of the
+    moments, on the moment block's device: the gradient and the param
+    cut to it (the reduce-scatter ahead of a ZeRO-1 update), then the
+    optimizer's own arithmetic over the flat dict of those pieces (so
+    the clip norm counts every element once); the updates are added into
+    the param blocks that hold them (the all-gather back).  Returns the
+    new (params tree, opt state)."""
+    moments = dict(_flatten(opt_state["mu"]))
+    units, g_u, p_u = {}, {}, {}
+    for path, p in params.items():
+        for mi, mt in moments[path].blocks.items():
+            pi, local = _enclosing(p, moments[path], mi)
+            units[path, mi] = (pi, local)
+            g_u[path, mi] = grads[path, pi][local].to(mt.device)
+            p_u[path, mi] = p.blocks[pi][local].to(mt.device)
+    state = {key: ({(path, mi): t for path, leaf in _flatten(value)
+                    for mi, t in leaf.blocks.items()}
+                   if isinstance(value, dict) else value)
+             for key, value in opt_state.items()}
+    updates, state = optimizer.update(g_u, state, p_u)
+    parts = collections.defaultdict(list)
+    for (path, mi), (pi, local) in units.items():
+        parts[path, pi].append((local, updates[path, mi]))
+    new_params = {}
+    for path, p in params.items():
+        blocks = {}
+        for pi, t in p.blocks.items():
+            pieces = parts[path, pi]
+            if len(pieces) == 1 and pieces[0][1].shape == t.shape:
+                blocks[pi] = t + pieces[0][1].to(t.device)
+                continue
+            blocks[pi] = t.clone()
+            for local, u in pieces:
+                blocks[pi][local] += u.to(t.device)
+        new_params[path] = dataclasses.replace(p, blocks=blocks)
+    new_state = {key: (_unflatten({
+        path: dataclasses.replace(leaf, blocks={
+            mi: state[key][path, mi] for mi in leaf.blocks})
+        for path, leaf in _flatten(value)})
+        if isinstance(value, dict) else state[key])
+        for key, value in opt_state.items()}
+    return _unflatten(new_params), new_state
+
+
+def _check_shard(shard: str) -> None:
+    if shard not in {"none", "zero1", "fsdp"}:
+        raise ValueError(f"unknown shard mode {shard!r}; expected "
+                         "'none', 'zero1' or 'fsdp'")
+
+
+def make_sharded_train_step(mesh: Mesh, cfg: ModelConfig,
+                            learning_rate: float = 1e-3,
+                            zero1: bool = False,
+                            train: TrainConfig | None = None,
+                            shard: str | None = None):
+    """(init_fn, step_fn) over ``mesh`` (:func:`make_mesh`) with real
+    DP + TP shardings: Megatron tensor parallelism over 'model'
+    (:func:`_mesh_layer`), the batch over the data axes.
+    ``attention="auto"`` is resolved per the mesh
+    (:meth:`ModelConfig.resolved_for_mesh`) and the route logged once.
+
+    ``init_fn(generator) -> (params, opt_state)``: the f32 params of
+    :func:`init_params` (the same seed gives the one-device step's
+    model), placed at the specs as trees of :class:`Sharded` leaves.
+    ``step_fn(params, opt_state, tokens) -> (params, opt_state, loss)``:
+    the gradient by ``torch.autograd.grad`` with respect to every block,
+    then the optimizer recipe (``train``, default bare
+    adamw(``learning_rate``)) per block (:func:`_sharded_update`).
+
+    ``shard`` (``zero1=True`` is the legacy spelling of "zero1"):
+
+    - ``"none"``: params, grads and moments replicated over data;
+    - ``"zero1"``: the AdamW moments (and the accumulator) also cut over
+      the data axes; params and grads replicated;
+    - ``"fsdp"``: params, grads and moments all cut over the data axes
+      (:func:`fsdp_param_specs`), each layer's weights gathered inside
+      the layer loop.
+
+    :func:`gather_params` and :func:`shard_params` /
+    :func:`shard_opt_state` move the state between these trees and the
+    one-device layout (checkpoints)."""
+    if shard is None:
+        shard = "zero1" if zero1 else "none"
+    _check_shard(shard)
+    cfg = cfg.resolved_for_mesh(mesh)
+    log.info("mesh %s, shard %s: attention %s on %s", dict(mesh.shape),
+             shard, cfg.attention, "head shards" if cfg.mesh_shardable(mesh)
+             else "each data row's whole heads")
+    if train is None:
+        train = TrainConfig(learning_rate=learning_rate)
+    optimizer = make_optimizer(train)
+    loss_of = _make_mesh_loss(mesh, cfg)
+    p_specs = _shard_specs(cfg, mesh, shard)
+    s_specs = opt_state_shardings(cfg, optimizer, p_specs, mesh,
+                                  shard == "zero1")
+
+    def init_fn(generator: torch.Generator):
+        params = init_params(generator, cfg, mesh.ranks[0])
+        return (_shard_tree(mesh, cfg, params, p_specs),
+                _shard_state(mesh, cfg, optimizer.init(params), s_specs))
+
+    def step_fn(params: dict, opt_state: dict, tokens):
+        tokens = torch.as_tensor(tokens)
+        live = {path: dataclasses.replace(leaf, blocks={
+            i: t.detach().requires_grad_() for i, t in leaf.blocks.items()})
+            for path, leaf in _flatten(params)}
+        keys = [(path, i) for path, leaf in live.items() for i in leaf.blocks]
+        loss = loss_of(_unflatten(live), tokens)
+        grads = torch.autograd.grad(
+            loss, [live[path].blocks[i] for path, i in keys])
+        params, opt_state = _sharded_update(
+            optimizer, dict(_flatten(params)), dict(zip(keys, grads)),
+            opt_state)
+        return params, opt_state, loss.detach()
+
+    return init_fn, step_fn
+
+
 def make_train_step(cfg: ModelConfig, train: TrainConfig | None = None,
                     device=None, shard: str = "none"):
     """(init_fn, step_fn) on one device: the single-device counterpart
@@ -673,12 +1422,11 @@ def make_train_step(cfg: ModelConfig, train: TrainConfig | None = None,
     :func:`loss_fn` with respect to the f32 master params by
     ``torch.autograd.grad``, then the optimizer's update.  The step
     returns new params and state; the loss is a 0-d device tensor.
-    Only ``shard="none"`` is ported: the sharded modes need the mesh
-    (ROADMAP.md, Queue 1: the mesh)."""
-    if shard != "none":
-        raise ValueError(f"shard={shard!r} needs the mesh, which is not "
-                         "ported yet (ROADMAP.md, Queue 1: the mesh); "
-                         "only 'none'")
+    ``shard`` "zero1" and "fsdp" cut the state over data ranks, and one
+    device has one, so every mode runs this same step (the JAX
+    package's single-device trainer takes them over a one-device
+    mesh)."""
+    _check_shard(shard)
     dev = resolve_device(device)
     return _make_step(cfg, make_optimizer(train or TrainConfig()), dev,
                       lambda tree, tokens: loss_fn(tree, tokens, cfg))

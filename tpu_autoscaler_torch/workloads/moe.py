@@ -13,8 +13,8 @@ a grid of devices (``make_ep_mesh``: rows are data replicas, columns
 the ep group), and ranks may share a card, as ``sp.make_sp_mesh``'s
 do.  The exchange is a transpose of a per-rank list: rank t receives
 bucket t of every rank of its row, a ``.to()`` copy between cards and
-none on one card.  A ``model`` axis beside ep (ep×tp) waits for the
-port's mesh (ROADMAP.md, Queue 1: the mesh).
+none on one card.  A ``model`` axis beside ep (ep×tp) waits for
+ROADMAP.md, Queue 1: EP and the SP compositions.
 
 The layer computes the two auxiliary router losses a trainable MoE
 needs: the load-balance loss ``E * Σ_e f_e · p_e`` (f_e the share of
@@ -293,12 +293,13 @@ def make_ep_mesh(devices=None, ep: int | None = None,
     devices (default: every visible CUDA card) in rows of ``ep``; a
     device may appear more than once, so ranks share a card.  The batch
     cuts over every rank; each row is one ep group.  ``tp > 1`` (the
-    JAX mesh's ``model`` axis, ep×tp) waits for the port's mesh."""
+    JAX mesh's ``model`` axis, ep×tp) waits for ROADMAP.md, Queue 1: EP
+    and the SP compositions."""
     from tpu_autoscaler_torch.workloads.sp import _device
 
     if tp != 1:
-        raise ValueError(f"ep×tp (tp={tp}) is not ported yet: it needs the "
-                         "port's mesh (ROADMAP.md, Queue 1: the mesh)")
+        raise ValueError(f"ep×tp (tp={tp}) is not ported yet (ROADMAP.md, "
+                         "Queue 1: EP and the SP compositions)")
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass devices=['cpu'] "
@@ -417,8 +418,7 @@ def make_ep_train_step(mesh, cfg, *, train=None,
     opt_state, loss, metrics)``, then the trainer's optimizer recipe
     (``model.make_optimizer``).  The JAX step shards the expert weights
     and their Adam moments over ep; here both stay whole on the first
-    rank's device until the port's mesh (ROADMAP.md, Queue 1: the
-    mesh)."""
+    rank's device (ROADMAP.md, Queue 1: EP and the SP compositions)."""
     from tpu_autoscaler_torch.workloads.model import (
         TrainConfig,
         _make_step,

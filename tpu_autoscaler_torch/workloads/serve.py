@@ -34,6 +34,8 @@ all slots, per-slot block tables, preemption under pool pressure.
 layers propose K tokens a round and the target verifies them in one
 pass.  ``--trace-sample RATE`` samples per-request span trees
 (serving/reqtrace.py); the receipt then carries a ``trace`` field.
+``--tp`` None or 1 serves on one device; serving under a mesh (> 1)
+waits for ROADMAP.md, Queue 1: the mesh.
 """
 
 from __future__ import annotations
@@ -47,8 +49,10 @@ import click
 import numpy as np
 
 from tpu_autoscaler_torch.workloads._cli import (
+    device_count,
     model_arch_options,
     model_config,
+    refuse_tp,
 )
 
 log = logging.getLogger(__name__)
@@ -167,6 +171,11 @@ def _read_requests(requests_file, random_n, max_new_tokens, seed, cfg):
 @click.option("--draft-layers", default=1, show_default=True,
               help="Draft model = the target's first N layers "
                    "(with --spec-k).")
+@click.option("--tp", "tp_degree", default=None, type=int,
+              help="Serve under a (data, model) mesh: slots shard over "
+                   "data, KV heads + cache over 'model' (the trainer's "
+                   "TP layout).  Default: single-device.  > 1 is not "
+                   "ported yet (ROADMAP.md, Queue 1: the mesh).")
 @click.option("--seed", default=0, show_default=True)
 @click.option("--final-stats", "final_stats_file", default=None,
               help="Also write the final-stats JSON (the drain "
@@ -200,7 +209,7 @@ def _read_requests(requests_file, random_n, max_new_tokens, seed, cfg):
               help="Device to serve on.")
 def main(checkpoint_dir, requests_file, random_n, max_new_tokens, slots,
          max_len, chunk, ring, paged, block_size, num_blocks, spec_k,
-         draft_layers, seed, final_stats_file, replica_id,
+         draft_layers, tp_degree, seed, final_stats_file, replica_id,
          annotations_file, trace_sample, slo_ticks, vocab, seq_len,
          d_model, n_layers,
          n_kv_heads, attention_window, no_rope, moe_experts, moe_top_k,
@@ -280,6 +289,7 @@ def main(checkpoint_dir, requests_file, random_n, max_new_tokens, slots,
                           cfg)
     if not reqs:
         raise click.UsageError("no requests to serve")
+    refuse_tp(tp_degree, device_count(platform))
     generator = torch.Generator(device=device).manual_seed(seed)
     sampler = None
     if trace_sample > 0.0:

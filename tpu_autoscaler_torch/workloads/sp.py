@@ -23,9 +23,9 @@ With MoE blocks (sp×ep) the sp ranks double as the expert group: each
 rank routes its shard's tokens over every expert and the exchange of
 ``moe._ep_moe_ffn`` moves them to the rank that owns their expert and
 back (``_sp_moe_ffn``).  With ``cfg.remat`` each layer, over all ranks
-at once, runs under ``torch.utils.checkpoint``.  Waiting for the port's
-mesh (ROADMAP.md, Queue 1: EP and the SP compositions): a data axis
-beside ``sp``, sp×tp and ZeRO-1.
+at once, runs under ``torch.utils.checkpoint``.  Waiting for ROADMAP.md,
+Queue 1: EP and the SP compositions: a data axis beside ``sp``, sp×tp
+and ZeRO-1.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from tpu_autoscaler_torch.workloads.model import (
     ModelConfig,
     TrainConfig,
     _chunked_ce,
+    _device,
     _ffn_residual,
     _make_step,
     _map_tree,
@@ -55,15 +56,6 @@ from tpu_autoscaler_torch.workloads.ring_attention import (
 from tpu_autoscaler_torch.workloads.ulysses import _ulysses_local
 
 
-def _device(dev) -> torch.device:
-    """``dev`` as a torch.device with its index (a bare "cuda" is the
-    current card), so ranks on one card compare equal."""
-    dev = torch.device(dev)
-    if dev.type == "cuda" and dev.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 def make_sp_mesh(devices=None, sp: int | None = None,
                  tp: int = 1) -> list[torch.device]:
     """The sequence-parallel ranks as a list of devices: ``sp`` ranks
@@ -71,11 +63,10 @@ def make_sp_mesh(devices=None, sp: int | None = None,
     CUDA card), round-robin, so rank r is on ``devices[r %
     len(devices)]``.  Ranks that share a card are the counterpart of the
     JAX package's virtual devices.  ``tp > 1`` (the JAX mesh's ``model``
-    axis) waits for the port's mesh."""
+    axis) waits for ROADMAP.md, Queue 1: EP and the SP compositions."""
     if tp != 1:
-        raise ValueError(f"sp×tp (tp={tp}) is not ported yet: it needs the "
-                         "port's mesh (ROADMAP.md, Queue 1: EP and the SP "
-                         "compositions)")
+        raise ValueError(f"sp×tp (tp={tp}) is not ported yet (ROADMAP.md, "
+                         "Queue 1: EP and the SP compositions)")
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass devices=['cpu'] "
@@ -253,9 +244,8 @@ def make_sp_train_step(devices, cfg: ModelConfig, *,
     ``(params, opt_state, loss, metrics)``, the expert-parallel step's
     signature (:func:`make_sp_loss`'s metrics).
 
-    Refused until the port's mesh (ROADMAP.md, Queue 1: EP and the SP
-    compositions): ``shard="zero1"`` (sp×tp is refused by
-    :func:`make_sp_mesh`).
+    Refused until ROADMAP.md, Queue 1: EP and the SP compositions:
+    ``shard="zero1"`` (sp×tp is refused by :func:`make_sp_mesh`).
     """
     if shard not in {"none", "zero1"}:
         raise ValueError(
@@ -263,9 +253,8 @@ def make_sp_train_step(devices, cfg: ModelConfig, *,
             "(params replicate under sp; fsdp belongs to the dp/tp "
             "step)")
     if shard == "zero1":
-        raise ValueError("sp with shard='zero1' is not ported yet: it needs "
-                         "the port's mesh (ROADMAP.md, Queue 1: EP and the "
-                         "SP compositions)")
+        raise ValueError("sp with shard='zero1' is not ported yet "
+                         "(ROADMAP.md, Queue 1: EP and the SP compositions)")
     loss_of = make_sp_loss(devices, cfg, impl)
     optimizer = make_optimizer(train or TrainConfig())
     return _make_step(cfg, optimizer, _device(devices[0]), loss_of,

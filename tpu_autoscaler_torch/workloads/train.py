@@ -1,8 +1,8 @@
-"""Runnable trainer, on PyTorch: one device.
+"""Runnable trainer, on PyTorch.
 
 ``python -m tpu_autoscaler_torch.workloads.train`` is the counterpart of
-the JAX package's ``workloads/train.py`` on one GPU: it builds the model
-and the optimizer recipe (``TrainConfig``), resumes from the latest
+the JAX package's ``workloads/train.py``: it builds the model and the
+optimizer recipe (``TrainConfig``), resumes from the latest
 ``step_N`` checkpoint, trains on synthetic tokens (the JAX trainer's
 stream, token for token) or on a ``--data-file`` token shard,
 checkpoints every ``--checkpoint-every`` steps, and honors the
@@ -11,25 +11,32 @@ checkpoint-aware drain contract: when the pod's
 checkpoint is saved and the process exits 0.
 
 Checkpoints are ``step_N/params.npz`` (the layout ``serve`` and
-``generate`` read) plus ``step_N/opt.npz``; the JAX trainer's orbax
-checkpoints cannot be read here (orbax needs JAX).  Training runs on
-CUDA unless ``--platform cpu`` is given; without a GPU it refuses to
-start rather than run on the CPU.
+``generate`` read) plus ``step_N/opt.npz``, in the one-device layout
+whatever the mesh (gathered on save, cut again on restore, so a run
+resumes on any mesh); the JAX trainer's orbax checkpoints cannot be
+read here (orbax needs JAX).  Training runs on CUDA unless
+``--platform cpu`` is given; without a GPU it refuses to start rather
+than run on the CPU.
 
-``--moe-experts E`` trains a mixture-of-experts model.  ``--sp N``
-trains with the sequence cut over N ranks (``sp.py``: the ring, or
-``--sp-impl ulysses``; with ``--moe-experts`` the ranks are also the
-expert group, sp×ep), and ``--ep N`` with the batch cut over N ranks
-that split the experts (``moe.make_ep_train_step``), one process, rank
-r on card r mod the number of cards, so ranks share a card when there
-are fewer cards than N.  The MoE steps log the router's balance and z
-losses.  The mesh flags (``--tp``, ``--pp-stages``, ``--zero1``,
-``--shard``) and data-parallel replicas beside the sp or ep ranks wait
-for items of ROADMAP.md's Queue 1: asking for one is a usage error.
+Without ``--sp``, ``--ep`` or ``--pp-stages`` the step is
+``model.make_sharded_train_step`` over the (data, model) mesh of
+``model.make_mesh(tp=--tp)`` with ``--shard`` none, zero1 or fsdp; a
+one-rank mesh takes ``model.make_train_step``.  ``--moe-experts E``
+trains a mixture-of-experts model.  ``--sp N`` trains with the sequence
+cut over N ranks (``sp.py``: the ring, or ``--sp-impl ulysses``; with
+``--moe-experts`` the ranks are also the expert group, sp×ep), and
+``--ep N`` with the batch cut over N ranks that split the experts
+(``moe.make_ep_train_step``).  All ranks live in one process, rank r on
+card r mod the number of cards, so ranks share a card when there are
+fewer cards than ranks.  The MoE steps log the router's balance and z
+losses.  ``--pp-stages``, and ``--tp`` or ZeRO-1 beside the sp or ep
+ranks, wait for items of ROADMAP.md's Queue 1: asking for one is a
+usage error.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import sys
@@ -50,7 +57,7 @@ def _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
                      shard_mode, sp_impl, platform, moe_experts,
                      batch) -> None:
     """The JAX trainer's usage errors for --sp and --ep, then usage
-    errors for what this trainer does not run, each naming the
+    errors for what this trainer does not run yet, each naming the
     ROADMAP.md Queue 1 item that brings it."""
     if sp_degree > 1 and shard_mode == "fsdp":
         raise click.UsageError(
@@ -67,12 +74,13 @@ def _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
             raise click.UsageError(
                 "--shard composes with the dp+tp step, not --ep "
                 "(expert state is already partitioned)")
+    beside = sp_degree > 1 or ep_degree > 1
     refused = [
-        (tp_degree is not None and tp_degree > 1, "--tp", "the mesh"),
+        (beside and tp_degree is not None and tp_degree > 1,
+         "--tp with --sp or --ep", "EP and the SP compositions"),
+        (sp_degree > 1 and (zero1 or shard_mode == "zero1"),
+         "--shard zero1 with --sp", "EP and the SP compositions"),
         (pp_stages > 1, "--pp-stages", "pipeline parallelism"),
-        (zero1, "--zero1", "the mesh"),
-        (shard_mode in ("zero1", "fsdp"), f"--shard {shard_mode}",
-         "the mesh"),
     ]
     for asked, flag, item in refused:
         if asked:
@@ -89,6 +97,21 @@ def _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
             f"devices")
 
 
+def _unchanged(state):
+    return state
+
+
+def _shard_state(mesh, cfg, shard, state):
+    """A one-device trainer state (a checkpoint) cut over ``mesh``."""
+    from tpu_autoscaler_torch.workloads.model import (
+        shard_opt_state,
+        shard_params,
+    )
+
+    return {"params": shard_params(mesh, cfg, state["params"], shard),
+            "opt": shard_opt_state(mesh, cfg, state["opt"], shard)}
+
+
 @click.command()
 @click.option("--steps", default=100, show_default=True)
 @click.option("--batch", default=8, show_default=True)
@@ -99,12 +122,13 @@ def _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
               help="Chunked cross-entropy: unembed+softmax over sequence "
                    "chunks of this size (large-vocab memory lever).")
 @click.option("--zero1", is_flag=True,
-              help="Deprecated alias for --shard zero1 (not ported: "
-                   "ROADMAP.md, Queue 1: the mesh).")
+              help="Deprecated alias for --shard zero1.")
 @click.option("--shard", "shard_mode",
               type=click.Choice(["none", "zero1", "fsdp"]), default=None,
-              help="Data-axis state sharding; only none is ported (zero1 "
-                   "and fsdp: ROADMAP.md, Queue 1: the mesh).")
+              help="Data-axis state sharding: zero1 = AdamW moments "
+                   "(cuts fp32 optimizer memory by the DP degree); fsdp = "
+                   "params+grads+moments (ZeRO-3, fits ~DPx larger "
+                   "models).  Default: none.")
 @click.option("--lr", default=1e-3, show_default=True,
               help="Peak learning rate.")
 @click.option("--warmup-steps", default=0, show_default=True,
@@ -120,14 +144,19 @@ def _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
                    "microbatch steps (k-times the effective batch).")
 @click.option("--weight-decay", default=1e-4, show_default=True)
 @click.option("--tp", "tp_degree", default=None, type=int,
-              help="Tensor parallelism degree (> 1 not ported: "
-                   "ROADMAP.md, Queue 1: the mesh).")
+              help="Tensor parallelism degree: the dp+tp mesh's 'model' "
+                   "axis (default: 2 when the device count is even); "
+                   "ranks repeat cards round-robin when it exceeds them, "
+                   "so --tp 2 on one card trains dp 1 x tp 2.  With --sp "
+                   "or --ep not ported yet (ROADMAP.md, Queue 1: EP and "
+                   "the SP compositions).")
 @click.option("--ep", "ep_degree", default=1, show_default=True,
               help="Expert parallelism (dp×ep, needs --moe-experts): the "
                    "batch over this many ranks of one process that split "
                    "the experts, rank r on card r mod the card count.  "
-                   "Data-parallel replicas beside them and --tp need the "
-                   "mesh (ROADMAP.md, Queue 1: the mesh).  1 = off.")
+                   "Data-parallel replicas beside them and --tp wait for "
+                   "ROADMAP.md, Queue 1: EP and the SP compositions.  "
+                   "1 = off.")
 @click.option("--pp-stages", default=1, show_default=True,
               help="Pipeline stages (> 1 not ported: ROADMAP.md, Queue "
                    "1: pipeline parallelism).")
@@ -138,9 +167,8 @@ def _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
                    "many ranks of one process (ring attention), rank r "
                    "on card r mod the card count, so ranks share a card "
                    "when there are fewer cards.  Data-parallel replicas "
-                   "beside the sp ranks need the mesh (ROADMAP.md, Queue "
-                   "1: EP and the SP compositions).  1 = "
-                   "off.")
+                   "beside the sp ranks wait for ROADMAP.md, Queue 1: EP "
+                   "and the SP compositions.  1 = off.")
 @click.option("--sp-impl",
               type=click.Choice(["auto", "einsum", "pallas", "ulysses"]),
               default="auto", show_default=True,
@@ -173,8 +201,9 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
          ep_degree, pp_stages, pp_microbatches, sp_degree, sp_impl,
          data_file, profile_dir, checkpoint_dir, checkpoint_every,
          annotations_file, platform):
-    """Train the in-tree model on one device, with the sequence cut over
-    --sp ranks, or expert-parallel over --ep ranks (synthetic data)."""
+    """Train the in-tree model over a dp+tp mesh (one device by
+    default), with the sequence cut over --sp ranks, or expert-parallel
+    over --ep ranks."""
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(levelname)s: %(message)s")
     import torch
@@ -190,6 +219,9 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
     )
     from tpu_autoscaler_torch.workloads.model import (
         TrainConfig,
+        gather_params,
+        make_mesh,
+        make_sharded_train_step,
         make_train_step,
         resolve_device,
     )
@@ -213,6 +245,9 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
         raise click.UsageError(str(e)) from e
 
     last_moe_metrics: dict = {}
+    # Checkpoints hold the one-device layout: a mesh step's state is
+    # gathered to save and cut again on restore.
+    save_layout = mesh_layout = _unchanged
 
     def wrap_moe_step(step4):
         """Adapt a 4-tuple MoE step (params, opt, loss, metrics) to the
@@ -261,16 +296,44 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
             log.info("sp %d ranks (%s) on %s", sp_degree, sp_impl,
                      ", ".join(map(str, devices)))
     else:
-        init_fn, raw_step_fn = make_train_step(cfg, train=train_cfg,
-                                               device=device)
-    # A CPU generator: the same initial params on every device.
-    params, opt_state = init_fn(torch.Generator().manual_seed(0))
+        shard = shard_mode or ("zero1" if zero1 else "none")
+        cards = ([device] if device.type == "cpu" else
+                 [torch.device("cuda", i)
+                  for i in range(torch.cuda.device_count())])
+        if tp_degree is not None and tp_degree > len(cards):
+            # Ranks repeat the cards round-robin, as --sp/--ep do.
+            cards = [cards[r % len(cards)] for r in range(tp_degree)]
+        try:
+            mesh = make_mesh(cards, tp=tp_degree)
+        except ValueError as e:
+            raise click.UsageError(str(e)) from e
+        dp = mesh.shape["data"]
+        if batch % dp:
+            raise click.UsageError(
+                f"--batch {batch} must divide over the {dp} data-parallel "
+                f"ranks (devices / tp)")
+        if mesh.size > 1:
+            init_fn, raw_step_fn = make_sharded_train_step(
+                mesh, cfg, train=train_cfg, shard=shard)
+            save_layout = functools.partial(gather_params, mesh)
+            mesh_layout = functools.partial(_shard_state, mesh, cfg, shard)
+        else:
+            init_fn, raw_step_fn = make_train_step(
+                cfg, train=train_cfg, device=device, shard=shard)
+        log.info("mesh %s, shard %s on %s", dict(mesh.shape), shard,
+                 ", ".join(map(str, mesh.ranks)))
+    try:  # e.g. a width the model ranks do not divide
+        # A CPU generator: the same initial params on every device.
+        params, opt_state = init_fn(torch.Generator().manual_seed(0))
+    except ValueError as e:
+        raise click.UsageError(str(e)) from e
     log.info("device %s; params initialized", device)
 
     start = latest_step(checkpoint_dir) or 0
     state = {"params": params, "opt": opt_state}
     if start:
-        state = restore_checkpoint(checkpoint_dir, start, device)
+        state = mesh_layout(restore_checkpoint(checkpoint_dir, start,
+                                               device))
         log.info("resumed from checkpoint step %d", start)
 
     watcher = DrainWatcher(annotations_file or DEFAULT_ANNOTATIONS_PATH)
@@ -353,12 +416,16 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
                      tok_s, moe_note)
 
     writer = AsyncCheckpointWriter()
+
+    def save(directory, step, state):
+        return writer.save(directory, step, save_layout(state))
+
     try:
         state, step, drained = train_until_drained(
             step_fn, state, num_steps=steps, watcher=watcher,
             checkpoint_dir=checkpoint_dir, make_batch=batch_for,
             start_step=start, checkpoint_every=checkpoint_every,
-            on_step=on_step, save_fn=writer.save)
+            on_step=on_step, save_fn=save)
     finally:
         # Always drain the writer: makes the final/drain checkpoint
         # durable AND surfaces any deferred background write error even
