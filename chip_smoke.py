@@ -22,10 +22,14 @@ model (8 experts, top 2) through the linear and paged servers,
 ``decode.generate``, the train step, expert-parallel training over 4
 ranks and sp×ep, the training mesh (the step cell over a dp 4 × tp 2
 mesh of 8 ranks on the card, in each shard mode: none, zero1, fsdp;
-K1/K2 per shard), and runs the ``serve`` CLI with each cache,
+K1/K2 per shard), serving under a mesh of the card (the linear server
+and ``make_sharded_generate`` over dp 2 × tp 2, the paged server over a
+TP-only mesh of 2: K3, K1 and K4 per shard, against one device), and
+runs the ``serve`` CLI with each cache,
 speculatively and with request tracing, the ``generate`` CLI and the
 ``train`` CLI (train, resume, drain; on one device, with ``--sp 2`` and
-with ``--tp 2 --shard fsdp``; a MoE model also with ``--ep 2``, then
+with ``--tp 2 --shard fsdp``, whose checkpoint ``serve --tp 2`` and
+``generate --tp 2`` then read; a MoE model also with ``--ep 2``, then
 served and generated from).
 Each phase prints one JSON line; a failed phase raises and the script
 exits non-zero.  The last lines are the card's ``nvidia-smi`` name and
@@ -146,7 +150,7 @@ GEN_BATCH, GEN_PROMPT, GEN_STEPS = 8, 128, 256
 GEN_SHAPES = (("gqa", dict(FULL), GEN_PROMPT, GEN_STEPS),
               ("mha", dict(FULL, n_kv_heads=None), GEN_PROMPT, GEN_STEPS),
               ("long-prompt", dict(FULL), max(PROMPT_LENS), 128))
-GEN_REPS = 3
+GEN_REPS = 2
 LSE_TOL = 1e-4   # f32 in both versions; only the summation order differs
 SPIN_CYCLES = 400_000            # ~0.2 ms of device spin at ~1.98 GHz
 # The training path: bench_tpu.py's step phase (bench_tpu.py:171-173),
@@ -158,7 +162,7 @@ TRAIN_FULL = dict(vocab=32768, d_model=1024, n_layers=8, n_heads=16,
 TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS = 16, 2, 10
 TRAIN_LARGE = dict(vocab=32768, d_model=1536, n_layers=20, n_heads=12,
                    d_ff=6144, seq_len=2048, remat=True, ce_chunk=256)
-LARGE_BATCH, LARGE_WARM, LARGE_STEPS = 8, 1, 3
+LARGE_BATCH, LARGE_WARM, LARGE_STEPS = 8, 1, 2
 PROFILE_STEPS = 3
 # Kernel route vs einsum route at the first step, same params and batch:
 # both compute in bf16 and differ by attention-output rounding (~one
@@ -226,6 +230,16 @@ EP_RANKS, EP_NO_DROP = 4, 4.0
 # allocator rounds a block up and gives it a whole cached chunk unless
 # more than 1 MiB of the chunk would be left.
 MESH_RANKS, MESH_TP, MESH_WARM, MESH_STEPS = 8, 2, 2, 3
+# Serving under the mesh: the linear cell through ContinuousBatcher and
+# the GQA generate shape through make_sharded_generate over a dp 2 × tp 2
+# mesh of the card (4 ranks: 2 slots or 4 prompts a data row, 8 query
+# heads on 1 KV head a rank), the paged cell under a TP-only mesh of 2
+# (each rank's KV head of the pool).  Ticks, decode steps and
+# preemptions must equal the one-device cells'; the row-parallel
+# products are summed over the ranks in another order than one device's
+# product, so the logits differ by bf16 rounding and are held to
+# DLOGITS_MAX like the einsum route's.
+SERVE_MESH_RANKS, SERVE_MESH_TP, PAGED_MESH_RANKS = 4, 2, 2
 MESH_MODES = ("none", "zero1", "fsdp")
 MESH_MODE_GAP = 1e-6
 ALLOC_SLACK = 1 << 20
@@ -1074,7 +1088,7 @@ def phase_main_path(torch, np, attention, model, serving, arch=FULL,
             f"flash_decode launched {launches['flash_decode']} times, "
             f"want decode steps x layers = {want_launches}")
     _check_ticks(path, diffs)
-    return rec, eng
+    return rec, eng, [r.generated for r in reqs]
 
 
 def phase_paged_main_path(torch, np, attention, model, serving, paged,
@@ -1173,13 +1187,20 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged,
             ([r.generated for r in warm], rows))
 
 
-def phase_profile(torch, np, serving, eng, path, prompt_lens, syncs=None):
+def phase_profile(torch, np, serving, eng, path, prompt_lens, syncs=None,
+                  host=True):
     """Where a steady window of a main path spends device time:
     torch.profiler over PROFILE_TICKS engine ticks (after 5 warm ones)
     of a fresh pass of the same traffic.  ``syncs``: counters of the
     engine's host copies of logits, zeroed for the window and
-    reported with it."""
+    reported with it.  ``host=False`` traces the card alone, which
+    the device time and launches need: the mesh paths' windows hold
+    ~50k launches, whose host trace the profiler is slow to process."""
     from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
 
     for r in _requests(serving, np, eng.cfg, prompt_lens):
         eng.submit(r)
@@ -1188,8 +1209,7 @@ def phase_profile(torch, np, serving, eng, path, prompt_lens, syncs=None):
     torch.cuda.synchronize()
     for name in syncs or ():
         syncs[name] = 0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILE_TICKS):
             eng.tick()
@@ -1198,7 +1218,8 @@ def phase_profile(torch, np, serving, eng, path, prompt_lens, syncs=None):
     window = dict(syncs or {})
     eng.run()
     _emit_profile(path, "ticks", PROFILE_TICKS, prof, wall_ms,
-                  host_logit_syncs=window or None)
+                  host_logit_syncs=window or None,
+                  traced=None if host else "card only")
 
 
 def _emit_profile(path, unit, count, prof, wall_ms, **extra) -> dict:
@@ -1750,13 +1771,13 @@ def _watch_spec_generate(decode, dcfg, prompt_len, rows):
     counts = {"draft_decode": 0, "draft_replay": 0, "verify": 0}
     step, extend = decode.decode_step, decode.extend_step
 
-    def decode_step(p, cache, tokens, c):
+    def decode_step(p, cache, tokens, c, mesh=None):
         counts["draft_decode"] += c is dcfg
-        return step(p, cache, tokens, c)
+        return step(p, cache, tokens, c, mesh)
 
-    def extend_step(p, cache, tokens, c):
+    def extend_step(p, cache, tokens, c, mesh=None):
         first = cache.length + 1 - prompt_len
-        logits, cache = extend(p, cache, tokens, c)
+        logits, cache = extend(p, cache, tokens, c, mesh)
         if c is dcfg:
             counts["draft_replay"] += tokens.shape[1] == 1
         else:
@@ -1786,8 +1807,8 @@ def _watch_generate_rows(decode, rows):
     step = decode.decode_step
     n = [0]
 
-    def decode_step(p, cache, tokens, c):
-        logits, cache = step(p, cache, tokens, c)
+    def decode_step(p, cache, tokens, c, mesh=None):
+        logits, cache = step(p, cache, tokens, c, mesh)
         n[0] += 1
         for row in range(logits.shape[0]):
             rows[(row, n[0])] = logits[row]
@@ -2989,6 +3010,368 @@ def phase_small_mesh(torch, np, attention, model):
                                  f"from one device by {r['param_rel_err']}")
 
 
+def _one_device_bytes(model, params, cfg) -> int:
+    return sum(t.numel() * t.element_size() for _, t in model._flatten(
+        model.cast_params(params, cfg.dtype, "cuda")))
+
+
+def _tokens_of(tokens):
+    """Generated tokens as _agreement reads them (a request's
+    ``generated``)."""
+    import types
+
+    return [types.SimpleNamespace(generated=t) for t in tokens]
+
+
+def phase_mesh_main_path(torch, np, attention, model, serving, one_rec,
+                         one_tokens):
+    """The linear cell under a dp 2 × tp 2 mesh of the card
+    (ContinuousBatcher(mesh=...)): a warm pass in which every tick's
+    logits are held against the one-device kernel step on the same
+    inputs (the mesh cache gathered into the one-device layout), then
+    the timed pass whose launches are counted (K3 once per (row, rank)
+    shard a layer a decode step: 8 × 4 × steps), its ticks and decode
+    steps equal to the one-device pass's, and its free-running tokens
+    against the one-device pass's.  The placed params must weigh what
+    one device's do: ranks that share the card share their blocks."""
+    cfg = model.ModelConfig(**FULL)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, "cuda")
+    mesh = model.make_mesh(["cuda:0"] * SERVE_MESH_RANKS, tp=SERVE_MESH_TP)
+    eng = serving.ContinuousBatcher(params, cfg, slots=SLOTS,
+                                    max_len=MAX_LEN, chunk=CHUNK, mesh=mesh)
+    placed, one_bytes = eng.params.nbytes(), _one_device_bytes(model, params,
+                                                               cfg)
+    one = model.cast_params(params, cfg.dtype, "cuda")
+    one_step, mesh_step = serving.make_slot_decode_step(cfg), eng._decode
+    diffs, tick_lengths = [], []
+
+    def compared_step(p, cache, tokens, active):
+        ref = cache.gather()
+        tick_lengths.append((ref.lengths + 1).tolist())
+        want, _ = one_step(one, ref, tokens, active)
+        logits, cache = mesh_step(p, cache, tokens, active)
+        diffs.append(_compare_tick(torch, logits, want,
+                                   active.nonzero()[:, 0]))
+        return logits, cache
+
+    eng._decode = compared_step
+    warm_s = _serve_all(eng, _requests(serving, np, cfg))
+    eng._decode = mesh_step
+    del one
+    reqs = _requests(serving, np, cfg)
+    ticks0, steps0 = eng.ticks, eng.decode_steps
+    attention.reset_launch_counts()
+    dt = _serve_all(eng, reqs)
+    launches = dict(attention.LAUNCHES)
+    ticks, steps = eng.ticks - ticks0, eng.decode_steps - steps0
+    want_launches = steps * cfg.n_layers * mesh.size
+    decoded = sum(len(r.generated) for r in reqs)
+    agree, firsts = _agreement(reqs, _tokens_of(one_tokens))
+    by_live = sorted(tick_lengths, key=sum)
+    rec = dict(
+        mesh=dict(mesh.shape), config=FULL, dtype="bfloat16", slots=SLOTS,
+        max_len=MAX_LEN, chunk=CHUNK, prompt_lens=PROMPT_LENS,
+        new_tokens=NEW_TOKENS, warm_seconds=warm_s, seconds=dt, ticks=ticks,
+        decode_steps=steps, preemptions=0, decoded_tokens=decoded,
+        tokens_per_s=decoded / dt,
+        one_device=dict(ticks=one_rec["ticks"],
+                        decode_steps=one_rec["decode_steps"],
+                        tokens_per_s=one_rec["tokens_per_s"]),
+        flash_decode_launches=launches["flash_decode"],
+        expected_launches=want_launches, launches=launches,
+        placed_param_bytes=placed, one_device_param_bytes=one_bytes,
+        **_compare_record(diffs, firsts), greedy_tokens_agree=agree,
+        greedy_prefix_agree=sum(firsts), greedy_tokens_total=decoded,
+        mid_tick_lengths=by_live[len(by_live) // 2])
+    emit("mesh_main_path", **rec)
+    if launches["flash_decode"] != want_launches or want_launches == 0:
+        raise AssertionError(
+            f"mesh linear path: flash_decode launched "
+            f"{launches['flash_decode']} times, want decode steps x layers "
+            f"x ranks = {want_launches}")
+    if (ticks, steps) != (one_rec["ticks"], one_rec["decode_steps"]):
+        raise AssertionError(f"mesh linear path: {ticks} ticks and {steps} "
+                             f"decode steps, one device {one_rec['ticks']} "
+                             f"and {one_rec['decode_steps']}")
+    if placed != one_bytes:
+        raise AssertionError(f"mesh linear path placed {placed} bytes of "
+                             f"params, one device holds {one_bytes}")
+    _check_ticks("mesh_main_path", diffs)
+    return rec, eng
+
+
+def phase_mesh_paged_main_path(torch, np, attention, model, serving, paged,
+                               one_rec, one_tokens):
+    """The paged cell under a TP-only mesh of 2 ranks on the card
+    (PagedBatcher(mesh=...): each rank's KV head of the pool): a warm
+    pass held tick by tick against the one-device kernel step on the
+    gathered pool, then the timed pass (K4 once per rank a layer a
+    decode step, K3 never), its ticks and preemptions equal to the
+    one-device pass's, and its tokens against the one-device pass's."""
+    cfg = model.ModelConfig(**FULL)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, "cuda")
+    mesh = model.make_mesh(["cuda:0"] * PAGED_MESH_RANKS,
+                           tp=PAGED_MESH_RANKS)
+    geometry = dict(slots=PAGED_SLOTS, max_len=MAX_LEN,
+                    block_size=BLOCK_SIZE, num_blocks=NUM_BLOCKS,
+                    chunk=CHUNK, prefill_lanes=PREFILL_LANES)
+    eng = paged.PagedBatcher(params, cfg, mesh=mesh, **geometry)
+    one = model.cast_params(params, cfg.dtype, "cuda")
+    one_step = paged.make_paged_decode_step(cfg, MAX_LEN)
+    mesh_step = eng._decode
+    diffs, ticks_seen = [], []
+
+    def compared_step(p, cache, tables, tokens, active):
+        ticks_seen.append((tables.clone(), (cache.lengths + 1).tolist()))
+        want, _ = one_step(one, cache.gather(), tables, tokens, active)
+        logits, cache = mesh_step(p, cache, tables, tokens, active)
+        diffs.append(_compare_tick(torch, logits, want,
+                                   active.nonzero()[:, 0].to(logits.device)))
+        return logits, cache
+
+    eng._decode = compared_step
+    warm_s = _serve_all(eng, _requests(serving, np, cfg, PAGED_PROMPT_LENS))
+    eng._decode = mesh_step
+    del one
+    reqs = _requests(serving, np, cfg, PAGED_PROMPT_LENS)
+    ticks0, steps0, pre0 = eng.ticks, eng.decode_steps, eng.preemptions
+    attention.reset_launch_counts()
+    dt, peak = _serve_ticks(eng, reqs)
+    launches = dict(attention.LAUNCHES)
+    ticks, steps = eng.ticks - ticks0, eng.decode_steps - steps0
+    preemptions = eng.preemptions - pre0
+    want_launches = steps * cfg.n_layers * mesh.size
+    decoded = sum(len(r.generated) for r in reqs)
+    agree, firsts = _agreement(reqs, _tokens_of(one_tokens))
+    by_live = sorted(ticks_seen, key=lambda t: sum(t[1]))
+    mid_tables, mid_lengths = by_live[len(by_live) // 2]
+    rec = dict(
+        mesh=dict(mesh.shape), config=FULL, dtype="bfloat16", **geometry,
+        prompt_lens=PAGED_PROMPT_LENS, new_tokens=NEW_TOKENS,
+        warm_seconds=warm_s, seconds=dt, ticks=ticks, decode_steps=steps,
+        preemptions=preemptions, peak_concurrent_sequences=peak,
+        decoded_tokens=decoded, tokens_per_s=decoded / dt,
+        one_device=dict(ticks=one_rec["ticks"],
+                        decode_steps=one_rec["decode_steps"],
+                        preemptions=one_rec["preemptions"],
+                        tokens_per_s=one_rec["tokens_per_s"]),
+        paged_flash_decode_launches=launches["paged_flash_decode"],
+        flash_decode_launches=launches["flash_decode"],
+        expected_launches=want_launches,
+        placed_param_bytes=eng.params.nbytes(),
+        **_compare_record(diffs, firsts), greedy_tokens_agree=agree,
+        greedy_prefix_agree=sum(firsts), greedy_tokens_total=decoded,
+        mid_tick_lengths=mid_lengths)
+    emit("mesh_paged_main_path", **rec)
+    if launches["paged_flash_decode"] != want_launches or want_launches == 0:
+        raise AssertionError(
+            f"mesh paged path: paged_flash_decode launched "
+            f"{launches['paged_flash_decode']} times, want decode steps x "
+            f"layers x ranks = {want_launches}")
+    if launches["flash_decode"] != 0:
+        raise AssertionError(f"mesh paged path: flash_decode launched "
+                             f"{launches['flash_decode']} times")
+    if (ticks, preemptions) != (one_rec["ticks"], one_rec["preemptions"]):
+        raise AssertionError(
+            f"mesh paged path: {ticks} ticks and {preemptions} preemptions, "
+            f"one device {one_rec['ticks']} and {one_rec['preemptions']}")
+    if eng.allocator.used_blocks != 0:
+        raise AssertionError(f"drained mesh paged engine holds "
+                             f"{eng.allocator.used_blocks} blocks")
+    _check_ticks("mesh_paged_main_path", diffs)
+    return rec, (mid_tables, mid_lengths), eng
+
+
+def phase_mesh_generate_main_path(torch, np, attention, model, decode,
+                                  one_rec):
+    """The GQA generate shape through make_sharded_generate over a dp 2
+    × tp 2 mesh of the card: the prefill logits and COMPARE_TICKS decode
+    steps held against one device's on the same inputs (the mesh cache
+    gathered), then GEN_REPS timed calls with the launches counted (K1
+    once per shard a layer: 8 × 4; K3 8 × 4 × (steps − 1)), timed as the
+    one-device phase is (prefill alone, then the whole call; the
+    comparison warms the path), and the tokens against one device's
+    generate."""
+    cfg = model.ModelConfig(**FULL)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, "cuda")
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (GEN_BATCH, GEN_PROMPT)).astype(np.int32)).cuda()
+    steps, max_len = GEN_STEPS, GEN_PROMPT + GEN_STEPS
+    mesh = model.make_mesh(["cuda:0"] * SERVE_MESH_RANKS, tp=SERVE_MESH_TP)
+    placed = model.place_params(mesh, cfg, params)
+    run = decode.make_sharded_generate(mesh, cfg, steps)
+    one = model.cast_params(params, cfg.dtype, "cuda")
+    logits, cache = decode.prefill(placed, prompt, cfg, max_len, mesh=mesh)
+    want, _ = decode.prefill(one, prompt, cfg, max_len)
+    prefill_max = (logits - want).abs().max().item()
+    finite = bool(torch.isfinite(logits).all())
+    token = torch.argmax(logits[:, -1], -1).to(torch.int32)
+    diffs = []
+    for _ in range(COMPARE_TICKS):
+        want, _ = decode.decode_step(one, cache.gather(), token, cfg)
+        logits, cache = decode.decode_step(placed, cache, token, cfg, mesh)
+        diffs.append(_compare_tick(torch, logits, want,
+                                   torch.arange(GEN_BATCH, device="cuda")))
+        token = torch.argmax(logits, -1).to(torch.int32)
+    del cache, want, logits
+    expect = {**dict.fromkeys(attention.LAUNCHES, 0),
+              "flash_attention": cfg.n_layers * mesh.size,
+              "flash_decode": (steps - 1) * cfg.n_layers * mesh.size}
+    gen_s, pf_s, launches = [], [], []
+    for _ in range(GEN_REPS):
+        pf_s.append(_wall(torch, lambda: decode.prefill(
+            placed, prompt, cfg, max_len, mesh=mesh)[0])[0])
+        attention.reset_launch_counts()
+        dt, out = _wall(torch, lambda: run(placed, prompt))
+        launches.append(dict(attention.LAUNCHES))
+        gen_s.append(dt)
+    gen_dt, pf_dt = statistics.fmean(gen_s), statistics.fmean(pf_s)
+    decode_dt = gen_dt - pf_dt
+    one_out = decode.generate(one, prompt, cfg, steps)
+    del one
+    equal = (out[:, GEN_PROMPT:] == one_out[:, GEN_PROMPT:]).cpu()
+    prefix = sum(steps if bool(row.all()) else int((~row).nonzero()[0])
+                 for row in equal)
+    rec = dict(
+        shape="gqa", mesh=dict(mesh.shape), config=FULL, dtype="bfloat16",
+        batch=GEN_BATCH, prompt_len=GEN_PROMPT, steps=steps,
+        generate_seconds=gen_s, prefill_seconds=pf_s,
+        prefill_ms=pf_dt * 1e3, decode_ms_per_step=decode_dt / steps * 1e3,
+        decode_tokens_per_s=GEN_BATCH * steps / decode_dt,
+        one_device=dict(prefill_ms=one_rec["prefill_ms"],
+                        decode_ms_per_step=one_rec["decode_ms_per_step"]),
+        launches=launches[-1], expected_launches=expect,
+        prefill_dlogits_max=prefill_max, prefill_finite=finite,
+        **_compare_record(diffs, []), greedy_tokens_agree=int(equal.sum()),
+        greedy_prefix_agree=prefix, greedy_tokens_total=GEN_BATCH * steps)
+    emit("mesh_generate_main_path", **rec)
+    if any(n != expect for n in launches):
+        raise AssertionError(f"mesh generate launched {launches}, want "
+                             f"{expect} per call")
+    if not (finite and prefill_max < DLOGITS_MAX):
+        raise AssertionError(f"mesh generate: prefill logits differ from "
+                             f"one device's by {prefill_max} (finite "
+                             f"{finite})")
+    if not bool(((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError("mesh generate: tokens out of the vocab")
+    _check_ticks("mesh_generate_main_path", diffs)
+    return rec
+
+
+def phase_mesh_kernel_checks(torch, F, attention, flush, linear_lengths,
+                             paged_tick):
+    """K3, K4 and K1 at the shard shapes the mesh serving paths give
+    them, each against its plain version, timed beside it and SDPA: K3
+    over one data row's 2 slots and one rank's KV head of the linear
+    cache ([2, 8, 1, 64] over [2, 1, 1024, 64]) at the mesh linear
+    path's median tick; K4 over one rank's KV head of the pool ([16, 8,
+    1, 64] over [256, 1, 16, 64]) at the mesh paged path's median tick;
+    K1 over one shard of the mesh generate prefill ([4, 8, 128, 64] on
+    one KV head)."""
+    h, d, bf16 = FULL["n_heads"] // SERVE_MESH_TP, 64, torch.bfloat16
+    row = SLOTS // (SERVE_MESH_RANKS // SERVE_MESH_TP)
+    tables, lengths = paged_tick
+    return dict(
+        flash_decode=check_case(
+            torch, F, attention, flush, label="mesh-shard", b=row, h=h,
+            hkv=1, max_len=MAX_LEN, d=d, dtype=bf16,
+            lengths=linear_lengths[:row], seed=300),
+        paged_flash_decode=check_paged_case(
+            torch, F, attention, flush, label="mesh-shard", slots=PAGED_SLOTS,
+            h=FULL["n_heads"] // PAGED_MESH_RANKS, hkv=1, bs=BLOCK_SIZE,
+            tpr=MAX_LEN // BLOCK_SIZE, nb=NUM_BLOCKS, d=d, dtype=bf16,
+            tables=tables, lengths=lengths, seed=301),
+        flash_attention=check_attn_case(
+            torch, F, attention, flush, label="mesh-shard-prefill",
+            b=GEN_BATCH // (SERVE_MESH_RANKS // SERVE_MESH_TP), h=h, hkv=1,
+            s=GEN_PROMPT, d=d, dtype=bf16, seed=302))
+
+
+def phase_small_mesh_serving(torch, np, model, serving, paged, decode,
+                             spec_serving):
+    """Small f32 models served under meshes of the card (the kernel
+    route: K3/K4/K1 per shard) against one device: the same greedy
+    tokens through the linear, ring, paged (its pool preempts) and
+    speculative paged engines, a MoE model (4 experts, top 2) through
+    the linear engine, MQA (one KV head, which tp 2 cannot cut: each
+    data row's whole head on its first rank) and make_sharded_generate.
+    Linear, ring, MoE, MQA and generate run at dp 2 × tp 2, the paged
+    engines at tp 2; the speculative engine's accept rate must equal one
+    device's too."""
+    import dataclasses
+
+    base = model.ModelConfig(vocab=256, d_model=128, n_layers=2, n_heads=4,
+                             n_kv_heads=2, d_ff=256, seq_len=64,
+                             dtype=torch.float32)
+    grid = model.make_mesh(["cuda:0"] * SERVE_MESH_RANKS, tp=SERVE_MESH_TP)
+    tp_only = model.make_mesh(["cuda:0"] * PAGED_MESH_RANKS,
+                              tp=PAGED_MESH_RANKS)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 256, (n,)).astype(np.int32)
+               for n in (5, 17, 33, 9, 41)]
+
+    def served(make):
+        eng = make()
+        reqs = [serving.Request(prompt=p, max_new_tokens=8) for p in prompts]
+        _serve_ticks(eng, reqs, check=hasattr(eng, "check_accounting"))
+        return ([r.generated for r in reqs],
+                getattr(eng, "preemptions", 0),
+                getattr(eng, "accept_rate", None))
+
+    rec = {}
+    for label, cfg, mesh, kind, kw in (
+            ("linear", base, grid, "linear", {}),
+            ("ring", dataclasses.replace(base, attention_window=16), grid,
+             "linear", dict(ring=True)),
+            ("moe", dataclasses.replace(base, moe_experts=4, moe_top_k=2),
+             grid, "linear", {}),
+            ("mqa", dataclasses.replace(base, n_kv_heads=1), grid, "linear",
+             {}),
+            ("paged", base, tp_only, "paged", {}),
+            ("spec", base, tp_only, "spec", {})):
+        params = model.init_params(
+            torch.Generator(device="cuda").manual_seed(1), cfg, "cuda")
+
+        def make(where, cfg=cfg, kind=kind, kw=kw, params=params):
+            if kind == "linear":
+                return serving.ContinuousBatcher(
+                    params, cfg, slots=2, max_len=64, chunk=8, **kw, **where)
+            geometry = dict(slots=3, max_len=64, block_size=8,
+                            num_blocks=8, chunk=8, prefill_lanes=2)
+            if kind == "paged":
+                return paged.PagedBatcher(params, cfg, **geometry, **where)
+            return spec_serving.SpeculativePagedBatcher(
+                params, cfg, _draft(params, 1),
+                dataclasses.replace(cfg, n_layers=1), k=3, **geometry,
+                **where)
+
+        one = served(lambda: make(dict(device="cuda")))
+        got = served(lambda: make(dict(mesh=mesh)))
+        rec[label] = dict(mesh=dict(mesh.shape), tokens_equal=got == one,
+                          tokens=sum(len(t) for t in got[0]),
+                          preemptions=got[1], accept_rate=got[2])
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(1),
+                               base, "cuda")
+    batch = torch.from_numpy(rng.integers(0, 256, (4, 40)).astype(np.int32))
+    want = decode.generate(params, batch, base, 10)
+    got = decode.make_sharded_generate(grid, base, 10)(params, batch)
+    rec["generate"] = dict(mesh=dict(grid.shape),
+                           tokens_equal=bool(torch.equal(got, want)),
+                           tokens=4 * 10)
+    emit("small_mesh_serving", **rec)
+    for label, r in rec.items():
+        if not r["tokens_equal"]:
+            raise AssertionError(f"f32 {label} under the mesh: tokens differ "
+                                 f"from one device's")
+    for label in ("paged", "spec"):
+        if not rec[label]["preemptions"]:
+            raise AssertionError(f"f32 {label} under the mesh never "
+                                 f"preempted")
+
+
 def phase_small_moe_exact(torch, np, model, serving, paged, decode, moe):
     """A small f32 MoE model on the card: the kernel route and the einsum
     route give the same greedy tokens through the linear, ring and paged
@@ -3331,20 +3714,25 @@ def phase_cli(model, decode, DrainReceipt):
                 raise AssertionError(f"serve --spec-k without --paged exited "
                                      f"{res.returncode}: {res.stderr[-2000:]}")
 
-        def generate(ckpt, what, want_params, expect=()):
+        def generate(ckpt, what, want_params, expect=(), tp=None):
             """The generate CLI on ``ckpt`` must print the tokens
-            decode.generate gives in-process from ``want_params``."""
+            decode.generate gives in-process from ``want_params`` (with
+            ``tp``: under the dp 1 × tp mesh of the card, as the CLI's
+            ``--tp`` builds it)."""
+            flags = [] if tp is None else ["--tp", str(tp)]
             dt, lines = run([sys.executable, "-m",
                              "tpu_autoscaler_torch.workloads.generate",
                              "--checkpoint-dir", ckpt, "--prompt",
                              ",".join(map(str, prompt)), "--batch", "2",
-                             "--steps", "8", "--platform", "cuda"],
+                             "--steps", "8", "--platform", "cuda", *flags],
                             f"generate CLI on {what}", expect)
+            mesh = None if tp is None else model.make_mesh(["cuda:0"] * tp,
+                                                           tp=tp)
             want = decode.generate(want_params(), torch.tensor([prompt] * 2),
-                                   cfg, 8).tolist()
+                                   cfg, 8, mesh=mesh).tolist()
             want_lines = [f"{','.join(map(str, row[:5]))} | "
                           f"{','.join(map(str, row[5:]))}" for row in want]
-            emit("cli", command="generate", checkpoint=what,
+            emit("cli", command="generate", checkpoint=what, flags=flags,
                  head_dim=cfg.head_dim, seconds=dt, lines=lines,
                  in_process=want_lines)
             if lines != want_lines:
@@ -3388,6 +3776,23 @@ def phase_cli(model, decode, DrainReceipt):
             generate(tdir, f"{label}train step_30",
                      lambda: model.load_params(tdir, 30, "cuda"),
                      ["loaded step 30"])
+            if label == "mesh ":
+                # What train --tp 2 wrote, served and generated from
+                # under the same mesh, each a process, at once.
+                under = ["serving under mesh {'data': 1, 'model': 2}"]
+                with concurrent.futures.ThreadPoolExecutor(3) as pool:
+                    jobs = [
+                        pool.submit(serve, tdir, "mesh-linear", ["--tp", "2"],
+                                    expect=under),
+                        pool.submit(serve, tdir, "mesh-paged",
+                                    ["--tp", "2", "--paged"], expect=under),
+                        pool.submit(generate, tdir,
+                                    f"{label}train step_30 (--tp 2)",
+                                    lambda: model.load_params(tdir, 30,
+                                                              "cuda"),
+                                    ["loaded step 30", *under], tp=2)]
+                    for job in jobs:
+                        job.result()
 
         # Every run reads or writes its own checkpoint: they run at once,
         # each a process.
@@ -3445,12 +3850,24 @@ def main() -> None:
     t_start = time.perf_counter()
     name, smi = phase_device(torch)
     phase_build(attention)
-    main_rec, eng = phase_main_path(torch, np, attention, model, serving)
+    main_rec, eng, main_tokens = phase_main_path(torch, np, attention, model,
+                                                 serving)
     phase_profile(torch, np, serving, eng, "linear", PROMPT_LENS)
     del eng
     paged_rec, paged_tick, eng, paged_plain = phase_paged_main_path(
         torch, np, attention, model, serving, paged)
     phase_profile(torch, np, serving, eng, "paged", PAGED_PROMPT_LENS)
+    del eng
+    mesh_serve_rec, eng = phase_mesh_main_path(
+        torch, np, attention, model, serving, main_rec, main_tokens)
+    phase_profile(torch, np, serving, eng, "mesh_linear", PROMPT_LENS,
+                  host=False)
+    del eng, main_tokens
+    mesh_paged_rec, mesh_paged_tick, eng = phase_mesh_paged_main_path(
+        torch, np, attention, model, serving, paged, paged_rec,
+        paged_plain[0])
+    phase_profile(torch, np, serving, eng, "mesh_paged", PAGED_PROMPT_LENS,
+                  host=False)
     del eng
     spec_rec, spec_tick, eng, syncs = phase_spec_main_path(
         torch, np, attention, model, serving, spec_serving, paged_plain)
@@ -3459,8 +3876,8 @@ def main() -> None:
     self_draft_rec = phase_spec_self_draft(
         torch, np, attention, model, serving, spec_serving, paged_plain)
     del paged_plain
-    moe_rec, eng = phase_main_path(torch, np, attention, model, serving,
-                                   FULL_MOE, "moe_main_path")
+    moe_rec, eng, _ = phase_main_path(torch, np, attention, model, serving,
+                                      FULL_MOE, "moe_main_path")
     phase_profile(torch, np, serving, eng, "moe_linear", PROMPT_LENS)
     del eng
     moe_paged_rec = phase_paged_main_path(
@@ -3477,6 +3894,9 @@ def main() -> None:
     attn_checks = phase_attn_kernel_checks(torch, F, attention, flush)
     bwd_checks = phase_bwd_kernel_checks(torch, F, attention, flush)
     ring_checks = phase_ring_kernel_checks(torch, F, attention, flush)
+    mesh_checks = phase_mesh_kernel_checks(
+        torch, F, attention, flush, mesh_serve_rec["mid_tick_lengths"],
+        mesh_paged_tick)
     del flush
     gen_recs = []
     for label, arch, prompt_len, steps in GEN_SHAPES:
@@ -3488,6 +3908,8 @@ def main() -> None:
             phase_generate_profile(torch, model, decode, params, prompt, cfg,
                                    steps)
         del params, prompt
+    mesh_gen_rec = phase_mesh_generate_main_path(torch, np, attention, model,
+                                                 decode, gen_recs[0])
     moe_gen_rec = phase_generate_main_path(
         torch, np, attention, model, decode, "moe-gqa", FULL_MOE, GEN_PROMPT,
         GEN_STEPS)[0]
@@ -3511,6 +3933,8 @@ def main() -> None:
     phase_small_train(torch, np, model)
     phase_small_sp(torch, np, model, sp, decode)
     phase_small_mesh(torch, np, attention, model)
+    phase_small_mesh_serving(torch, np, model, serving, paged, decode,
+                             spec_serving)
     sp_ep_rec = phase_small_sp_ep(torch, np, attention, model, sp)
     trained_rec = phase_spec_trained(torch, np, attention, model, decode,
                                      dataio, paged, serving, spec_serving)
@@ -3651,6 +4075,27 @@ def main() -> None:
         if not kernel["moe_path_launches"]:
             raise AssertionError(f"{kernel['name']} never launched on a MoE "
                                  f"path: {moe_paths}")
+    # K1, K3 and K4 on the mesh serving paths: over the mesh linear and
+    # paged engines' timed passes, per mesh generate call; each at its
+    # shard shape there.
+    mesh_paths = {
+        "mesh_main_path": {
+            "flash_decode": mesh_serve_rec["flash_decode_launches"]},
+        "mesh_paged_main_path": {"paged_flash_decode":
+                                 mesh_paged_rec["paged_flash_decode_launches"]},
+        "mesh_generate_main_path": mesh_gen_rec["launches"]}
+    for kernel in kernels[:3]:
+        kname = kernel["name"]
+        kernel["mesh_serving_launches"] = {
+            path: n[kname] for path, n in mesh_paths.items() if n.get(kname)}
+        if not kernel["mesh_serving_launches"]:
+            raise AssertionError(f"{kname} never launched on a mesh serving "
+                                 f"path: {mesh_paths}")
+        c = mesh_checks[kname]
+        kernel["mesh_serving_shard"] = dict(
+            shape=c["shape"], ms=c["ms"], plain_ms=c["plain_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+            library_ms=c["library_ms"], max_abs_err=c["max_abs_err"])
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

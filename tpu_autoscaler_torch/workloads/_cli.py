@@ -65,18 +65,24 @@ def device_count(platform: str) -> int:
     return torch.cuda.device_count()
 
 
-def refuse_tp(tp_degree, n_devices: int) -> None:
-    """``--tp`` of serve and generate, checked in the JAX CLIs' order:
-    None or 1 serves on one device; a degree that does not divide the
-    devices is refused in the JAX CLIs' words; any other degree > 1
-    needs serving under a mesh, which waits for ROADMAP.md, Queue 1:
-    the mesh."""
+def serving_mesh(tp_degree, n_devices: int, platform: str):
+    """The mesh ``--tp`` asks serve and generate for, or None: None or
+    1 serves on one device; a degree the devices do not divide is
+    refused in the JAX CLIs' words; a degree above the device count
+    repeats the devices round-robin, as the trainer's ``--tp`` does
+    (NCCL will not put two ranks on one card, so the ranks live in one
+    process); otherwise ``make_mesh`` over every device, the devices
+    the degree leaves over the data rows."""
     if tp_degree is None or tp_degree <= 1:
-        return
-    if n_devices % tp_degree:
+        return None
+    if tp_degree <= n_devices and n_devices % tp_degree:
         raise click.UsageError(
             f"--tp {tp_degree} must divide the {n_devices} available "
             f"devices")
-    raise click.UsageError(
-        f"--tp {tp_degree} serves under a (data, model) mesh, which is not "
-        f"ported yet (ROADMAP.md, Queue 1: the mesh)")
+    from tpu_autoscaler_torch.workloads.model import make_mesh
+
+    cards = (["cpu"] * n_devices if platform == "cpu"
+             else [f"cuda:{i}" for i in range(n_devices)])
+    if tp_degree > len(cards):
+        cards = [cards[r % len(cards)] for r in range(tp_degree)]
+    return make_mesh(cards, tp=tp_degree)

@@ -1,15 +1,22 @@
 """Autoregressive inference over a KV cache: prefill, decode steps,
 generate; and the logit warping and sampling the serving engines share.
 
-The counterpart of the JAX package's ``workloads/decode.py`` without
-its mesh (``cache_specs``, ``_constrain_cache``, ``make_sharded_generate``;
-ROADMAP.md, Queue 1: the mesh):
+The counterpart of the JAX package's ``workloads/decode.py``:
 
 - **KVCache**: a preallocated per-layer cache ``[layers, b, kv_heads,
   max_len, head_dim]``.  Its length is a host ``int``, so the overflow
   checks need no device sync.  PyTorch runs eagerly, so the steps write
   the cache in place (the JAX versions return a new one); they still
   return the cache, so the call sites read like the JAX ones.
+- **The mesh** (``mesh=`` on every step, ``make_sharded_generate``):
+  the params placed once per rank (``model.place_params``), every layer
+  tensor-parallel (``model.tp_blocks``), and the cache a
+  :class:`MeshKVCache` cut as ``cache_specs`` says: the batch over the
+  data rows (unevenly when it does not divide, where the JAX package
+  leaves it whole), KV heads over 'model' when they divide, else whole
+  heads on each row's first rank.  Each shard runs the one-device
+  attention route on its own rows and heads: K3 per shard in decode,
+  K1 per shard in the prompt's prefill.
 - **Attention routes** (``_attend``), the JAX package's exactly: a
   one-token block (``decode_step``, or ``extend_step`` with s == 1)
   reads the cache through the ``flash_decode`` kernel; the prompt of
@@ -42,14 +49,26 @@ from tpu_autoscaler_torch.workloads.attention import (
     flash_decode,
 )
 from tpu_autoscaler_torch.workloads.model import (
+    Mesh,
     ModelConfig,
+    P,
+    TPParams,
+    _PerDevice,
     _ffn_residual,
     _rmsnorm,
     _rope_tables,
     _rotate,
     _split_qkv,
     cast_params,
+    data_axes,
+    kv_gather,
+    kv_zeros,
+    place_params,
     resolve_device,
+    row_sizes,
+    tp_blocks,
+    tp_embed,
+    tp_logits,
 )
 
 
@@ -77,6 +96,55 @@ class KVCache:
         return cls(k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
                    v=torch.zeros(shape, dtype=cfg.dtype, device=dev),
                    length=0)
+
+
+@dataclasses.dataclass
+class MeshKVCache:
+    """A :class:`KVCache` cut over a mesh's (data row, model rank)
+    shards.  ``k[i][n]``, ``v[i][n]``: data row i's shard n, [layers,
+    batch[i], kv_heads/tp, max_len, head_dim] on rank (i, n)'s device
+    when the heads divide over the ranks (:func:`model.heads_split`),
+    else one shard [layers, batch[i], kv_heads, max_len, head_dim] on the
+    row's first rank.  Each shard is a tensor of its own, so an in-place
+    write lands in one shard only.  ``batch``: the rows each data row
+    holds (``model.row_sizes``); ``length`` is shared, on the host."""
+
+    k: list
+    v: list
+    length: int
+    batch: list
+
+    @property
+    def max_len(self) -> int:
+        return self.k[0][0].shape[3]
+
+    @classmethod
+    def zeros(cls, sp: TPParams, batch: int, max_len: int) -> "MeshKVCache":
+        sizes = row_sizes(batch, len(sp.rows))
+        shards = [((sp.cfg.n_layers, b), (max_len, sp.cfg.head_dim), row)
+                  for row, b in zip(sp.rows, sizes)]
+        return cls(k=[kv_zeros(sp, row, lead, tail)
+                      for lead, tail, row in shards],
+                   v=[kv_zeros(sp, row, lead, tail)
+                      for lead, tail, row in shards],
+                   length=0, batch=sizes)
+
+    def gather(self, device=None) -> KVCache:
+        """The whole cache in the one-device layout on ``device``
+        (default: the first shard's)."""
+        dev = self.k[0][0].device if device is None else device
+        return KVCache(k=kv_gather(self.k, dev), v=kv_gather(self.v, dev),
+                       length=self.length)
+
+
+def cache_specs(mesh: Mesh) -> KVCache:
+    """Partition specs of a KVCache under a (data, model) mesh: batch
+    over the data axes, KV heads over 'model' (the JAX package's
+    ``cache_specs``).  :class:`MeshKVCache` realizes them per
+    dimension: an uneven batch is cut unevenly, and KV heads that do
+    not divide over 'model' stay whole on each data row's first rank."""
+    kv = P(None, data_axes(mesh), "model", None, None)
+    return KVCache(k=kv, v=kv, length=P())
 
 
 def _cached_attention(q, k_cache, v_cache, length, cfg: ModelConfig):
@@ -168,51 +236,109 @@ def _run_blocks(params, x, cache: KVCache, cfg: ModelConfig, offset: int,
     return logits.float(), KVCache(k=cache.k, v=cache.v, length=offset + s)
 
 
+def _mesh_run_blocks(sp: TPParams, tokens, cache: MeshKVCache,
+                     offset: int, prompt: bool = False):
+    """:func:`_run_blocks` under a mesh: tokens [b, s] cut over the data
+    rows as the cache is, every layer tensor-parallel
+    (:func:`model.tp_blocks`), each (row, rank) shard writing its own
+    cache shard and attending through :func:`_attend` on it (K3 or K1
+    per shard, or the einsum).  Returns (logits [b, s, vocab] f32 on the
+    first device, cache advanced to offset + s)."""
+    cfg = sp.cfg
+    b, s = tokens.shape
+    live = [i for i, n in enumerate(cache.batch) if n]
+    parts = torch.split(tokens, cache.batch, dim=0)
+    xs = tp_embed(sp, [parts[i] for i in live], live)
+    on = _PerDevice()
+
+    rope = None
+    if cfg.rope:
+        def rope(t, i):
+            return _rotate(t, *on("rope", t.device, lambda d: _rope_tables(
+                offset + torch.arange(s, dtype=torch.float32, device=d),
+                cfg.head_dim, cfg.rope_theta, cfg.dtype)))
+
+    def attend(layer, i, j, q, k, v):
+        n = 0 if j is None else j
+        k_c, v_c = cache.k[i][n][layer], cache.v[i][n][layer]
+        k_c[:, :, offset:offset + s] = k
+        v_c[:, :, offset:offset + s] = v
+        lengths = None
+        if s == 1 and cfg.resolved_attention(q.device) == "kernel":
+            lengths = on(("lengths", i), q.device, lambda d: torch.full(
+                (cache.batch[i],), offset + 1, dtype=torch.int32, device=d))
+        return _attend(q, k, v, k_c, v_c, cfg, offset + s, prompt, lengths)
+
+    xs = tp_blocks(sp, xs, live, rope, attend)
+    logits = tp_logits(sp, xs, live)
+    return logits, dataclasses.replace(cache, length=offset + s)
+
+
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            max_len: int) -> tuple[torch.Tensor, KVCache]:
+            max_len: int, mesh: Mesh | None = None):
     """Run the prompt [b, s] through the model, filling a fresh cache on
     the tokens' device.  Returns (logits [b, s, vocab] f32, cache with
-    length == s); the last position's logits seed generation."""
+    length == s); the last position's logits seed generation.
+
+    ``mesh``: serve under it; ``params`` placed over it
+    (:func:`model.place_params`, done here when given a plain tree) and
+    the cache a :class:`MeshKVCache`; the logits come back on the mesh's
+    first device."""
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prompt length {s} exceeds max_len {max_len}")
+    if mesh is not None:
+        sp = place_params(mesh, cfg, params)
+        cache = MeshKVCache.zeros(sp, b, max_len)
+        return _mesh_run_blocks(sp, tokens.to(sp.first), cache, 0,
+                                prompt=True)
     cache = KVCache.zeros(cfg, b, max_len, tokens.device)
     x = params["embed"].to(cfg.dtype)[tokens]
     return _run_blocks(params, x, cache, cfg, 0, prompt=True)
 
 
-def decode_step(params: dict, cache: KVCache, tokens: torch.Tensor,
-                cfg: ModelConfig) -> tuple[torch.Tensor, KVCache]:
+def decode_step(params: dict, cache, tokens: torch.Tensor,
+                cfg: ModelConfig, mesh: Mesh | None = None):
     """One token per sequence: tokens [b] at position cache.length.
-    Returns (logits [b, vocab] f32, cache advanced by one)."""
+    Returns (logits [b, vocab] f32, cache advanced by one).  ``mesh``:
+    as in :func:`prefill`, over its :class:`MeshKVCache`."""
     if cache.length >= cache.max_len:
         # A write past max_len has no slot to land in.
         raise ValueError(f"KV cache full: length {cache.length} >= max_len "
                          f"{cache.max_len}")
+    if mesh is not None:
+        sp = place_params(mesh, cfg, params)
+        logits, cache = _mesh_run_blocks(sp, tokens.to(sp.first)[:, None],
+                                         cache, cache.length)
+        return logits[:, 0], cache
     x = params["embed"].to(cfg.dtype)[tokens][:, None, :]
     logits, cache = _run_blocks(params, x, cache, cfg, cache.length)
     return logits[:, 0], cache
 
 
-def extend_step(params: dict, cache: KVCache, tokens: torch.Tensor,
-                cfg: ModelConfig) -> tuple[torch.Tensor, KVCache]:
+def extend_step(params: dict, cache, tokens: torch.Tensor,
+                cfg: ModelConfig, mesh: Mesh | None = None):
     """Append ``tokens`` [b, s] to the cache in ONE forward: returns
     (logits [b, s, vocab] f32 for every appended position, cache
     advanced by s).  The multi-token sibling of decode_step (the
-    verification primitive of speculative decoding)."""
+    verification primitive of speculative decoding).  ``mesh``: as in
+    :func:`prefill`."""
     if cache.length + tokens.shape[1] > cache.max_len:
         raise ValueError(
             f"KV cache overflow: length {cache.length} + {tokens.shape[1]} "
             f"> max_len {cache.max_len}")
+    if mesh is not None:
+        sp = place_params(mesh, cfg, params)
+        return _mesh_run_blocks(sp, tokens.to(sp.first), cache, cache.length)
     x = params["embed"].to(cfg.dtype)[tokens]
     return _run_blocks(params, x, cache, cfg, cache.length)
 
 
-def _rewind(cache: KVCache, length: int) -> KVCache:
+def _rewind(cache, length: int):
     """Roll the logical length back (entries beyond ``length`` stay as
     garbage; the next write at ``length`` overwrites them before they
     can ever become visible)."""
-    return KVCache(k=cache.k, v=cache.v, length=int(length))
+    return dataclasses.replace(cache, length=int(length))
 
 
 def _warp_logits(logits: torch.Tensor, temperature: float,
@@ -250,18 +376,33 @@ def _sample(logits: torch.Tensor, generator: torch.Generator,
     return tok.reshape(probs.shape[:-1]).to(torch.int32)
 
 
+def _placed(params, cfg: ModelConfig, device, mesh: Mesh | None):
+    """(params in the compute dtype on the device, or placed over
+    ``mesh``; the device the call runs on: the mesh's first)."""
+    if mesh is not None:
+        sp = place_params(mesh, cfg, params)
+        return sp, sp.first
+    dev = resolve_device(device)
+    return cast_params(params, cfg.dtype, dev), dev
+
+
 def generate(params: dict, prompt, cfg: ModelConfig, steps: int, *,
              generator: torch.Generator | None = None,
              temperature: float = 0.0, top_k: int | None = None,
              top_p: float | None = None, max_len: int | None = None,
-             device=None) -> torch.Tensor:
+             device=None, mesh: Mesh | None = None) -> torch.Tensor:
     """Prefill the prompt [b, s], then decode ``steps`` tokens.  Returns
     [b, s + steps] (prompt + generated) on ``device``.  Greedy by
     default; pass a ``generator`` (on ``device``) and a temperature
     (and optionally top_k / top_p) to sample.
 
     Runs on CUDA unless ``device`` says otherwise; the params are cast
-    to the compute dtype on the device once, for the whole call."""
+    to the compute dtype on the device once, for the whole call.
+    ``mesh``: generate under it instead (params placed once,
+    :func:`model.place_params`; see :func:`make_sharded_generate`): the
+    logits of every step are gathered on the mesh's first device and
+    sampled there from ``generator`` in the one-device order, so a
+    sampled run equals the one-device run with the same generator."""
     b, s = prompt.shape
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
@@ -276,33 +417,56 @@ def generate(params: dict, prompt, cfg: ModelConfig, steps: int, *,
         raise ValueError(
             "top_k/top_p require temperature > 0 (temperature 0 is "
             "greedy argmax; truncation would be silently ignored)")
-    vocab = params["unembed"].shape[-1]
+    vocab = cfg.vocab
     if top_k is not None and not 1 <= top_k <= vocab:
         raise ValueError(f"top_k must be in [1, {vocab}], got {top_k}")
     if top_p is not None and not 0.0 < top_p <= 1.0:
         raise ValueError(f"top_p must be in (0, 1], got {top_p}")
-    dev = resolve_device(device)
-    params = cast_params(params, cfg.dtype, dev)
+    params, dev = _placed(params, cfg, device, mesh)
     prompt = torch.as_tensor(prompt, device=dev)
-    logits, cache = prefill(params, prompt, cfg, max_len)
+    logits, cache = prefill(params, prompt, cfg, max_len, mesh)
     out = torch.empty((b, steps), dtype=prompt.dtype, device=dev)
     token = _sample(logits[:, -1], generator, temperature, top_k, top_p)
     out[:, 0] = token
     # steps-1 decode steps: prefill already gave token 1 of ``steps``,
     # and the last token is emitted without a trailing decode of it.
     for i in range(1, steps):
-        logits, cache = decode_step(params, cache, token, cfg)
+        logits, cache = decode_step(params, cache, token, cfg, mesh)
         token = _sample(logits, generator, temperature, top_k, top_p)
         out[:, i] = token
     return torch.cat([prompt, out], dim=1)
 
 
+def make_sharded_generate(mesh: Mesh, cfg: ModelConfig, steps: int, *,
+                          temperature: float = 0.0,
+                          top_k: int | None = None,
+                          top_p: float | None = None,
+                          max_len: int | None = None):
+    """Build ``run(params, prompt, generator=None) -> tokens`` under the
+    trainer's (data, model) mesh (:func:`model.make_mesh`): the
+    checkpoint serves with the TP layout it trained with (each rank's
+    blocks of :func:`model.param_specs`, placed once per call, or
+    already placed with :func:`model.place_params`), the prompt rows cut
+    over the data rows, and the cache over KV heads on 'model'
+    (:class:`MeshKVCache`), so each shard reads only its slice of the
+    cache; K1 and K3 run per shard.  Sampling draws from ``generator``
+    on the mesh's first device, from the gathered logits."""
+
+    def run(params, prompt, generator: torch.Generator | None = None):
+        return generate(params, prompt, cfg, steps, generator=generator,
+                        temperature=temperature, top_k=top_k, top_p=top_p,
+                        max_len=max_len, mesh=mesh)
+
+    return run
+
+
 def _spec_setup(params, draft_params, prompt, cfg, draft_cfg, steps, k,
-                max_len, device):
+                max_len, device, mesh=None):
     """The speculative generators' shared checks and set-up: the
-    params cast once on the device, the prompt there, both caches
-    prefilled.  Returns (params, draft_params, prompt, draft_cfg,
-    target prompt logits, target cache, draft cache)."""
+    params cast once on the device (or placed over ``mesh``), the
+    prompt there, both caches prefilled.  Returns (params,
+    draft_params, prompt, draft_cfg, target prompt logits, target
+    cache, draft cache)."""
     if draft_cfg is None:
         draft_cfg = cfg
     b, s = prompt.shape
@@ -314,18 +478,17 @@ def _spec_setup(params, draft_params, prompt, cfg, draft_cfg, steps, k,
     if s + steps > max_len:
         raise ValueError(
             f"prompt {s} + steps {steps} exceeds max_len {max_len}")
-    dev = resolve_device(device)
-    params = cast_params(params, cfg.dtype, dev)
-    draft_params = cast_params(draft_params, draft_cfg.dtype, dev)
+    params, dev = _placed(params, cfg, device, mesh)
+    draft_params, _ = _placed(draft_params, draft_cfg, dev, mesh)
     prompt = torch.as_tensor(prompt, device=dev)
-    logits_t, cache_t = prefill(params, prompt, cfg, max_len)
-    _, cache_d = prefill(draft_params, prompt, draft_cfg, max_len)
+    logits_t, cache_t = prefill(params, prompt, cfg, max_len, mesh)
+    _, cache_d = prefill(draft_params, prompt, draft_cfg, max_len, mesh)
     return (params, draft_params, prompt, draft_cfg, logits_t, cache_t,
             cache_d)
 
 
 def _spec_realign(draft_params, draft_cfg, cache_t, cache_d, out, n_out,
-                  s):
+                  s, mesh=None):
     """After a round: rewind both caches to the confirmed stream (the
     prompt and every emitted token but the last, which the next round's
     block re-appends).  The draft wrote [cur, d1..d_{k-1}]: valid on
@@ -338,14 +501,16 @@ def _spec_realign(draft_params, draft_cfg, cache_t, cache_d, out, n_out,
     behind = confirmed - cache_d.length
     if behind > 0:
         replay = out[:, n_out - behind - 1:n_out - 1]
-        _, cache_d = extend_step(draft_params, cache_d, replay, draft_cfg)
+        _, cache_d = extend_step(draft_params, cache_d, replay, draft_cfg,
+                                 mesh)
     return cache_t, cache_d
 
 
 def speculative_generate(params: dict, draft_params: dict, prompt,
                          cfg: ModelConfig, steps: int, *,
                          draft_cfg: ModelConfig | None = None, k: int = 4,
-                         max_len: int | None = None, device=None):
+                         max_len: int | None = None, device=None,
+                         mesh: Mesh | None = None):
     """Greedy speculative decoding: the DRAFT proposes ``k`` tokens
     autoregressively, the target scores all k in ONE cached forward
     (extend_step), and the longest prefix agreeing with the target's
@@ -364,10 +529,11 @@ def speculative_generate(params: dict, draft_params: dict, prompt,
     (the minimum over the rows) to keep one cache length.  Peak cache
     use is exactly ``prompt + steps``: the last round's draft is capped
     at the tokens still needed.  Runs on CUDA unless ``device`` says
-    otherwise."""
+    otherwise; ``mesh``: both models and caches under it, as in
+    :func:`generate`."""
     (params, draft_params, prompt, draft_cfg, logits_t, cache_t,
      cache_d) = _spec_setup(params, draft_params, prompt, cfg, draft_cfg,
-                            steps, k, max_len, device)
+                            steps, k, max_len, device, mesh)
     b, s = prompt.shape
     out = torch.empty((b, steps), dtype=prompt.dtype, device=prompt.device)
     cur = torch.argmax(logits_t[:, -1], dim=-1).to(torch.int32)
@@ -382,14 +548,14 @@ def speculative_generate(params: dict, draft_params: dict, prompt,
         tok_d = cur
         for _ in range(k_eff):
             dlogits, cache_d = decode_step(draft_params, cache_d, tok_d,
-                                           draft_cfg)
+                                           draft_cfg, mesh)
             tok_d = torch.argmax(dlogits, dim=-1).to(torch.int32)
             draft_toks.append(tok_d)
         drafts = torch.stack(draft_toks, dim=1)            # [b, k_eff]
         # One target pass scores cur + the drafts: tlogits[:, i] is the
         # target's prediction after seeing cur, d1..di.
         block = torch.cat([cur[:, None], drafts], dim=1)
-        tlogits, cache_t = extend_step(params, cache_t, block, cfg)
+        tlogits, cache_t = extend_step(params, cache_t, block, cfg, mesh)
         targets = torch.argmax(tlogits, dim=-1).to(torch.int32)
         match = (drafts == targets[:, :k_eff]).cpu().numpy()
         # Accepted length shared across rows: the minimum over the batch.
@@ -401,7 +567,7 @@ def speculative_generate(params: dict, draft_params: dict, prompt,
         n_out += m
         cur = targets[:, n_acc]
         cache_t, cache_d = _spec_realign(draft_params, draft_cfg, cache_t,
-                                         cache_d, out, n_out, s)
+                                         cache_d, out, n_out, s, mesh)
     stats = {"rounds": rounds,
              "accept_rate": accepted_total / max(drafted_total, 1)}
     return torch.cat([prompt, out], dim=1), stats
@@ -412,7 +578,8 @@ def speculative_sample_generate(
         steps: int, *, generator: torch.Generator | None = None,
         temperature: float = 1.0, top_k: int | None = None,
         top_p: float | None = None, draft_cfg: ModelConfig | None = None,
-        k: int = 4, max_len: int | None = None, device=None):
+        k: int = 4, max_len: int | None = None, device=None,
+        mesh: Mesh | None = None):
     """Distribution-preserving speculative SAMPLING: the draft proposes
     x_i ~ q_i, the target scores all k proposals in ONE cached pass,
     and each x_i is accepted with probability min(1, p_i(x_i) /
@@ -438,13 +605,13 @@ def speculative_sample_generate(
                 "greedy argmax; truncation would be silently ignored)")
         return speculative_generate(
             params, draft_params, prompt, cfg, steps, draft_cfg=draft_cfg,
-            k=k, max_len=max_len, device=device)
+            k=k, max_len=max_len, device=device, mesh=mesh)
     if generator is None:
         raise ValueError("sampling (temperature != 0) needs a "
                          "torch.Generator")
     (params, draft_params, prompt, draft_cfg, logits_t, cache_t,
      cache_d) = _spec_setup(params, draft_params, prompt, cfg, draft_cfg,
-                            steps, k, max_len, device)
+                            steps, k, max_len, device, mesh)
     b, s = prompt.shape
 
     def warped_probs(logits):
@@ -468,7 +635,7 @@ def speculative_sample_generate(
         tok_d = cur
         for _ in range(k_eff):
             dlogits, cache_d = decode_step(draft_params, cache_d, tok_d,
-                                           draft_cfg)
+                                           draft_cfg, mesh)
             q = warped_probs(dlogits)                      # [b, V]
             tok_d = draw(q)
             draft_toks.append(tok_d)
@@ -476,7 +643,7 @@ def speculative_sample_generate(
         drafts = torch.stack(draft_toks, dim=1)            # [b, k_eff]
         qs = torch.stack(draft_q, dim=1)                   # [b, k_eff, V]
         block = torch.cat([cur[:, None], drafts], dim=1)
-        tlogits, cache_t = extend_step(params, cache_t, block, cfg)
+        tlogits, cache_t = extend_step(params, cache_t, block, cfg, mesh)
         ps = warped_probs(tlogits)                         # [b, k_eff+1, V]
         # Accept x_i with probability min(1, p_i(x)/q_i(x)); a row's
         # first rejection ends its accepted prefix.
@@ -514,7 +681,7 @@ def speculative_sample_generate(
         n_out += m
         cur = out[:, n_out - 1].to(torch.int32)
         cache_t, cache_d = _spec_realign(draft_params, draft_cfg, cache_t,
-                                         cache_d, out, n_out, s)
+                                         cache_d, out, n_out, s, mesh)
     stats = {"rounds": rounds,
              "accept_rate": accepted_total / max(drafted_total, 1)}
     return torch.cat([prompt, out], dim=1), stats

@@ -11,8 +11,10 @@ The model flags must match the checkpoint (shared block in _cli.py); the
 prompt is token ids (comma-separated) or random with ``--prompt-len``
 (drawn with numpy from ``--seed``).  Generation runs on CUDA unless
 ``--platform cpu`` is given; without a GPU it refuses to start rather
-than run on the CPU.  ``--tp`` None or 1 generates on one device;
-generating under a mesh (> 1) waits for ROADMAP.md, Queue 1: the mesh.
+than run on the CPU.  ``--tp N`` (> 1) generates under a (data, model)
+mesh through ``decode.make_sharded_generate`` (the prompt rows over the
+data rows, params and KV cache over 'model'; above the device count the
+ranks repeat the devices round-robin).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from tpu_autoscaler_torch.workloads._cli import (
     device_count,
     model_arch_options,
     model_config,
-    refuse_tp,
+    serving_mesh,
 )
 
 log = logging.getLogger(__name__)
@@ -80,8 +82,8 @@ def _check_tree(params: dict, cfg) -> None:
               help="Serve under a (data, model) mesh via "
                    "make_sharded_generate: prompts shard over data, "
                    "params + KV cache over 'model' (the trainer's TP "
-                   "layout).  Default: single-device.  > 1 is not ported "
-                   "yet (ROADMAP.md, Queue 1: the mesh).")
+                   "layout).  Default: single-device.  Above the device "
+                   "count the ranks repeat the devices.")
 @model_arch_options
 @click.option("--platform", default="cuda", show_default=True,
               type=click.Choice(["cuda", "cpu"]),
@@ -96,7 +98,10 @@ def main(checkpoint_dir, steps, prompt, prompt_len, batch, temperature,
     import torch
 
     from tpu_autoscaler_torch.workloads.checkpoint import latest_step
-    from tpu_autoscaler_torch.workloads.decode import generate
+    from tpu_autoscaler_torch.workloads.decode import (
+        generate,
+        make_sharded_generate,
+    )
     from tpu_autoscaler_torch.workloads.model import (
         load_params,
         resolve_device,
@@ -141,12 +146,26 @@ def main(checkpoint_dir, steps, prompt, prompt_len, batch, temperature,
         tokens = np.random.default_rng(seed).integers(
             0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
 
-    refuse_tp(tp_degree, device_count(platform))
+    mesh = serving_mesh(tp_degree, device_count(platform), platform)
+    if mesh is not None:
+        dp = mesh.size // mesh.shape["model"]
+        if batch % dp:
+            raise click.UsageError(
+                f"--batch {batch} must divide over the {dp} "
+                f"data-parallel devices (devices / tp)")
+        log.info("serving under mesh %s", dict(mesh.shape))
+        device = mesh.ranks[0]
     generator = (torch.Generator(device=device).manual_seed(seed)
                  if temperature > 0 else None)
-    out = generate(params, torch.from_numpy(tokens), cfg, steps,
-                   generator=generator, temperature=temperature,
-                   top_k=top_k, top_p=top_p, device=device)
+    if mesh is not None:
+        run = make_sharded_generate(mesh, cfg, steps,
+                                    temperature=temperature, top_k=top_k,
+                                    top_p=top_p)
+        out = run(params, torch.from_numpy(tokens), generator)
+    else:
+        out = generate(params, torch.from_numpy(tokens), cfg, steps,
+                       generator=generator, temperature=temperature,
+                       top_k=top_k, top_p=top_p, device=device)
     prompt_n = tokens.shape[1]
     for row in out.cpu().tolist():
         print(f"{','.join(map(str, row[:prompt_n]))} | "

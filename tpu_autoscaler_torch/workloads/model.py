@@ -148,8 +148,7 @@ class ModelConfig:
         each rank's query heads aligned to its own KV heads).  When they
         do not, the step gathers qkv per data row and attends over whole
         heads instead (:func:`_mesh_layer`)."""
-        tp = mesh.shape.get("model", 1)
-        return self.n_heads % tp == 0 and self.kv_heads % tp == 0
+        return heads_split(self, mesh.shape.get("model", 1))
 
     def resolved_for_mesh(self, mesh: "Mesh") -> "ModelConfig":
         """The config a mesh-sharded step should build: 'auto' resolved
@@ -1133,70 +1132,74 @@ def _vocab_parallel_ce_sum(x, targets, unembeds, row, cfg: ModelConfig):
 _PRODUCTS = ("qkv", "attn_out", "w1", "w2")
 
 
-def _mesh_layer(xs, params: dict, layer: int, *, cfg: ModelConfig, rows,
-                attn):
-    """Layer ``layer`` of the block, tensor-parallel over every data
-    row: ``xs[i]`` [b/dp, s, d] in compute dtype on the row's first
-    rank (``rows[i][0]``).  qkv is column-parallel by heads (each rank
-    its head-aligned columns, attention on its heads: K1/K2 through
-    ``attn``, or the einsum; when the heads do not divide, qkv gathered
-    on the row's first rank and attention over whole heads, K1/K2 there
-    on CUDA), attn_out and w2 are row-parallel (the partial products
-    summed on the row's first rank: the all-reduce), w1
-    column-parallel; a MoE layer routes once per row (the router
+def mesh_rows(mesh: Mesh) -> list[list[torch.device]]:
+    """The mesh's data rows, row-major over every axis but 'model': row
+    i lists the devices of its model ranks in 'model' order, so rank
+    (i, j) is ``mesh_rows(mesh)[i][j]``.  A mesh without a 'model' axis
+    has rows of one rank."""
+    names = list(mesh.axis_names)
+    grid = mesh.devices
+    if "model" in names:
+        grid = np.moveaxis(grid, names.index("model"), -1)
+    tp = mesh.shape.get("model", 1)
+    return [[_device(dev) for dev in row] for row in grid.reshape(-1, tp)]
+
+
+def heads_split(cfg: ModelConfig, tp: int) -> bool:
+    """Whether each of ``tp`` model ranks holds whole query and KV heads
+    (both divide by tp): the attention and its cache are then cut by
+    heads; otherwise each data row attends over whole heads on its first
+    rank."""
+    return cfg.n_heads % tp == 0 and cfg.kv_heads % tp == 0
+
+
+def _tp_layer(xs, w, rows, cfg: ModelConfig, rope, attend):
+    """One block, tensor-parallel over every data row: ``xs[i]`` [b_i,
+    s, d] in compute dtype on the row's first rank (``rows[i][0]``).
+    Training and serving share it; they differ in ``w``, ``rope`` and
+    ``attend``:
+
+    - ``w(name, j, dev)``: model rank j's block of the layer's weight
+      ``name`` on ``dev`` (j None: the whole weight);
+    - ``rope(t, i)``: t rotated at data row i's positions (None: no
+      rope);
+    - ``attend(shards) -> outs``: shards[i] holds data row i's (q, k,
+      v), one per model rank when the heads divide over the ranks
+      (:func:`heads_split`; rank j's head-aligned columns on rows[i][j],
+      :func:`_qkv_order`), else one over whole heads on the row's first
+      rank; outs[i] the matching attention outputs.
+
+    qkv is column-parallel by heads, attn_out and w2 row-parallel (the
+    partial products summed on the row's first rank: the all-reduce),
+    w1 column-parallel; a MoE layer routes once per row (the router
     replicates) and sums the experts' d_ff-cut MLPs over the row's
     ranks.  Returns (new streams, each row's router aux; zeros for the
     dense FFN)."""
     tp = len(rows[0])
-    dt = cfg.dtype
-    blocks = params["blocks"]
-    views: dict = {}
-
-    def w(name, j, dev):
-        # Each rank's weight once per layer and device; the products'
-        # weights already in the compute dtype (norm gains and the
-        # router stay f32, as one device reads them).
-        if (name, j, dev) not in views:
-            t = _tp_view(blocks[name], j, dev, layer)
-            views[name, j, dev] = t.to(dt) if name in _PRODUCTS else t
-        return views[name, j, dev]
-
-    split = cfg.n_heads % tp == 0 and cfg.kv_heads % tp == 0
-    heads = (cfg.n_heads // tp, cfg.kv_heads // tp)
-    kernel = cfg.resolved_attention(rows[0][0]) == "kernel"
-    ys, qs, ks, vs = [], [], [], []
-    for x, row in zip(xs, rows):
-        ys.append(_rmsnorm(x, w("ln1", 0, row[0])))
-        if not split:
-            continue
-        for j, dev in enumerate(row):
-            q, k, v = _split_qkv(ys[-1].to(dev), w("qkv", j, dev), cfg, heads)
-            if cfg.rope:
-                q = _rope(q, cfg.rope_theta)
-                k = _rope(k, cfg.rope_theta)
-            qs.append(q)
-            ks.append(k)
-            vs.append(v)
-    if split:
-        outs = attn(qs, ks, vs) if kernel else [
-            _einsum_attention(q, k, v, cfg) for q, k, v in zip(qs, ks, vs)]
+    split = heads_split(cfg, tp)
+    heads = (cfg.n_heads // tp, cfg.kv_heads // tp) if split else None
+    shards = []
+    for i, (x, row) in enumerate(zip(xs, rows)):
+        y = _rmsnorm(x, w("ln1", 0, row[0]))
+        ranks = list(enumerate(row)) if split else [(None, row[0])]
+        shards.append([])
+        for j, dev in ranks:
+            q, k, v = _split_qkv(y.to(dev), w("qkv", j, dev), cfg, heads)
+            if rope is not None:
+                q, k = rope(q, i), rope(k, i)
+            shards[-1].append((q, k, v))
+    outs = attend(shards)
     new, auxs = [], []
-    for i, (x, y, row) in enumerate(zip(xs, ys, rows)):
+    for x, out, row in zip(xs, outs, rows):
         head = row[0]
         b, s, d = x.shape
         if split:
-            parts = [a.transpose(1, 2).reshape(b, s, d // tp)
-                     for a in outs[i * tp:(i + 1) * tp]]
+            parts = [a.transpose(1, 2).reshape(b, s, d // tp) for a in out]
         else:
-            # The heads do not divide over the model ranks: attend per
-            # row with qkv gathered, then cut the features for attn_out.
-            qkv = torch.cat([w("qkv", j, head) for j in range(tp)], dim=-1)
-            q, k, v = _split_qkv(y, qkv, cfg)
-            if cfg.rope:
-                q = _rope(q, cfg.rope_theta)
-                k = _rope(k, cfg.rope_theta)
-            a = _attend(q, k, v, cfg, kernel).transpose(1, 2).reshape(b, s, d)
-            parts = torch.split(a, d // tp, dim=-1)
+            # Whole heads on the row's first rank: cut the features for
+            # the row-parallel attn_out.
+            parts = torch.split(out[0].transpose(1, 2).reshape(b, s, d),
+                                d // tp, dim=-1)
         x = x + sum((a.to(dev) @ w("attn_out", j, dev)).to(head)
                     for j, (a, dev) in enumerate(zip(parts, row)))
         y = _rmsnorm(x, w("ln2", 0, head))
@@ -1218,6 +1221,230 @@ def _mesh_layer(xs, params: dict, layer: int, *, cfg: ModelConfig, rows,
         new.append(x + out)
         auxs.append(aux)
     return new, auxs
+
+
+def _mesh_layer(xs, params: dict, layer: int, *, cfg: ModelConfig, rows,
+                attn):
+    """Layer ``layer`` of the training block over every data row
+    (:func:`_tp_layer`), the weights read from the :class:`Sharded`
+    ``params``: attention is K1/K2 through ``attn`` on head shards, or
+    on each row's whole heads when the heads do not divide (K1/K2 there
+    on CUDA), else the einsum."""
+    tp = len(rows[0])
+    dt = cfg.dtype
+    blocks = params["blocks"]
+    views: dict = {}
+
+    def w(name, j, dev):
+        # Each rank's weight once per layer and device; the products'
+        # weights already in the compute dtype (norm gains and the
+        # router stay f32, as one device reads them).
+        if j is None:
+            return torch.cat([w(name, k, dev) for k in range(tp)], dim=-1)
+        if (name, j, dev) not in views:
+            t = _tp_view(blocks[name], j, dev, layer)
+            views[name, j, dev] = t.to(dt) if name in _PRODUCTS else t
+        return views[name, j, dev]
+
+    kernel = cfg.resolved_attention(rows[0][0]) == "kernel"
+
+    def attend(shards):
+        if kernel and heads_split(cfg, tp):
+            qs, ks, vs = zip(*(s for row in shards for s in row))
+            outs = attn(list(qs), list(ks), list(vs))
+            return [outs[i * tp:(i + 1) * tp] for i in range(len(shards))]
+        return [[_attend(q, k, v, cfg, kernel) for q, k, v in row]
+                for row in shards]
+
+    rope = (lambda t, i: _rope(t, cfg.rope_theta)) if cfg.rope else None
+    return _tp_layer(xs, w, rows, cfg, rope, attend)
+
+
+# ---- serving under a mesh ------------------------------------------------
+#
+# The serving steps run the training block's tensor-parallel layer
+# (_tp_layer) over weights placed once, at engine construction, as each
+# rank's compute-dtype blocks on that rank's own device (TPParams).  A
+# block is held once per distinct device: ranks that share a card share
+# it, so on one card the placement holds one model.
+
+
+@dataclasses.dataclass(eq=False)
+class TPParams:
+    """A one-device params tree placed for serving over ``mesh``:
+    ``blocks[(path, j, dev)]`` is model rank j's block of leaf ``path``
+    (cut over 'model' by :func:`param_specs`, qkv in :func:`_qkv_order`)
+    in the compute dtype (the MoE router f32, as :func:`cast_params`
+    keeps it) on ``dev``; j is 0 for a leaf 'model' does not cut, and
+    None for the whole packed qkv when the heads do not divide over the
+    ranks (:func:`heads_split`).  ``cfg`` is resolved for the mesh."""
+
+    mesh: Mesh
+    cfg: ModelConfig
+    blocks: dict
+
+    @functools.cached_property
+    def rows(self) -> list[list[torch.device]]:
+        return mesh_rows(self.mesh)
+
+    @property
+    def first(self) -> torch.device:
+        """The engine's device: where tokens arrive and logits leave."""
+        return self.rows[0][0]
+
+    def weights(self, layer: int | None = None):
+        """``w(name, j, dev)`` over these blocks, as :func:`_tp_layer`
+        reads it: at layer ``layer`` of the stacked ``blocks`` leaves,
+        or the top-level leaves (embed, ln_f, unembed) when None."""
+        def w(name, j, dev):
+            if layer is None:
+                return self.blocks[name, j, dev]
+            return self.blocks[f"blocks/{name}", j, dev][layer]
+        return w
+
+    def nbytes(self) -> int:
+        """The bytes of every placed block (one model on one card)."""
+        return sum(t.numel() * t.element_size() for t in self.blocks.values())
+
+
+def row_sizes(n: int, rows: int) -> list[int]:
+    """``n`` items cut over ``rows`` data rows as ``torch.tensor_split``
+    cuts them: the first ``n % rows`` rows take one more."""
+    return [n // rows + (i < n % rows) for i in range(rows)]
+
+
+def place_params(mesh: Mesh, cfg: ModelConfig, params: dict) -> TPParams:
+    """Place a one-device params tree (an f32 master from a checkpoint,
+    or :func:`params_from_jax`) for serving over ``mesh``: each model
+    rank's block of every leaf, in the compute dtype, on each distinct
+    device that rank has across the data rows (the counterpart of the
+    JAX engines' ``jax.device_put`` onto :func:`param_specs`).  Leaves
+    'model' does not cut (the norm gains and the router) are placed on
+    each row's first rank, which alone reads them; when the heads do not
+    divide over the ranks the whole qkv goes there too.  A tree that is
+    already placed over ``mesh`` is returned as it is."""
+    if isinstance(params, TPParams):
+        if params.mesh is not mesh:
+            raise ValueError("params are placed over another mesh")
+        return params
+    cfg = cfg.resolved_for_mesh(mesh)
+    tp = mesh.shape.get("model", 1)
+    rows = mesh_rows(mesh)
+    split = heads_split(cfg, tp)
+    order = _qkv_order(cfg, mesh)
+    specs = dict(_flatten(param_specs(cfg)))
+    blocks: dict = {}
+    for path, x in _flatten(params):
+        dt = torch.float32 if path == "blocks/router" else cfg.dtype
+        cut = [d for d, axes in enumerate(_cut_axes(specs[path], x.ndim))
+               if axes == ("model",)]
+        if cut and x.shape[cut[0]] % tp:
+            raise ValueError(f"axis {cut[0]} of {path} {tuple(x.shape)} "
+                             f"does not divide over {tp} model ranks")
+        if path == "blocks/qkv" and order is not None:
+            x = x.index_select(-1, order.to(x.device))
+        size = x.shape[cut[0]] // tp if cut else None
+        for row in rows:
+            if path == "blocks/qkv" and not split:
+                wanted = [(None, row[0])]
+            elif cut:
+                wanted = list(enumerate(row))
+            else:
+                wanted = [(0, row[0])]
+            for j, dev in wanted:
+                if (path, j, dev) in blocks:
+                    continue
+                t = x if j is None or not cut else x.narrow(
+                    cut[0], j * size, size)
+                blocks[path, j, dev] = t.to(
+                    device=dev, dtype=dt, copy=True,
+                    memory_format=torch.contiguous_format)
+    return TPParams(mesh, cfg, blocks)
+
+
+def tp_embed(sp: TPParams, tokens: list, rows: list[int]) -> list:
+    """The tokens [b_i, s] of data rows ``rows`` (indices into
+    ``sp.rows``) as their residual streams [b_i, s, d] in compute dtype
+    on each row's first rank: the embedding's d_model cut gathered over
+    the row's ranks."""
+    w = sp.weights()
+    out = []
+    for t, i in zip(tokens, rows):
+        row = sp.rows[i]
+        out.append(torch.cat([w("embed", j, dev)[t.to(dev)].to(row[0])
+                              for j, dev in enumerate(row)], dim=-1))
+    return out
+
+
+def tp_logits(sp: TPParams, xs: list, rows: list[int]) -> torch.Tensor:
+    """The logits of the streams ``xs`` of data rows ``rows`` (indices
+    into ``sp.rows``): final norm on each row's first rank, the
+    unembedding vocab-parallel over its ranks, gathered over the vocab
+    and then over the rows on the first device -> [sum b_i, ..., vocab]
+    f32."""
+    w = sp.weights()
+    out = []
+    for x, i in zip(xs, rows):
+        row = sp.rows[i]
+        x = _rmsnorm(x, w("ln_f", 0, row[0]))
+        out.append(torch.cat([(x.to(dev) @ w("unembed", j, dev)).float()
+                              .to(sp.first) for j, dev in enumerate(row)],
+                             dim=-1))
+    return torch.cat(out, dim=0)
+
+
+def kv_zeros(sp: TPParams, row: list, lead: tuple, tail: tuple) -> list:
+    """Zeroed KV-cache shards of one data row, in the compute dtype:
+    ``[*lead, kv_heads/tp, *tail]`` on each of the row's ranks when the
+    heads divide over them (:func:`heads_split`), else ``[*lead,
+    kv_heads, *tail]`` on its first rank alone.  Each shard is a tensor
+    of its own, so an in-place write lands in one shard only."""
+    cfg = sp.cfg
+    split = heads_split(cfg, len(row))
+    hkv = cfg.kv_heads // len(row) if split else cfg.kv_heads
+    return [torch.zeros((*lead, hkv, *tail), dtype=cfg.dtype, device=dev)
+            for dev in (row if split else row[:1])]
+
+
+def kv_gather(shards: list, device) -> torch.Tensor:
+    """KV shards ``shards[i][n]`` (data row i, rank n; heads on axis 2,
+    the row's batch on axis 1) as the one-device tensor on ``device``."""
+    return torch.cat([torch.cat([t.to(device) for t in row], dim=2)
+                      for row in shards], dim=1)
+
+
+class _PerDevice:
+    """Values a serving step's layers share, made once per (key,
+    device): the per-row lengths, write indices and rope tables each
+    shard reads on its own device."""
+
+    def __init__(self):
+        self._made: dict = {}
+
+    def __call__(self, key, dev, make):
+        if (key, dev) not in self._made:
+            self._made[key, dev] = make(dev)
+        return self._made[key, dev]
+
+
+def tp_blocks(sp: TPParams, xs: list, rows: list[int], rope, attend):
+    """Every layer over the streams ``xs`` of data rows ``rows``
+    (:func:`_tp_layer`): ``rope(t, i)`` rotates at row i's positions,
+    ``attend(layer, i, j, q, k, v)`` is the attention of shard (row i,
+    rank j) at ``layer`` (j None: the row's whole heads).  Returns the
+    streams after the last layer."""
+    row_devs = [sp.rows[i] for i in rows]
+    rot = None if rope is None else (lambda t, n: rope(t, rows[n]))
+    split = heads_split(sp.cfg, len(row_devs[0]))
+    for layer in range(sp.cfg.n_layers):
+        def attend_all(shards, layer=layer):
+            return [[attend(layer, rows[n], j if split else None, q, k, v)
+                     for j, (q, k, v) in enumerate(row)]
+                    for n, row in enumerate(shards)]
+
+        xs, _ = _tp_layer(xs, sp.weights(layer), row_devs, sp.cfg, rot,
+                          attend_all)
+    return xs
 
 
 def _make_mesh_loss(mesh: Mesh, cfg: ModelConfig):

@@ -1,7 +1,7 @@
 """Paged KV cache + batched prefill: the serving engine's memory system.
 
 The PyTorch counterpart of the JAX package's ``workloads/paged.py``,
-single device.  serving.py's SlotKVCache reserves ``slots x max_len``
+on one device or under a mesh.  serving.py's SlotKVCache reserves ``slots x max_len``
 of device memory up front; this module replaces that reservation with
 the vLLM/PagedAttention design:
 
@@ -26,6 +26,16 @@ block table.  Elsewhere (CPU tensors, or ``attention="einsum"``) the
 rows are gathered into contiguous ``[rows, kv_heads, tpr*bs, head_dim]``
 views and attended with the linear engine's einsum.  Prefill always
 gathers and runs the einsum, as in the JAX package.
+
+Under a mesh (``mesh=``) the params are placed per rank
+(``model.place_params``) and every layer runs tensor-parallel; the pool
+is a :class:`MeshPagedKVCache`, cut over KV heads per model rank, and
+the tables and lengths are copied to each rank's device.  On a TP-only
+mesh (every axis but 'model' of size 1) the decode step runs K4 once
+per model rank over its heads of the pool; under dp > 1 the slots are
+cut over the data rows, each row's rows are gathered from the pool and
+read through ``serving._slot_attend`` (K3 per shard), as the JAX
+package does.
 
 Differences from the JAX package, each for a reason:
 
@@ -53,22 +63,33 @@ from tpu_autoscaler_torch.workloads.attention import (
     paged_flash_decode,
 )
 from tpu_autoscaler_torch.workloads.model import (
+    Mesh,
     ModelConfig,
+    TPParams,
+    _PerDevice,
     _ffn_residual,
     _rmsnorm,
     _rotate,
     _split_qkv,
+    kv_gather,
+    kv_zeros,
+    row_sizes,
+    tp_blocks,
+    tp_embed,
+    tp_logits,
 )
 from tpu_autoscaler_torch.workloads.serving import (
     ContinuousBatcher,
     Request,
     _layer,
     _row_rope_tables,
+    _slot_attend,
     _slot_cached_attention,
 )
 
-__all__ = ["PagedKVCache", "BlockAllocator", "PagedBatcher", "Request",
-           "make_paged_decode_step", "make_paged_prefill"]
+__all__ = ["PagedKVCache", "MeshPagedKVCache", "BlockAllocator",
+           "PagedBatcher", "Request", "make_paged_decode_step",
+           "make_paged_prefill"]
 
 
 @dataclasses.dataclass
@@ -101,6 +122,46 @@ class PagedKVCache:
         return cls(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
                    v=torch.zeros(shape, dtype=cfg.dtype, device=device),
                    lengths=torch.zeros((slots,), dtype=torch.int32))
+
+
+@dataclasses.dataclass
+class MeshPagedKVCache:
+    """A :class:`PagedKVCache` cut over a mesh's KV heads: ``k[n]``,
+    ``v[n]`` [layers, num_blocks, kv_heads/tp, block_size, head_dim],
+    model rank n's heads of the pool, on the first data row's rank n
+    (one pool of whole heads on the first device when the heads do not
+    divide over the ranks), each a tensor of its own.  The pool is one
+    for every slot, so data rows share it rather than cut it.  lengths:
+    [slots] int32 on the host, as on one device."""
+
+    k: list
+    v: list
+    lengths: torch.Tensor
+
+    @property
+    def num_blocks(self) -> int:
+        return self.k[0].shape[1]
+
+    @property
+    def block_size(self) -> int:
+        return self.k[0].shape[3]
+
+    @classmethod
+    def zeros(cls, sp: TPParams, num_blocks: int, block_size: int,
+              slots: int) -> "MeshPagedKVCache":
+        lead = (sp.cfg.n_layers, num_blocks)
+        tail = (block_size, sp.cfg.head_dim)
+        return cls(k=kv_zeros(sp, sp.rows[0], lead, tail),
+                   v=kv_zeros(sp, sp.rows[0], lead, tail),
+                   lengths=torch.zeros((slots,), dtype=torch.int32))
+
+    def gather(self, device=None) -> PagedKVCache:
+        """The whole pool in the one-device layout on ``device``
+        (default: the first shard's)."""
+        dev = self.k[0].device if device is None else device
+        return PagedKVCache(k=kv_gather([self.k], dev),
+                            v=kv_gather([self.v], dev),
+                            lengths=self.lengths.clone())
 
 
 class BlockAllocator:
@@ -197,7 +258,87 @@ def _check_tables(tables, cache: PagedKVCache, tokens_per_row: int):
             f"{cache.block_size} do not cover {tokens_per_row} tokens")
 
 
-def make_paged_decode_step(cfg: ModelConfig, tokens_per_row: int):
+def _row_bounds(n: int, rows: int) -> list[tuple[int, int]]:
+    """[start, stop) of each data row's share of ``n`` slots or lanes
+    (:func:`model.row_sizes`)."""
+    out, start = [], 0
+    for size in row_sizes(n, rows):
+        out.append((start, start + size))
+        start += size
+    return out
+
+
+def _row_writes(writes, start: int, stop: int):
+    """The host write lists of the rows in [start, stop), renumbered
+    from the row's first."""
+    rows, *rest = writes
+    keep = (rows >= start) & (rows < stop)
+    return (rows[keep] - start, *(t[keep] for t in rest))
+
+
+def _mesh_paged_decode_step(cfg: ModelConfig, tokens_per_row: int):
+    """:func:`make_paged_decode_step` over a :class:`MeshPagedKVCache`
+    with params placed by :func:`model.place_params`.  Each data row
+    decodes its share of the slots; shard (row, rank n) writes its
+    tokens' k/v into pool n, then reads it: K4 on a TP-only mesh (one
+    data row), else the row's rows gathered from the pool and read
+    through ``_slot_attend`` (K3 per shard)."""
+
+    def step(sp: TPParams, cache: MeshPagedKVCache, tables, tokens, active):
+        _check_tables(tables, cache, tokens_per_row)
+        positions = cache.lengths
+        bounds = _row_bounds(tables.shape[0], len(sp.rows))
+        live = [i for i, (a, b) in enumerate(bounds) if b > a]
+        tp_only = len(sp.rows) == 1
+        writes = _token_writes(tables, positions, active, cache.num_blocks,
+                               cache.block_size)
+        tokens = tokens.to(sp.first)
+        xs = tp_embed(sp, [tokens[a:b, None] for a, b in
+                           (bounds[i] for i in live)], live)
+        on = _PerDevice()
+
+        def rows_of(t, i):
+            a, b = bounds[i]
+            return t[a:b]
+
+        def positions_on(i, dev):
+            return on(("pos", i), dev,
+                      lambda d: rows_of(positions, i).to(d))
+
+        rope = None
+        if cfg.rope:
+            def rope(t, i):
+                return _rotate(t, *on(("rope", i), t.device, lambda d: (
+                    _row_rope_tables(positions_on(i, d), 1, cfg.head_dim,
+                                     cfg.rope_theta, cfg.dtype))))
+
+        def attend(layer, i, j, q, k, v):
+            n = 0 if j is None else j
+            k_pool, v_pool = cache.k[n][layer], cache.v[n][layer]
+            pdev = k_pool.device
+            mine = on(("writes", i), pdev, lambda d: [
+                t.to(d) for t in _row_writes(writes, *bounds[i])])
+            _scatter_token(k_pool, k.to(pdev), mine)
+            _scatter_token(v_pool, v.to(pdev), mine)
+            new_len = on(("new_len", i), q.device,
+                         lambda d: positions_on(i, d) + 1)
+            tabs = on(("tables", i), pdev, lambda d: rows_of(tables, i).to(d))
+            if tp_only:
+                return _paged_attend(q, k_pool, v_pool, tabs, new_len, cfg)
+            return _slot_attend(
+                q, gather_pool_rows(k_pool, tabs).to(q.device),
+                gather_pool_rows(v_pool, tabs).to(q.device), new_len, cfg)
+
+        xs = tp_blocks(sp, xs, live, rope, attend)
+        logits = tp_logits(sp, xs, live)
+        cache.lengths += active.to(torch.int32)
+        return logits[:, 0], cache
+
+    return step
+
+
+def make_paged_decode_step(cfg: ModelConfig, tokens_per_row: int,
+                           mesh: Mesh | None = None):
     """Build ``step(params, cache, tables, tokens, active) -> (logits,
     cache)``: one token for every slot, written and read through the
     block tables.  tables: [slots, tokens_per_row // block_size] int32
@@ -205,7 +346,13 @@ def make_paged_decode_step(cfg: ModelConfig, tokens_per_row: int):
 
     Returns logits [slots, vocab] f32 and the cache, its pool updated in
     place and active lengths advanced by 1.  Inactive rows write
-    nothing; their logits are computed and ignored."""
+    nothing; their logits are computed and ignored.
+
+    ``mesh``: the step takes params placed over it
+    (:func:`model.place_params`) and a :class:`MeshPagedKVCache`."""
+    if mesh is not None:
+        return _mesh_paged_decode_step(cfg.resolved_for_mesh(mesh),
+                                       tokens_per_row)
 
     def step(params, cache: PagedKVCache, tables, tokens, active):
         _check_tables(tables, cache, tokens_per_row)
@@ -245,8 +392,96 @@ def make_paged_decode_step(cfg: ModelConfig, tokens_per_row: int):
     return step
 
 
+def _lanes_visible(offsets, s: int, tokens_per_row: int,
+                   cfg: ModelConfig):
+    """[lanes, s, tokens_per_row] bool: each lane's queries see its
+    gathered pages causally from its offset (and within the window)."""
+    dev = offsets.device
+    qpos = offsets.long()[:, None] + torch.arange(s, device=dev)
+    kpos = torch.arange(tokens_per_row, device=dev)
+    visible = kpos[None, None, :] <= qpos[..., None]
+    if cfg.attention_window is not None:
+        visible &= kpos[None, None, :] > qpos[..., None] \
+            - cfg.attention_window
+    return visible
+
+
+def _lanes_attend(q, k_rows, v_rows, visible, cfg: ModelConfig):
+    """Each lane's chunk q [b, h, s, hd] over its gathered pages k/v
+    rows [b, hkv, T, hd]: the grouped einsum masked by ``visible``;
+    [b, h, s, hd] (h and hkv: whatever q and the rows hold)."""
+    b, h, s, hd = q.shape
+    hkv = k_rows.shape[1]
+    qg = q.reshape(b, hkv, h // hkv, s, hd)
+    scores = torch.einsum("bngqd,bnkd->bngqk", qg, k_rows) * hd ** -0.5
+    scores = torch.where(visible[:, None, None], scores.float(), -1e30)
+    probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
+    return torch.einsum("bngqk,bnkd->bngqd", probs, v_rows).reshape(
+        b, h, s, hd)
+
+
+def _mesh_paged_prefill(cfg: ModelConfig, chunk: int, lanes: int,
+                        tokens_per_row: int, return_all_logits: bool):
+    """:func:`make_paged_prefill` over a :class:`MeshPagedKVCache`: the
+    lanes cut over the data rows, shard (row, rank n) scattering its
+    lanes' chunks into pool n and attending over its heads of their
+    gathered pages (the einsum)."""
+
+    def fill(sp: TPParams, cache: MeshPagedKVCache, tables, tokens,
+             offsets, n_valid):
+        _check_tables(tables, cache, tokens_per_row)
+        if tokens.shape != (lanes, chunk):
+            raise ValueError(f"tokens {tuple(tokens.shape)}: want "
+                             f"[{lanes}, {chunk}]")
+        bounds = _row_bounds(lanes, len(sp.rows))
+        live = [i for i, (a, b) in enumerate(bounds) if b > a]
+        tokens = tokens.to(sp.first)
+        xs = tp_embed(sp, [tokens[a:b] for a, b in
+                           (bounds[i] for i in live)], live)
+        on = _PerDevice()
+
+        def offsets_on(i, dev):
+            a, b = bounds[i]
+            return on(("off", i), dev, lambda d: offsets[a:b].to(d))
+
+        rope = None
+        if cfg.rope:
+            def rope(t, i):
+                return _rotate(t, *on(("rope", i), t.device, lambda d: (
+                    _row_rope_tables(offsets_on(i, d), chunk, cfg.head_dim,
+                                     cfg.rope_theta, cfg.dtype))))
+
+        def attend(layer, i, j, q, k, v):
+            n = 0 if j is None else j
+            k_pool, v_pool = cache.k[n][layer], cache.v[n][layer]
+            pdev = k_pool.device
+            a, b = bounds[i]
+            mine = on(("writes", i), pdev, lambda d: [t.to(d) for t in (
+                _chunk_writes(tables[a:b], offsets[a:b], n_valid[a:b],
+                              chunk, cache.num_blocks, cache.block_size))])
+            _scatter_chunk(k_pool, k.to(pdev), mine)
+            _scatter_chunk(v_pool, v.to(pdev), mine)
+            tabs = on(("tables", i), pdev, lambda d: tables[a:b].to(d))
+            visible = on(("visible", i), q.device, lambda d: _lanes_visible(
+                offsets_on(i, d), chunk, tokens_per_row, cfg))
+            return _lanes_attend(
+                q, gather_pool_rows(k_pool, tabs).to(q.device),
+                gather_pool_rows(v_pool, tabs).to(q.device), visible, cfg)
+
+        xs = tp_blocks(sp, xs, live, rope, attend)
+        if not return_all_logits:
+            last = (n_valid.long() - 1).clamp_min(0)
+            xs = [x[torch.arange(x.shape[0], device=x.device),
+                    last[slice(*bounds[i])].to(x.device)]
+                  for x, i in zip(xs, live)]
+        return tp_logits(sp, xs, live), cache
+
+    return fill
+
+
 def make_paged_prefill(cfg: ModelConfig, chunk: int, lanes: int,
-                       tokens_per_row: int, return_all_logits: bool = False):
+                       tokens_per_row: int, return_all_logits: bool = False,
+                       mesh: Mesh | None = None):
     """Build ``fill(params, cache, tables, tokens, offsets, n_valid) ->
     (logits, cache)``: append one chunk to EACH of ``lanes`` prompts in
     one call.
@@ -263,8 +498,12 @@ def make_paged_prefill(cfg: ModelConfig, chunk: int, lanes: int,
     (the generation seed when the lane just finished its prompt) and the
     cache, its pool updated in place; lengths are the caller's to
     advance.  ``return_all_logits=True`` returns [lanes, chunk, vocab]:
-    every appended position's logits."""
-    h, hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    every appended position's logits.  ``mesh``: as in
+    :func:`make_paged_decode_step`."""
+    if mesh is not None:
+        return _mesh_paged_prefill(cfg.resolved_for_mesh(mesh), chunk, lanes,
+                                   tokens_per_row, return_all_logits)
+    hd = cfg.head_dim
 
     def fill(params, cache: PagedKVCache, tables, tokens, offsets, n_valid):
         _check_tables(tables, cache, tokens_per_row)
@@ -281,12 +520,7 @@ def make_paged_prefill(cfg: ModelConfig, chunk: int, lanes: int,
         b, s, d = x.shape
         # Each lane attends over its own gathered pages: causal within
         # the chunk plus everything before its offset.
-        qpos = dev_offsets.long()[:, None] + torch.arange(s, device=dev)
-        kpos = torch.arange(tokens_per_row, device=dev)
-        visible = kpos[None, None, :] <= qpos[..., None]        # [b, s, T]
-        if cfg.attention_window is not None:
-            visible &= kpos[None, None, :] > qpos[..., None] \
-                - cfg.attention_window
+        visible = _lanes_visible(dev_offsets, s, tokens_per_row, cfg)
         if cfg.rope:
             rope = _row_rope_tables(dev_offsets, s, hd, cfg.rope_theta,
                                     cfg.dtype)
@@ -299,16 +533,10 @@ def make_paged_prefill(cfg: ModelConfig, chunk: int, lanes: int,
                 q, k = _rotate(q, *rope), _rotate(k, *rope)
             _scatter_chunk(k_pool, k, writes)
             _scatter_chunk(v_pool, v, writes)
-            k_rows = gather_pool_rows(k_pool, dev_tables)  # [b, hkv, T, hd]
-            v_rows = gather_pool_rows(v_pool, dev_tables)
-            qg = q.reshape(b, hkv, h // hkv, s, hd)
-            scores = torch.einsum("bngqd,bnkd->bngqk", qg,
-                                  k_rows) * hd ** -0.5
-            scores = torch.where(visible[:, None, None], scores.float(),
-                                 -1e30)
-            probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
-            attn = torch.einsum("bngqk,bnkd->bngqd", probs, v_rows)
-            attn = attn.reshape(b, h, s, hd).transpose(1, 2).reshape(b, s, d)
+            attn = _lanes_attend(q, gather_pool_rows(k_pool, dev_tables),
+                                 gather_pool_rows(v_pool, dev_tables),
+                                 visible, cfg)
+            attn = attn.transpose(1, 2).reshape(b, s, d)
             x = x + attn @ layer["attn_out"].to(cfg.dtype)
             y = _rmsnorm(x, layer["ln2"])
             x = _ffn_residual(x, y, layer, cfg)
@@ -347,7 +575,10 @@ class PagedBatcher(ContinuousBatcher):
                  num_blocks: int | None = None, chunk: int = 32,
                  prefill_lanes: int = 2, device=None,
                  generator: torch.Generator | None = None,
-                 slo_ticks: int | None = None, reqtrace=None):
+                 slo_ticks: int | None = None, reqtrace=None,
+                 mesh: Mesh | None = None):
+        """``mesh``: serve under it (see :class:`ContinuousBatcher`);
+        the pool is cut over KV heads (:class:`MeshPagedKVCache`)."""
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         if max_len % block_size:
@@ -363,16 +594,25 @@ class PagedBatcher(ContinuousBatcher):
         self.preemptions = 0
         super().__init__(params, cfg, slots=slots, max_len=max_len,
                          chunk=chunk, device=device, generator=generator,
-                         ring=False, slo_ticks=slo_ticks, reqtrace=reqtrace)
+                         ring=False, slo_ticks=slo_ticks, reqtrace=reqtrace,
+                         mesh=mesh)
+
+    def _pool(self, cfg, params):
+        """A fresh pool for ``cfg`` (params placed over the engine's
+        mesh, when it has one)."""
+        if self.mesh is not None:
+            return MeshPagedKVCache.zeros(params, self._num_blocks,
+                                          self.block_size, len(self.tables))
+        return PagedKVCache.zeros(cfg, self._num_blocks, self.block_size,
+                                  len(self.tables), self.device)
 
     def _build_device_state(self, cfg, slots, max_len, chunk, ring) -> None:
         self.allocator = BlockAllocator(self._num_blocks)
         self.tables = np.full((slots, self.blocks_per_row), -1, np.int32)
-        self.cache = PagedKVCache.zeros(cfg, self._num_blocks,
-                                        self.block_size, slots, self.device)
-        self._decode = make_paged_decode_step(cfg, max_len)
+        self.cache = self._pool(cfg, self.params)
+        self._decode = make_paged_decode_step(cfg, max_len, self.mesh)
         self._prefill = make_paged_prefill(cfg, chunk, self.prefill_lanes,
-                                           max_len)
+                                           max_len, mesh=self.mesh)
 
     def submit(self, request: Request) -> None:
         """Linear-engine validation plus the pool-feasibility check: a

@@ -34,8 +34,11 @@ all slots, per-slot block tables, preemption under pool pressure.
 layers propose K tokens a round and the target verifies them in one
 pass.  ``--trace-sample RATE`` samples per-request span trees
 (serving/reqtrace.py); the receipt then carries a ``trace`` field.
-``--tp`` None or 1 serves on one device; serving under a mesh (> 1)
-waits for ROADMAP.md, Queue 1: the mesh.
+``--tp N`` (> 1) serves under a (data, model) mesh of the visible
+devices (``model.make_mesh``; when N exceeds them the ranks repeat them
+round-robin): the params placed once per rank, the slots cut over the
+data rows and the KV heads over 'model' (``--paged``: one pool cut over
+KV heads, on TP-only meshes).
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ from tpu_autoscaler_torch.workloads._cli import (
     device_count,
     model_arch_options,
     model_config,
-    refuse_tp,
+    serving_mesh,
 )
 
 log = logging.getLogger(__name__)
@@ -174,8 +177,8 @@ def _read_requests(requests_file, random_n, max_new_tokens, seed, cfg):
 @click.option("--tp", "tp_degree", default=None, type=int,
               help="Serve under a (data, model) mesh: slots shard over "
                    "data, KV heads + cache over 'model' (the trainer's "
-                   "TP layout).  Default: single-device.  > 1 is not "
-                   "ported yet (ROADMAP.md, Queue 1: the mesh).")
+                   "TP layout).  Default: single-device.  Above the "
+                   "device count the ranks repeat the devices.")
 @click.option("--seed", default=0, show_default=True)
 @click.option("--final-stats", "final_stats_file", default=None,
               help="Also write the final-stats JSON (the drain "
@@ -289,7 +292,16 @@ def main(checkpoint_dir, requests_file, random_n, max_new_tokens, slots,
                           cfg)
     if not reqs:
         raise click.UsageError("no requests to serve")
-    refuse_tp(tp_degree, device_count(platform))
+    mesh = serving_mesh(tp_degree, device_count(platform), platform)
+    if mesh is not None:
+        dp = mesh.size // mesh.shape["model"]
+        if slots % dp:
+            raise click.UsageError(
+                f"--slots {slots} must divide over the {dp} "
+                f"data-parallel devices (devices / tp) — the slot "
+                f"batch shards over them")
+        log.info("serving under mesh %s", dict(mesh.shape))
+        device = mesh.ranks[0]
     generator = torch.Generator(device=device).manual_seed(seed)
     sampler = None
     if trace_sample > 0.0:
@@ -299,6 +311,11 @@ def main(checkpoint_dir, requests_file, random_n, max_new_tokens, slots,
 
         sampler = RequestTraceSampler("serve", sample_rate=trace_sample,
                                       slo_ticks=slo_ticks)
+    if paged and mesh is not None and dp > 1:
+        raise click.UsageError(
+            "--paged serves TP-only meshes (all slots share ONE block pool, "
+            "which data sharding cannot cut); for data parallelism run one "
+            "server per replica, or use devices == --tp")
     if paged and spec_k:
         import dataclasses
 
@@ -315,18 +332,18 @@ def main(checkpoint_dir, requests_file, random_n, max_new_tokens, slots,
             params, cfg, dparams, dcfg, k=spec_k, slots=slots,
             max_len=max_len, block_size=block_size, num_blocks=num_blocks,
             chunk=chunk, device=device, generator=generator, seed=seed,
-            slo_ticks=slo_ticks, reqtrace=sampler)
+            slo_ticks=slo_ticks, reqtrace=sampler, mesh=mesh)
     elif paged:
         engine = PagedBatcher(
             params, cfg, slots=slots, max_len=max_len,
             block_size=block_size, num_blocks=num_blocks, chunk=chunk,
             device=device, generator=generator, slo_ticks=slo_ticks,
-            reqtrace=sampler)
+            reqtrace=sampler, mesh=mesh)
     else:
         engine = ContinuousBatcher(
             params, cfg, slots=slots, max_len=max_len, chunk=chunk,
             ring=ring, device=device, generator=generator,
-            slo_ticks=slo_ticks, reqtrace=sampler)
+            slo_ticks=slo_ticks, reqtrace=sampler, mesh=mesh)
 
     watcher = DrainWatcher(annotations_file or DEFAULT_ANNOTATIONS_PATH)
     t0 = time.perf_counter()

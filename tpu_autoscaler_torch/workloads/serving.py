@@ -1,7 +1,7 @@
 """Continuous-batching serving engine: slot KV cache + chunked prefill.
 
 The PyTorch counterpart of the JAX package's ``workloads/serving.py``,
-single device:
+on one device or under a (data, model) mesh (``mesh=``):
 
 - **SlotKVCache**: a fixed pool of ``slots`` sequences, each with its
   own cache region and its own ``length``; mixed-length sequences
@@ -16,6 +16,15 @@ PyTorch runs eagerly, so the step functions update the cache in place
 (the JAX versions return a new cache); they still return the cache so
 the call sites read like the JAX engine's.  Shapes stay fixed: which
 slot and how many valid tokens are data, as in the JAX engine.
+
+Under a mesh the params are placed once per rank (``model.place_params``)
+and every layer runs tensor-parallel (``model.tp_blocks``); the cache
+is a :class:`MeshSlotKVCache`, the slots cut over the data rows and the
+KV heads over 'model'.  The decode step runs K3 once per (data row,
+model rank) shard with that row's lengths; the prefill chunk runs on
+its slot's data row only, on the einsum, as in the JAX engine; the
+logits come back gathered on the engine's first device, where the host
+sampling is unchanged.
 """
 
 from __future__ import annotations
@@ -32,14 +41,23 @@ from tpu_autoscaler_torch.serving.stats import (
 from tpu_autoscaler_torch.workloads.attention import flash_decode
 from tpu_autoscaler_torch.workloads.decode import _sample
 from tpu_autoscaler_torch.workloads.model import (
+    Mesh,
     ModelConfig,
+    TPParams,
+    _PerDevice,
     _ffn_residual,
     _rmsnorm,
     _rope_tables,
     _rotate,
     _split_qkv,
     cast_params,
+    kv_gather,
+    kv_zeros,
+    place_params,
     resolve_device,
+    tp_blocks,
+    tp_embed,
+    tp_logits,
 )
 
 
@@ -71,6 +89,73 @@ class SlotKVCache:
                    v=torch.zeros(shape, dtype=cfg.dtype, device=device),
                    lengths=torch.zeros((slots,), dtype=torch.int32,
                                        device=device))
+
+    def reset(self, slot: int) -> None:
+        """Admission: the slot's length back to 0."""
+        self.lengths[slot] = 0
+
+
+@dataclasses.dataclass
+class MeshSlotKVCache:
+    """A :class:`SlotKVCache` cut over a mesh's (data row, model rank)
+    shards: ``k[i][n]``, ``v[i][n]`` [layers, slots/dp, kv_heads/tp,
+    max_len, head_dim] on rank (i, n)'s device when the heads divide
+    over the ranks (one shard of whole heads on the row's first rank
+    otherwise), each a tensor of its own; ``lengths[i]`` [slots/dp]
+    int32 on the row's first rank.  Slot s is row ``s // (slots/dp)``'s
+    local slot ``s % (slots/dp)``."""
+
+    k: list
+    v: list
+    lengths: list
+
+    @property
+    def row_slots(self) -> int:
+        return self.k[0][0].shape[1]
+
+    @property
+    def slots(self) -> int:
+        return self.row_slots * len(self.k)
+
+    @property
+    def max_len(self) -> int:
+        return self.k[0][0].shape[3]
+
+    @classmethod
+    def zeros(cls, sp: TPParams, slots: int,
+              max_len: int) -> "MeshSlotKVCache":
+        """The JAX engine's slot sharding needs the slots to divide over
+        the data rows (its jit refuses the cache otherwise); so does
+        this one, with the same words."""
+        cfg, rows = sp.cfg, sp.rows
+        dp = len(rows)
+        if slots % dp:
+            raise ValueError(
+                f"slots {slots} shard over the {dp} data rows of mesh "
+                f"{dict(sp.mesh.shape)}, which implies that the global size "
+                f"of the slot dimension should be divisible by {dp}, but it "
+                f"is equal to {slots}")
+        lead, tail = (cfg.n_layers, slots // dp), (max_len, cfg.head_dim)
+        return cls(k=[kv_zeros(sp, row, lead, tail) for row in rows],
+                   v=[kv_zeros(sp, row, lead, tail) for row in rows],
+                   lengths=[torch.zeros((slots // dp,), dtype=torch.int32,
+                                        device=row[0]) for row in rows])
+
+    def locate(self, slot: int) -> tuple[int, int]:
+        """(data row, local slot) of ``slot``."""
+        return divmod(int(slot), self.row_slots)
+
+    def reset(self, slot: int) -> None:
+        i, local = self.locate(slot)
+        self.lengths[i][local] = 0
+
+    def gather(self, device=None) -> SlotKVCache:
+        """The whole cache in the one-device layout on ``device``
+        (default: the first shard's)."""
+        dev = self.k[0][0].device if device is None else device
+        return SlotKVCache(k=kv_gather(self.k, dev), v=kv_gather(self.v, dev),
+                           lengths=torch.cat([n.to(dev)
+                                              for n in self.lengths]))
 
 
 def _row_rope_tables(positions: torch.Tensor, s: int, head_dim: int,
@@ -181,7 +266,53 @@ def _layer(params: dict, i: int) -> dict:
     return {name: w[i] for name, w in params["blocks"].items()}
 
 
-def make_slot_decode_step(cfg: ModelConfig, ring: bool = False):
+def _mesh_slot_decode_step(cfg: ModelConfig, ring: bool):
+    """:func:`make_slot_decode_step` over a :class:`MeshSlotKVCache`
+    with params placed by :func:`model.place_params`: each data row
+    decodes its slots, K3 (or the einsum) once per (row, rank) shard
+    with the row's lengths; the logits are gathered on the first
+    device."""
+
+    def step(sp: TPParams, cache: MeshSlotKVCache, tokens, active):
+        per, width = cache.row_slots, cache.max_len
+        rows = list(range(len(sp.rows)))
+        tokens = tokens.to(sp.first).split(per)
+        active = active.to(sp.first).split(per)
+        xs = tp_embed(sp, [t[:, None] for t in tokens], rows)
+        on = _PerDevice()
+
+        def positions(i, dev):
+            return on(("pos", i), dev, lambda d: cache.lengths[i].to(d))
+
+        rope = None
+        if cfg.rope:
+            def rope(t, i):
+                return _rotate(t, *on(("rope", i), t.device, lambda d: (
+                    _row_rope_tables(positions(i, d), 1, cfg.head_dim,
+                                     cfg.rope_theta, cfg.dtype))))
+
+        def attend(layer, i, j, q, k, v):
+            n, dev = (0 if j is None else j), q.device
+            k_c, v_c = cache.k[i][n][layer], cache.v[i][n][layer]
+            index = on(("index", i), dev, lambda d: _row_index(
+                positions(i, d) % width if ring else positions(i, d), 1,
+                width))
+            _write_rows(k_c, k, index)
+            _write_rows(v_c, v, index)
+            new_len = on(("new_len", i), dev, lambda d: positions(i, d) + 1)
+            return _slot_attend(q, k_c, v_c, new_len, cfg, ring=ring)
+
+        xs = tp_blocks(sp, xs, rows, rope, attend)
+        logits = tp_logits(sp, xs, rows)
+        for n, a in zip(cache.lengths, active):
+            n += a.to(device=n.device, dtype=torch.int32)
+        return logits[:, 0], cache
+
+    return step
+
+
+def make_slot_decode_step(cfg: ModelConfig, ring: bool = False,
+                          mesh: Mesh | None = None):
     """Build ``step(params, cache, tokens, active) -> (logits, cache)``:
     one token for EVERY slot in one batched step — slot s's token sits
     at its own position ``cache.lengths[s]``.  ``active`` [slots] bool
@@ -197,10 +328,16 @@ def make_slot_decode_step(cfg: ModelConfig, ring: bool = False):
     over its buffer width — writes land at position % width and each
     slot's absolute position is recovered from the row's logical
     length, so per-slot memory is O(window) instead of O(sequence).
+
+    ``mesh``: the step takes params placed over it
+    (:func:`model.place_params`) and a :class:`MeshSlotKVCache`; K3 runs
+    once per (data row, model rank) shard.
     """
     if ring and cfg.attention_window is None:
         raise ValueError("ring=True needs cfg.attention_window (the "
                          "ring holds exactly the window of live keys)")
+    if mesh is not None:
+        return _mesh_slot_decode_step(cfg.resolved_for_mesh(mesh), ring)
 
     def step(params, cache: SlotKVCache, tokens, active):
         x = params["embed"].to(cfg.dtype)[tokens][:, None, :]
@@ -236,7 +373,92 @@ def make_slot_decode_step(cfg: ModelConfig, ring: bool = False):
     return step
 
 
-def make_prefill_chunk(cfg: ModelConfig, chunk: int, ring: bool = False):
+def _chunk_visibility(cfg: ModelConfig, offset, s: int, n_valid: int,
+                      width: int, ring: bool):
+    """Where one slot's prefill chunk writes and what its queries see:
+    (write positions, visible [s, width] bool, lanes written), on the
+    offset's device.  Linear: all ``s`` lanes at the offset (clamped to
+    fit); ring: the ``n_valid`` lanes at position % width, visibility on
+    absolute positions."""
+    dev = offset.device
+    lane = torch.arange(s, device=dev)
+    qpos = offset + lane
+    if ring:
+        write_at = (offset + lane[:n_valid]) % width
+        abs_pos = _ring_abs_pos((offset + n_valid)[None], width)[0]
+        visible = (abs_pos[None, :] >= 0) \
+            & (abs_pos[None, :] <= qpos[:, None]) \
+            & (abs_pos[None, :] > qpos[:, None] - cfg.attention_window)
+        return write_at, visible, n_valid
+    write_at = offset.clamp(0, width - s) + lane
+    kpos = torch.arange(width, device=dev)
+    visible = kpos[None, :] <= qpos[:, None]
+    if cfg.attention_window is not None:
+        visible &= kpos[None, :] > qpos[:, None] - cfg.attention_window
+    return write_at, visible, s
+
+
+def _chunk_attend(q, k, v, kc, vc, write_at, visible, n_write: int,
+                  cfg: ModelConfig):
+    """One slot's chunk attention over its cache kc/vc [hkv, width, hd]:
+    write the chunk's k/v [1, hkv, s, hd] (its first ``n_write`` lanes)
+    in place, then the grouped einsum over the slot, masked by
+    ``visible``.  Returns [1, h, s, hd]; h and hkv are whatever q and
+    the cache hold (a model rank's heads under a mesh)."""
+    _, h, s, hd = q.shape
+    hkv = kc.shape[0]
+    kc[:, write_at] = k[0, :, :n_write]
+    vc[:, write_at] = v[0, :, :n_write]
+    qg = q.reshape(1, hkv, h // hkv, s, hd)
+    scores = torch.einsum("bngqd,bnkd->bngqk", qg, kc[None]) * hd ** -0.5
+    scores = torch.where(visible, scores.float(), -1e30)
+    probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
+    attn = torch.einsum("bngqk,bnkd->bngqd", probs, vc[None])
+    return attn.reshape(1, h, s, hd)
+
+
+def _mesh_prefill_chunk(cfg: ModelConfig, ring: bool):
+    """:func:`make_prefill_chunk` over a :class:`MeshSlotKVCache`: the
+    chunk runs on its slot's data row only, each of the row's shards
+    writing and attending over its heads of the slot (the einsum)."""
+
+    def fill(sp: TPParams, cache: MeshSlotKVCache, slot: int, tokens,
+             n_valid: int):
+        i, local = cache.locate(slot)
+        head = sp.rows[i][0]
+        (x,) = tp_embed(sp, [tokens.to(head)[None]], [i])
+        s, width = x.shape[1], cache.max_len
+        offset = cache.lengths[i][local]
+        on = _PerDevice()
+
+        def where(dev):
+            return on("where", dev, lambda d: _chunk_visibility(
+                cfg, offset.to(d), s, n_valid, width, ring))
+
+        rope = None
+        if cfg.rope:
+            def rope(t, i):
+                return _rotate(t, *on("rope", t.device, lambda d: (
+                    _rope_tables((offset.to(d) + torch.arange(s, device=d))
+                                 .float(), cfg.head_dim, cfg.rope_theta,
+                                 cfg.dtype))))
+
+        def attend(layer, i, j, q, k, v):
+            n = 0 if j is None else j
+            return _chunk_attend(q, k, v, cache.k[i][n][layer, local],
+                                 cache.v[i][n][layer, local],
+                                 *where(q.device), cfg)
+
+        (x,) = tp_blocks(sp, [x], [i], rope, attend)
+        logits = tp_logits(sp, [x[:, n_valid - 1]], [i])[0]
+        cache.lengths[i][local] += n_valid
+        return logits, cache
+
+    return fill
+
+
+def make_prefill_chunk(cfg: ModelConfig, chunk: int, ring: bool = False,
+                       mesh: Mesh | None = None):
     """Build ``fill(params, cache, slot, tokens, n_valid) -> (logits,
     cache)``: append ``n_valid`` (<= chunk) prompt tokens to ONE slot's
     cache at its current length.  tokens: [chunk] int (padded past
@@ -249,53 +471,36 @@ def make_prefill_chunk(cfg: ModelConfig, chunk: int, ring: bool = False):
     buffer width must be >= cfg.attention_window + chunk; only the
     ``n_valid`` lanes scatter, at position % width — a pad write would
     displace a live key.  Visibility runs on absolute positions.
+
+    ``mesh``: as in :func:`make_slot_decode_step`; the chunk runs on its
+    slot's data row.
     """
     if ring and cfg.attention_window is None:
         raise ValueError("ring=True needs cfg.attention_window")
-    h, hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    if mesh is not None:
+        return _mesh_prefill_chunk(cfg.resolved_for_mesh(mesh), ring)
 
     def fill(params, cache: SlotKVCache, slot: int, tokens, n_valid: int):
         x = params["embed"].to(cfg.dtype)[tokens][None]   # [1, chunk, d]
         _, s, d = x.shape
-        width = cache.max_len
-        dev = x.device
         offset = cache.lengths[slot]                       # 0-d tensor
-        lane = torch.arange(s, device=dev)
-        qpos = offset + lane
-        if ring:
-            write_at = (offset + lane[:n_valid]) % width
-            abs_pos = _ring_abs_pos((offset + n_valid)[None], width)[0]
-            visible = (abs_pos[None, :] >= 0) \
-                & (abs_pos[None, :] <= qpos[:, None]) \
-                & (abs_pos[None, :] > qpos[:, None] - cfg.attention_window)
-        else:
-            write_at = offset.clamp(0, width - s) + lane
-            kpos = torch.arange(width, device=dev)
-            visible = kpos[None, :] <= qpos[:, None]
-            if cfg.attention_window is not None:
-                visible &= kpos[None, :] > qpos[:, None] \
-                    - cfg.attention_window
+        where = _chunk_visibility(cfg, offset, s, n_valid, cache.max_len,
+                                  ring)
         if cfg.rope:
-            rope = _rope_tables(qpos.float(), hd, cfg.rope_theta, cfg.dtype)
+            rope = _rope_tables(
+                (offset + torch.arange(s, device=x.device)).float(),
+                cfg.head_dim, cfg.rope_theta, cfg.dtype)
         for i in range(cfg.n_layers):
             layer = _layer(params, i)
             y = _rmsnorm(x, layer["ln1"])
             q, k, v = _split_qkv(y, layer["qkv"], cfg)
             if cfg.rope:
                 q, k = _rotate(q, *rope), _rotate(k, *rope)
-            kc, vc = cache.k[i, slot], cache.v[i, slot]    # [hkv, width, hd]
-            n_write = n_valid if ring else s
-            kc[:, write_at] = k[0, :, :n_write]
-            vc[:, write_at] = v[0, :, :n_write]
             # Attend over this slot's cache: causal within the chunk,
             # plus everything before the offset.
-            qg = q.reshape(1, hkv, h // hkv, s, hd)
-            scores = torch.einsum("bngqd,bnkd->bngqk", qg,
-                                  kc[None]) * hd ** -0.5
-            scores = torch.where(visible, scores.float(), -1e30)
-            probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
-            attn = torch.einsum("bngqk,bnkd->bngqd", probs, vc[None])
-            attn = attn.reshape(1, h, s, hd).transpose(1, 2).reshape(1, s, d)
+            attn = _chunk_attend(q, k, v, cache.k[i, slot],
+                                 cache.v[i, slot], *where, cfg)
+            attn = attn.transpose(1, 2).reshape(1, s, d)
             x = x + attn @ layer["attn_out"].to(cfg.dtype)
             y = _rmsnorm(x, layer["ln2"])
             x = _ffn_residual(x, y, layer, cfg)
@@ -358,10 +563,17 @@ class ContinuousBatcher:
                  max_len: int = 256, chunk: int = 32, device=None,
                  generator: torch.Generator | None = None,
                  ring: bool = False, slo_ticks: int | None = None,
-                 reqtrace=None):
+                 reqtrace=None, mesh: Mesh | None = None):
         """``device``: where the engine runs, CUDA unless the caller
         asks for the CPU (``device='cpu'``).  ``generator``: the
         sampling generator, on ``device`` (default: seeded with 0).
+
+        ``mesh`` (:func:`model.make_mesh`): serve under it instead of on
+        ``device``.  The params are placed once, here, as each rank's
+        compute-dtype blocks on its own device
+        (:func:`model.place_params`, the JAX engine's re-placement onto
+        ``param_specs``); the engine's device is the mesh's first, where
+        tokens enter, logits leave and the generator draws.
 
         ``ring=True`` (needs cfg.attention_window): per-slot cache
         memory becomes O(window + chunk) instead of O(max_len), and
@@ -376,12 +588,17 @@ class ContinuousBatcher:
         sampled per-request span trees built from the host-side
         bookkeeping this scheduler already does (submit, admit, seeded,
         preempt, finish); None costs one ``if`` per event."""
-        self.device = resolve_device(device)
-        # One compute-dtype copy of the params for the engine's
-        # lifetime.  The JAX step casts every f32 master param on each
-        # call; this gives the same numbers without re-reading 4-byte
-        # weights every tick.
-        self.params = cast_params(params, cfg.dtype, self.device)
+        self.mesh = mesh
+        if mesh is not None:
+            self.params = place_params(mesh, cfg, params)
+            self.device = self.params.first
+        else:
+            self.device = resolve_device(device)
+            # One compute-dtype copy of the params for the engine's
+            # lifetime.  The JAX step casts every f32 master param on
+            # each call; this gives the same numbers without re-reading
+            # 4-byte weights every tick.
+            self.params = cast_params(params, cfg.dtype, self.device)
         self.cfg = cfg
         self.chunk = chunk
         self.max_len = max_len
@@ -419,9 +636,13 @@ class ContinuousBatcher:
             buf_len = cfg.attention_window + chunk
         else:
             buf_len = max_len
-        self.cache = SlotKVCache.zeros(cfg, slots, buf_len, self.device)
-        self._decode = make_slot_decode_step(cfg, ring=ring)
-        self._prefill = make_prefill_chunk(cfg, chunk, ring=ring)
+        if self.mesh is not None:
+            self.cache = MeshSlotKVCache.zeros(self.params, slots, buf_len)
+        else:
+            self.cache = SlotKVCache.zeros(cfg, slots, buf_len, self.device)
+        self._decode = make_slot_decode_step(cfg, ring=ring, mesh=self.mesh)
+        self._prefill = make_prefill_chunk(cfg, chunk, ring=ring,
+                                           mesh=self.mesh)
 
     def submit(self, request: Request) -> None:
         """Queue a request, validating its cache footprint UP FRONT —
@@ -517,7 +738,7 @@ class ContinuousBatcher:
                 self._stat_lengths[i] = 0
                 # Reset the slot: stale cache beyond every future write
                 # point is invisible by construction.
-                self.cache.lengths[i] = 0
+                self.cache.reset(i)
 
     def _sample_host(self, logits, req: Request) -> int:
         return int(_sample(logits, self._gen, req.temperature, req.top_k,

@@ -1,7 +1,8 @@
 """Speculative decoding inside the continuous-batching paged engine.
 
 The PyTorch counterpart of the JAX package's ``workloads/spec_serving.py``,
-single device.  decode.py's speculative generators serve one batch that
+on one device or under a mesh (the draft placed and its pool cut like
+the target's).  decode.py's speculative generators serve one batch that
 shares one cache length, so mixed accept lengths truncate to the batch
 minimum.  The paged engine keeps a length PER SLOT, so each sequence
 accepts its own number of draft tokens every round:
@@ -38,11 +39,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_autoscaler_torch.workloads.model import ModelConfig, cast_params
+from tpu_autoscaler_torch.workloads.model import (
+    Mesh,
+    ModelConfig,
+    cast_params,
+    place_params,
+)
 from tpu_autoscaler_torch.workloads.paged import (
     BlockAllocator,
     PagedBatcher,
-    PagedKVCache,
     make_paged_decode_step,
     make_paged_prefill,
 )
@@ -95,7 +100,8 @@ class SpeculativePagedBatcher(PagedBatcher):
                  block_size: int = 16, num_blocks: int | None = None,
                  chunk: int = 32, prefill_lanes: int = 2, device=None,
                  generator: torch.Generator | None = None, seed: int = 0,
-                 slo_ticks: int | None = None, reqtrace=None):
+                 slo_ticks: int | None = None, reqtrace=None,
+                 mesh: Mesh | None = None):
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         if k >= chunk:
@@ -117,7 +123,7 @@ class SpeculativePagedBatcher(PagedBatcher):
                          block_size=block_size, num_blocks=num_blocks,
                          chunk=chunk, prefill_lanes=prefill_lanes,
                          device=device, generator=generator,
-                         slo_ticks=slo_ticks, reqtrace=reqtrace)
+                         slo_ticks=slo_ticks, reqtrace=reqtrace, mesh=mesh)
 
     def _trace_finish_attrs(self, req) -> dict:
         """Speculative economics on the request's root span: the
@@ -131,21 +137,26 @@ class SpeculativePagedBatcher(PagedBatcher):
 
     def _build_device_state(self, cfg, slots, max_len, chunk, ring) -> None:
         super()._build_device_state(cfg, slots, max_len, chunk, ring)
-        dcfg = self.draft_cfg
-        self.draft_params = cast_params(self._draft_params_in, dcfg.dtype,
-                                        self.device)
+        dcfg, mesh = self.draft_cfg, self.mesh
+        # Under a mesh the draft is placed like the target, and its
+        # pool cut like the target's (the JAX engine's draft
+        # re-placement).
+        self.draft_params = (
+            cast_params(self._draft_params_in, dcfg.dtype, self.device)
+            if mesh is None else
+            place_params(mesh, dcfg, self._draft_params_in))
         self.d_allocator = BlockAllocator(self._num_blocks)
         self.d_tables = np.full((slots, self.blocks_per_row), -1, np.int32)
-        self.d_cache = PagedKVCache.zeros(dcfg, self._num_blocks,
-                                          self.block_size, slots,
-                                          self.device)
-        self._d_decode = make_paged_decode_step(dcfg, max_len)
+        self.d_cache = self._pool(dcfg, self.draft_params)
+        self._d_decode = make_paged_decode_step(dcfg, max_len, mesh)
         self._d_prefill = make_paged_prefill(dcfg, chunk,
-                                             self.prefill_lanes, max_len)
+                                             self.prefill_lanes, max_len,
+                                             mesh=mesh)
         # Draft replay: per-slot short appends after full acceptance.
-        self._d_replay = make_paged_prefill(dcfg, chunk, slots, max_len)
+        self._d_replay = make_paged_prefill(dcfg, chunk, slots, max_len,
+                                            mesh=mesh)
         self._verify = make_paged_prefill(cfg, self.k + 1, slots, max_len,
-                                          return_all_logits=True)
+                                          return_all_logits=True, mesh=mesh)
 
     # ---- draft block management ----------------------------------------
 
