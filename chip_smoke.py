@@ -24,7 +24,13 @@ ranks and sp×ep, the training mesh (the step cell over a dp 4 × tp 2
 mesh of 8 ranks on the card, in each shard mode: none, zero1, fsdp;
 K1/K2 per shard), serving under a mesh of the card (the linear server
 and ``make_sharded_generate`` over dp 2 × tp 2, the paged server over a
-TP-only mesh of 2: K3, K1 and K4 per shard, against one device), and
+TP-only mesh of 2: K3, K1 and K4 per shard, against one device), the
+compositions (the step cell on a (dcn 2, data 2, model 2) mesh from
+``distributed.make_multislice_mesh``, the MoE step model on data 2 × ep
+2 × model 2, the long-context step on data 2 × sp 2 × model 2 under
+ZeRO-1 with the kernel ring and Ulysses, two processes of this script
+joined by ``distributed.initialize_from_env`` over gloo against one
+process, and small f32 models on CUDA ranks against CPU ranks), and
 runs the ``serve`` CLI with each cache,
 speculatively and with request tracing, the ``generate`` CLI and the
 ``train`` CLI (train, resume, drain; on one device, with ``--sp 2`` and
@@ -38,6 +44,8 @@ power limit, the ``kernels`` summary, and ``{"ok": true, "device":
 
 Needs one CUDA device; without one it exits non-zero before printing
 any result.  Imports nothing of JAX and nothing of the JAX package.
+``python3 chip_smoke.py --distributed-worker PORT PID REF OUT`` is one
+process of the two-process phase, which starts it.
 """
 
 from __future__ import annotations
@@ -240,6 +248,30 @@ MESH_RANKS, MESH_TP, MESH_WARM, MESH_STEPS = 8, 2, 2, 3
 # product, so the logits differ by bf16 rounding and are held to
 # DLOGITS_MAX like the einsum route's.
 SERVE_MESH_RANKS, SERVE_MESH_TP, PAGED_MESH_RANKS = 4, 2, 2
+# The compositions (the multi-slice mesh, ep×tp, sp×tp, two processes):
+# the step cell on make_multislice_mesh(2, model=2) over the 8 ranks of
+# the mesh step (dcn 2 × data 2 × model 2) in modes none and zero1; the
+# MoE step model on data 2 × ep 2 × model 2; the long-context step on
+# data 2 × sp 2 × model 2 (each ring over 2 sp ranks on 4 of the 8
+# heads, [1, 4, 4096, 128] a hop); two processes of a dp 1 × tp 2 mesh
+# on 8 rows each, at the step cell's widths in f32.
+MULTISLICE_SLICES, MULTISLICE_MODES = 2, ("none", "zero1")
+EP_TP = (2, 2)
+SP_TP_MESH, SP_TP_STEPS = (2, 2, 2), 2
+DIST_TP, DIST_LOCAL_BATCH, DIST_STEPS, DIST_TIMEOUT_S = 2, 8, 3, 300
+# f32 and the same two row gradients summed in another order only: ten
+# f32 ulps at a loss of ~10.4, and 1e-5 of each leaf's largest |value|.
+DIST_LOSS_GAP = 1e-5
+DIST_PARAM_RTOL = 1e-5
+# small_compositions' params after 3 steps, elementwise |Δ| <= tol · (1 +
+# |p|): the compositions' CPU parity bound against the JAX package.
+# Relative to a leaf's largest |value| (SMALL_SP_PARAM_RTOL) it is too
+# tight where Adam meets a near-zero gradient: at |g| ~ eps the update
+# lr · g / (|g| + eps) turns f32 summation noise into ~0.1 · lr (ep×tp's
+# embed element with g -2.2e-8 on CUDA ranks, -1.4e-8 on CPU ranks
+# moved 1.05e-4 apart, 1.26e-3 of the leaf's largest |value|, while the
+# gradients agree within 1.1e-7 of a median |g| of 8.8e-3).
+COMP_PARAM_TOL = 2e-4
 MESH_MODES = ("none", "zero1", "fsdp")
 MESH_MODE_GAP = 1e-6
 ALLOC_SLACK = 1 << 20
@@ -655,12 +687,14 @@ def check_attn_case(torch, F, attention, flush, *, label, b, h, hkv, s, d,
 
 
 def phase_attn_kernel_checks(torch, F, attention, flush):
-    """K1 in 19 cases; the first is the GQA generate path's prefill, the
+    """K1 in 21 cases; the first is the GQA generate path's prefill, the
     next two a layer of the training main path and of the long-sequence
     recipe, the next two one rank's shard of the mesh step (dp 4 × tp 2:
-    [4, 8, 1024, 64]) and of its GQA form (16 q / 2 KV heads cut by tp
-    2: 8 q heads on 1 KV head); the last at head_dim 96 (run zero-padded
-    to 128)."""
+    [4, 8, 1024, 64], also the multi-slice and the ep×tp rank's shard)
+    and of its GQA form (16 q / 2 KV heads cut by tp 2: 8 q heads on 1
+    KV head), the next two a rank's Ulysses shard under sp×tp ([1, 2,
+    8192, 128]) and the distributed phase's f32 shard ([8, 8, 1024,
+    64]); the last at head_dim 96 (run zero-padded to 128)."""
     main = dict(b=GEN_BATCH, h=16, hkv=2, s=GEN_PROMPT, d=64,
                 dtype=torch.bfloat16)
     cases = [
@@ -672,6 +706,10 @@ def phase_attn_kernel_checks(torch, F, attention, flush):
              s=1024),
         dict(main, label="mesh-shard-gqa", b=TRAIN_BATCH // 4, h=8, hkv=1,
              s=1024),
+        dict(main, label="ulysses-tp-shard", b=1, h=2, hkv=2, s=8192,
+             d=128),
+        dict(main, label="dist-shard-f32", b=DIST_LOCAL_BATCH, h=8, hkv=8,
+             s=1024, dtype=torch.float32),
         dict(main, label="long-prompt", s=896),
         dict(main, label="seq-len", b=2, s=1024),
         dict(main, label="tail", b=2, s=1000),
@@ -797,9 +835,10 @@ def check_bwd_case(torch, F, attention, flush, *, label, b, h, hkv, s, d,
 
 
 def phase_bwd_kernel_checks(torch, F, attention, flush):
-    """K2 in 16 cases; the first is a layer of the training main path,
-    the second a layer of the long-sequence recipe, the next two one
-    rank's shard of the mesh step and of its GQA form (as K1's); the
+    """K2 in 18 cases; the first is a layer of the training main path,
+    the second a layer of the long-sequence recipe, the next four one
+    rank's shard of the mesh step and of its GQA form, the Ulysses shard
+    under sp×tp and the distributed phase's f32 shard (as K1's); the
     last at head_dim 96 (run zero-padded to 128)."""
     gqa = dict(b=2, h=16, hkv=2, s=512, d=64, dtype=torch.bfloat16)
     cases = [
@@ -811,6 +850,9 @@ def phase_bwd_kernel_checks(torch, F, attention, flush):
              s=1024),
         dict(gqa, label="mesh-shard-gqa", b=TRAIN_BATCH // 4, h=8, hkv=1,
              s=1024),
+        dict(gqa, label="ulysses-tp-shard", b=1, h=2, hkv=2, s=8192, d=128),
+        dict(gqa, label="dist-shard-f32", b=DIST_LOCAL_BATCH, h=8, hkv=8,
+             s=1024, dtype=torch.float32),
         dict(gqa, label="gqa8"),
         dict(gqa, label="mqa", hkv=1),
         dict(gqa, label="window-256", s=1024, window=256),
@@ -2542,12 +2584,15 @@ def check_ring_case(torch, F, attention, flush, *, label, b, h, hkv, sq, sk,
 
 
 def phase_ring_kernel_checks(torch, F, attention, flush):
-    """K5 and K6 in 16 cases each; the first two are the SP main path's
+    """K5 and K6 in 18 cases each; the first two are the SP main path's
     hops (b 2, h 8, s_loc 2048, d 128, bf16), timed: an unmasked hop (6
-    of each layer's 10 visible hops) and a diagonal one (4 of 10).  The
-    last two: the main hop at head_dim 96 (zero-padded to 128, timed
-    with its padding copy) and an unmasked bf16 hop at d 256."""
+    of each layer's 10 visible hops) and a diagonal one (4 of 10).  Then
+    the main hop at head_dim 96 (zero-padded to 128, timed with its
+    padding copy) and an unmasked bf16 hop at d 256; the last two, timed,
+    the sp×tp path's hops (one data row, 4 of the 8 heads, s_loc 4096:
+    its unmasked hop, 1 of each ring's 3, and its diagonal, 2 of 3)."""
     s_loc = SP_FULL["seq_len"] // SP_RANKS
+    sp_tp_loc = SP_FULL["seq_len"] // SP_TP_MESH[1]
     main = dict(b=SP_BATCH, h=8, hkv=8, sq=s_loc, sk=s_loc, d=128,
                 dtype=torch.bfloat16)
     small = dict(b=2, h=8, hkv=8, sq=300, sk=300, d=64, dtype=torch.bfloat16)
@@ -2580,6 +2625,12 @@ def phase_ring_kernel_checks(torch, F, attention, flush):
              masked=False, timed=True),
         dict(small, label="d256-unmasked", d=256, sq=500, sk=700, offset=700,
              masked=False),
+        dict(main, label="sp-tp-unmasked", b=SP_BATCH // SP_TP_MESH[0],
+             h=8 // SP_TP_MESH[2], hkv=8 // SP_TP_MESH[2], sq=sp_tp_loc,
+             sk=sp_tp_loc, offset=sp_tp_loc, masked=False, timed=True),
+        dict(main, label="sp-tp-diag", b=SP_BATCH // SP_TP_MESH[0],
+             h=8 // SP_TP_MESH[2], hkv=8 // SP_TP_MESH[2], sq=sp_tp_loc,
+             sk=sp_tp_loc, offset=0, masked=True, carry="fresh", timed=True),
     ]
     return [check_ring_case(torch, F, attention, flush, seed=400 + i, **c)
             for i, c in enumerate(cases)]
@@ -2598,7 +2649,7 @@ def phase_sp_train_main_path(torch, np, attention, model, sp,
     its launches counted (K1 once per rank per layer, twice under remat;
     each K2 kernel once; K5/K6 never)."""
     cfg = model.ModelConfig(**SP_FULL)
-    devices = sp.make_sp_mesh(sp=SP_RANKS)
+    devices = sp.make_sp_mesh(["cuda:0"] * SP_RANKS, sp=SP_RANKS)
     init_fn, step_fn = sp.make_sp_train_step(devices, cfg, impl="pallas")
     params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
     n_params = sum(p.numel() for _, p in model._flatten(params))
@@ -2627,7 +2678,7 @@ def phase_sp_train_main_path(torch, np, attention, model, sp,
                                           loss_of)
         torch.cuda.empty_cache()
     rec = dict(config=SP_FULL, dtype="bfloat16", batch=SP_BATCH,
-               ranks=SP_RANKS, devices=[str(d) for d in devices],
+               ranks=SP_RANKS, devices=[str(d) for d in devices.ranks],
                s_loc=s_loc, n_params=n_params, visible_hops_per_layer=hops,
                first_loss={n: v[0] for n, v in first.items()},
                first_grad_norm={n: v[1] for n, v in first.items()},
@@ -2693,7 +2744,7 @@ def phase_small_sp(torch, np, model, sp, decode):
     for world, extra in ((2, dict(attention_window=24, remat=True)),
                          (4, {})):
         cfg = model.ModelConfig(**base, **extra)
-        devices = sp.make_sp_mesh(sp=world)
+        devices = sp.make_sp_mesh(["cuda:0"] * world, sp=world)
         runs = {}
         for impl in ("pallas", "einsum"):
             init_fn, step_fn = sp.make_sp_train_step(devices, cfg, impl=impl)
@@ -3463,7 +3514,7 @@ def phase_small_sp_ep(torch, np, attention, model, sp):
                             dtype=torch.float32, **MOE)
     ncfg = dataclasses.replace(cfg, moe_capacity_factor=EP_NO_DROP,
                                moe_balance_weight=0.0)
-    devices = sp.make_sp_mesh(sp=4)
+    devices = sp.make_sp_mesh(["cuda:0"] * 4, sp=4)
     params = model.init_params(torch.Generator(device="cuda").manual_seed(1),
                                cfg, "cuda")
     tokens = torch.from_numpy(np.random.default_rng(2).integers(
@@ -3501,6 +3552,580 @@ def phase_small_sp_ep(torch, np, attention, model, sp):
         raise AssertionError(f"sp×ep kernel ring launched {launches}")
     if not all(np.isfinite(v).all() for v in rec["step_metrics"].values()):
         raise AssertionError(f"sp×ep router metrics: {rec['step_metrics']}")
+    return rec
+
+
+def _kernel_launches(attention, **counts) -> dict:
+    """Every kernel's expected launches: the ones named, the rest 0."""
+    return {**dict.fromkeys(attention.LAUNCHES, 0), **counts}
+
+
+def phase_multislice_train(torch, np, attention, model, distributed,
+                           mesh_rec):
+    """``model.make_sharded_train_step`` of the step cell (TRAIN_FULL,
+    batch TRAIN_BATCH) on ``distributed.make_multislice_mesh(2,
+    model=2)`` over MESH_RANKS ranks of the card: (dcn 2, data 2, model
+    2), the batch cut over (dcn, data), in modes none and zero1 from the
+    same params (seed 0) and batch (numpy seed 1) as
+    mesh_train_main_path.  The batch falls into the same four row blocks
+    in the same order as on the dp 4 × tp 2 mesh, so the first-step loss
+    must equal mesh_train_main_path's within MESH_MODE_GAP; MESH_WARM
+    warm and MESH_STEPS timed steps whose launches are counted per
+    step (K1 and each K2 kernel once per rank per layer, K3-K6 never);
+    the loss must fall, and zero1's busiest rank must store less than
+    none's (its moments cut over dcn × data)."""
+    cfg = model.ModelConfig(**TRAIN_FULL)
+    mesh = distributed.make_multislice_mesh(
+        MULTISLICE_SLICES, model=MESH_TP, devices=["cuda:0"] * MESH_RANKS)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (TRAIN_BATCH, cfg.seq_len + 1)).astype(np.int32)).cuda()
+    per_step = MESH_RANKS * cfg.n_layers
+    want = _kernel_launches(attention, flash_attention=per_step,
+                            flash_attention_bwd_dq=per_step,
+                            flash_attention_bwd_dkv=per_step)
+    modes = {}
+    for shard in MULTISLICE_MODES:
+        init_fn, step_fn = model.make_sharded_train_step(mesh, cfg,
+                                                         shard=shard)
+        params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+        n_params = sum(int(np.prod(leaf.shape))
+                       for _, leaf in model._flatten(params))
+        held = model.rank_state_bytes(mesh, params, opt)
+        first = _mesh_loss_and_grad_norm(torch, model, mesh, cfg, params,
+                                         tokens)
+        torch.cuda.empty_cache()
+        params, opt, losses, launches, step_s = _train_steps(
+            torch, attention, step_fn, params, opt, tokens, MESH_WARM,
+            MESH_STEPS)
+        flops = _train_flops(n_params, cfg, TRAIN_BATCH)
+        modes[shard] = dict(
+            first_loss=first[0], first_grad_norm=first[1],
+            step_ms=step_s * 1e3,
+            tokens_per_s=TRAIN_BATCH * cfg.seq_len / step_s,
+            mfu=flops / (step_s * BF16_OPS_PER_S), losses=losses,
+            rank_state_bytes=held, launches_per_step=launches)
+        del params, opt, init_fn, step_fn
+        torch.cuda.empty_cache()
+    dp4 = mesh_rec["modes"]["none"]
+    rec = dict(config=TRAIN_FULL, dtype="bfloat16", batch=TRAIN_BATCH,
+               mesh=dict(mesh.shape),
+               batch_spec=[list(a) if isinstance(a, tuple) else a
+                           for a in model.batch_spec(mesh)],
+               shard_shape=[TRAIN_BATCH // (MESH_RANKS // MESH_TP),
+                            cfg.n_heads // MESH_TP, cfg.seq_len,
+                            cfg.head_dim],
+               warm_steps=MESH_WARM, timed_steps=MESH_STEPS,
+               dp4_tp2_first_loss=dp4["first_loss"],
+               dp4_tp2_first_grad_norm=dp4["first_grad_norm"], modes=modes,
+               launches_per_step=modes["none"]["launches_per_step"][-1],
+               expected_launches_per_step=want)
+    emit("multislice_train", **rec)
+    for shard, m in modes.items():
+        if any(n != want for n in m["launches_per_step"]):
+            raise AssertionError(f"multislice step ({shard}) launched "
+                                 f"{m['launches_per_step']}, want {want}")
+        if not all(np.isfinite(m["losses"])) \
+                or not m["losses"][-1] < m["losses"][0]:
+            raise AssertionError(f"multislice step ({shard}): loss not "
+                                 f"finite or did not fall: {m['losses']}")
+        if not abs(m["first_loss"] - dp4["first_loss"]) <= MESH_MODE_GAP:
+            raise AssertionError(
+                f"multislice step ({shard}): first loss {m['first_loss']} "
+                f"vs the dp 4 x tp 2 mesh's {dp4['first_loss']}")
+    if not max(modes["zero1"]["rank_state_bytes"]) \
+            < max(modes["none"]["rank_state_bytes"]):
+        raise AssertionError("multislice zero1 does not cut the busiest "
+                             "rank's state")
+    return rec
+
+
+def phase_ep_tp_train_main_path(torch, np, attention, model, moe, ep_rec):
+    """dp×ep×tp (``moe.make_ep_train_step`` on ``make_ep_mesh(ep=2,
+    tp=2)`` over MESH_RANKS ranks of the card: data 2 × ep 2 × model 2)
+    of the MoE step model on the step's batch and params (as
+    ep_train_main_path): at capacity factor EP_NO_DROP the first-step
+    loss and gradient norm must equal the one-device MoE step's that
+    ep_train_main_path took, within TRAIN_LOSS_GAP /
+    TRAIN_GRAD_NORM_RTOL; then, at the model's 1.25, on the cut state
+    (each rank's experts and their moments: 1/(ep·tp) of the whole, as
+    ``model.rank_state_bytes`` counts them), MESH_WARM warm and
+    MESH_STEPS timed steps whose launches are counted per step (K1 and
+    each K2 kernel once per rank per layer on its h/tp heads, K3-K6
+    never); the loss must fall."""
+    import dataclasses
+
+    cfg = model.ModelConfig(**TRAIN_MOE)
+    mesh = moe.make_ep_mesh(["cuda:0"] * MESH_RANKS, ep=EP_TP[0],
+                            tp=EP_TP[1])
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, "cuda")
+    n_params = sum(p.numel() for _, p in model._flatten(params))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (TRAIN_BATCH, cfg.seq_len + 1)).astype(np.int32)).cuda()
+    ep_loss = moe.make_ep_loss(mesh, dataclasses.replace(
+        cfg, moe_capacity_factor=EP_NO_DROP))
+    first = _loss_and_grad_norm(torch, model, params, tokens,
+                                lambda p, t: ep_loss(p, t)[0])
+    torch.cuda.empty_cache()
+    optimizer = model.make_optimizer(model.TrainConfig())
+    opt = moe.shard_ep_opt_state(mesh, cfg, optimizer.init(params))
+    params = moe.shard_ep_params(mesh, cfg, params)
+    experts = {"blocks": {k: params["blocks"][k] for k in ("w1", "w2")}}
+    held = model.rank_state_bytes(mesh, experts, {
+        key: {"blocks": {k: opt[key]["blocks"][k] for k in ("w1", "w2")}}
+        for key in ("mu", "nu")})
+    whole = 3 * 4 * sum(int(np.prod(leaf.shape))
+                        for leaf in experts["blocks"].values())
+    all_held = model.rank_state_bytes(mesh, params, opt)
+    del experts
+    _, step4 = moe.make_ep_train_step(mesh, cfg)
+    metrics = []
+
+    def step_fn(p, o, t):
+        p, o, loss, m = step4(p, o, t)
+        metrics.append(m)
+        return p, o, loss
+
+    per_step = MESH_RANKS * cfg.n_layers
+    want = _kernel_launches(attention, flash_attention=per_step,
+                            flash_attention_bwd_dq=per_step,
+                            flash_attention_bwd_dkv=per_step)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, losses, launches, step_s = _train_steps(
+        torch, attention, step_fn, params, opt, tokens, MESH_WARM,
+        MESH_STEPS)
+    flops = _train_flops(_active_params(n_params, cfg), cfg, TRAIN_BATCH)
+    data = MESH_RANKS // (EP_TP[0] * EP_TP[1])
+    rec = dict(config=TRAIN_MOE, dtype="bfloat16", batch=TRAIN_BATCH,
+               mesh=dict(mesh.shape),
+               rank_shard_shape=[TRAIN_BATCH // (data * EP_TP[0]),
+                                 cfg.n_heads // EP_TP[1], cfg.seq_len,
+                                 cfg.head_dim],
+               no_drop_capacity_factor=EP_NO_DROP,
+               first_loss=first[0], first_grad_norm=first[1],
+               single_device_first_loss=ep_rec["first_loss"]["single_device"],
+               single_device_first_grad_norm=ep_rec["first_grad_norm"][
+                   "single_device"],
+               warm_steps=MESH_WARM, timed_steps=MESH_STEPS,
+               step_ms=step_s * 1e3,
+               tokens_per_s=TRAIN_BATCH * cfg.seq_len / step_s,
+               mfu=flops / (step_s * BF16_OPS_PER_S),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               losses=losses, ce=[m["ce"].item() for m in metrics],
+               balance_loss=[m["balance_loss"].item() for m in metrics],
+               expert_fraction=metrics[-1]["expert_fraction"].tolist(),
+               expert_state_bytes_whole=whole,
+               expert_state_bytes_per_rank=held,
+               state_bytes_per_rank=all_held,
+               launches_per_step=launches[-1],
+               expected_launches_per_step=want)
+    del params, opt
+    torch.cuda.empty_cache()
+    emit("ep_tp_train_main_path", **rec)
+    if any(n != want for n in launches):
+        raise AssertionError(f"ep×tp train step launched {launches}, want "
+                             f"{want} per step")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"ep×tp: loss not finite or did not fall: "
+                             f"{losses}")
+    sl, sn = rec["single_device_first_loss"], \
+        rec["single_device_first_grad_norm"]
+    if not (abs(first[0] - sl) <= TRAIN_LOSS_GAP
+            and abs(first[1] - sn) <= TRAIN_GRAD_NORM_RTOL * sn):
+        raise AssertionError(f"ep×tp at no-drop capacity: loss {first[0]}, "
+                             f"grad norm {first[1]} vs one device {sl}, {sn}")
+    if max(held) != whole // (EP_TP[0] * EP_TP[1]) or sum(held) != whole:
+        raise AssertionError(f"ep×tp expert state per rank {held}, whole "
+                             f"{whole}: want 1/(ep·tp) on each expert rank")
+    return rec
+
+
+def _sp_ring_hops(ring_attention, cfg, sp_n) -> int:
+    """Visible (rank, source) hops of one causal ring of ``sp_n`` ranks
+    over cfg.seq_len."""
+    s_loc = cfg.seq_len // sp_n
+    return sum(1 for r in range(sp_n) for src in range(sp_n)
+               if ring_attention._hop_mode(src, r, s_loc, True,
+                                           cfg.attention_window)[0])
+
+
+def phase_sp_tp_train_main_path(torch, np, attention, model, sp,
+                                ring_attention, sp_rec):
+    """sp×tp at the long-context width: ``sp.make_sp_train_step`` of
+    SP_FULL (batch SP_BATCH) on ``make_sp_mesh(sp=2, tp=2)`` over
+    MESH_RANKS ranks of the card (data 2 × sp 2 × model 2), the kernel
+    ring, shard zero1: the first-step loss and gradient norm against the
+    one-device K1/K2 step that sp_train_main_path took on the same
+    params (seed 0) and batch (numpy seed 1), within SP_LOSS_GAP /
+    SP_GRAD_NORM_RTOL; SP_WARM warm and SP_TP_STEPS timed steps whose
+    launches are counted per step (K5 once per visible hop per (data
+    row, model rank) ring per layer, twice under remat; each K6 kernel
+    once; K1-K4 never), each ring on its rank's h/tp heads; then one warm
+    and one timed Ulysses step under tp, its launches counted (K1 once
+    per rank per layer, twice under remat, on (h/tp)/sp heads at the
+    full sequence; each K2 kernel once)."""
+    cfg = model.ModelConfig(**SP_FULL)
+    data, sp_n, tp = SP_TP_MESH
+    mesh = sp.make_sp_mesh(["cuda:0"] * (data * sp_n * tp), sp=sp_n, tp=tp)
+    init_fn, step_fn = sp.make_sp_train_step(mesh, cfg, impl="pallas",
+                                             shard="zero1")
+    params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (SP_BATCH, cfg.seq_len + 1)).astype(np.int32)).cuda()
+    first = _loss_and_grad_norm(torch, model, params, tokens,
+                                sp.make_sp_loss(mesh, cfg, "pallas"))
+    torch.cuda.empty_cache()
+    hops = _sp_ring_hops(ring_attention, cfg, sp_n)
+    rings = data * tp
+    remat = 2 if cfg.remat else 1
+    layers = cfg.n_layers
+    want = _kernel_launches(
+        attention, ring_flash_step=remat * hops * rings * layers,
+        ring_flash_bwd_dq=hops * rings * layers,
+        ring_flash_bwd_dkv=hops * rings * layers)
+    ranks = data * sp_n * tp
+    want_ulysses = _kernel_launches(
+        attention, flash_attention=remat * ranks * layers,
+        flash_attention_bwd_dq=ranks * layers,
+        flash_attention_bwd_dkv=ranks * layers)
+    moment_bytes = model.rank_state_bytes(
+        mesh, {}, {key: opt[key] for key in ("mu", "nu")})
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, losses, launches, step_s = _train_steps(
+        torch, attention, step_fn, params, opt, tokens, SP_WARM,
+        SP_TP_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for _, p in model._flatten(params))
+    flops = _train_flops(n_params, cfg, SP_BATCH)
+    _, ustep = sp.make_sp_train_step(mesh, cfg, impl="ulysses",
+                                     shard="zero1")
+    ustep(params, opt, tokens)
+    attention.reset_launch_counts()
+    ustep_s, (_, _, uloss) = _wall(torch, lambda: ustep(params, opt, tokens))
+    ulaunches = dict(attention.LAUNCHES)
+    s_loc = cfg.seq_len // sp_n
+    rec = dict(config=SP_FULL, dtype="bfloat16", batch=SP_BATCH,
+               mesh=dict(mesh.shape), shard="zero1",
+               hop_shape=[SP_BATCH // data, cfg.n_heads // tp, s_loc,
+                          cfg.head_dim],
+               ulysses_shape=[SP_BATCH // data, cfg.n_heads // tp // sp_n,
+                              cfg.seq_len, cfg.head_dim],
+               visible_hops_per_ring=hops, rings_per_layer=rings,
+               first_loss=first[0], first_grad_norm=first[1],
+               single_device_first_loss=sp_rec["first_loss"][
+                   "single_device"],
+               single_device_first_grad_norm=sp_rec["first_grad_norm"][
+                   "single_device"],
+               moment_bytes_per_rank=moment_bytes,
+               warm_steps=SP_WARM, timed_steps=SP_TP_STEPS,
+               step_ms=step_s * 1e3,
+               tokens_per_s=SP_BATCH * cfg.seq_len / step_s,
+               mfu=flops / (step_s * BF16_OPS_PER_S), peak_memory_gb=peak,
+               losses=losses, launches_per_step=launches[-1],
+               expected_launches_per_step=want,
+               ulysses_step_ms=ustep_s * 1e3, ulysses_loss=uloss.item(),
+               ulysses_launches_per_step=ulaunches,
+               ulysses_expected_launches_per_step=want_ulysses)
+    del params, opt
+    torch.cuda.empty_cache()
+    emit("sp_tp_train_main_path", **rec)
+    if any(n != want for n in launches):
+        raise AssertionError(f"sp×tp train step launched {launches}, want "
+                             f"{want} per step")
+    if ulaunches != want_ulysses:
+        raise AssertionError(f"ulysses sp×tp step launched {ulaunches}, "
+                             f"want {want_ulysses}")
+    if not all(np.isfinite(losses + [rec["ulysses_loss"]])) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"sp×tp: loss not finite or did not fall: "
+                             f"{losses}")
+    sl, sn = rec["single_device_first_loss"], \
+        rec["single_device_first_grad_norm"]
+    if not (abs(first[0] - sl) <= SP_LOSS_GAP
+            and abs(first[1] - sn) <= SP_GRAD_NORM_RTOL * sn):
+        raise AssertionError(f"sp×tp first-step loss {first[0]}, grad norm "
+                             f"{first[1]} vs one device {sl}, {sn}")
+    return rec
+
+
+def _dist_cfg(model, torch):
+    """The distributed phase's model: the step cell's widths in f32."""
+    return model.ModelConfig(**TRAIN_FULL, dtype=torch.float32)
+
+
+def distributed_worker(port: str, pid: str, ref_path: str,
+                       out_path: str) -> None:
+    """One process of phase_distributed_train (``chip_smoke.py
+    --distributed-worker PORT PID REF OUT``): joins the two-process
+    group through ``distributed.initialize_from_env`` over gloo, runs
+    the dp+tp step on a dp 1 × tp 2 mesh of the card on its
+    DIST_LOCAL_BATCH rows of the trainer's stream, the gradients and the
+    loss averaged over the processes, for DIST_STEPS steps, and writes
+    its losses, launches, step times and the gap of its final params to
+    the one-process run's (``REF``) as JSON."""
+    import torch
+
+    from tpu_autoscaler_torch.workloads import (
+        attention,
+        distributed,
+        model,
+        train,
+    )
+
+    distributed._COORDINATOR_PORT = int(port)
+    topo = distributed.initialize_from_env(
+        {"TPU_WORKER_HOSTNAMES": "localhost,localhost",
+         "TPU_WORKER_ID": pid}, backend="gloo")
+    cfg = _dist_cfg(model, torch)
+    mesh = model.make_mesh(["cuda:0"] * DIST_TP, tp=DIST_TP)
+    init_fn, step = model.make_sharded_train_step(
+        mesh, cfg, grad_sync=distributed.process_mean)
+    params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    losses, launches, step_ms = [], [], []
+    for s in range(DIST_STEPS):
+        tokens = torch.from_numpy(train.synthetic_rows(
+            s, topo.process_id, DIST_LOCAL_BATCH, cfg.vocab,
+            cfg.seq_len)).cuda()
+        attention.reset_launch_counts()
+        t, (params, opt, loss) = _wall(torch,
+                                       lambda: step(params, opt, tokens))
+        launches.append(dict(attention.LAUNCHES))
+        step_ms.append(t * 1e3)
+        losses.append(loss.item())
+    ref = torch.load(ref_path, map_location="cuda")
+    gap, differing = 0.0, 0
+    for path, t in model._flatten(model.gather_params(mesh, params)):
+        diff = (t - ref[path]).abs()
+        gap = max(gap, (diff.max() / ref[path].abs().max()).item())
+        differing += int((diff > 0).sum())
+    torch.distributed.destroy_process_group()
+    Path(out_path).write_text(json.dumps(dict(
+        process_id=topo.process_id, num_processes=topo.num_processes,
+        losses=losses, step_ms=step_ms, launches_per_step=launches,
+        param_rel_gap=gap, params_differing=differing)))
+
+
+def phase_distributed_train(torch, np, attention, model, train):
+    """Multi-process data parallelism on the card: two processes of this
+    script (distributed_worker) joined by ``initialize_from_env`` over
+    gloo (TPU_WORKER_HOSTNAMES=localhost,localhost, a free port; NCCL
+    refuses two ranks on one GPU, so the transport is gloo over CUDA
+    tensors), each on DIST_LOCAL_BATCH rows of the trainer's stream on a
+    dp 1 × tp 2 mesh of the card, against the one-process dp 2 × tp 2
+    mesh on both processes' rows, all at the step cell's widths in f32
+    for DIST_STEPS steps.  The processes sum the same two row gradients
+    as the one-process mesh does (in f32: in bf16 the one-process mesh's
+    rows share one bf16 cast of each weight on the card, so their
+    gradients would be summed in bf16 there), and scale by powers of
+    two, so the losses must agree within DIST_LOSS_GAP and the params
+    within DIST_PARAM_RTOL of each leaf's largest |value|.  A worker
+    that does not finish within DIST_TIMEOUT_S fails the phase; both
+    are stopped either way."""
+    import socket
+    import tempfile
+
+    cfg = _dist_cfg(model, torch)
+    mesh = model.make_mesh(["cuda:0"] * (2 * DIST_TP), tp=DIST_TP)
+    init_fn, step = model.make_sharded_train_step(mesh, cfg)
+    params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    ref_losses, ref_ms = [], []
+    for s in range(DIST_STEPS):
+        tokens = torch.from_numpy(np.concatenate([train.synthetic_rows(
+            s, pid, DIST_LOCAL_BATCH, cfg.vocab, cfg.seq_len)
+            for pid in range(2)])).cuda()
+        t, (params, opt, loss) = _wall(torch,
+                                       lambda: step(params, opt, tokens))
+        ref_losses.append(loss.item())
+        ref_ms.append(t * 1e3)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "ref.pt")
+        torch.save(dict(model._flatten(model.gather_params(mesh, params))),
+                   ref_path)
+        del params, opt, init_fn, step
+        torch.cuda.empty_cache()
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        outs = [os.path.join(tmp, f"p{pid}.json") for pid in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--distributed-worker", str(port), str(pid), ref_path,
+             outs[pid]], cwd=str(ROOT), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for pid in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired as e:
+            raise AssertionError(f"distributed worker did not finish in "
+                                 f"{DIST_TIMEOUT_S} s") from e
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall_s = time.perf_counter() - t0
+        for p, log in zip(procs, logs):
+            if p.returncode != 0:
+                raise AssertionError(f"distributed worker exited "
+                                     f"{p.returncode}: {log[-3000:]}")
+        got = [json.loads(Path(path).read_text()) for path in outs]
+    per_step = DIST_TP * cfg.n_layers
+    want = _kernel_launches(attention, flash_attention=per_step,
+                            flash_attention_bwd_dq=per_step,
+                            flash_attention_bwd_dkv=per_step)
+    rec = dict(config=TRAIN_FULL, dtype="float32", processes=2,
+               transport="gloo over CUDA tensors (NCCL refuses two ranks "
+                         "on one GPU)",
+               per_process_mesh={"data": 1, "model": DIST_TP},
+               reference_mesh=dict(mesh.shape),
+               local_batch=DIST_LOCAL_BATCH, steps=DIST_STEPS,
+               reference_losses=ref_losses, reference_step_ms=ref_ms,
+               workers=got, workers_wall_s=wall_s,
+               loss_gap_bound=DIST_LOSS_GAP,
+               param_rel_gap_bound=DIST_PARAM_RTOL,
+               launches_per_step=got[0]["launches_per_step"][-1],
+               expected_launches_per_step=want)
+    emit("distributed_train", **rec)
+    for w in got:
+        if any(n != want for n in w["launches_per_step"]):
+            raise AssertionError(f"distributed process {w['process_id']} "
+                                 f"launched {w['launches_per_step']}, want "
+                                 f"{want}")
+        gap = max(abs(a - b) for a, b in zip(w["losses"], ref_losses))
+        if not gap <= DIST_LOSS_GAP:
+            raise AssertionError(f"distributed process {w['process_id']}: "
+                                 f"losses {w['losses']} vs one process "
+                                 f"{ref_losses}")
+        if not w["param_rel_gap"] <= DIST_PARAM_RTOL:
+            raise AssertionError(f"distributed process {w['process_id']}: "
+                                 f"params {w['param_rel_gap']} of their "
+                                 f"scale from one process's")
+    return rec
+
+
+def phase_small_compositions(torch, np, attention, model, moe, sp,
+                             ring_attention):
+    """The compositions on small f32 models, CUDA ranks (the kernels)
+    against CPU ranks (their plain versions), from the same params and
+    batches: ep×tp (data 2 × ep 2 × model 2: K1/K2 per rank on its h/tp
+    heads), sp×tp on the kernel ring under zero1 and on Ulysses (data 2
+    × sp 2 × model 2), data × sp on the kernel ring with a window and
+    remat (data 2 × sp 2), and sp×ep×tp on the kernel ring.  The first
+    step's gradient within GRAD_F32_RTOL of each leaf's largest |grad|,
+    3 steps' losses within SMALL_TRAIN_LOSS_GAP, the params after them
+    within COMP_PARAM_TOL; the CUDA route's launches counted per step
+    and exact."""
+    base = dict(vocab=256, d_model=128, n_layers=2, n_heads=4, d_ff=256,
+                seq_len=64, dtype=torch.float32)
+    moe_kw = dict(moe_experts=4, moe_top_k=2)
+    cases = (
+        ("ep-tp", "ep", (2, 2, 2), dict(n_kv_heads=2, **moe_kw), None,
+         "none", 8),
+        ("sp-tp-ring-zero1", "sp", (2, 2, 2), dict(n_kv_heads=2), "pallas",
+         "zero1", 4),
+        ("sp-tp-ulysses", "sp", (2, 2, 2), {}, "ulysses", "none", 4),
+        ("data-sp-ring", "sp", (2, 2, 1),
+         dict(n_kv_heads=2, attention_window=24, remat=True), "pallas",
+         "none", 4),
+        ("sp-ep-tp-ring", "sp", (2, 2, 2), moe_kw, "pallas", "none", 4),
+    )
+    rec = {}
+    for label, kind, (data, n, tp), extra, impl, shard, batch in cases:
+        cfg = model.ModelConfig(**base, **extra)
+        ranks = data * n * tp
+        runs = {}
+        for dev in ("cuda:0", "cpu"):
+            if kind == "ep":
+                mesh = moe.make_ep_mesh([dev] * ranks, ep=n, tp=tp)
+                _, step = moe.make_ep_train_step(mesh, cfg)
+                loss_of = moe.make_ep_loss(mesh, cfg)
+            else:
+                mesh = sp.make_sp_mesh([dev] * ranks, sp=n, tp=tp)
+                _, step = sp.make_sp_train_step(mesh, cfg, impl=impl,
+                                                shard=shard)
+                loss_of = sp.make_sp_loss(mesh, cfg, impl)
+            params = model.init_params(torch.Generator().manual_seed(1), cfg,
+                                       dev)
+            paths, leaves = zip(*model._flatten(params))
+            live = [t.detach().requires_grad_() for t in leaves]
+            first = loss_of(model._unflatten(dict(zip(paths, live))),
+                            torch.from_numpy(np.random.default_rng(2).integers(
+                                0, 256, (batch, 65)).astype(np.int32)).to(dev))
+            first = first[0] if isinstance(first, tuple) else first
+            grads = dict(zip(paths, (g.cpu() for g in torch.autograd.grad(
+                first, live))))
+            opt = model.make_optimizer(model.TrainConfig()).init(params)
+            if kind == "ep":
+                params = moe.shard_ep_params(mesh, cfg, params)
+                opt = moe.shard_ep_opt_state(mesh, cfg, opt)
+            else:
+                opt = sp.shard_sp_opt_state(mesh, cfg, opt, shard)
+            rng = np.random.default_rng(2)
+            losses, launches = [], []
+            for _ in range(3):
+                tokens = rng.integers(0, 256, (batch, 65)).astype(np.int32)
+                attention.reset_launch_counts()
+                params, opt, loss = step(params, opt,
+                                         torch.from_numpy(tokens).to(dev))[:3]
+                launches.append(dict(attention.LAUNCHES))
+                losses.append(loss.item())
+            if kind == "ep":
+                params = model.gather_params(mesh, params)
+            runs[dev] = (losses, dict(model._flatten(params)), launches,
+                         grads)
+        (kl, kp, kn, kg), (pl, pp, _, pg) = runs["cuda:0"], runs["cpu"]
+        if kind == "ep" or impl == "ulysses":
+            per = ranks * cfg.n_layers * (2 if cfg.remat else 1)
+            want = _kernel_launches(
+                attention, flash_attention=per,
+                flash_attention_bwd_dq=ranks * cfg.n_layers,
+                flash_attention_bwd_dkv=ranks * cfg.n_layers)
+        else:
+            hops = _sp_ring_hops(ring_attention, cfg, n) * data * tp
+            want = _kernel_launches(
+                attention,
+                ring_flash_step=hops * cfg.n_layers
+                * (2 if cfg.remat else 1),
+                ring_flash_bwd_dq=hops * cfg.n_layers,
+                ring_flash_bwd_dkv=hops * cfg.n_layers)
+        grad_gap = max(((g - pg[path]).abs().max()
+                        / pg[path].abs().max().clamp_min(1e-30)).item()
+                       for path, g in kg.items())
+        param_gap = max(((t.cpu() - pp[path]).abs().max()
+                         / pp[path].abs().max().clamp_min(1e-30)).item()
+                        for path, t in kp.items())
+        param_over = max(((t.cpu() - pp[path]).abs() / (
+            COMP_PARAM_TOL * (1 + pp[path].abs()))).max().item()
+            for path, t in kp.items())
+        rec[label] = dict(mesh=dict(mesh.shape), impl=impl, shard=shard,
+                          losses={"cuda": kl, "cpu": pl},
+                          max_loss_gap=max(abs(a - b)
+                                           for a, b in zip(kl, pl)),
+                          first_grad_rel_gap=grad_gap,
+                          max_param_gap=param_gap,
+                          param_gap_over_tolerance=param_over,
+                          launches_per_step=kn[-1],
+                          expected_launches_per_step=want,
+                          launches_as_expected=all(x == want for x in kn))
+    emit("small_compositions", **rec)
+    for label, r in rec.items():
+        if not r["launches_as_expected"]:
+            raise AssertionError(f"f32 {label}: launched "
+                                 f"{r['launches_per_step']}, want "
+                                 f"{r['expected_launches_per_step']}")
+        if not r["first_grad_rel_gap"] <= GRAD_F32_RTOL:
+            raise AssertionError(f"f32 {label}: first-step gradients differ "
+                                 f"by {r['first_grad_rel_gap']} of their "
+                                 f"scale")
+        if not r["max_loss_gap"] <= SMALL_TRAIN_LOSS_GAP:
+            raise AssertionError(f"f32 {label}: CUDA and CPU ranks' losses "
+                                 f"differ by {r['max_loss_gap']}")
+        if not r["param_gap_over_tolerance"] <= 1.0:
+            raise AssertionError(f"f32 {label}: params differ by "
+                                 f"{r['param_gap_over_tolerance']} of "
+                                 f"COMP_PARAM_TOL")
     return rec
 
 
@@ -3838,6 +4463,7 @@ def main() -> None:
     from tpu_autoscaler_torch.workloads import (
         attention,
         decode,
+        distributed,
         model,
         moe,
         paged,
@@ -3845,6 +4471,7 @@ def main() -> None:
         serving,
         sp,
         spec_serving,
+        train,
     )
 
     t_start = time.perf_counter()
@@ -3928,6 +4555,13 @@ def main() -> None:
         TRAIN_WARM, TRAIN_STEPS, 1, compare=True)
     ep_rec = phase_ep_train_main_path(torch, np, attention, model, moe)
     mesh_rec = phase_mesh_train_main_path(torch, np, attention, model)
+    multislice_rec = phase_multislice_train(torch, np, attention, model,
+                                            distributed, mesh_rec)
+    ep_tp_rec = phase_ep_tp_train_main_path(torch, np, attention, model, moe,
+                                            ep_rec)
+    sp_tp_rec = phase_sp_tp_train_main_path(torch, np, attention, model, sp,
+                                            ring_attention, sp_rec)
+    dist_rec = phase_distributed_train(torch, np, attention, model, train)
     phase_small_exact(torch, np, model, serving, paged, decode, spec_serving)
     phase_small_moe_exact(torch, np, model, serving, paged, decode, moe)
     phase_small_train(torch, np, model)
@@ -3936,6 +4570,8 @@ def main() -> None:
     phase_small_mesh_serving(torch, np, model, serving, paged, decode,
                              spec_serving)
     sp_ep_rec = phase_small_sp_ep(torch, np, attention, model, sp)
+    small_comp_rec = phase_small_compositions(torch, np, attention, model,
+                                              moe, sp, ring_attention)
     trained_rec = phase_spec_trained(torch, np, attention, model, decode,
                                      dataio, paged, serving, spec_serving)
     phase_cli(model, decode, DrainReceipt)
@@ -4075,6 +4711,62 @@ def main() -> None:
         if not kernel["moe_path_launches"]:
             raise AssertionError(f"{kernel['name']} never launched on a MoE "
                                  f"path: {moe_paths}")
+    # K1/K2 and K5/K6 on the compositions' paths, per train step: the
+    # multi-slice mesh, ep×tp, sp×tp (the ring, and Ulysses under tp),
+    # each of the two processes of the distributed phase, and the small
+    # f32 models on CUDA ranks; each at its shard shape there (the
+    # multi-slice and ep×tp ranks' shard is the mesh step's).
+    comp_paths = {
+        "multislice_train": multislice_rec["launches_per_step"],
+        "ep_tp_train_main_path": ep_tp_rec["launches_per_step"],
+        "sp_tp_train_main_path": sp_tp_rec["launches_per_step"],
+        "sp_tp_ulysses": sp_tp_rec["ulysses_launches_per_step"],
+        "distributed_train_per_process": dist_rec["launches_per_step"],
+        **{f"small_compositions/{label}": r["launches_per_step"]
+           for label, r in small_comp_rec.items()}}
+
+    def shard_case(checks, label, part=None, grads=None):
+        # A ring hop's plain and library times are the whole forward or
+        # backward hop's, as in its main row.
+        c = next(c for c in checks if c["case"] == label)
+        key = "" if part is None else f"_{part}"
+        whole = "_fwd" if part == "fwd" else "_bwd"
+        err = c["max_abs_err"] if grads is None else max(
+            c["max_abs_err"][g] for g in grads)
+        return dict(shape=c["shape"], dtype=c["dtype"], ms=c[f"ms{key}"],
+                    plain_ms=c.get("plain_ms", c.get(f"plain_ms{whole}")),
+                    bound_ms=c[f"bound_ms{key}"],
+                    bound_by=c[f"bound_by{key}"],
+                    library_ms=c.get("library_ms",
+                                     c.get(f"library_ms{whole}")),
+                    max_abs_err=err, tflops=c[f"tflops{key}"])
+
+    shards = {
+        "flash_attention": (attn_checks, None, None,
+                            ("ulysses-tp-shard", "dist-shard-f32")),
+        "flash_attention_bwd_dq": (bwd_checks, "dq", ("dq",),
+                                   ("ulysses-tp-shard", "dist-shard-f32")),
+        "flash_attention_bwd_dkv": (bwd_checks, "dkv", ("dk", "dv"),
+                                    ("ulysses-tp-shard", "dist-shard-f32")),
+        "ring_flash_step": (ring_checks, "fwd", ("m", "l", "acc"),
+                            ("sp-tp-unmasked", "sp-tp-diag")),
+        "ring_flash_bwd_dq": (ring_checks, "dq", ("dq",),
+                              ("sp-tp-unmasked", "sp-tp-diag")),
+        "ring_flash_bwd_dkv": (ring_checks, "dkv", ("dk", "dv"),
+                               ("sp-tp-unmasked", "sp-tp-diag"))}
+    for kernel in kernels:
+        kname = kernel["name"]
+        if kname not in shards:
+            continue
+        kernel["composition_launches"] = {
+            path: n[kname] for path, n in comp_paths.items() if n.get(kname)}
+        if not kernel["composition_launches"]:
+            raise AssertionError(f"{kname} never launched on a composition "
+                                 f"path: {comp_paths}")
+        checks_of, part, grads, labels = shards[kname]
+        kernel["composition_shard"] = {
+            label: shard_case(checks_of, label, part, grads)
+            for label in labels}
     # K1, K3 and K4 on the mesh serving paths: over the mesh linear and
     # paged engines' timed passes, per mesh generate call; each at its
     # shard shape there.
@@ -4105,4 +4797,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--distributed-worker"]:
+        distributed_worker(*sys.argv[2:])
+    else:
+        main()

@@ -373,19 +373,28 @@ def test_moe_layer_matches_jax(with_aux, capacity_factor):
 
 
 def test_ep_mesh_grid_and_refusals():
-    grid = moe.make_ep_mesh(["cpu"] * 8, ep=4)
-    assert grid == [[torch.device("cpu")] * 4] * 2
-    assert moe.make_ep_mesh(["cpu"] * 4) == [[torch.device("cpu")] * 4]
+    """make_ep_mesh is JAX's (data, ep) or (data, ep, model) mesh, with
+    JAX's errors; ep×tp, which slice 10 refused, trains."""
+    for n, ep, tp in ((8, 4, 1), (4, None, 1), (8, 2, 2), (4, None, 2)):
+        jmesh = jax_moe.make_ep_mesh(jax.devices()[:n], ep=ep, tp=tp)
+        mesh = moe.make_ep_mesh(["cpu"] * n, ep=ep, tp=tp)
+        assert dict(mesh.shape) == dict(jmesh.shape), (n, ep, tp)
+        assert mesh.axis_names == jmesh.axis_names
+        assert mesh.ranks == [torch.device("cpu")] * n
     with pytest.raises(ValueError, match="not divisible by ep"):
         moe.make_ep_mesh(["cpu"] * 6, ep=4)
-    with pytest.raises(ValueError, match="Queue 1: EP and the SP"):
-        moe.make_ep_mesh(["cpu"] * 4, ep=2, tp=2)
     _, tcfg = _cfgs()
+    grid = moe.make_ep_mesh(["cpu"] * 8, ep=4)
     with pytest.raises(ValueError, match="moe_experts"):
         moe.make_ep_train_step(grid, dataclasses.replace(
             tcfg, moe_experts=None))
     with pytest.raises(ValueError, match="not divisible"):
         moe.make_ep_train_step(moe.make_ep_mesh(["cpu"] * 3, ep=3), tcfg)
+    init_fn, step = moe.make_ep_train_step(
+        moe.make_ep_mesh(["cpu"] * 4, ep=2, tp=2), tcfg)
+    _, opt, loss, _ = step(*init_fn(torch.Generator().manual_seed(0)),
+                           _tokens(4, 17, seed=1))
+    assert opt["count"] == 1 and np.isfinite(float(loss))
 
 
 @pytest.mark.parametrize("data,ep,kw", [
@@ -584,10 +593,16 @@ def test_train_cli_ep_usage_errors_match_jax(tmp_path, flags):
     assert not os.listdir(tmp_path)
 
 
-def test_train_cli_ep_with_tp_names_the_mesh(tmp_path):
+def test_train_cli_ep_with_tp_names_the_mesh(tmp_path, caplog):
+    """--ep 2 --tp 2 trains dp×ep×tp on the CPU (4 ranks of the one
+    device), names its mesh, and checkpoints the one-device layout."""
+    caplog.set_level("INFO")
     res = CliRunner().invoke(train_cli.main, [
-        "--platform", "cpu", "--steps", "1", "--checkpoint-dir",
-        str(tmp_path), "--ep", "2", "--moe-experts", "4", "--tp", "2"])
-    assert res.exit_code == 2
-    assert "ROADMAP.md, Queue 1: EP and the SP compositions" in " ".join(
-        res.output.split())
+        "--platform", "cpu", *CLI_ARCH, "--batch", "4", "--steps", "2",
+        "--checkpoint-dir", str(tmp_path), "--ep", "2", "--tp", "2"])
+    assert res.exit_code == 0, res.output
+    assert "mesh {'data': 1, 'ep': 2, 'model': 2}" in caplog.text
+    assert os.listdir(tmp_path) == ["step_2"]
+    params = model.load_params(str(tmp_path), 2, "cpu")
+    assert tuple(params["blocks"]["w1"].shape) == (1, 4, 32, 512)
+    assert tuple(params["blocks"]["qkv"].shape) == (1, 32, 96)

@@ -42,6 +42,7 @@ from tpu_autoscaler.workloads import attention as jax_attention  # noqa: E402
 from tpu_autoscaler.workloads import checkpoint as jax_checkpoint  # noqa: E402
 from tpu_autoscaler.workloads import model as jax_model  # noqa: E402
 from tpu_autoscaler.workloads import sp as jax_sp  # noqa: E402
+from tpu_autoscaler.workloads import train as jax_train  # noqa: E402
 from tpu_autoscaler_torch import dataio  # noqa: E402
 from tpu_autoscaler_torch.workloads import (  # noqa: E402
     attention,
@@ -254,14 +255,18 @@ def test_remat_gradient_equals_plain_gradient():
 
 def test_moe_and_sharded_modes_name_their_slice():
     """MoE trains on one device and the sharded state modes run there
-    (a one-device mesh); ep×tp names the item that brings it."""
+    (a one-device mesh); ep×tp trains over a (data, ep, model) mesh."""
     cfg = model.ModelConfig(**ARCH, dtype=torch.float32, moe_experts=4)
     params = model.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     loss, metrics = model.loss_and_metrics(params, torch.from_numpy(
         _tokens()), cfg)
     assert float(loss) > float(metrics["ce"]) > 0
-    with pytest.raises(ValueError, match="Queue 1: EP and the SP"):
-        moe.make_ep_mesh(["cpu"] * 4, ep=2, tp=2)
+    mesh = moe.make_ep_mesh(["cpu"] * 4, ep=2, tp=2)
+    assert dict(mesh.shape) == {"data": 1, "ep": 2, "model": 2}
+    ep_init, ep_step = moe.make_ep_train_step(mesh, cfg)
+    _, ep_opt, ep_loss, _ = ep_step(*ep_init(
+        torch.Generator().manual_seed(0)), _tokens(b=4))
+    assert ep_opt["count"] == 1 and np.isfinite(float(ep_loss))
     init_fn, step_fn = model.make_train_step(cfg, device="cpu",
                                              shard="fsdp")
     params, opt = init_fn(torch.Generator().manual_seed(0))
@@ -424,8 +429,9 @@ def test_sp_train_steps_match_jax(impl, world, arch_kw):
     jinit, jstep = jax_sp.make_sp_train_step(mesh, jcfg, impl=impl)
     jparams, jopt = jinit(jax.random.PRNGKey(0))
     tparams = model.params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
-    devices = sp.make_sp_mesh(["cpu"], sp=world)
-    assert devices == [torch.device("cpu")] * world
+    devices = sp.make_sp_mesh(["cpu"] * world, sp=world)
+    assert devices.ranks == [torch.device("cpu")] * world
+    assert dict(devices.shape) == dict(mesh.shape)
     _, tstep = sp.make_sp_train_step(devices, tcfg, impl=impl)
     topt = model.make_optimizer(model.TrainConfig()).init(tparams)
     rng = np.random.default_rng(world)
@@ -464,9 +470,8 @@ def test_sp_step_equals_single_device_step():
 
 
 def test_sp_refusals_match_jax_and_name_slice_6():
-    """JAX's usage errors (sp×ep's expert divisibility among them), and
-    what waits for the port's mesh: sp×tp and ZeRO-1 under sp
-    (ROADMAP.md, Queue 1: EP and the SP compositions)."""
+    """JAX's usage errors (sp×ep's expert divisibility among them); sp×tp
+    and ZeRO-1 under sp, which slice 6 refused, build and step."""
     cfg = model.ModelConfig(**SP_ARCH, dtype=torch.float32)
     jcfg = jax_model.ModelConfig(**SP_ARCH, dtype=jnp.float32)
     jmesh = jax_sp.make_sp_mesh(jax.devices()[:4], sp=4)
@@ -485,10 +490,15 @@ def test_sp_refusals_match_jax_and_name_slice_6():
             **SP_ARCH, **gqa), impl="ulysses")
     with pytest.raises(ValueError, match="not divisible by the sp axis"):
         sp.make_sp_train_step(["cpu"] * 3, cfg)
-    with pytest.raises(ValueError, match="EP and the SP compositions"):
-        sp.make_sp_mesh(["cpu"], sp=2, tp=2)
-    with pytest.raises(ValueError, match="EP and the SP compositions"):
-        sp.make_sp_train_step(["cpu"] * 2, cfg, shard="zero1")
+    mesh = sp.make_sp_mesh(["cpu"] * 4, sp=2, tp=2)
+    assert dict(mesh.shape) == dict(jax_sp.make_sp_mesh(
+        jax.devices()[:4], sp=2, tp=2).shape)
+    for m, shard in ((mesh, "none"), (["cpu"] * 2, "zero1")):
+        init_fn, step_fn = sp.make_sp_train_step(m, cfg, shard=shard)
+        *_, loss = step_fn(*init_fn(torch.Generator().manual_seed(0)),
+                           np.random.default_rng(0).integers(
+                               0, 64, (2, 33)).astype(np.int32))
+        assert np.isfinite(float(loss))
     moe_kw = dict(moe_experts=6)
     with pytest.raises(ValueError, match="sp×ep needs moe_experts"):
         sp.make_sp_train_step(["cpu"] * 4, model.ModelConfig(
@@ -761,22 +771,75 @@ def test_cli_bad_n_kv_heads_is_rejected(tmp_path):
     assert not os.listdir(tmp_path)
 
 
-COMPOSE, PP = "EP and the SP compositions", "pipeline parallelism"
+PP = "pipeline parallelism"
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--ep", "2", "--moe-experts", "4", "--tp", "2"], COMPOSE),
-    (["--pp-stages", "2"], PP), (["--sp", "2", "--shard", "zero1"], COMPOSE),
-    (["--sp", "2", "--tp", "2"], COMPOSE),
-    (["--moe-experts", "4", "--sp", "2", "--tp", "2"], COMPOSE)],
+    (["--ep", "2", "--moe-experts", "4", "--tp", "2"],
+     "ep 2 ranks on cpu, cpu, cpu, cpu; mesh {'data': 1, 'ep': 2, "
+     "'model': 2}"),
+    (["--pp-stages", "2"], PP),
+    (["--sp", "2", "--shard", "zero1"],
+     "mesh {'data': 1, 'sp': 2}, shard zero1"),
+    (["--sp", "2", "--tp", "2"],
+     "mesh {'data': 1, 'sp': 2, 'model': 2}, shard none"),
+    (["--moe-experts", "4", "--sp", "2", "--tp", "2"],
+     "mesh {'data': 1, 'sp': 2, 'model': 2}, shard none")],
     ids=["ep", "pp", "sp", "sp-tp", "moe"])
-def test_cli_refuses_unported_parallelism(tmp_path, flags, item):
-    """Each refusal names the ROADMAP.md Queue 1 item that brings it."""
+def test_cli_refuses_unported_parallelism(tmp_path, caplog, flags, item):
+    """--pp-stages names the ROADMAP.md Queue 1 item that brings it; the
+    compositions it once refused beside it (--ep with --tp, --sp with
+    --shard zero1 or --tp, sp×ep×tp) train 2 steps on the CPU and
+    checkpoint the one-device layout."""
+    caplog.set_level("INFO")
     res = CliRunner().invoke(train_cli.main, [
-        "--platform", "cpu", "--steps", "1", "--checkpoint-dir",
-        str(tmp_path), *flags])
-    assert res.exit_code == 2, res.output
-    assert f"Queue 1: {item}" in " ".join(res.output.split())
+        "--platform", "cpu", "--vocab", "64", "--d-model", "32",
+        "--n-layers", "1", "--seq-len", "16", "--batch", "4", "--steps",
+        "2", "--checkpoint-dir", str(tmp_path), *flags])
+    if item == PP:
+        assert res.exit_code == 2, res.output
+        assert f"Queue 1: {item}" in " ".join(res.output.split())
+        assert not os.listdir(tmp_path)
+        return
+    assert res.exit_code == 0, res.output
+    assert item in caplog.text
+    assert os.listdir(tmp_path) == ["step_2"]
+    params = model.load_params(str(tmp_path), 2, "cpu")
+    assert tuple(params["blocks"]["qkv"].shape) == (1, 32, 96)
+    opt = checkpoint.restore_checkpoint(str(tmp_path), 2, "cpu")["opt"]
+    assert opt["count"] == 2
+    assert tuple(opt["mu"]["blocks"]["w1"].shape) == tuple(
+        params["blocks"]["w1"].shape)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--ep", "3", "--moe-experts", "6"],
+    ["--ep", "2", "--moe-experts", "4", "--batch", "6"],
+    ["--ep", "2", "--moe-experts", "4", "--tp", "2", "--batch", "6"],
+    ["--sp", "3"],
+    ["--sp", "2", "--tp", "2", "--batch", "3"],
+    ["--sp", "2", "--tp", "3"],
+], ids=["ep-devices", "ep-batch", "ep-tp-batch", "sp-devices", "sp-batch",
+        "sp-tp-devices"])
+def test_cli_composition_usage_errors_match_jax(tmp_path, monkeypatch,
+                                                flags):
+    """With 8 devices visible to both trainers (the port's cards
+    patched to 8 CPU ranks, JAX's the conftest's virtual devices), the
+    --ep/--sp/--tp device and batch errors are JAX's, word for word."""
+    monkeypatch.setattr(train_cli, "_cards",
+                        lambda device, ranks: [device] * 8)
+    base = ["--steps", "1", "--vocab", "64", "--d-model", "32",
+            "--n-layers", "1", "--seq-len", "16", "--checkpoint-dir",
+            str(tmp_path)]
+    mine = CliRunner().invoke(train_cli.main,
+                              base + ["--platform", "cpu"] + flags)
+    theirs = CliRunner().invoke(jax_train.main, base + flags)
+    assert mine.exit_code == theirs.exit_code == 2, (mine.output,
+                                                     theirs.output)
+    error = [line for line in theirs.output.splitlines()
+             if line.startswith("Error:")]
+    assert error and error[0] in mine.output.splitlines(), (mine.output,
+                                                             error)
     assert not os.listdir(tmp_path)
 
 

@@ -996,33 +996,60 @@ def gather_params(mesh: Mesh, tree):
     return gather_tensor(tree) if isinstance(tree, Sharded) else tree
 
 
+def _qkv_rank_cols(cfg: ModelConfig, tp: int, j: int) -> torch.Tensor:
+    """The packed qkv weight's columns of model rank j of ``tp``: its
+    h/tp query heads, then its hkv/tp KV heads' k and v columns,
+    ``[q_j | k_j | v_j]`` (the JAX package's ``sp._local_qkv``)."""
+    d, kv = cfg.d_model, cfg.kv_heads * cfg.head_dim
+    qw, kw = d // tp, kv // tp
+    return torch.cat([torch.arange(j * qw, (j + 1) * qw),
+                      d + torch.arange(j * kw, (j + 1) * kw),
+                      d + kv + torch.arange(j * kw, (j + 1) * kw)])
+
+
 def _qkv_order(cfg: ModelConfig, mesh: Mesh) -> torch.Tensor | None:
     """The column order that makes each model rank's contiguous block of
-    the packed qkv weight head-aligned: rank j's h/tp query heads, then
-    its hkv/tp KV heads' k and v columns, ``[q_j | k_j | v_j]``.  JAX's
-    spec cuts ``[q | k | v]`` contiguously, which GSPMD may do because
-    it only lays memory out; a rank that computes needs whole heads.
-    None when tp is 1 or the heads do not divide (the step then gathers
-    qkv and attends per data row)."""
+    the packed qkv weight head-aligned (:func:`_qkv_rank_cols` of each
+    rank in turn).  JAX's spec cuts ``[q | k | v]`` contiguously, which
+    GSPMD may do because it only lays memory out; a rank that computes
+    needs whole heads.  None when tp is 1 or the heads do not divide
+    (the step then gathers qkv and attends per data row)."""
     tp = mesh.shape.get("model", 1)
     if tp == 1 or not cfg.mesh_shardable(mesh):
         return None
-    d, kv = cfg.d_model, cfg.kv_heads * cfg.head_dim
-    qw, kw = d // tp, kv // tp
-    cols = []
-    for j in range(tp):
-        cols += [torch.arange(j * qw, (j + 1) * qw),
-                 d + torch.arange(j * kw, (j + 1) * kw),
-                 d + kv + torch.arange(j * kw, (j + 1) * kw)]
-    return torch.cat(cols)
+    return torch.cat([_qkv_rank_cols(cfg, tp, j) for j in range(tp)])
+
+
+def _replica_cut(cfg: ModelConfig, tp: int, name: str, t: torch.Tensor,
+                 j: int) -> torch.Tensor:
+    """Model rank j's part of one layer ``t`` of the ``blocks`` leaf
+    ``name`` held whole (replicated over 'model', as the sp and ep steps
+    hold the dense weights): the head-aligned qkv columns
+    (:func:`_qkv_rank_cols`), or the block :func:`param_specs` cuts over
+    'model'; the whole of a leaf it does not cut."""
+    if tp == 1:
+        return t
+    if name == "qkv":
+        return t.index_select(-1, _qkv_rank_cols(cfg, tp, j).to(t.device))
+    axes = _cut_axes(param_specs(cfg)["blocks"][name], t.ndim + 1)[1:]
+    for d, cut in enumerate(axes):
+        if cut == ("model",):
+            n = t.shape[d] // tp
+            return t.narrow(d, j * n, n)
+    return t
 
 
 def _shard_tree(mesh: Mesh, cfg: ModelConfig, tree: dict, specs: dict):
+    """``tree`` cut by ``specs`` over ``mesh`` (:func:`shard_tensor`);
+    qkv takes its head-aligned order (:func:`_qkv_order`) where its spec
+    cuts it over 'model'."""
     order = _qkv_order(cfg, mesh)
     flat_specs = dict(_flatten(specs))
     return _unflatten({
         path: shard_tensor(mesh, x, flat_specs[path],
-                           order if path == "blocks/qkv" else None)
+                           order if path == "blocks/qkv" and any(
+                               "model" in axes for axes in _cut_axes(
+                                   flat_specs[path], x.ndim)) else None)
         for path, x in _flatten(tree)})
 
 
@@ -1153,11 +1180,11 @@ def heads_split(cfg: ModelConfig, tp: int) -> bool:
     return cfg.n_heads % tp == 0 and cfg.kv_heads % tp == 0
 
 
-def _tp_layer(xs, w, rows, cfg: ModelConfig, rope, attend):
-    """One block, tensor-parallel over every data row: ``xs[i]`` [b_i,
-    s, d] in compute dtype on the row's first rank (``rows[i][0]``).
-    Training and serving share it; they differ in ``w``, ``rope`` and
-    ``attend``:
+def _tp_attention(xs, w, rows, cfg: ModelConfig, rope, attend):
+    """The attention half of one block, tensor-parallel over every data
+    row: ``xs[i]`` [b_i, s, d] in compute dtype on the row's first rank
+    (``rows[i][0]``).  Training and serving share it; they differ in
+    ``w``, ``rope`` and ``attend``:
 
     - ``w(name, j, dev)``: model rank j's block of the layer's weight
       ``name`` on ``dev`` (j None: the whole weight);
@@ -1167,14 +1194,13 @@ def _tp_layer(xs, w, rows, cfg: ModelConfig, rope, attend):
       v), one per model rank when the heads divide over the ranks
       (:func:`heads_split`; rank j's head-aligned columns on rows[i][j],
       :func:`_qkv_order`), else one over whole heads on the row's first
-      rank; outs[i] the matching attention outputs.
+      rank; outs[i] the matching attention outputs.  The rows need not
+      attend alone: the sequence-parallel step's rows are the sequence
+      shards its rings join.
 
-    qkv is column-parallel by heads, attn_out and w2 row-parallel (the
-    partial products summed on the row's first rank: the all-reduce),
-    w1 column-parallel; a MoE layer routes once per row (the router
-    replicates) and sums the experts' d_ff-cut MLPs over the row's
-    ranks.  Returns (new streams, each row's router aux; zeros for the
-    dense FFN)."""
+    qkv is column-parallel by heads, attn_out row-parallel (the partial
+    products summed on the row's first rank: the all-reduce).  Returns
+    the streams with the attention added."""
     tp = len(rows[0])
     split = heads_split(cfg, tp)
     heads = (cfg.n_heads // tp, cfg.kv_heads // tp) if split else None
@@ -1189,7 +1215,7 @@ def _tp_layer(xs, w, rows, cfg: ModelConfig, rope, attend):
                 q, k = rope(q, i), rope(k, i)
             shards[-1].append((q, k, v))
     outs = attend(shards)
-    new, auxs = [], []
+    new = []
     for x, out, row in zip(xs, outs, rows):
         head = row[0]
         b, s, d = x.shape
@@ -1200,8 +1226,21 @@ def _tp_layer(xs, w, rows, cfg: ModelConfig, rope, attend):
             # the row-parallel attn_out.
             parts = torch.split(out[0].transpose(1, 2).reshape(b, s, d),
                                 d // tp, dim=-1)
-        x = x + sum((a.to(dev) @ w("attn_out", j, dev)).to(head)
-                    for j, (a, dev) in enumerate(zip(parts, row)))
+        new.append(x + sum((a.to(dev) @ w("attn_out", j, dev)).to(head)
+                           for j, (a, dev) in enumerate(zip(parts, row))))
+    return new
+
+
+def _tp_ffn(xs, w, rows, cfg: ModelConfig):
+    """The FFN half of one block over every data row (``xs``, ``w`` and
+    ``rows`` as :func:`_tp_attention` takes them): w1 column-parallel,
+    w2 row-parallel (the partial products summed on the row's first
+    rank); a MoE layer routes once per row (the router replicates) and
+    sums the experts' d_ff-cut MLPs over the row's ranks.  Returns (new
+    streams, each row's router aux; zeros for the dense FFN)."""
+    new, auxs = [], []
+    for x, row in zip(xs, rows):
+        head = row[0]
         y = _rmsnorm(x, w("ln2", 0, head))
         if cfg.moe_experts is not None:
             def experts(buf, row=row):
@@ -1223,13 +1262,40 @@ def _tp_layer(xs, w, rows, cfg: ModelConfig, rope, attend):
     return new, auxs
 
 
+def _tp_layer(xs, w, rows, cfg: ModelConfig, rope, attend):
+    """One block, tensor-parallel over every data row:
+    :func:`_tp_attention`, then :func:`_tp_ffn`.  Returns (new streams,
+    each row's router aux)."""
+    return _tp_ffn(_tp_attention(xs, w, rows, cfg, rope, attend), w, rows,
+                   cfg)
+
+
+def _mesh_attend(cfg: ModelConfig, rows, attn):
+    """The ``attend`` of a mesh whose rows attend alone: K1/K2 through
+    ``attn`` (:func:`~attention.make_sharded_flash_attention` over the
+    mesh) on the head shards of every row at once, or, when the heads
+    do not divide, on each row's whole heads; else the einsum."""
+    tp = len(rows[0])
+    kernel = cfg.resolved_attention(rows[0][0]) == "kernel"
+
+    def attend(shards):
+        if kernel and heads_split(cfg, tp):
+            qs, ks, vs = zip(*(s for row in shards for s in row))
+            outs = attn(list(qs), list(ks), list(vs))
+            return [outs[i * tp:(i + 1) * tp] for i in range(len(shards))]
+        return [[_attend(q, k, v, cfg, kernel) for q, k, v in row]
+                for row in shards]
+
+    return attend
+
+
 def _mesh_layer(xs, params: dict, layer: int, *, cfg: ModelConfig, rows,
                 attn):
     """Layer ``layer`` of the training block over every data row
     (:func:`_tp_layer`), the weights read from the :class:`Sharded`
     ``params``: attention is K1/K2 through ``attn`` on head shards, or
     on each row's whole heads when the heads do not divide (K1/K2 there
-    on CUDA), else the einsum."""
+    on CUDA), else the einsum (:func:`_mesh_attend`)."""
     tp = len(rows[0])
     dt = cfg.dtype
     blocks = params["blocks"]
@@ -1246,18 +1312,8 @@ def _mesh_layer(xs, params: dict, layer: int, *, cfg: ModelConfig, rows,
             views[name, j, dev] = t.to(dt) if name in _PRODUCTS else t
         return views[name, j, dev]
 
-    kernel = cfg.resolved_attention(rows[0][0]) == "kernel"
-
-    def attend(shards):
-        if kernel and heads_split(cfg, tp):
-            qs, ks, vs = zip(*(s for row in shards for s in row))
-            outs = attn(list(qs), list(ks), list(vs))
-            return [outs[i * tp:(i + 1) * tp] for i in range(len(shards))]
-        return [[_attend(q, k, v, cfg, kernel) for q, k, v in row]
-                for row in shards]
-
     rope = (lambda t, i: _rope(t, cfg.rope_theta)) if cfg.rope else None
-    return _tp_layer(xs, w, rows, cfg, rope, attend)
+    return _tp_layer(xs, w, rows, cfg, rope, _mesh_attend(cfg, rows, attn))
 
 
 # ---- serving under a mesh ------------------------------------------------
@@ -1563,20 +1619,69 @@ def _sharded_update(optimizer: Optimizer, params: dict, grads: dict,
     return _unflatten(new_params), new_state
 
 
+def _replicated_update(optimizer: Optimizer, params: dict, grads: dict,
+                       opt_state: dict):
+    """The optimizer over one-copy params whose moments are
+    :class:`Sharded` leaves (ZeRO-1 under sequence parallelism): each
+    param and its gradient taken as a replicated leaf of the moments'
+    mesh, the update per moment block (:func:`_sharded_update`).
+    Returns the new (params tree, opt state)."""
+    mesh = next(leaf for _, leaf in _flatten(opt_state["mu"])).mesh
+    whole = {path: Sharded(mesh, P(), tuple(t.shape), {(0,) * t.ndim: t})
+             for path, t in _flatten(params)}
+    flat = {(path, (0,) * t.ndim): t for path, t in _flatten(grads)}
+    new, opt_state = _sharded_update(optimizer, whole, flat, opt_state)
+    return _map_tree(lambda leaf: leaf.blocks[(0,) * len(leaf.shape)],
+                     new), opt_state
+
+
 def _check_shard(shard: str) -> None:
     if shard not in {"none", "zero1", "fsdp"}:
         raise ValueError(f"unknown shard mode {shard!r}; expected "
                          "'none', 'zero1' or 'fsdp'")
 
 
+def _sharded_step(optimizer: Optimizer, loss_of, has_aux: bool = False,
+                  grad_sync=None):
+    """``step_fn(params, opt_state, tokens)`` over trees of
+    :class:`Sharded` leaves: the gradient of ``loss_of(params, tokens)``
+    by ``torch.autograd.grad`` with respect to every block, then the
+    optimizer per block (:func:`_sharded_update`).  ``has_aux`` and
+    ``grad_sync`` as in :func:`_make_step`."""
+
+    def step_fn(params: dict, opt_state: dict, tokens):
+        tokens = torch.as_tensor(tokens)
+        live = {path: dataclasses.replace(leaf, blocks={
+            i: t.detach().requires_grad_() for i, t in leaf.blocks.items()})
+            for path, leaf in _flatten(params)}
+        keys = [(path, i) for path, leaf in live.items() for i in leaf.blocks]
+        loss = loss_of(_unflatten(live), tokens)
+        if has_aux:
+            loss, metrics = loss
+        grads = torch.autograd.grad(
+            loss, [live[path].blocks[i] for path, i in keys])
+        if grad_sync is not None:
+            loss, *grads = grad_sync([loss, *grads])
+        params, opt_state = _sharded_update(
+            optimizer, dict(_flatten(params)), dict(zip(keys, grads)),
+            opt_state)
+        if has_aux:
+            return params, opt_state, loss.detach(), {
+                name: m.detach() for name, m in metrics.items()}
+        return params, opt_state, loss.detach()
+
+    return step_fn
+
+
 def make_sharded_train_step(mesh: Mesh, cfg: ModelConfig,
                             learning_rate: float = 1e-3,
                             zero1: bool = False,
                             train: TrainConfig | None = None,
-                            shard: str | None = None):
-    """(init_fn, step_fn) over ``mesh`` (:func:`make_mesh`) with real
-    DP + TP shardings: Megatron tensor parallelism over 'model'
-    (:func:`_mesh_layer`), the batch over the data axes.
+                            shard: str | None = None, grad_sync=None):
+    """(init_fn, step_fn) over ``mesh`` (:func:`make_mesh`, or a
+    (dcn, data, model) mesh from ``distributed.make_multislice_mesh``)
+    with real DP + TP shardings: Megatron tensor parallelism over
+    'model' (:func:`_mesh_layer`), the batch over the data axes.
     ``attention="auto"`` is resolved per the mesh
     (:meth:`ModelConfig.resolved_for_mesh`) and the route logged once.
 
@@ -1587,6 +1692,8 @@ def make_sharded_train_step(mesh: Mesh, cfg: ModelConfig,
     the gradient by ``torch.autograd.grad`` with respect to every block,
     then the optimizer recipe (``train``, default bare
     adamw(``learning_rate``)) per block (:func:`_sharded_update`).
+    ``grad_sync`` as in :func:`_make_step` (the processes of a
+    multi-host job, each over the mesh of its own cards).
 
     ``shard`` (``zero1=True`` is the legacy spelling of "zero1"):
 
@@ -1610,7 +1717,6 @@ def make_sharded_train_step(mesh: Mesh, cfg: ModelConfig,
     if train is None:
         train = TrainConfig(learning_rate=learning_rate)
     optimizer = make_optimizer(train)
-    loss_of = _make_mesh_loss(mesh, cfg)
     p_specs = _shard_specs(cfg, mesh, shard)
     s_specs = opt_state_shardings(cfg, optimizer, p_specs, mesh,
                                   shard == "zero1")
@@ -1620,25 +1726,12 @@ def make_sharded_train_step(mesh: Mesh, cfg: ModelConfig,
         return (_shard_tree(mesh, cfg, params, p_specs),
                 _shard_state(mesh, cfg, optimizer.init(params), s_specs))
 
-    def step_fn(params: dict, opt_state: dict, tokens):
-        tokens = torch.as_tensor(tokens)
-        live = {path: dataclasses.replace(leaf, blocks={
-            i: t.detach().requires_grad_() for i, t in leaf.blocks.items()})
-            for path, leaf in _flatten(params)}
-        keys = [(path, i) for path, leaf in live.items() for i in leaf.blocks]
-        loss = loss_of(_unflatten(live), tokens)
-        grads = torch.autograd.grad(
-            loss, [live[path].blocks[i] for path, i in keys])
-        params, opt_state = _sharded_update(
-            optimizer, dict(_flatten(params)), dict(zip(keys, grads)),
-            opt_state)
-        return params, opt_state, loss.detach()
-
-    return init_fn, step_fn
+    return init_fn, _sharded_step(optimizer, _make_mesh_loss(mesh, cfg),
+                                  grad_sync=grad_sync)
 
 
 def make_train_step(cfg: ModelConfig, train: TrainConfig | None = None,
-                    device=None, shard: str = "none"):
+                    device=None, shard: str = "none", grad_sync=None):
     """(init_fn, step_fn) on one device: the single-device counterpart
     of the JAX package's ``make_sharded_train_step``.
 
@@ -1652,22 +1745,29 @@ def make_train_step(cfg: ModelConfig, train: TrainConfig | None = None,
     ``shard`` "zero1" and "fsdp" cut the state over data ranks, and one
     device has one, so every mode runs this same step (the JAX
     package's single-device trainer takes them over a one-device
-    mesh)."""
+    mesh).  ``grad_sync`` as in :func:`_make_step`."""
     _check_shard(shard)
     dev = resolve_device(device)
     return _make_step(cfg, make_optimizer(train or TrainConfig()), dev,
-                      lambda tree, tokens: loss_fn(tree, tokens, cfg))
+                      lambda tree, tokens: loss_fn(tree, tokens, cfg),
+                      grad_sync=grad_sync)
 
 
 def _make_step(cfg: ModelConfig, optimizer: Optimizer, dev: torch.device,
-               loss_of, has_aux: bool = False):
+               loss_of, has_aux: bool = False, grad_sync=None):
     """(init_fn, step_fn) for the f32 master params on ``dev`` and the
     loss ``loss_of(params, tokens)``: the gradient by
     ``torch.autograd.grad`` with respect to the master params, then the
     optimizer's update (shared by the single-device, sequence-parallel
     and expert-parallel steps).  ``has_aux``: ``loss_of`` returns
     ``(loss, metrics)`` and step_fn ``(params, opt_state, loss,
-    metrics)``, the metrics detached."""
+    metrics)``, the metrics detached.  ``grad_sync(tensors) ->
+    tensors``, when given, takes the loss and every gradient before the
+    optimizer (``distributed.process_mean``: their mean over the
+    processes, so each process steps on the global batch's gradient and
+    returns its loss).  Moments held as :class:`Sharded` leaves (ZeRO-1
+    under sequence parallelism) are updated per block
+    (:func:`_replicated_update`)."""
 
     def init_fn(generator: torch.Generator):
         params = init_params(generator, cfg, dev)
@@ -1681,9 +1781,15 @@ def _make_step(cfg: ModelConfig, optimizer: Optimizer, dev: torch.device,
         if has_aux:
             loss, metrics = loss
         grads = torch.autograd.grad(loss, leaves)
+        if grad_sync is not None:
+            loss, *grads = grad_sync([loss, *grads])
         grads = _unflatten(dict(zip(paths, grads)))
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        params = apply_updates(params, updates)
+        if isinstance(next(_flatten(opt_state["mu"]))[1], Sharded):
+            params, opt_state = _replicated_update(optimizer, params, grads,
+                                                   opt_state)
+        else:
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            params = apply_updates(params, updates)
         if has_aux:
             return params, opt_state, loss.detach(), {
                 name: m.detach() for name, m in metrics.items()}

@@ -1,6 +1,6 @@
 """Mixture-of-experts FFN and expert parallelism (ep), on PyTorch.
 
-The counterpart of the JAX package's ``workloads/moe.py`` at tp = 1.
+The counterpart of the JAX package's ``workloads/moe.py``.
 The routing rule (``route_topk``) is the one every MoE path of the port
 shares: the flagship model's per-row dispatch (``model.moe_ffn``), the
 expert-parallel step (``_ep_moe_ffn``, ``make_ep_train_step``) and
@@ -9,12 +9,13 @@ contribute zero; the residual carries them), switch-transformer style.
 
 The JAX package shards experts over a mesh axis and moves tokens with
 two ``lax.all_to_all`` exchanges.  Here one process holds the ranks as
-a grid of devices (``make_ep_mesh``: rows are data replicas, columns
-the ep group), and ranks may share a card, as ``sp.make_sp_mesh``'s
-do.  The exchange is a transpose of a per-rank list: rank t receives
-bucket t of every rank of its row, a ``.to()`` copy between cards and
-none on one card.  A ``model`` axis beside ep (ep×tp) waits for
-ROADMAP.md, Queue 1: EP and the SP compositions.
+a ``model.Mesh`` (``make_ep_mesh``: (data, ep), or (data, ep, model)
+for ep×tp), and ranks may share a card, as every mesh of the port's
+may.  The exchange is a transpose of a per-rank list: rank t receives
+bucket t of every rank of its ep group, a ``.to()`` copy between cards
+and none on one card.  The ep step's expert weights and their Adam
+moments are ``model.Sharded`` leaves cut over ep (and over model on
+d_ff), each block on its rank's device.
 
 The layer computes the two auxiliary router losses a trainable MoE
 needs: the load-balance loss ``E * Σ_e f_e · p_e`` (f_e the share of
@@ -25,7 +26,9 @@ router z-loss ``mean(logsumexp(logits)²)``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -190,23 +193,32 @@ def _exchange(parts, devices):
 def _ep_moe_ffn(ys, layers, devices, *, top_k: int,
                 capacity_factor: float, dtype=None):
     """The expert-parallel MoE FFN of one ep group: ys[r] [b_loc, s, d]
-    and layers[r] (router [d, E] and this rank's experts, w1 [E/ep, d,
-    f], w2 [E/ep, f, d]) on ``devices[r]``; ``dtype``, when given, is
-    the compute dtype the router and expert weights are cast to.  Each
-    rank routes its LOCAL pool (capacity = capacity_factor·n_loc·k/E,
+    on ``devices[r][0]``, where devices[r] lists ep rank r's model ranks
+    (one device without a 'model' axis), and layers[r]: ``router`` [d,
+    E] and this rank's experts, ``w1`` / ``w2`` lists over its model
+    ranks of [E/ep, d, f/tp] / [E/ep, f/tp, d] (each expert's d_ff cut
+    over the model ranks under ep×tp); ``dtype``, when given, is the
+    compute dtype the router and expert weights are cast to.  Each rank
+    routes its LOCAL pool (capacity = capacity_factor·n_loc·k/E,
     pool-level GShard semantics, against ``model.moe_ffn``'s per-row
     dispatch), the router product in the compute dtype then cast to
-    f32; the buckets go to their experts' ranks, each rank runs its
-    experts' MLPs, and the outputs come back for the gate-weighted
-    combine.  Returns (outs [b_loc, s, d] per rank, aux per rank).
+    f32; for each model rank the buckets go to their experts' ranks,
+    each runs its experts' MLPs on its d_ff cut, and the outputs come
+    back for the gate-weighted combine, which is summed over the model
+    ranks after the combine (the JAX package's row-parallel psum: the
+    return exchange, the gather and the gates are linear in the expert
+    outputs, so [n_loc, d] is reduced instead of the larger capacity
+    buffers).  Returns (outs [b_loc, s, d] per rank, aux per rank).
 
     The balance loss is nonlinear in (f, p), so the pool estimate
     differs from the per-row one by the rows' covariance (zero for a
     one-row pool); both are the JAX package's."""
     ep, k = len(ys), top_k
     if dtype is not None:
-        layers = [{name: layer[name].to(dtype)
-                   for name in ("router", "w1", "w2")} for layer in layers]
+        layers = [{"router": layer["router"].to(dtype),
+                   "w1": [w.to(dtype) for w in layer["w1"]],
+                   "w2": [w.to(dtype) for w in layer["w2"]]}
+                  for layer in layers]
     e = layers[0]["router"].shape[-1]
     e_loc = e // ep
     routes, buckets = [], []
@@ -219,17 +231,49 @@ def _ep_moe_ffn(ys, layers, devices, *, top_k: int,
         routes.append((expert, rank, gate, keep, aux))
         buckets.append(dispatch(flat, expert, rank, keep, e, cap)
                        .reshape(ep, e_loc, cap, d))
-    received = _exchange(buckets, devices)          # [ep(src), e_loc, cap, d]
-    expert_out = [expert_mlp(buf, layer["w1"], layer["w2"])
-                  for buf, layer in zip(received, layers)]
-    returned = _exchange(expert_out, devices)       # [ep(owner), e_loc, ...]
-    outs, auxs = [], []
-    for y, ret, (expert, rank, gate, keep, aux) in zip(ys, returned, routes):
-        combined = ret.reshape(1, e, *ret.shape[2:])
-        outs.append(combine(combined, expert, rank, gate, keep)
-                    .reshape(y.shape))
-        auxs.append({name: v[0] for name, v in aux.items()})
+    outs = [None] * ep
+    for m in range(len(devices[0])):
+        ranks = [row[m] for row in devices]
+        received = _exchange(buckets, ranks)        # [ep(src), e_loc, cap, d]
+        expert_out = [expert_mlp(buf, layer["w1"][m], layer["w2"][m])
+                      for buf, layer in zip(received, layers)]
+        returned = _exchange(expert_out, ranks)     # [ep(owner), e_loc, ...]
+        for r, (y, ret, route) in enumerate(zip(ys, returned, routes)):
+            expert, rank, gate, keep = (t.to(ret.device) for t in route[:4])
+            combined = ret.reshape(1, e, *ret.shape[2:])
+            out = combine(combined, expert, rank, gate, keep).reshape(
+                y.shape).to(y.device)
+            outs[r] = out if outs[r] is None else outs[r] + out
+    auxs = [{name: v[0] for name, v in route[4].items()} for route in routes]
     return outs, auxs
+
+
+def _ep_rows_ffn(xs, w, rows, cfg, ep: int, experts):
+    """The FFN half of a block whose rows form expert-parallel groups:
+    rows ``[g, g + ep)`` for each g, one per ep rank; ``xs``, ``w`` and
+    ``rows`` as ``model._tp_attention`` takes them, ``experts(i, m) ->
+    (w1, w2)`` row i's experts at model rank m on ``rows[i][m]``.  Each
+    group runs :func:`_ep_moe_ffn` on the post-ln2 activations of its
+    rows.  Returns (new streams, each row's router aux)."""
+    from tpu_autoscaler_torch.workloads.model import _rmsnorm
+
+    new, auxs = [], []
+    for g in range(0, len(rows), ep):
+        group = rows[g:g + ep]
+        ys = [_rmsnorm(x, w("ln2", 0, row[0]))
+              for x, row in zip(xs[g:g + ep], group)]
+        layers = []
+        for i, row in enumerate(group, g):
+            pairs = [experts(i, m) for m in range(len(row))]
+            layers.append({"router": w("router", 0, row[0]),
+                           "w1": [p[0] for p in pairs],
+                           "w2": [p[1] for p in pairs]})
+        outs, a = _ep_moe_ffn(ys, layers, group, top_k=cfg.moe_top_k,
+                              capacity_factor=cfg.moe_capacity_factor,
+                              dtype=cfg.dtype)
+        new += [x + o for x, o in zip(xs[g:g + ep], outs)]
+        auxs += a
+    return new, auxs
 
 
 def _mean_aux(auxs: list[dict], device) -> dict:
@@ -274,10 +318,11 @@ def make_moe_layer(mesh, cfg: MoeConfig, with_aux: bool = False):
         ys = [x[r * n_loc:(r + 1) * n_loc].to(dev)[None]
               for r, dev in enumerate(devices)]
         layers = [{"router": params["router"].to(dev),
-                   "w1": params["w1"][r * e_loc:(r + 1) * e_loc].to(dev),
-                   "w2": params["w2"][r * e_loc:(r + 1) * e_loc].to(dev)}
+                   "w1": [params["w1"][r * e_loc:(r + 1) * e_loc].to(dev)],
+                   "w2": [params["w2"][r * e_loc:(r + 1) * e_loc].to(dev)]}
                   for r, dev in enumerate(devices)]
-        outs, auxs = _ep_moe_ffn(ys, layers, devices, top_k=cfg.top_k,
+        outs, auxs = _ep_moe_ffn(ys, layers, [[dev] for dev in devices],
+                                 top_k=cfg.top_k,
                                  capacity_factor=cfg.capacity_factor)
         out = torch.cat([o[0].to(x.device) for o in outs])
         if not with_aux:
@@ -287,19 +332,17 @@ def make_moe_layer(mesh, cfg: MoeConfig, with_aux: bool = False):
     return apply
 
 
-def make_ep_mesh(devices=None, ep: int | None = None,
-                 tp: int = 1) -> list[list[torch.device]]:
-    """The (data, ep) grid of ranks for expert-parallel training: the
-    devices (default: every visible CUDA card) in rows of ``ep``; a
-    device may appear more than once, so ranks share a card.  The batch
-    cuts over every rank; each row is one ep group.  ``tp > 1`` (the
-    JAX mesh's ``model`` axis, ep×tp) waits for ROADMAP.md, Queue 1: EP
-    and the SP compositions."""
-    from tpu_autoscaler_torch.workloads.sp import _device
+def make_ep_mesh(devices=None, ep: int | None = None, tp: int = 1):
+    """(data, ep) mesh for expert-parallel training, as a
+    ``model.Mesh`` over ``devices`` (default: every visible CUDA card; a
+    device may repeat, so ranks share a card): the batch cuts over BOTH
+    axes (every rank is data-parallel for the dense ops), and each data
+    row is one ep group.  ``tp > 1`` appends a ``model`` axis — (data,
+    ep, model) — for the dp×ep×tp composition: the dense attention
+    heads Megatron-cut over ``model`` and each expert's d_ff
+    column/row-cut over it too."""
+    from tpu_autoscaler_torch.workloads.model import Mesh, _device
 
-    if tp != 1:
-        raise ValueError(f"ep×tp (tp={tp}) is not ported yet (ROADMAP.md, "
-                         "Queue 1: EP and the SP compositions)")
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass devices=['cpu'] "
@@ -308,126 +351,249 @@ def make_ep_mesh(devices=None, ep: int | None = None,
                    for i in range(torch.cuda.device_count())]
     devices = [_device(dev) for dev in devices]
     n = len(devices)
+    if tp < 1 or tp > n:
+        raise ValueError(f"tp={tp} must be in [1, {n}] for {n} devices")
     if ep is None:
-        ep = n
-    if ep < 1 or n % ep:
-        raise ValueError(f"{n} devices not divisible by ep*tp = {ep}")
-    return [devices[i:i + ep] for i in range(0, n, ep)]
+        ep = n // tp
+    if ep < 1 or n % (ep * tp):
+        raise ValueError(
+            f"{n} devices not divisible by ep*tp = {ep * tp}")
+    arr = np.empty(n, dtype=object)
+    arr[:] = devices
+    if tp == 1:
+        return Mesh(arr.reshape(n // ep, ep), ("data", "ep"))
+    return Mesh(arr.reshape(n // (ep * tp), ep, tp), ("data", "ep", "model"))
+
+
+def _as_ep_mesh(mesh):
+    """``mesh`` as a ``model.Mesh``: a list of rows of devices (the
+    grid earlier callers pass) is the (data, ep) mesh of those rows."""
+    from tpu_autoscaler_torch.workloads.model import Mesh, _device
+
+    if isinstance(mesh, Mesh):
+        return mesh
+    rows = [[_device(dev) for dev in row] for row in mesh]
+    arr = np.empty((len(rows), len(rows[0])), dtype=object)
+    for i, row in enumerate(rows):
+        arr[i, :] = row
+    return Mesh(arr, ("data", "ep"))
+
+
+def ep_param_specs(cfg, mesh) -> dict:
+    """Partition specs of the ep step's params (the JAX step's
+    ``p_specs``): w1 / w2 cut over 'ep' on the expert dim and, under
+    ep×tp, over 'model' on d_ff; every dense leaf replicated (one copy,
+    which each rank reads and cuts to its model rank's heads)."""
+    from tpu_autoscaler_torch.workloads.model import P, param_shapes
+
+    model_axis = "model" if "model" in mesh.axis_names else None
+    specs = {name: ({k: P() for k in shape} if isinstance(shape, dict)
+                    else P())
+             for name, shape in param_shapes(cfg).items()}
+    specs["blocks"]["w1"] = P(None, "ep", None, model_axis)
+    specs["blocks"]["w2"] = P(None, "ep", model_axis, None)
+    return specs
+
+
+def shard_ep_params(mesh, cfg, tree: dict) -> dict:
+    """A one-device params tree at :func:`ep_param_specs` over ``mesh``
+    (:func:`make_ep_mesh`): each expert block on its first holder's
+    device.  ``model.gather_params`` is the inverse (checkpoints)."""
+    from tpu_autoscaler_torch.workloads.model import _shard_tree
+
+    return _shard_tree(mesh, cfg, tree, ep_param_specs(cfg, mesh))
+
+
+def shard_ep_opt_state(mesh, cfg, state: dict) -> dict:
+    """A one-device optimizer state cut as its params
+    (:func:`shard_ep_params`): the expert moments over ep (and model),
+    the dense ones whole; the counts pass through."""
+    from tpu_autoscaler_torch.workloads.model import (
+        _shard_state,
+        _state_specs,
+    )
+
+    return _shard_state(mesh, cfg, state, _state_specs(
+        state, ep_param_specs(cfg, mesh), mesh, False))
+
+
+def _whole(leaf):
+    """The one block of a replicated :class:`~model.Sharded` leaf."""
+    (t,) = leaf.blocks.values()
+    return t
 
 
 def make_ep_loss(mesh, cfg):
     """``loss_of(params, tokens) -> (loss, metrics)`` for dp×ep MoE
-    training over ``mesh`` (:func:`make_ep_mesh`'s grid): the flagship
-    model (cfg.moe_experts set) on tokens [b, s + 1] with the batch cut
-    over every rank, row-major, and each ep group's experts split over
-    its ranks; on the first rank's device.  loss = the global mean
-    cross-entropy plus the weighted router losses; metrics holds ``ce``,
-    ``balance_loss``, ``z_loss`` and ``expert_fraction``, each the mean
-    over layers, then over ranks.  ``params`` is the one f32 master
-    copy: rank r reads the dense params and its ep column's experts
-    through ``.to(devices[r])``, so autograd sums the replicated params'
-    gradients (the JAX step's psum).  Routing is pool-level over each
-    rank's tokens; with ample ``moe_capacity_factor`` nothing drops and
-    the cross-entropy equals ``model.loss_and_metrics``'s per-row
-    dispatch."""
+    training over ``mesh`` (:func:`make_ep_mesh`, or the list of rows
+    earlier callers pass): the flagship model (cfg.moe_experts set) on
+    tokens [b, s + 1] with the batch cut over every (data, ep) row,
+    row-major, on the row's first rank, and each ep group's experts
+    split over its ranks; on the first rank's device.  loss = the
+    global mean cross-entropy plus the weighted router losses; metrics
+    holds ``ce``, ``balance_loss``, ``z_loss`` and ``expert_fraction``,
+    each the mean over layers, then over rows.
+
+    ``params`` is a tree of ``model.Sharded`` leaves at
+    :func:`ep_param_specs` (a one-device tree is cut so first, through
+    differentiable copies): each rank reads the dense params and its own
+    expert blocks, so autograd sums the replicated params' gradients
+    (the JAX step's psum).  Under ep×tp each row's attention is
+    tensor-parallel over its model ranks (``model._tp_attention``: K1
+    forward, K2 backward per (row, model rank) on its h/tp heads on CUDA
+    ranks, the einsum elsewhere), the JAX package's ``_ep_tp_block``.
+    Routing is pool-level over each row's tokens; with ample
+    ``moe_capacity_factor`` nothing drops and the cross-entropy equals
+    ``model.loss_and_metrics``'s per-row dispatch."""
     from torch.utils.checkpoint import checkpoint
 
-    from tpu_autoscaler_torch.workloads.model import (
-        ModelConfig,
-        _attention_residual,
-        _map_tree,
-        _rmsnorm,
+    from tpu_autoscaler_torch.workloads.attention import (
+        make_sharded_flash_attention,
     )
-    from tpu_autoscaler_torch.workloads.sp import _device, _local_ce_sum
+    from tpu_autoscaler_torch.workloads.model import (
+        _PRODUCTS,
+        ModelConfig,
+        Sharded,
+        _mesh_attend,
+        _replica_cut,
+        _rope,
+        _shard_tree,
+        _tp_attention,
+        mesh_rows,
+    )
+    from tpu_autoscaler_torch.workloads.sp import _local_ce_sum
 
     assert isinstance(cfg, ModelConfig)
+    mesh = _as_ep_mesh(mesh)
+    _check_ep(mesh, cfg)
+    ep, tp = mesh.shape["ep"], mesh.shape.get("model", 1)
+    e_loc = cfg.moe_experts // ep
+    rows = mesh_rows(mesh)
+    first = rows[0][0]
+    specs = ep_param_specs(cfg, mesh)
+    attend = _mesh_attend(cfg, rows, make_sharded_flash_attention(
+        mesh, causal=True, window=cfg.attention_window))
+    rope = (lambda t, i: _rope(t, cfg.rope_theta)) if cfg.rope else None
+
+    def layer_fn(xs, params, layer):
+        views: dict = {}
+
+        def w(name, j, dev):
+            if (name, j, dev) not in views:
+                t = _replica_cut(cfg, tp, name, _whole(
+                    params["blocks"][name])[layer].to(dev), j)
+                views[name, j, dev] = (t.to(cfg.dtype) if name in _PRODUCTS
+                                       else t)
+            return views[name, j, dev]
+
+        def experts(i, m):
+            return tuple(
+                leaf.blocks[leaf.index_of(i * tp + m)][layer].to(rows[i][m])
+                for leaf in (params["blocks"]["w1"], params["blocks"]["w2"]))
+
+        xs = _tp_attention(xs, w, rows, cfg, rope, attend)
+        return _ep_rows_ffn(xs, w, rows, cfg, ep, experts)
+
+    def loss_of(params, tokens):
+        if not isinstance(params["embed"], Sharded):
+            params = _shard_tree(mesh, cfg, params, specs)
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        b, s = inputs.shape
+        if b % len(rows):
+            raise ValueError(f"batch {b} not divisible by the {len(rows)} "
+                             "data×ep ranks")
+        b_loc = b // len(rows)
+        tops = {dev: {name: _whole(params[name]).to(dev)
+                      for name in ("embed", "ln_f", "unembed")}
+                for dev in dict.fromkeys(row[0] for row in rows)}
+
+        def cut(t, i):
+            return t[i * b_loc:(i + 1) * b_loc].to(rows[i][0])
+
+        xs = [tops[row[0]]["embed"].to(cfg.dtype)[cut(inputs, i)]
+              for i, row in enumerate(rows)]
+        per_layer = []
+        for layer in range(cfg.n_layers):
+            fn = functools.partial(layer_fn, params=params, layer=layer)
+            if cfg.remat:
+                xs, auxs = checkpoint(fn, xs, use_reentrant=False)
+            else:
+                xs, auxs = fn(xs)
+            per_layer.append(auxs)
+        total = sum(_local_ce_sum(x, tops[row[0]], cut(targets, i),
+                                  cfg).to(first)
+                    for i, (x, row) in enumerate(zip(xs, rows)))
+        return _ranks_loss(total / (b * s), per_layer, cfg, first)
+
+    return loss_of
+
+
+def _check_ep(mesh, cfg) -> None:
+    """The JAX package's refusals of ``make_ep_train_step``."""
     if cfg.moe_experts is None:
         raise ValueError("make_ep_train_step needs cfg.moe_experts set")
-    grid = [[_device(dev) for dev in row] for row in mesh]
-    ep = len(grid[0])
+    ep = mesh.shape["ep"]
     if cfg.moe_experts % ep:
         raise ValueError(f"{cfg.moe_experts} experts not divisible by the ep "
                          f"axis ({ep})")
-    e_loc = cfg.moe_experts // ep
-    ranks = [dev for row in grid for dev in row]
-    distinct = list(dict.fromkeys(ranks))
-
-    def layer_fn(xs, layers):
-        xs = [_attention_residual(x, layer, cfg)
-              for x, layer in zip(xs, layers)]
-        out, auxs = [], []
-        for row in range(len(grid)):
-            cut = slice(row * ep, (row + 1) * ep)
-            ys = [_rmsnorm(x, layer["ln2"])
-                  for x, layer in zip(xs[cut], layers[cut])]
-            o, a = _ep_moe_ffn(ys, layers[cut], grid[row],
-                               top_k=cfg.moe_top_k,
-                               capacity_factor=cfg.moe_capacity_factor,
-                               dtype=cfg.dtype)
-            out += [x + oo for x, oo in zip(xs[cut], o)]
-            auxs += a
-        return out, auxs
-
-    def loss_of(params, tokens):
-        inputs, targets = tokens[:, :-1], tokens[:, 1:]
-        b, s = inputs.shape
-        if b % len(ranks):
-            raise ValueError(f"batch {b} not divisible by the {len(ranks)} "
-                             "data×ep ranks")
-        b_loc = b // len(ranks)
-        on = {dev: _map_tree(lambda w, dev=dev: w.to(dev), params)
-              for dev in distinct}
-        shard = [on[dev] for dev in ranks]
-
-        def cut(t, r):
-            return t[r * b_loc:(r + 1) * b_loc].to(ranks[r])
-
-        xs = [p["embed"].to(cfg.dtype)[cut(inputs, r)]
-              for r, p in enumerate(shard)]
-        per_layer = []
-        for i in range(cfg.n_layers):
-            layers = []
-            for r, p in enumerate(shard):
-                j = r % ep
-                layer = {name: w[i] for name, w in p["blocks"].items()}
-                for name in ("w1", "w2"):
-                    layer[name] = layer[name][j * e_loc:(j + 1) * e_loc]
-                layers.append(layer)
-            if cfg.remat:
-                xs, auxs = checkpoint(layer_fn, xs, layers,
-                                      use_reentrant=False)
-            else:
-                xs, auxs = layer_fn(xs, layers)
-            per_layer.append(auxs)
-        total = sum(_local_ce_sum(x, p, cut(targets, r), cfg).to(ranks[0])
-                    for r, (x, p) in enumerate(zip(xs, shard)))
-        return _ranks_loss(total / (b * s), per_layer, cfg, ranks[0])
-
-    return loss_of
+    tp = mesh.shape.get("model", 1)
+    if tp > 1:
+        if cfg.n_heads % tp or cfg.kv_heads % tp:
+            raise ValueError(
+                f"ep×tp needs heads divisible by the model axis ({tp}): got "
+                f"{cfg.n_heads} q / {cfg.kv_heads} kv heads")
+        if cfg.d_ff % tp:
+            raise ValueError(f"ep×tp needs d_ff ({cfg.d_ff}) divisible by "
+                             f"the model axis ({tp})")
 
 
 def make_ep_train_step(mesh, cfg, *, train=None,
                        learning_rate: float = 1e-3):
     """(init_fn, step_fn) for dp×ep MoE training over ``mesh``
-    (:func:`make_ep_mesh`'s grid), differentiating
-    :func:`make_ep_loss`'s loss.
+    (:func:`make_ep_mesh`, or the list of rows earlier callers pass),
+    differentiating :func:`make_ep_loss`'s loss; under a (data, ep,
+    model) mesh this is dp×ep×tp.
 
-    ``init_fn(generator) -> (params, opt_state)``: the f32 master params
-    (``model.init_params``) on the first rank's device.
-    ``step_fn(params, opt_state, tokens [b, s + 1]) -> (params,
-    opt_state, loss, metrics)``, then the trainer's optimizer recipe
-    (``model.make_optimizer``).  The JAX step shards the expert weights
-    and their Adam moments over ep; here both stay whole on the first
-    rank's device (ROADMAP.md, Queue 1: EP and the SP compositions)."""
+    ``init_fn(generator) -> (params, opt_state)``: the f32 params of
+    ``model.init_params`` cut at :func:`ep_param_specs`, and their Adam
+    moments cut the same way: each rank stores its E/ep experts' blocks
+    (and, under ep×tp, their d_ff/tp cut) and their moments, so its
+    expert state drops by ep·tp, while the dense params replicate (one
+    copy, on the first rank).  ``step_fn(params, opt_state, tokens
+    [b, s + 1]) -> (params, opt_state, loss, metrics)``: the gradient
+    per block, then the trainer's optimizer recipe
+    (``model.make_optimizer``) per block.  A step given the one-device
+    layout (plain tensors, as a checkpoint holds) cuts it, steps, and
+    returns that layout again; ``model.gather_params`` and
+    :func:`shard_ep_params` / :func:`shard_ep_opt_state` convert
+    between the two."""
     from tpu_autoscaler_torch.workloads.model import (
+        Sharded,
         TrainConfig,
-        _make_step,
+        _sharded_step,
+        gather_params,
+        init_params,
         make_optimizer,
     )
-    from tpu_autoscaler_torch.workloads.sp import _device
 
+    mesh = _as_ep_mesh(mesh)
     loss_of = make_ep_loss(mesh, cfg)
     optimizer = make_optimizer(train or TrainConfig(
         learning_rate=learning_rate))
-    return _make_step(cfg, optimizer, _device(mesh[0][0]), loss_of,
-                      has_aux=True)
+    sharded = _sharded_step(optimizer, loss_of, has_aux=True)
+
+    def init_fn(generator: torch.Generator):
+        params = init_params(generator, cfg, mesh.ranks[0])
+        return (shard_ep_params(mesh, cfg, params),
+                shard_ep_opt_state(mesh, cfg, optimizer.init(params)))
+
+    def step_fn(params, opt_state, tokens):
+        if isinstance(params["embed"], Sharded):
+            return sharded(params, opt_state, tokens)
+        params, opt_state, loss, metrics = sharded(
+            shard_ep_params(mesh, cfg, params),
+            shard_ep_opt_state(mesh, cfg, opt_state), tokens)
+        return (gather_params(mesh, params), gather_params(mesh, opt_state),
+                loss, metrics)
+
+    return init_fn, step_fn

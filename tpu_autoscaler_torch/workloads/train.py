@@ -20,18 +20,35 @@ than run on the CPU.
 
 Without ``--sp``, ``--ep`` or ``--pp-stages`` the step is
 ``model.make_sharded_train_step`` over the (data, model) mesh of
-``model.make_mesh(tp=--tp)`` with ``--shard`` none, zero1 or fsdp; a
-one-rank mesh takes ``model.make_train_step``.  ``--moe-experts E``
-trains a mixture-of-experts model.  ``--sp N`` trains with the sequence
-cut over N ranks (``sp.py``: the ring, or ``--sp-impl ulysses``; with
-``--moe-experts`` the ranks are also the expert group, sp×ep), and
-``--ep N`` with the batch cut over N ranks that split the experts
-(``moe.make_ep_train_step``).  All ranks live in one process, rank r on
-card r mod the number of cards, so ranks share a card when there are
-fewer cards than ranks.  The MoE steps log the router's balance and z
-losses.  ``--pp-stages``, and ``--tp`` or ZeRO-1 beside the sp or ep
-ranks, wait for items of ROADMAP.md's Queue 1: asking for one is a
+``model.make_mesh(tp=--tp)`` with ``--shard`` none, zero1 or fsdp (a
+multi-slice topology in one process takes the (dcn, data, model) mesh
+of ``distributed.make_multislice_mesh``); a one-rank mesh takes
+``model.make_train_step``.  ``--moe-experts E`` trains a
+mixture-of-experts model.  ``--sp N [--tp M] [--shard zero1]`` trains
+with the sequence cut over N ranks (``sp.py``: the ring, or
+``--sp-impl ulysses``; with ``--moe-experts`` the ranks are also the
+expert group, sp×ep), and ``--ep N [--tp M]`` with the batch cut over
+every rank and the experts over N (``moe.make_ep_train_step``); the
+rest of the devices are data-parallel, data = devices // (N·M).  All
+ranks of a process live in it, rank r on card r mod the number of
+cards, so ranks share a card when there are fewer cards than ranks.
+The MoE steps log the router's balance and z losses.  ``--pp-stages``
+waits for ROADMAP.md, Queue 1: pipeline parallelism: asking for it is a
 usage error.
+
+Multi-host jobs: the trainer first calls
+``distributed.initialize_from_env`` (the GKE env contract:
+``TPU_WORKER_HOSTNAMES``, ``TPU_WORKER_ID``, ``MEGASCALE_SLICE_ID`` or
+``JOB_COMPLETION_INDEX``, ``MEGASCALE_NUM_SLICES``; NCCL between CUDA
+processes, gloo with ``--platform cpu``).  With more than one process
+each one trains a replica of the dp+tp step over its own cards on its
+``--batch / processes`` rows (synthetic rows from the seed ``(step <<
+16) | process``, the ``--data-file`` loader seeded with the process
+id), and the gradients and the loss are averaged over the processes
+before the optimizer: the JAX trainer's data parallelism over (dcn,
+data).  Process 0 writes the checkpoints while the others wait at a
+barrier; every process restores from the same files.  ``--sp``, ``--ep``
+and ``--pp-stages`` are single-process only, as in the JAX trainer.
 """
 
 from __future__ import annotations
@@ -53,16 +70,15 @@ from tpu_autoscaler_torch.workloads._cli import (
 log = logging.getLogger(__name__)
 
 
-def _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
-                     shard_mode, sp_impl, platform, moe_experts,
-                     batch) -> None:
-    """The JAX trainer's usage errors for --sp and --ep, then usage
-    errors for what this trainer does not run yet, each naming the
-    ROADMAP.md Queue 1 item that brings it."""
-    if sp_degree > 1 and shard_mode == "fsdp":
+def _usage_errors(ep_degree, pp_stages, sp_degree, zero1, shard_mode,
+                  sp_impl, platform, moe_experts) -> None:
+    """The JAX trainer's usage errors that need no devices, then the
+    port's own: the CUDA ring on the CPU."""
+    shard = shard_mode or ("zero1" if zero1 else "none")
+    if pp_stages > 1 and sp_degree > 1:
         raise click.UsageError(
-            "--shard fsdp composes with the dp+tp step, not --sp "
-            "(params replicate under sp; --shard zero1 composes)")
+            "--pp-stages and --sp are separate strategies; pick one "
+            "(pp x sp composition is not wired in the CLI)")
     if ep_degree > 1:
         if pp_stages > 1 or sp_degree > 1:
             raise click.UsageError(
@@ -70,31 +86,61 @@ def _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
                 "--pp-stages/--sp")
         if moe_experts is None:
             raise click.UsageError("--ep needs --moe-experts")
-        if (shard_mode or ("zero1" if zero1 else "none")) != "none":
+        if shard != "none":
             raise click.UsageError(
                 "--shard composes with the dp+tp step, not --ep "
                 "(expert state is already partitioned)")
-    beside = sp_degree > 1 or ep_degree > 1
-    refused = [
-        (beside and tp_degree is not None and tp_degree > 1,
-         "--tp with --sp or --ep", "EP and the SP compositions"),
-        (sp_degree > 1 and (zero1 or shard_mode == "zero1"),
-         "--shard zero1 with --sp", "EP and the SP compositions"),
-        (pp_stages > 1, "--pp-stages", "pipeline parallelism"),
-    ]
-    for asked, flag, item in refused:
-        if asked:
+    if sp_degree > 1:
+        if shard == "fsdp":
             raise click.UsageError(
-                f"{flag} is not ported yet (ROADMAP.md, Queue 1: {item})")
-    if sp_degree > 1 and sp_impl == "pallas" and platform == "cpu":
-        raise click.UsageError(
-            "--sp-impl pallas runs the ring's CUDA kernels: it needs "
-            "--platform cuda (auto or einsum run on the CPU)")
-    if ep_degree > 1 and batch % ep_degree:
-        # The ep ranks are the data×ep devices: one data row of them.
-        raise click.UsageError(
-            f"--batch {batch} must divide over the {ep_degree} data×ep "
-            f"devices")
+                "--shard fsdp composes with the dp+tp step, not --sp "
+                "(params replicate under sp; --shard zero1 composes)")
+        if sp_impl == "pallas" and platform == "cpu":
+            raise click.UsageError(
+                "--sp-impl pallas runs the ring's CUDA kernels: it needs "
+                "--platform cuda (auto or einsum run on the CPU)")
+
+
+def _single_process_only(topo, ep_degree, sp_degree, pp_stages) -> None:
+    """The JAX trainer's refusals of --ep, --sp and --pp-stages in a
+    multi-process job, then the refusal of what this trainer does not
+    run yet."""
+    if topo.num_processes > 1:
+        if ep_degree > 1:
+            raise click.UsageError(
+                "--ep is single-process only for now; multi-host jobs "
+                "should use the dp+tp step")
+        if sp_degree > 1:
+            raise click.UsageError(
+                "--sp is single-process only for now; multi-host jobs "
+                "should use the dp+tp step")
+        if pp_stages > 1:
+            raise click.UsageError(
+                "--pp-stages is single-process only for now; multi-host "
+                "jobs should use the dp+tp step (--shard)")
+    if pp_stages > 1:
+        raise click.UsageError("--pp-stages is not ported yet (ROADMAP.md, "
+                               "Queue 1: pipeline parallelism)")
+
+
+def _cards(device, ranks: int) -> list:
+    """The devices the ranks go on: every visible card (the one CPU
+    device on the CPU), repeated round-robin up to ``ranks`` when there
+    are fewer."""
+    import torch
+
+    cards = ([device] if device.type == "cpu" else
+             [torch.device("cuda", i)
+              for i in range(torch.cuda.device_count())])
+    return [cards[r % len(cards)] for r in range(max(ranks, len(cards)))]
+
+
+def synthetic_rows(step: int, process_id: int, rows: int, vocab: int,
+                   seq_len: int) -> np.ndarray:
+    """Process ``process_id``'s synthetic tokens at ``step``: [rows,
+    seq_len + 1] int32, the JAX trainer's stream row for row."""
+    rng = np.random.default_rng((step << 16) | process_id)
+    return rng.integers(0, vocab, (rows, seq_len + 1), dtype=np.int32)
 
 
 def _unchanged(state):
@@ -144,19 +190,17 @@ def _shard_state(mesh, cfg, shard, state):
                    "microbatch steps (k-times the effective batch).")
 @click.option("--weight-decay", default=1e-4, show_default=True)
 @click.option("--tp", "tp_degree", default=None, type=int,
-              help="Tensor parallelism degree: the dp+tp mesh's 'model' "
-                   "axis (default: 2 when the device count is even); "
-                   "ranks repeat cards round-robin when it exceeds them, "
-                   "so --tp 2 on one card trains dp 1 x tp 2.  With --sp "
-                   "or --ep not ported yet (ROADMAP.md, Queue 1: EP and "
-                   "the SP compositions).")
+              help="Tensor parallelism degree.  Composes with every "
+                   "mode: alone it sets the dp+tp mesh's 'model' axis "
+                   "(default: 2 when the device count is even); with "
+                   "--sp or --ep it Megatron-cuts heads and d_ff inside "
+                   "their step.  Ranks repeat cards round-robin when they "
+                   "exceed them, so --tp 2 on one card trains dp 1 x tp 2.")
 @click.option("--ep", "ep_degree", default=1, show_default=True,
-              help="Expert parallelism (dp×ep, needs --moe-experts): the "
-                   "batch over this many ranks of one process that split "
-                   "the experts, rank r on card r mod the card count.  "
-                   "Data-parallel replicas beside them and --tp wait for "
-                   "ROADMAP.md, Queue 1: EP and the SP compositions.  "
-                   "1 = off.")
+              help="Expert parallelism (needs --moe-experts): cut the "
+                   "experts over this many ranks with all_to_all "
+                   "dispatch; the rest are data-parallel.  1 = off "
+                   "(MoE runs replicated under the dp+tp step).")
 @click.option("--pp-stages", default=1, show_default=True,
               help="Pipeline stages (> 1 not ported: ROADMAP.md, Queue "
                    "1: pipeline parallelism).")
@@ -164,11 +208,10 @@ def _shard_state(mesh, cfg, shard, state):
               help="Microbatches per pipelined step (with --pp-stages).")
 @click.option("--sp", "sp_degree", default=1, show_default=True,
               help="Context parallelism: shard the SEQUENCE over this "
-                   "many ranks of one process (ring attention), rank r "
-                   "on card r mod the card count, so ranks share a card "
-                   "when there are fewer cards.  Data-parallel replicas "
-                   "beside the sp ranks wait for ROADMAP.md, Queue 1: EP "
-                   "and the SP compositions.  1 = off.")
+                   "many ranks (ring attention); the remaining devices "
+                   "are data-parallel.  Rank r on card r mod the card "
+                   "count, so ranks share a card when there are fewer "
+                   "cards.  1 = off.")
 @click.option("--sp-impl",
               type=click.Choice(["auto", "einsum", "pallas", "ulysses"]),
               default="auto", show_default=True,
@@ -225,12 +268,14 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
         make_train_step,
         resolve_device,
     )
+    from tpu_autoscaler_torch.workloads.distributed import (
+        initialize_from_env,
+        make_multislice_mesh,
+        process_mean,
+    )
 
-    _refuse_unported(tp_degree, ep_degree, pp_stages, sp_degree, zero1,
-                     shard_mode, sp_impl, platform, moe_experts, batch)
-    if sp_degree > 1 and seq_len % sp_degree:
-        raise click.UsageError(
-            f"--sp {sp_degree} must divide --seq-len {seq_len}")
+    _usage_errors(ep_degree, pp_stages, sp_degree, zero1, shard_mode,
+                  sp_impl, platform, moe_experts)
     try:
         cfg = model_config(vocab, seq_len, d_model, n_layers, n_kv_heads,
                            attention_window, no_rope, moe_experts,
@@ -243,6 +288,15 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
         device = resolve_device(platform)
     except (ValueError, RuntimeError) as e:
         raise click.UsageError(str(e)) from e
+    topo = initialize_from_env(
+        backend="nccl" if device.type == "cuda" else "gloo")
+    log.info("topology: process %d/%d (slice %d/%d); devices: %d",
+             topo.process_id, topo.num_processes, topo.slice_id,
+             topo.num_slices, len(_cards(device, 1)))
+    _single_process_only(topo, ep_degree, sp_degree, pp_stages)
+    n_proc = max(1, topo.num_processes)
+    local_batch = max(1, batch // n_proc)
+    shard = shard_mode or ("zero1" if zero1 else "none")
 
     last_moe_metrics: dict = {}
     # Checkpoints hold the one-device layout: a mesh step's state is
@@ -260,66 +314,105 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
             return params, opt_state, loss
         return raw_step_fn
 
-    if sp_degree > 1 or ep_degree > 1:
+    if ep_degree > 1:
         from tpu_autoscaler_torch.workloads.moe import (
             make_ep_mesh,
             make_ep_train_step,
+            shard_ep_opt_state,
+            shard_ep_params,
         )
+
+        ep_tp = tp_degree or 1
+        cards = _cards(device, ep_degree * ep_tp)
+        if len(cards) % (ep_degree * ep_tp):
+            raise click.UsageError(
+                f"--ep {ep_degree} x --tp {ep_tp} must divide the "
+                f"{len(cards)} available devices")
+        if batch % (len(cards) // ep_tp):
+            raise click.UsageError(
+                f"--batch {batch} must divide over the "
+                f"{len(cards) // ep_tp} data×ep devices")
+        mesh = make_ep_mesh(cards, ep=ep_degree, tp=ep_tp)
+        try:
+            init_fn, step4 = make_ep_train_step(mesh, cfg, train=train_cfg)
+        except ValueError as e:
+            raise click.UsageError(str(e)) from e
+        raw_step_fn = wrap_moe_step(step4)
+        save_layout = functools.partial(gather_params, mesh)
+
+        def mesh_layout(state):
+            return {"params": shard_ep_params(mesh, cfg, state["params"]),
+                    "opt": shard_ep_opt_state(mesh, cfg, state["opt"])}
+        device = mesh.ranks[0]
+        log.info("ep %d ranks on %s; mesh %s", ep_degree,
+                 ", ".join(map(str, mesh.ranks)), dict(mesh.shape))
+    elif sp_degree > 1:
         from tpu_autoscaler_torch.workloads.sp import (
             make_sp_mesh,
             make_sp_train_step,
+            shard_sp_opt_state,
         )
 
-        # Rank r on card r mod the card count (all on the CPU there).
-        devices = make_sp_mesh(None if device.type == "cuda" else [device],
-                               sp=max(sp_degree, ep_degree))
+        sp_tp = tp_degree or 1
+        cards = _cards(device, sp_degree * sp_tp)
+        if len(cards) % (sp_degree * sp_tp):
+            raise click.UsageError(
+                f"--sp {sp_degree} x --tp {sp_tp} must divide the "
+                f"{len(cards)} available devices")
+        if seq_len % sp_degree:
+            raise click.UsageError(
+                f"--sp {sp_degree} must divide --seq-len {seq_len}")
+        dp_n = len(cards) // (sp_degree * sp_tp)
+        if batch % dp_n:
+            raise click.UsageError(
+                f"--batch {batch} must divide over the {dp_n} "
+                f"data-parallel devices (devices / (sp*tp))")
+        mesh = make_sp_mesh(cards, sp=sp_degree, tp=sp_tp)
         try:  # e.g. ulysses head or sp×ep expert divisibility
-            if ep_degree > 1:
-                init_fn, step4 = make_ep_train_step(
-                    make_ep_mesh(devices, ep=ep_degree), cfg,
-                    train=train_cfg)
-            else:
-                init_fn, step4 = make_sp_train_step(
-                    devices, cfg, train=train_cfg,
-                    impl=None if sp_impl == "auto" else sp_impl)
+            init_fn, step = make_sp_train_step(
+                mesh, cfg, train=train_cfg,
+                impl=None if sp_impl == "auto" else sp_impl, shard=shard)
         except ValueError as e:
             raise click.UsageError(str(e)) from e
         # --sp with --moe-experts is sp×ep: its step returns the router
         # metrics, as the ep step does.
-        raw_step_fn = (wrap_moe_step(step4) if moe_experts is not None
-                       else step4)
-        device = devices[0]
-        if ep_degree > 1:
-            log.info("ep %d ranks on %s", ep_degree,
-                     ", ".join(map(str, devices)))
-        else:
-            log.info("sp %d ranks (%s) on %s", sp_degree, sp_impl,
-                     ", ".join(map(str, devices)))
+        raw_step_fn = (wrap_moe_step(step) if moe_experts is not None
+                       else step)
+        if shard == "zero1":
+            save_layout = functools.partial(gather_params, mesh)
+
+            def mesh_layout(state):
+                return {"params": state["params"],
+                        "opt": shard_sp_opt_state(mesh, cfg, state["opt"])}
+        device = mesh.ranks[0]
+        log.info("sp %d ranks (%s) on %s; mesh %s, shard %s", sp_degree,
+                 sp_impl, ", ".join(map(str, mesh.ranks)), dict(mesh.shape),
+                 shard)
     else:
-        shard = shard_mode or ("zero1" if zero1 else "none")
-        cards = ([device] if device.type == "cpu" else
-                 [torch.device("cuda", i)
-                  for i in range(torch.cuda.device_count())])
-        if tp_degree is not None and tp_degree > len(cards):
-            # Ranks repeat the cards round-robin, as --sp/--ep do.
-            cards = [cards[r % len(cards)] for r in range(tp_degree)]
+        cards = _cards(device, tp_degree or 1)
         try:
-            mesh = make_mesh(cards, tp=tp_degree)
+            mesh = (make_multislice_mesh(topo.num_slices, devices=cards)
+                    if topo.num_slices > 1 and topo.single_process
+                    else make_mesh(cards, tp=tp_degree))
         except ValueError as e:
             raise click.UsageError(str(e)) from e
-        dp = mesh.shape["data"]
-        if batch % dp:
+        dp = mesh.size // mesh.shape["model"]
+        if local_batch % dp:
             raise click.UsageError(
                 f"--batch {batch} must divide over the {dp} data-parallel "
                 f"ranks (devices / tp)")
+        # Several processes: each steps on its own rows, the gradients
+        # and the loss averaged over the processes.
+        sync = process_mean if n_proc > 1 else None
         if mesh.size > 1:
             init_fn, raw_step_fn = make_sharded_train_step(
-                mesh, cfg, train=train_cfg, shard=shard)
+                mesh, cfg, train=train_cfg, shard=shard, grad_sync=sync)
             save_layout = functools.partial(gather_params, mesh)
             mesh_layout = functools.partial(_shard_state, mesh, cfg, shard)
         else:
             init_fn, raw_step_fn = make_train_step(
-                cfg, train=train_cfg, device=device, shard=shard)
+                cfg, train=train_cfg, device=device, shard=shard,
+                grad_sync=sync)
         log.info("mesh %s, shard %s on %s", dict(mesh.shape), shard,
                  ", ".join(map(str, mesh.ranks)))
     try:  # e.g. a width the model ranks do not divide
@@ -343,8 +436,11 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
         # The stream is a pure function of (seed, step), so resume
         # replays it exactly.
         try:
-            loader = open_token_loader(data_file, batch=batch,
-                                       window=cfg.seq_len + 1, seed=0)
+            # Seeded per process: each samples its own crops of the
+            # shared shard.
+            loader = open_token_loader(data_file, batch=local_batch,
+                                       window=cfg.seq_len + 1,
+                                       seed=topo.process_id)
         except (ValueError, OSError) as e:
             raise click.UsageError(str(e)) from e
         log.info("token shard %s: %d tokens (%s loader)", data_file,
@@ -365,9 +461,8 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
                     "--vocab if this is unintended", cfg.vocab)
             local = (raw % np.uint32(cfg.vocab)).astype(np.int32)
         else:
-            rng = np.random.default_rng((step << 16) | 0)
-            local = rng.integers(0, cfg.vocab, (batch, cfg.seq_len + 1),
-                                 dtype=np.int32)
+            local = synthetic_rows(step, topo.process_id, local_batch,
+                                   cfg.vocab, cfg.seq_len)
         return torch.from_numpy(local).to(device)
 
     last_loss = [float("nan")]
@@ -378,8 +473,9 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
         last_loss[0] = float(loss)
         return {"params": params, "opt": opt_state}
 
-    # Throughput between log lines (wall time includes host data prep).
-    tokens_per_step = batch * cfg.seq_len
+    # Throughput between log lines (wall time includes host data prep),
+    # over the global batch.
+    tokens_per_step = local_batch * n_proc * cfg.seq_len
     tp_state = {"t": time.perf_counter(), "step": start}
     profiler = [None]
 
@@ -418,7 +514,12 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
     writer = AsyncCheckpointWriter()
 
     def save(directory, step, state):
-        return writer.save(directory, step, save_layout(state))
+        # Process 0 writes; the others wait for it to take the state.
+        state = save_layout(state)
+        if topo.process_id == 0:
+            writer.save(directory, step, state)
+        if n_proc > 1:
+            torch.distributed.barrier()
 
     try:
         state, step, drained = train_until_drained(
@@ -433,6 +534,8 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
         writer.wait()
         if profiler[0] is not None:  # steps ended inside the trace window
             stop_profiler()
+        if n_proc > 1:
+            torch.distributed.destroy_process_group()
     if drained:
         log.info("drain requested: checkpointed at step %d, exiting "
                  "cleanly", step)
