@@ -30,13 +30,19 @@ compositions (the step cell on a (dcn 2, data 2, model 2) mesh from
 2 × model 2, the long-context step on data 2 × sp 2 × model 2 under
 ZeRO-1 with the kernel ring and Ulysses, two processes of this script
 joined by ``distributed.initialize_from_env`` over gloo against one
-process, and small f32 models on CUDA ranks against CPU ranks), and
+process, and small f32 models on CUDA ranks against CPU ranks), the
+pipeline (``pipeline.make_pipeline_train_step``: the step cell over 4
+stages of the card and over data 2 × pp 2 × model 2, the MoE step
+model over 2 stages, small f32 pipelines on CUDA ranks against CPU
+ranks), the batch shape scorer (``engine/jaxfit.py``: 1,000,000 gangs
+on the card against its numpy twin), and
 runs the ``serve`` CLI with each cache,
 speculatively and with request tracing, the ``generate`` CLI and the
-``train`` CLI (train, resume, drain; on one device, with ``--sp 2`` and
+``train`` CLI (train, resume, drain; on one device, with ``--sp 2``,
 with ``--tp 2 --shard fsdp``, whose checkpoint ``serve --tp 2`` and
-``generate --tp 2`` then read; a MoE model also with ``--ep 2``, then
-served and generated from).
+``generate --tp 2`` then read, with ``--pp-stages 2`` and with
+``--pp-stages 2 --tp 2``, whose merged checkpoint ``generate`` reads; a
+MoE model also with ``--ep 2``, then served and generated from).
 Each phase prints one JSON line; a failed phase raises and the script
 exits non-zero.  The last lines are the card's ``nvidia-smi`` name and
 power limit, the ``kernels`` summary, and ``{"ok": true, "device":
@@ -272,6 +278,22 @@ DIST_PARAM_RTOL = 1e-5
 # moved 1.05e-4 apart, 1.26e-3 of the leaf's largest |value|, while the
 # gradients agree within 1.1e-7 of a median |g| of 8.8e-3).
 COMP_PARAM_TOL = 2e-4
+# The pipeline (pp): the step cell's model and batch over PP_STAGES
+# stages of the card (2 layers a stage) with PP_MICROBATCHES
+# microbatches (the trainer's default) and remat, so K1/K2 run per
+# microbatch on [4, 16, 1024, 64]; the MoE step model over
+# PP_MOE_STAGES stages at m 1 (the microbatch count JAX's own MoE
+# pipeline test pins) and capacity EP_NO_DROP; then data 2 × pp 2 ×
+# model 2 (8 ranks) at m PP3D_MICROBATCHES, K1/K2 per (data row, stage,
+# model rank) shard on [4, 8, 1024, 64].  MESH_WARM warm and MESH_STEPS
+# timed steps each.
+PP_STAGES, PP_MICROBATCHES, PP_MOE_STAGES = 4, 4, 2
+PP3D_MESH, PP3D_MICROBATCHES = (2, 2, 2), 2
+# The batch shape scorer: FIT_GANGS gangs from a numpy seed, scored on
+# the card against the whole catalog and each generation, FIT_REPS
+# timed calls after a warm one.
+FIT_GANGS, FIT_REPS = 1_000_000, 5
+FIT_GENERATIONS = (None, "v4", "v5e", "v5p", "v6e")
 MESH_MODES = ("none", "zero1", "fsdp")
 MESH_MODE_GAP = 1e-6
 ALLOC_SLACK = 1 << 20
@@ -687,14 +709,16 @@ def check_attn_case(torch, F, attention, flush, *, label, b, h, hkv, s, d,
 
 
 def phase_attn_kernel_checks(torch, F, attention, flush):
-    """K1 in 21 cases; the first is the GQA generate path's prefill, the
+    """K1 in 22 cases; the first is the GQA generate path's prefill, the
     next two a layer of the training main path and of the long-sequence
     recipe, the next two one rank's shard of the mesh step (dp 4 × tp 2:
-    [4, 8, 1024, 64], also the multi-slice and the ep×tp rank's shard)
-    and of its GQA form (16 q / 2 KV heads cut by tp 2: 8 q heads on 1
-    KV head), the next two a rank's Ulysses shard under sp×tp ([1, 2,
-    8192, 128]) and the distributed phase's f32 shard ([8, 8, 1024,
-    64]); the last at head_dim 96 (run zero-padded to 128)."""
+    [4, 8, 1024, 64], also the multi-slice and the ep×tp rank's shard
+    and the dp×pp×tp pipeline's) and of its GQA form (16 q / 2 KV heads
+    cut by tp 2: 8 q heads on 1 KV head), the next two a rank's Ulysses
+    shard under sp×tp ([1, 2, 8192, 128]) and the distributed phase's
+    f32 shard ([8, 8, 1024, 64]); the last but one at head_dim 96 (run
+    zero-padded to 128), the last a microbatch of the pipeline ([4, 16,
+    1024, 64])."""
     main = dict(b=GEN_BATCH, h=16, hkv=2, s=GEN_PROMPT, d=64,
                 dtype=torch.bfloat16)
     cases = [
@@ -724,6 +748,8 @@ def phase_attn_kernel_checks(torch, F, attention, flush):
         dict(main, label="f32-d32", b=2, s=200, d=32, dtype=torch.float32),
         dict(main, label="d256", b=2, s=333, d=256),
         dict(main, label="d96", b=2, s=1000, d=96, window=300),
+        dict(main, label="pp-microbatch", b=TRAIN_BATCH // PP_MICROBATCHES,
+             hkv=16, s=1024),
     ]
     return [check_attn_case(torch, F, attention, flush, seed=200 + i, **c)
             for i, c in enumerate(cases)]
@@ -835,11 +861,12 @@ def check_bwd_case(torch, F, attention, flush, *, label, b, h, hkv, s, d,
 
 
 def phase_bwd_kernel_checks(torch, F, attention, flush):
-    """K2 in 18 cases; the first is a layer of the training main path,
+    """K2 in 19 cases; the first is a layer of the training main path,
     the second a layer of the long-sequence recipe, the next four one
     rank's shard of the mesh step and of its GQA form, the Ulysses shard
     under sp×tp and the distributed phase's f32 shard (as K1's); the
-    last at head_dim 96 (run zero-padded to 128)."""
+    last but one at head_dim 96 (run zero-padded to 128), the last a
+    microbatch of the pipeline (as K1's)."""
     gqa = dict(b=2, h=16, hkv=2, s=512, d=64, dtype=torch.bfloat16)
     cases = [
         dict(label="train-main-path", b=TRAIN_BATCH, h=16, hkv=16, s=1024,
@@ -865,6 +892,8 @@ def phase_bwd_kernel_checks(torch, F, attention, flush):
         dict(gqa, label="f32-d32", s=200, d=32, dtype=torch.float32),
         dict(gqa, label="d256", s=333, d=256),
         dict(gqa, label="d96", s=700, d=96, window=300),
+        dict(gqa, label="pp-microbatch", b=TRAIN_BATCH // PP_MICROBATCHES,
+             hkv=16, s=1024),
     ]
     return [check_bwd_case(torch, F, attention, flush, seed=300 + i, **c)
             for i, c in enumerate(cases)]
@@ -2863,9 +2892,17 @@ def phase_ep_train_main_path(torch, np, attention, model, moe):
 def _mesh_loss_and_grad_norm(torch, model, mesh, cfg, params, tokens):
     """The mesh step's loss on ``params`` (Sharded trees) and the global
     norm of its gradient, every block counted once."""
+    return _blocks_loss_and_grad_norm(
+        torch, model, model._make_mesh_loss(mesh, cfg.resolved_for_mesh(mesh)),
+        params, tokens)
+
+
+def _blocks_loss_and_grad_norm(torch, model, loss_of, params, tokens):
+    """``loss_of(params, tokens)`` on ``params`` (trees of Sharded
+    leaves) and the global norm of its gradient, every block counted
+    once."""
     import dataclasses
 
-    loss_of = model._make_mesh_loss(mesh, cfg.resolved_for_mesh(mesh))
     flat = dict(model._flatten(params))
     live = {path: dataclasses.replace(leaf, blocks={
         i: t.detach().requires_grad_() for i, t in leaf.blocks.items()})
@@ -4129,6 +4166,413 @@ def phase_small_compositions(torch, np, attention, model, moe, sp,
     return rec
 
 
+def _pp_mesh(model, np, devices):
+    """A (pp,) mesh of the pipeline over ``devices``, one stage each."""
+    return model.Mesh(np.array(devices, dtype=object), ("pp",))
+
+
+def phase_pp_train_main_path(torch, np, attention, model, pipeline,
+                             train_rec, ep_rec):
+    """``pipeline.make_pipeline_train_step`` of the step cell
+    (TRAIN_FULL, batch TRAIN_BATCH) over PP_STAGES stages of the card (a
+    (pp,) mesh, 2 layers a stage), PP_MICROBATCHES microbatches and
+    remat, from the one-device step's params (seed 0) and batch (numpy
+    seed 1): the first-step loss and gradient norm against
+    train_main_path's one-device kernel step within TRAIN_LOSS_GAP /
+    TRAIN_GRAD_NORM_RTOL; each stage's stored bytes as placed
+    (``model.rank_state_bytes``: its blocks and their moments are 1/P of
+    the whole, the first stage also holds the replicated leaves); the
+    stage forwards a step (m·P, the bubble slots skipped) beside the
+    GPipe bubble (P−1)/(m+P−1); MESH_WARM warm and MESH_STEPS timed
+    steps whose launches are counted per step (K1 2·L·m under remat,
+    each K2 kernel L·m, K3-K6 never); one profiled step; the loss must
+    fall.  Then the MoE step model over PP_MOE_STAGES stages at m 1 and
+    capacity EP_NO_DROP: its first loss and gradient norm against the
+    one-device MoE step's that ep_train_main_path took, K1 and each K2
+    kernel L launches (one microbatch, no remat)."""
+    t0 = time.perf_counter()
+    cfg = model.ModelConfig(**TRAIN_FULL)
+    mesh = _pp_mesh(model, np, ["cuda:0"] * PP_STAGES)
+    m, stages = PP_MICROBATCHES, PP_STAGES
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (TRAIN_BATCH, cfg.seq_len + 1)).astype(np.int32)).cuda()
+    init_fn, step_fn = pipeline.make_pipeline_train_step(mesh, cfg, m)
+    params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(int(np.prod(leaf.shape))
+                   for _, leaf in model._flatten(params))
+    held = model.rank_state_bytes(mesh, params, opt)
+    block_bytes = model.rank_state_bytes(
+        mesh, {"blocks": params["blocks"]},
+        {key: {"blocks": opt[key]["blocks"]} for key in ("mu", "nu")})
+    first = _blocks_loss_and_grad_norm(
+        torch, model, pipeline.make_pipeline_loss(mesh, cfg, m, remat=True),
+        params, tokens)
+    torch.cuda.empty_cache()
+    per = cfg.n_layers * m
+    want = _kernel_launches(attention, flash_attention=2 * per,
+                            flash_attention_bwd_dq=per,
+                            flash_attention_bwd_dkv=per)
+    before = step_fn.counts["stage_forwards"]
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, losses, launches, step_s = _train_steps(
+        torch, attention, step_fn, params, opt, tokens, MESH_WARM,
+        MESH_STEPS)
+    forwards = (step_fn.counts["stage_forwards"] - before) \
+        / (MESH_WARM + MESH_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = _profile_train(torch, step_fn, params, opt, tokens, "pp", 1)
+    del params, opt, init_fn, step_fn
+    torch.cuda.empty_cache()
+    flops = _train_flops(n_params, cfg, TRAIN_BATCH)
+
+    mcfg = model.ModelConfig(**dict(TRAIN_MOE,
+                                    moe_capacity_factor=EP_NO_DROP))
+    mmesh = _pp_mesh(model, np, ["cuda:0"] * PP_MOE_STAGES)
+    mparams, _ = pipeline.make_pipeline_train_step(mmesh, mcfg, 1)[0](
+        torch.Generator(device="cuda").manual_seed(0))
+    attention.reset_launch_counts()
+    moe_first = _blocks_loss_and_grad_norm(
+        torch, model, pipeline.make_pipeline_loss(mmesh, mcfg, 1), mparams,
+        tokens)
+    moe_launches = dict(attention.LAUNCHES)
+    moe_want = _kernel_launches(
+        attention, flash_attention=mcfg.n_layers,
+        flash_attention_bwd_dq=mcfg.n_layers,
+        flash_attention_bwd_dkv=mcfg.n_layers)
+    del mparams
+    torch.cuda.empty_cache()
+    single = ep_rec["first_loss"]["single_device"], \
+        ep_rec["first_grad_norm"]["single_device"]
+    rec = dict(config=TRAIN_FULL, dtype="bfloat16", batch=TRAIN_BATCH,
+               mesh=dict(mesh.shape), microbatches=m,
+               layers_per_stage=cfg.n_layers // stages, remat=True,
+               shard_shape=[TRAIN_BATCH // m, cfg.n_heads, cfg.seq_len,
+                            cfg.head_dim],
+               n_params=n_params, first_loss=first[0],
+               first_grad_norm=first[1],
+               single_device_first_loss=train_rec["first_loss"],
+               single_device_first_grad_norm=train_rec["grad_norm"],
+               warm_steps=MESH_WARM, timed_steps=MESH_STEPS,
+               step_ms=step_s * 1e3,
+               tokens_per_s=TRAIN_BATCH * cfg.seq_len / step_s,
+               mfu=flops / (step_s * BF16_OPS_PER_S), peak_memory_gb=peak,
+               device_idle_share=prof["device_idle_share"],
+               device_busy_ms=prof["device_busy_ms"],
+               kernel_launches_per_step=prof["kernel_launches"],
+               rank_state_bytes=held, rank_block_state_bytes=block_bytes,
+               stage_forwards_per_step=forwards,
+               stage_slots_per_step=(m + stages - 1) * stages,
+               bubble_fraction=(stages - 1) / (m + stages - 1),
+               losses=losses, launches_per_step=launches[-1],
+               expected_launches_per_step=want,
+               moe=dict(config=TRAIN_MOE, mesh=dict(mmesh.shape),
+                        microbatches=1, capacity_factor=EP_NO_DROP,
+                        first_loss=moe_first[0],
+                        first_grad_norm=moe_first[1],
+                        single_device_first_loss=single[0],
+                        single_device_first_grad_norm=single[1],
+                        launches=moe_launches, expected_launches=moe_want),
+               seconds=time.perf_counter() - t0)
+    emit("pp_train_main_path", **rec)
+    if any(n != want for n in launches):
+        raise AssertionError(f"pp step launched {launches}, want {want} per "
+                             f"step")
+    if forwards != m * stages:
+        raise AssertionError(f"pp step ran {forwards} stage forwards a step, "
+                             f"want m·P = {m * stages}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"pp: loss not finite or did not fall: {losses}")
+    sl, sn = train_rec["first_loss"], train_rec["grad_norm"]
+    if not (abs(first[0] - sl) <= TRAIN_LOSS_GAP
+            and abs(first[1] - sn) <= TRAIN_GRAD_NORM_RTOL * sn):
+        raise AssertionError(f"pp: first loss {first[0]}, grad norm "
+                             f"{first[1]} vs one device {sl}, {sn}")
+    whole = sum(block_bytes)
+    if block_bytes != [whole // stages] * stages:
+        raise AssertionError(f"pp: each stage's blocks and moments "
+                             f"{block_bytes}, want 1/{stages} of {whole}")
+    if sum(held) != 3 * 4 * n_params:
+        raise AssertionError(f"pp: the stages hold {sum(held)} bytes, one "
+                             f"copy of the state is {3 * 4 * n_params}")
+    if moe_launches != moe_want:
+        raise AssertionError(f"pp MoE loss launched {moe_launches}, want "
+                             f"{moe_want}")
+    if not (abs(moe_first[0] - single[0]) <= TRAIN_LOSS_GAP
+            and abs(moe_first[1] - single[1])
+            <= TRAIN_GRAD_NORM_RTOL * single[1]):
+        raise AssertionError(f"pp MoE at m 1, no-drop capacity: loss "
+                             f"{moe_first[0]}, grad norm {moe_first[1]} vs "
+                             f"one device {single}")
+    return rec
+
+
+def phase_pp3d_train_main_path(torch, np, attention, model, pipeline,
+                               train_rec):
+    """dp×pp×tp: ``pipeline.make_pipeline_train_step`` of the step cell
+    on ``make_pipeline_mesh(["cuda:0"] * 8, pp=2, tp=2)`` (data 2 × pp 2
+    × model 2), PP3D_MICROBATCHES microbatches and remat, its init the
+    split (``split_qkv_weights``) of the seed-0 params: the first-step
+    loss and gradient norm against train_main_path's one-device kernel
+    step within TRAIN_LOSS_GAP / TRAIN_GRAD_NORM_RTOL; MESH_WARM warm
+    and MESH_STEPS timed steps whose launches are counted per step (K1
+    and each K2 kernel once per (data row, stage, model rank,
+    microbatch, layer) on [4, 8, 1024, 64] shards, K1 twice under
+    remat); each rank's stored bytes as placed; the loss must fall."""
+    t0 = time.perf_counter()
+    cfg = model.ModelConfig(**TRAIN_FULL)
+    dp, pp, tp = PP3D_MESH
+    m = PP3D_MICROBATCHES
+    mesh = pipeline.make_pipeline_mesh(["cuda:0"] * (dp * pp * tp), pp=pp,
+                                       tp=tp)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (TRAIN_BATCH, cfg.seq_len + 1)).astype(np.int32)).cuda()
+    init_fn, step_fn = pipeline.make_pipeline_train_step(mesh, cfg, m)
+    params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(int(np.prod(leaf.shape))
+                   for _, leaf in model._flatten(params))
+    held = model.rank_state_bytes(mesh, params, opt)
+    first = _blocks_loss_and_grad_norm(
+        torch, model, pipeline.make_pipeline3d_loss(mesh, cfg, m, remat=True),
+        params, tokens)
+    torch.cuda.empty_cache()
+    per = dp * tp * m * cfg.n_layers
+    want = _kernel_launches(attention, flash_attention=2 * per,
+                            flash_attention_bwd_dq=per,
+                            flash_attention_bwd_dkv=per)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, losses, launches, step_s = _train_steps(
+        torch, attention, step_fn, params, opt, tokens, MESH_WARM,
+        MESH_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt, init_fn, step_fn
+    torch.cuda.empty_cache()
+    flops = _train_flops(n_params, cfg, TRAIN_BATCH)
+    rec = dict(config=TRAIN_FULL, dtype="bfloat16", batch=TRAIN_BATCH,
+               mesh=dict(mesh.shape), microbatches=m, remat=True,
+               shard_shape=[TRAIN_BATCH // (dp * m), cfg.n_heads // tp,
+                            cfg.seq_len, cfg.head_dim],
+               n_params=n_params, first_loss=first[0],
+               first_grad_norm=first[1],
+               single_device_first_loss=train_rec["first_loss"],
+               single_device_first_grad_norm=train_rec["grad_norm"],
+               warm_steps=MESH_WARM, timed_steps=MESH_STEPS,
+               step_ms=step_s * 1e3,
+               tokens_per_s=TRAIN_BATCH * cfg.seq_len / step_s,
+               mfu=flops / (step_s * BF16_OPS_PER_S), peak_memory_gb=peak,
+               rank_state_bytes=held,
+               bubble_fraction=(pp - 1) / (m + pp - 1), losses=losses,
+               launches_per_step=launches[-1],
+               expected_launches_per_step=want,
+               seconds=time.perf_counter() - t0)
+    emit("pp3d_train_main_path", **rec)
+    if any(n != want for n in launches):
+        raise AssertionError(f"dp×pp×tp step launched {launches}, want "
+                             f"{want} per step")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"dp×pp×tp: loss not finite or did not fall: "
+                             f"{losses}")
+    sl, sn = train_rec["first_loss"], train_rec["grad_norm"]
+    if not (abs(first[0] - sl) <= TRAIN_LOSS_GAP
+            and abs(first[1] - sn) <= TRAIN_GRAD_NORM_RTOL * sn):
+        raise AssertionError(f"dp×pp×tp: first loss {first[0]}, grad norm "
+                             f"{first[1]} vs one device {sl}, {sn}")
+    if sum(held) != 3 * 4 * n_params:
+        raise AssertionError(f"dp×pp×tp: the ranks hold {sum(held)} bytes, "
+                             f"one copy of the state is {3 * 4 * n_params}")
+    return rec
+
+
+def _pipeline_grads(torch, model, pipeline, mesh, cfg, loss_of, params,
+                    tokens) -> dict:
+    """The gradient of ``loss_of`` with respect to every block of the
+    pipeline's ``params``, in the one-device layout on the CPU (qkv
+    packed)."""
+    import dataclasses
+
+    live = {path: dataclasses.replace(leaf, blocks={
+        i: t.detach().requires_grad_() for i, t in leaf.blocks.items()})
+        for path, leaf in model._flatten(params)}
+    keys = [(path, i) for path, leaf in live.items() for i in leaf.blocks]
+    grads = torch.autograd.grad(loss_of(model._unflatten(live), tokens),
+                                [live[p].blocks[i] for p, i in keys])
+    tree = {path: dataclasses.replace(leaf, blocks={})
+            for path, leaf in live.items()}
+    for (path, i), g in zip(keys, grads):
+        tree[path].blocks[i] = g
+    out = model.gather_params(mesh, model._unflatten(tree))
+    if "wq" in out["blocks"]:
+        out = pipeline.merge_qkv_weights(out, cfg)
+    return {path: t.cpu() for path, t in model._flatten(out)}
+
+
+def phase_small_pipeline(torch, np, attention, model, pipeline):
+    """The pipeline on small f32 models, CUDA ranks (K1/K2) against CPU
+    ranks (their plain versions), from the same params and batches: pp
+    only at (P, m) = (2, 4) (MHA) and (4, 2) (GQA), MoE over 2 stages
+    at m 1 and m 4, dp×pp×tp on data 2 × pp 2 × model 2 at m 2 (MHA, and
+    GQA with a window), and the CUDA ranks without remat against the CPU
+    ranks with it.  The first step's gradient within GRAD_F32_RTOL of
+    each leaf's largest |grad|, 3 steps' losses within
+    SMALL_TRAIN_LOSS_GAP (small_mesh's bound), the params after them
+    elementwise within COMP_PARAM_TOL · (1 + |p|) (small_compositions'
+    bound for CUDA against CPU ranks; each leaf's largest relative gap
+    beside it); the CUDA route's launches counted per step and exact:
+    K1 L·m a step per (data row, model rank) shard (twice under remat),
+    each K2 kernel L·m."""
+    t0 = time.perf_counter()
+    base = dict(vocab=256, d_model=128, n_layers=4, n_heads=4, d_ff=256,
+                seq_len=64, dtype=torch.float32)
+    moe_kw = dict(moe_experts=4, moe_top_k=2)
+    cases = (
+        ("pp2-m4", 2, 4, {}, True),
+        ("pp4-m2-gqa", 4, 2, dict(n_kv_heads=2), True),
+        ("moe-pp2-m1", 2, 1, moe_kw, True),
+        ("moe-pp2-m4", 2, 4, moe_kw, True),
+        ("3d-mha", PP3D_MESH, 2, {}, True),
+        ("3d-gqa-window", PP3D_MESH, 2,
+         dict(n_kv_heads=2, attention_window=24), True),
+        ("pp2-m4-no-remat", 2, 4, {}, False),
+    )
+    rec = {}
+    for label, shape, m, extra, cuda_remat in cases:
+        cfg = model.ModelConfig(**base, **extra)
+        runs = {}
+        for dev, remat in (("cuda:0", cuda_remat), ("cpu", True)):
+            if isinstance(shape, tuple):
+                dp, pp, tp = shape
+                mesh = pipeline.make_pipeline_mesh([dev] * (dp * pp * tp),
+                                                   pp=pp, tp=tp)
+                loss_of = pipeline.make_pipeline3d_loss(mesh, cfg, m,
+                                                        remat=remat)
+                shards = dp * tp
+            else:
+                mesh = _pp_mesh(model, np, [dev] * shape)
+                loss_of = pipeline.make_pipeline_loss(mesh, cfg, m,
+                                                      remat=remat)
+                shards = 1
+            _, step = pipeline.make_pipeline_train_step(mesh, cfg, m,
+                                                        remat=remat)
+            params = model.init_params(torch.Generator().manual_seed(1), cfg,
+                                       dev)
+            opt = model.make_optimizer(model.TrainConfig()).init(params)
+            state = pipeline.shard_pipeline_state(
+                mesh, cfg, {"params": params, "opt": opt})
+            params, opt = state["params"], state["opt"]
+            first = torch.from_numpy(np.random.default_rng(2).integers(
+                0, 256, (8, 65)).astype(np.int32)).to(dev)
+            grads = _pipeline_grads(torch, model, pipeline, mesh, cfg,
+                                    loss_of, params, first)
+            rng = np.random.default_rng(2)
+            losses, launches = [], []
+            for _ in range(3):
+                tokens = torch.from_numpy(rng.integers(0, 256, (8, 65)).astype(
+                    np.int32)).to(dev)
+                attention.reset_launch_counts()
+                params, opt, loss = step(params, opt, tokens)
+                launches.append(dict(attention.LAUNCHES))
+                losses.append(loss.item())
+            final = pipeline.gather_pipeline_state(
+                mesh, cfg, {"params": params, "opt": opt})["params"]
+            runs[dev] = (losses, {p: t.cpu() for p, t in
+                                  model._flatten(final)}, launches, grads)
+        (kl, kp, kn, kg), (pl, pp_, _, pg) = runs["cuda:0"], runs["cpu"]
+        per = shards * m * cfg.n_layers
+        want = _kernel_launches(
+            attention, flash_attention=per * (2 if cuda_remat else 1),
+            flash_attention_bwd_dq=per, flash_attention_bwd_dkv=per)
+        rec[label] = dict(
+            mesh=dict(mesh.shape), microbatches=m, cuda_remat=cuda_remat,
+            losses={"cuda": kl, "cpu": pl},
+            max_loss_gap=max(abs(a - b) for a, b in zip(kl, pl)),
+            first_grad_rel_gap=max(
+                ((g - pg[path]).abs().max()
+                 / pg[path].abs().max().clamp_min(1e-30)).item()
+                for path, g in kg.items()),
+            max_param_rel_gap=max(
+                ((t - pp_[path]).abs().max()
+                 / pp_[path].abs().max().clamp_min(1e-30)).item()
+                for path, t in kp.items()),
+            param_gap_over_tolerance=max(
+                ((t - pp_[path]).abs()
+                 / (COMP_PARAM_TOL * (1 + pp_[path].abs()))).max().item()
+                for path, t in kp.items()),
+            launches_per_step=kn[-1], expected_launches_per_step=want,
+            launches_as_expected=all(x == want for x in kn))
+    emit("small_pipeline", seconds=time.perf_counter() - t0, **rec)
+    for label, r in rec.items():
+        if not r["launches_as_expected"]:
+            raise AssertionError(f"f32 pipeline {label}: launched "
+                                 f"{r['launches_per_step']}, want "
+                                 f"{r['expected_launches_per_step']}")
+        if not r["first_grad_rel_gap"] <= GRAD_F32_RTOL:
+            raise AssertionError(f"f32 pipeline {label}: first-step "
+                                 f"gradients differ by "
+                                 f"{r['first_grad_rel_gap']} of their scale")
+        if not r["max_loss_gap"] <= SMALL_TRAIN_LOSS_GAP:
+            raise AssertionError(f"f32 pipeline {label}: CUDA and CPU ranks' "
+                                 f"losses differ by {r['max_loss_gap']}")
+        if not r["param_gap_over_tolerance"] <= 1.0:
+            raise AssertionError(f"f32 pipeline {label}: params differ by "
+                                 f"{r['param_gap_over_tolerance']} of "
+                                 f"COMP_PARAM_TOL")
+    return rec
+
+
+def _fit_demands(np, n: int):
+    """``n`` gangs (total_chips, per_pod_chips, n_pods) from numpy seed 5:
+    totals 1..2048 chips (the largest shape has 1,024), per-pod chips in
+    {0, 1, 2, 4, 8} (0 takes the scorer's per_pod == 0 branch), pods
+    from 1 to total / per-pod and two past it (a share no shape can
+    hold)."""
+    rng = np.random.default_rng(5)
+    total = rng.integers(1, 2049, n)
+    per_pod = rng.choice([0, 1, 2, 4, 8], n)
+    pods = rng.integers(1, total // np.maximum(per_pod, 1) + 3)
+    return np.stack([total, per_pod, pods], axis=1).astype(np.float32)
+
+
+def phase_fit_scorer(torch, np, jaxfit):
+    """The batch shape scorer (``engine/jaxfit.py``) on the card:
+    FIT_GANGS gangs (_fit_demands) scored against the whole catalog and
+    against each generation; every decision (the shape, or none) and
+    every stranded cost must equal ``best_shapes_np``'s.  The card's ms
+    per call (the demands already on the card; a warm call, then
+    FIT_REPS calls, synchronised) beside the numpy twin's host ms."""
+    t0 = time.perf_counter()
+    demands = _fit_demands(np, FIT_GANGS)
+    on_card = torch.from_numpy(demands).cuda()
+    rec = {}
+    for gen in FIT_GENERATIONS:
+        names, score = jaxfit.make_batch_scorer(gen)
+        score(on_card)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(FIT_REPS):
+            best, cost = score(on_card)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t) / FIT_REPS * 1e3
+        t = time.perf_counter()
+        want = jaxfit.best_shapes_np(demands, gen)
+        host_ms = (time.perf_counter() - t) * 1e3
+        got = [(None, float("inf")) if c >= jaxfit._BIG
+               else (names[int(b)], float(c))
+               for b, c in zip(best.cpu().numpy(), cost.cpu().numpy())]
+        rec[gen or "all"] = dict(
+            shapes=len(names), card_ms=card_ms, numpy_host_ms=host_ms,
+            mismatches=sum(a != b for a, b in zip(got, want)),
+            infeasible=sum(name is None for name, _ in want),
+            shapes_picked=len({name for name, _ in want}))
+    emit("fit_scorer", gangs=FIT_GANGS,
+         per_pod_zero=int((demands[:, 1] == 0).sum()), reps=FIT_REPS,
+         seconds=time.perf_counter() - t0, **rec)
+    for gen, r in rec.items():
+        if r["mismatches"]:
+            raise AssertionError(f"fit scorer ({gen}): {r['mismatches']} of "
+                                 f"{FIT_GANGS} decisions differ from "
+                                 f"best_shapes_np")
+    return rec
+
+
 def phase_moe_cli(model, decode, DrainReceipt):
     """The CLIs on a MoE model (--moe-experts 8 at the CLIs' default
     architecture): train, resume and drain; train --ep 2 and --sp 2 (the
@@ -4254,8 +4698,11 @@ def phase_cli(model, decode, DrainReceipt):
     checkpoint), and generate from the trainer's checkpoint; then the
     same with ``train --sp 2 --sp-impl pallas`` (the kernel ring) and
     with ``train --tp 2 --shard fsdp`` (a dp 1 × tp 2 mesh on the card,
-    K1/K2 per shard).  Runs that share no checkpoint run at once, each a
-    process."""
+    K1/K2 per shard), with ``train --pp-stages 2 --pp-microbatches 2``
+    (2 stages of the card) and with ``train --pp-stages 2 --tp 2`` (data
+    1 × pp 2 × model 2, its checkpoint merged back to the one-device
+    layout, which generate reads).  Runs that share no checkpoint run at
+    once, each a process."""
     import concurrent.futures
 
     import torch
@@ -4421,7 +4868,7 @@ def phase_cli(model, decode, DrainReceipt):
 
         # Every run reads or writes its own checkpoint: they run at once,
         # each a process.
-        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        with concurrent.futures.ThreadPoolExecutor(5) as pool:
             jobs = [
                 pool.submit(train_chain, "", [], []),
                 pool.submit(train_chain, "sp ",
@@ -4431,6 +4878,17 @@ def phase_cli(model, decode, DrainReceipt):
                             ["--tp", "2", "--shard", "fsdp"],
                             ["mesh {'data': 1, 'model': 2}, shard fsdp on "
                              "cuda:0, cuda:0", "attention kernel"]),
+                # The pipeline: 2 stages (a layer each) of the card, then
+                # data 1 × pp 2 × model 2, whose checkpoint (qkv packed
+                # again) generate then reads.
+                pool.submit(train_chain, "pp ",
+                            ["--pp-stages", "2", "--pp-microbatches", "2"],
+                            ["pp 2 stages on cuda:0, cuda:0; mesh {'pp': "
+                             "2}, 2 microbatches"]),
+                pool.submit(train_chain, "pp×tp ",
+                            ["--pp-stages", "2", "--tp", "2"],
+                            ["mesh {'data': 1, 'pp': 2, 'model': 2}, 4 "
+                             "microbatches"]),
                 pool.submit(serve, d256, "linear", arch),
                 pool.submit(serve, d256, "paged",
                             paged_flags + ["--num-blocks", "6"]),
@@ -4459,6 +4917,7 @@ def main() -> None:
     import torch.nn.functional as F
 
     from tpu_autoscaler_torch import dataio
+    from tpu_autoscaler_torch.engine import jaxfit
     from tpu_autoscaler_torch.serving.drain import DrainReceipt
     from tpu_autoscaler_torch.workloads import (
         attention,
@@ -4467,6 +4926,7 @@ def main() -> None:
         model,
         moe,
         paged,
+        pipeline,
         ring_attention,
         serving,
         sp,
@@ -4561,6 +5021,10 @@ def main() -> None:
                                             ep_rec)
     sp_tp_rec = phase_sp_tp_train_main_path(torch, np, attention, model, sp,
                                             ring_attention, sp_rec)
+    pp_rec = phase_pp_train_main_path(torch, np, attention, model, pipeline,
+                                      train_rec, ep_rec)
+    pp3d_rec = phase_pp3d_train_main_path(torch, np, attention, model,
+                                          pipeline, train_rec)
     dist_rec = phase_distributed_train(torch, np, attention, model, train)
     phase_small_exact(torch, np, model, serving, paged, decode, spec_serving)
     phase_small_moe_exact(torch, np, model, serving, paged, decode, moe)
@@ -4572,6 +5036,9 @@ def main() -> None:
     sp_ep_rec = phase_small_sp_ep(torch, np, attention, model, sp)
     small_comp_rec = phase_small_compositions(torch, np, attention, model,
                                               moe, sp, ring_attention)
+    small_pp_rec = phase_small_pipeline(torch, np, attention, model,
+                                        pipeline)
+    phase_fit_scorer(torch, np, jaxfit)
     trained_rec = phase_spec_trained(torch, np, attention, model, decode,
                                      dataio, paged, serving, spec_serving)
     phase_cli(model, decode, DrainReceipt)
@@ -4767,6 +5234,30 @@ def main() -> None:
         kernel["composition_shard"] = {
             label: shard_case(checks_of, label, part, grads)
             for label in labels}
+    # K1/K2 on the pipeline's paths, per train step: pp 4 (m 4, remat),
+    # the MoE loss over 2 stages at m 1 (one loss and its gradient),
+    # data 2 × pp 2 × model 2 (m 2, remat) and the small f32 models on
+    # CUDA ranks; each at its shard shape there (a microbatch; the
+    # dp×pp×tp rank's shard is the mesh step's).
+    pp_paths = {
+        "pp_train_main_path": pp_rec["launches_per_step"],
+        "pp_moe_no_drop_loss": pp_rec["moe"]["launches"],
+        "pp3d_train_main_path": pp3d_rec["launches_per_step"],
+        **{f"small_pipeline/{label}": r["launches_per_step"]
+           for label, r in small_pp_rec.items()}}
+    for kernel in kernels:
+        kname = kernel["name"]
+        if not kname.startswith("flash_attention"):
+            continue
+        kernel["pipeline_launches"] = {
+            path: n[kname] for path, n in pp_paths.items() if n.get(kname)}
+        if not kernel["pipeline_launches"]:
+            raise AssertionError(f"{kname} never launched on a pipeline "
+                                 f"path: {pp_paths}")
+        checks_of, part, grads, _ = shards[kname]
+        kernel["pipeline_shard"] = {
+            label: shard_case(checks_of, label, part, grads)
+            for label in ("pp-microbatch", "mesh-shard")}
     # K1, K3 and K4 on the mesh serving paths: over the mesh linear and
     # paged engines' timed passes, per mesh generate call; each at its
     # shard shape there.

@@ -771,14 +771,12 @@ def test_cli_bad_n_kv_heads_is_rejected(tmp_path):
     assert not os.listdir(tmp_path)
 
 
-PP = "pipeline parallelism"
-
-
 @pytest.mark.parametrize("flags,item", [
     (["--ep", "2", "--moe-experts", "4", "--tp", "2"],
      "ep 2 ranks on cpu, cpu, cpu, cpu; mesh {'data': 1, 'ep': 2, "
      "'model': 2}"),
-    (["--pp-stages", "2"], PP),
+    (["--pp-stages", "2", "--n-layers", "2"],
+     "pp 2 stages on cpu, cpu; mesh {'pp': 2}, 4 microbatches"),
     (["--sp", "2", "--shard", "zero1"],
      "mesh {'data': 1, 'sp': 2}, shard zero1"),
     (["--sp", "2", "--tp", "2"],
@@ -787,29 +785,90 @@ PP = "pipeline parallelism"
      "mesh {'data': 1, 'sp': 2, 'model': 2}, shard none")],
     ids=["ep", "pp", "sp", "sp-tp", "moe"])
 def test_cli_refuses_unported_parallelism(tmp_path, caplog, flags, item):
-    """--pp-stages names the ROADMAP.md Queue 1 item that brings it; the
-    compositions it once refused beside it (--ep with --tp, --sp with
-    --shard zero1 or --tp, sp×ep×tp) train 2 steps on the CPU and
-    checkpoint the one-device layout."""
+    """The strategies and compositions the port's trainer once refused
+    (--pp-stages, --ep with --tp, --sp with --shard zero1 or --tp,
+    sp×ep×tp) train 2 steps on the CPU and checkpoint the one-device
+    layout (--pp-stages 2 on 2 layers, one a stage)."""
     caplog.set_level("INFO")
     res = CliRunner().invoke(train_cli.main, [
         "--platform", "cpu", "--vocab", "64", "--d-model", "32",
         "--n-layers", "1", "--seq-len", "16", "--batch", "4", "--steps",
         "2", "--checkpoint-dir", str(tmp_path), *flags])
-    if item == PP:
-        assert res.exit_code == 2, res.output
-        assert f"Queue 1: {item}" in " ".join(res.output.split())
-        assert not os.listdir(tmp_path)
-        return
     assert res.exit_code == 0, res.output
     assert item in caplog.text
     assert os.listdir(tmp_path) == ["step_2"]
+    layers = 2 if "--pp-stages" in flags else 1
     params = model.load_params(str(tmp_path), 2, "cpu")
-    assert tuple(params["blocks"]["qkv"].shape) == (1, 32, 96)
+    assert tuple(params["blocks"]["qkv"].shape) == (layers, 32, 96)
     opt = checkpoint.restore_checkpoint(str(tmp_path), 2, "cpu")["opt"]
     assert opt["count"] == 2
     assert tuple(opt["mu"]["blocks"]["w1"].shape) == tuple(
         params["blocks"]["w1"].shape)
+
+
+def test_cli_pp_tp_checkpoints_merged_and_resumes(tmp_path, caplog):
+    """--pp-stages 2 --tp 2 --pp-microbatches 2 (data 1 × pp 2 × model 2
+    on the CPU) checkpoints the one-device layout, qkv packed (L, d, 3d)
+    in the params and in the moments; 2 steps, then a resume to 4, land
+    on the params of 4 uninterrupted steps."""
+    caplog.set_level("INFO")
+    base = ["--platform", "cpu", "--vocab", "64", "--d-model", "32",
+            "--n-layers", "2", "--seq-len", "16", "--batch", "4",
+            "--checkpoint-every", "2", "--pp-stages", "2", "--tp", "2",
+            "--pp-microbatches", "2"]
+    whole, split = str(tmp_path / "whole"), str(tmp_path / "split")
+    for steps, directory in (("4", whole), ("2", split), ("4", split)):
+        res = CliRunner().invoke(train_cli.main, base + [
+            "--steps", steps, "--checkpoint-dir", directory])
+        assert res.exit_code == 0, res.output
+    assert "mesh {'data': 1, 'pp': 2, 'model': 2}, 2 microbatches" \
+        in caplog.text
+    assert "resumed from checkpoint step 2" in caplog.text
+    assert sorted(os.listdir(split)) == ["step_2", "step_4"]
+    got = checkpoint.restore_checkpoint(split, 4, "cpu")
+    want = checkpoint.restore_checkpoint(whole, 4, "cpu")
+    assert tuple(got["params"]["blocks"]["qkv"].shape) == (2, 32, 96)
+    assert tuple(got["opt"]["nu"]["blocks"]["qkv"].shape) == (2, 32, 96)
+    assert "wq" not in got["params"]["blocks"]
+    assert got["opt"]["count"] == want["opt"]["count"] == 4
+    for path, t in model._flatten(want["params"]):
+        np.testing.assert_allclose(
+            _np(dict(model._flatten(got["params"]))[path]), _np(t),
+            rtol=0, atol=1e-6, err_msg=path)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--pp-stages", "2", "--shard", "zero1"],
+    ["--pp-stages", "2", "--zero1"],
+    ["--pp-stages", "2", "--batch", "6"],
+    ["--pp-stages", "2", "--n-layers", "3", "--batch", "4"],
+    ["--pp-stages", "3", "--tp", "2", "--batch", "8"],
+    ["--pp-stages", "2", "--tp", "2", "--batch", "4"],
+    ["--pp-stages", "2", "--tp", "4", "--n-kv-heads", "2", "--batch", "4"],
+], ids=["shard", "zero1", "microbatches", "layers", "pp-tp-devices",
+        "pp-tp-batch", "pp-tp-heads"])
+def test_cli_pp_usage_errors_match_jax(tmp_path, monkeypatch, flags):
+    """With 8 devices visible to both trainers (the port's cards patched
+    to 8 CPU ranks, JAX's the conftest's virtual devices), --pp-stages'
+    usage errors are JAX's, word for word: --shard/--zero1, a batch the
+    microbatches do not divide, layers the stages do not divide, pp×tp
+    not dividing the devices, a batch not dividing over data ×
+    microbatches, heads not dividing tp."""
+    monkeypatch.setattr(train_cli, "_cards",
+                        lambda device, ranks: [device] * 8)
+    base = ["--steps", "1", "--vocab", "64", "--d-model", "32",
+            "--n-layers", "2", "--seq-len", "16", "--checkpoint-dir",
+            str(tmp_path)]
+    mine = CliRunner().invoke(train_cli.main,
+                              base + ["--platform", "cpu"] + flags)
+    theirs = CliRunner().invoke(jax_train.main, base + flags)
+    assert mine.exit_code == theirs.exit_code == 2, (mine.output,
+                                                     theirs.output)
+    error = [line for line in theirs.output.splitlines()
+             if line.startswith("Error:")]
+    assert error and error[0] in mine.output.splitlines(), (mine.output,
+                                                             error)
+    assert not os.listdir(tmp_path)
 
 
 @pytest.mark.parametrize("flags", [

@@ -27,14 +27,17 @@ of ``distributed.make_multislice_mesh``); a one-rank mesh takes
 mixture-of-experts model.  ``--sp N [--tp M] [--shard zero1]`` trains
 with the sequence cut over N ranks (``sp.py``: the ring, or
 ``--sp-impl ulysses``; with ``--moe-experts`` the ranks are also the
-expert group, sp×ep), and ``--ep N [--tp M]`` with the batch cut over
-every rank and the experts over N (``moe.make_ep_train_step``); the
-rest of the devices are data-parallel, data = devices // (N·M).  All
-ranks of a process live in it, rank r on card r mod the number of
-cards, so ranks share a card when there are fewer cards than ranks.
-The MoE steps log the router's balance and z losses.  ``--pp-stages``
-waits for ROADMAP.md, Queue 1: pipeline parallelism: asking for it is a
-usage error.
+expert group, sp×ep), ``--ep N [--tp M]`` with the batch cut over
+every rank and the experts over N (``moe.make_ep_train_step``), and
+``--pp-stages N`` with the layers cut over N pipeline stages
+(``pipeline.make_pipeline_train_step``: GPipe over
+``--pp-microbatches`` microbatches, with remat; with ``--tp M`` the
+dp×pp×tp step over ``pipeline.make_pipeline_mesh``); the rest of the
+devices are data-parallel, data = devices // (N·M).  All ranks of a
+process live in it, rank r on card r mod the number of cards, so ranks
+share a card when there are fewer cards than ranks (the JAX trainer
+refuses ``--pp-stages`` above its device count instead).  The MoE steps
+log the router's balance and z losses.
 
 Multi-host jobs: the trainer first calls
 ``distributed.initialize_from_env`` (the GKE env contract:
@@ -101,10 +104,22 @@ def _usage_errors(ep_degree, pp_stages, sp_degree, zero1, shard_mode,
                 "--platform cuda (auto or einsum run on the CPU)")
 
 
+def _pp_usage_errors(shard, batch, pp_microbatches) -> None:
+    """The JAX trainer's refusals of a --pp-stages run's state sharding
+    and microbatch count, in its order (before the multi-process one)."""
+    if shard != "none":
+        raise click.UsageError(
+            "--shard composes with the dp+tp step, not --pp-stages "
+            "(stage-sharded state is already partitioned)")
+    if batch % pp_microbatches:
+        raise click.UsageError(
+            f"--pp-microbatches {pp_microbatches} must divide "
+            f"--batch {batch}")
+
+
 def _single_process_only(topo, ep_degree, sp_degree, pp_stages) -> None:
     """The JAX trainer's refusals of --ep, --sp and --pp-stages in a
-    multi-process job, then the refusal of what this trainer does not
-    run yet."""
+    multi-process job."""
     if topo.num_processes > 1:
         if ep_degree > 1:
             raise click.UsageError(
@@ -118,9 +133,6 @@ def _single_process_only(topo, ep_degree, sp_degree, pp_stages) -> None:
             raise click.UsageError(
                 "--pp-stages is single-process only for now; multi-host "
                 "jobs should use the dp+tp step (--shard)")
-    if pp_stages > 1:
-        raise click.UsageError("--pp-stages is not ported yet (ROADMAP.md, "
-                               "Queue 1: pipeline parallelism)")
 
 
 def _cards(device, ranks: int) -> list:
@@ -193,19 +205,24 @@ def _shard_state(mesh, cfg, shard, state):
               help="Tensor parallelism degree.  Composes with every "
                    "mode: alone it sets the dp+tp mesh's 'model' axis "
                    "(default: 2 when the device count is even); with "
-                   "--sp or --ep it Megatron-cuts heads and d_ff inside "
-                   "their step.  Ranks repeat cards round-robin when they "
-                   "exceed them, so --tp 2 on one card trains dp 1 x tp 2.")
+                   "--pp-stages it builds the 3-axis dp×pp×tp GPipe "
+                   "step; with --sp or --ep it Megatron-cuts heads and "
+                   "d_ff inside their step.  Ranks repeat cards "
+                   "round-robin when they exceed them, so --tp 2 on one "
+                   "card trains dp 1 x tp 2.")
 @click.option("--ep", "ep_degree", default=1, show_default=True,
               help="Expert parallelism (needs --moe-experts): cut the "
                    "experts over this many ranks with all_to_all "
                    "dispatch; the rest are data-parallel.  1 = off "
                    "(MoE runs replicated under the dp+tp step).")
 @click.option("--pp-stages", default=1, show_default=True,
-              help="Pipeline stages (> 1 not ported: ROADMAP.md, Queue "
-                   "1: pipeline parallelism).")
+              help="Pipeline parallelism: split layers over this many "
+                   "stages (GPipe with microbatch remat).  1 = off "
+                   "(dp+tp mesh).  Stages repeat cards round-robin when "
+                   "they exceed them.")
 @click.option("--pp-microbatches", default=4, show_default=True,
-              help="Microbatches per pipelined step (with --pp-stages).")
+              help="Microbatches streamed through the pipeline per step "
+                   "(bubble fraction = (P-1)/(m+P-1)).")
 @click.option("--sp", "sp_degree", default=1, show_default=True,
               help="Context parallelism: shard the SEQUENCE over this "
                    "many ranks (ring attention); the remaining devices "
@@ -245,8 +262,8 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
          data_file, profile_dir, checkpoint_dir, checkpoint_every,
          annotations_file, platform):
     """Train the in-tree model over a dp+tp mesh (one device by
-    default), with the sequence cut over --sp ranks, or expert-parallel
-    over --ep ranks."""
+    default), with the sequence cut over --sp ranks, expert-parallel
+    over --ep ranks, or pipelined over --pp-stages stages."""
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(levelname)s: %(message)s")
     import torch
@@ -293,10 +310,12 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
     log.info("topology: process %d/%d (slice %d/%d); devices: %d",
              topo.process_id, topo.num_processes, topo.slice_id,
              topo.num_slices, len(_cards(device, 1)))
+    shard = shard_mode or ("zero1" if zero1 else "none")
+    if pp_stages > 1:
+        _pp_usage_errors(shard, batch, pp_microbatches)
     _single_process_only(topo, ep_degree, sp_degree, pp_stages)
     n_proc = max(1, topo.num_processes)
     local_batch = max(1, batch // n_proc)
-    shard = shard_mode or ("zero1" if zero1 else "none")
 
     last_moe_metrics: dict = {}
     # Checkpoints hold the one-device layout: a mesh step's state is
@@ -388,6 +407,47 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
         log.info("sp %d ranks (%s) on %s; mesh %s, shard %s", sp_degree,
                  sp_impl, ", ".join(map(str, mesh.ranks)), dict(mesh.shape),
                  shard)
+    elif pp_stages > 1:
+        from tpu_autoscaler_torch.workloads.model import Mesh
+        from tpu_autoscaler_torch.workloads.pipeline import (
+            gather_pipeline_state,
+            make_pipeline_mesh,
+            make_pipeline_train_step,
+            shard_pipeline_state,
+        )
+
+        # Tokens replicate over the stages; the dp×pp×tp mesh cuts the
+        # batch over 'data' inside its loss.
+        if tp_degree is not None:
+            pp_tp = tp_degree
+            cards = _cards(device, pp_stages * pp_tp)
+            if len(cards) % (pp_stages * pp_tp):
+                raise click.UsageError(
+                    f"--pp-stages {pp_stages} x --tp {pp_tp} must "
+                    f"divide the {len(cards)} available devices")
+            dp_n = len(cards) // (pp_stages * pp_tp)
+            if batch % (dp_n * pp_microbatches):
+                raise click.UsageError(
+                    f"--batch {batch} must divide over {dp_n} data "
+                    f"shards x {pp_microbatches} microbatches")
+            mesh = make_pipeline_mesh(cards, pp=pp_stages, tp=pp_tp)
+        else:
+            mesh = Mesh(np.array(_cards(device, pp_stages)[:pp_stages],
+                                 dtype=object), ("pp",))
+        try:
+            init_fn, raw_step_fn = make_pipeline_train_step(
+                mesh, cfg, num_microbatches=pp_microbatches,
+                train=train_cfg)
+        except ValueError as e:
+            raise click.UsageError(str(e)) from e
+        # Checkpoints hold the one-device layout with qkv packed, so
+        # serve and generate read a pipeline checkpoint.
+        save_layout = functools.partial(gather_pipeline_state, mesh, cfg)
+        mesh_layout = functools.partial(shard_pipeline_state, mesh, cfg)
+        device = mesh.ranks[0]
+        log.info("pp %d stages on %s; mesh %s, %d microbatches", pp_stages,
+                 ", ".join(map(str, mesh.ranks)), dict(mesh.shape),
+                 pp_microbatches)
     else:
         cards = _cards(device, tp_degree or 1)
         try:
