@@ -35,8 +35,11 @@ pipeline (``pipeline.make_pipeline_train_step``: the step cell over 4
 stages of the card and over data 2 × pp 2 × model 2, the MoE step
 model over 2 stages, small f32 pipelines on CUDA ranks against CPU
 ranks), the batch shape scorer (``engine/jaxfit.py``: 1,000,000 gangs
-on the card against its numpy twin), and
-runs the ``serve`` CLI with each cache,
+on the card against its numpy twin), the real-text training path at
+``bench_tpu.py``'s converge size (the port's tokenizer CLI rebuilds
+``data/corpus.bin``; the ``train`` CLI trains on it through the native
+token loader, is SIGKILLed mid-run and resumes from its checkpoint),
+and runs the ``serve`` CLI with each cache,
 speculatively and with request tracing, the ``generate`` CLI and the
 ``train`` CLI (train, resume, drain; on one device, with ``--sp 2``,
 with ``--tp 2 --shard fsdp``, whose checkpoint ``serve --tp 2`` and
@@ -294,6 +297,25 @@ PP3D_MESH, PP3D_MICROBATCHES = (2, 2, 2), 2
 # timed calls after a warm one.
 FIT_GANGS, FIT_REPS = 1_000_000, 5
 FIT_GENERATIONS = (None, "v4", "v5e", "v5p", "v6e")
+# The real-text training path at bench_tpu.py:869 _impl_converge's full
+# size (:901-903, :918-924): the port's tokenizer CLI rebuilds
+# data/corpus.bin (byte-BPE, vocab 8192, CORPUS_TOKENS tokens) from
+# data/corpus.txt, and the train CLI trains d_model 512, 6 layers (4
+# heads of 128, d_ff 512: 17.8M params), seq 256, batch 16 on it through
+# the native loader for 1000 steps, a checkpoint every 100, lr 3e-3,
+# warmup 50, cosine, grad-clip 1.0.  Run 1 is SIGKILLed at its first
+# logged step >= CONVERGE_KILL_AT (past step 500's checkpoint, so run 2
+# re-logs steps 510-550), run 2 is the same command resumed.  The two
+# runs' losses at the steps both logged come from the same state and the
+# same batches: bf16 products with atomics in the embedding's backward
+# may move them apart, by at most CONVERGE_REPLAY_TOL.
+CONVERGE_VOCAB, CONVERGE_D_MODEL, CONVERGE_LAYERS = 8192, 512, 6
+CONVERGE_SEQ, CONVERGE_BATCH, CONVERGE_STEPS = 256, 16, 1000
+CONVERGE_EVERY, CONVERGE_KILL_AT, CONVERGE_WARMUP = 100, 550, 50
+CONVERGE_RESUMES = (500, 400)
+CONVERGE_REPLAY_TOL = 0.02
+CONVERGE_LOADER_BATCHES = 200
+CORPUS_TOKENS = 199_762
 MESH_MODES = ("none", "zero1", "fsdp")
 MESH_MODE_GAP = 1e-6
 ALLOC_SLACK = 1 << 20
@@ -709,16 +731,16 @@ def check_attn_case(torch, F, attention, flush, *, label, b, h, hkv, s, d,
 
 
 def phase_attn_kernel_checks(torch, F, attention, flush):
-    """K1 in 22 cases; the first is the GQA generate path's prefill, the
+    """K1 in 23 cases; the first is the GQA generate path's prefill, the
     next two a layer of the training main path and of the long-sequence
     recipe, the next two one rank's shard of the mesh step (dp 4 × tp 2:
     [4, 8, 1024, 64], also the multi-slice and the ep×tp rank's shard
     and the dp×pp×tp pipeline's) and of its GQA form (16 q / 2 KV heads
     cut by tp 2: 8 q heads on 1 KV head), the next two a rank's Ulysses
     shard under sp×tp ([1, 2, 8192, 128]) and the distributed phase's
-    f32 shard ([8, 8, 1024, 64]); the last but one at head_dim 96 (run
-    zero-padded to 128), the last a microbatch of the pipeline ([4, 16,
-    1024, 64])."""
+    f32 shard ([8, 8, 1024, 64]); the last three at head_dim 96 (run
+    zero-padded to 128), a microbatch of the pipeline ([4, 16, 1024,
+    64]) and a layer of the converge run ([16, 4, 256, 128])."""
     main = dict(b=GEN_BATCH, h=16, hkv=2, s=GEN_PROMPT, d=64,
                 dtype=torch.bfloat16)
     cases = [
@@ -750,6 +772,8 @@ def phase_attn_kernel_checks(torch, F, attention, flush):
         dict(main, label="d96", b=2, s=1000, d=96, window=300),
         dict(main, label="pp-microbatch", b=TRAIN_BATCH // PP_MICROBATCHES,
              hkv=16, s=1024),
+        dict(main, label="converge-layer", b=CONVERGE_BATCH, h=4, hkv=4,
+             s=CONVERGE_SEQ, d=CONVERGE_D_MODEL // 4),
     ]
     return [check_attn_case(torch, F, attention, flush, seed=200 + i, **c)
             for i, c in enumerate(cases)]
@@ -861,12 +885,12 @@ def check_bwd_case(torch, F, attention, flush, *, label, b, h, hkv, s, d,
 
 
 def phase_bwd_kernel_checks(torch, F, attention, flush):
-    """K2 in 19 cases; the first is a layer of the training main path,
+    """K2 in 20 cases; the first is a layer of the training main path,
     the second a layer of the long-sequence recipe, the next four one
     rank's shard of the mesh step and of its GQA form, the Ulysses shard
     under sp×tp and the distributed phase's f32 shard (as K1's); the
-    last but one at head_dim 96 (run zero-padded to 128), the last a
-    microbatch of the pipeline (as K1's)."""
+    last three at head_dim 96 (run zero-padded to 128), a microbatch of
+    the pipeline and a layer of the converge run (as K1's)."""
     gqa = dict(b=2, h=16, hkv=2, s=512, d=64, dtype=torch.bfloat16)
     cases = [
         dict(label="train-main-path", b=TRAIN_BATCH, h=16, hkv=16, s=1024,
@@ -894,6 +918,8 @@ def phase_bwd_kernel_checks(torch, F, attention, flush):
         dict(gqa, label="d96", s=700, d=96, window=300),
         dict(gqa, label="pp-microbatch", b=TRAIN_BATCH // PP_MICROBATCHES,
              hkv=16, s=1024),
+        dict(gqa, label="converge-layer", b=CONVERGE_BATCH, h=4, hkv=4,
+             s=CONVERGE_SEQ, d=CONVERGE_D_MODEL // 4),
     ]
     return [check_bwd_case(torch, F, attention, flush, seed=300 + i, **c)
             for i, c in enumerate(cases)]
@@ -4906,6 +4932,202 @@ def phase_cli(model, decode, DrainReceipt):
                 job.result()
 
 
+def _watch_train(cmd, env, kill_at=None) -> dict:
+    """Run a train CLI command, reading its log as it runs: its losses
+    and tok/s by logged step, its log lines and seconds.  With
+    ``kill_at`` it is SIGKILLed at its first logged step >= kill_at;
+    otherwise it must exit 0.  A run is killed after 600 s."""
+    import threading
+
+    step_re = re.compile(r"step (\d+) loss ([0-9.]+) \(([0-9.]+) tok/s\)")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=ROOT)
+    watchdog = threading.Timer(600, proc.kill)
+    watchdog.start()
+    losses, toks, lines, killed = {}, {}, [], None
+    try:
+        for line in proc.stderr:
+            lines.append(line.rstrip("\n"))
+            m = step_re.search(line)
+            if m:
+                step = int(m.group(1))
+                losses[step], toks[step] = float(m.group(2)), \
+                    float(m.group(3))
+                if kill_at is not None and step >= kill_at:
+                    proc.kill()                         # SIGKILL
+                    killed = step
+                    break
+        proc.wait(timeout=60)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stderr.close()
+    if killed is None and (proc.returncode != 0 or kill_at is not None):
+        raise AssertionError(f"train CLI exited {proc.returncode} (kill at "
+                             f"{kill_at}):\n" + "\n".join(lines[-40:]))
+    return dict(losses=losses, toks=toks, log="\n".join(lines),
+                seconds=time.perf_counter() - t0, killed_at=killed)
+
+
+def _loader_ms(engine, shard) -> float:
+    """Host ms a batch of ``engine`` over CONVERGE_LOADER_BATCHES steps
+    in order (the native one prefetching each next step as it returns)."""
+    loader = engine(shard, CONVERGE_BATCH, CONVERGE_SEQ + 1, 0)
+    try:
+        t0 = time.perf_counter()
+        for step in range(CONVERGE_LOADER_BATCHES):
+            loader.next(step)
+        return (time.perf_counter() - t0) * 1e3 / CONVERGE_LOADER_BATCHES
+    finally:
+        loader.close()
+
+
+def phase_converge(np, dataio):
+    """The real-text training path (bench_tpu.py:869 _impl_converge at its
+    full size), in order: the port's tokenizer CLI rebuilds
+    data/corpus.bin byte for byte into a temporary directory (from a
+    copy of data/tokenizer.json); the train CLI trains on that shard and
+    is SIGKILLed at step >= CONVERGE_KILL_AT; the same command resumes
+    from step 500 (or 400, if 500's checkpoint had not landed) on the
+    native loader and runs to CONVERGE_STEPS.  Checks, each failing the
+    phase: the shard; the kill; the resume and its loader; the loss curve
+    falls (last < first - 0.5 and < ln V - 0.5: bench_tpu.py's gates)
+    and run 2 starts below ln V - 0.2; the loader replays the stream (in
+    process, the native engine against the numpy one over steps R..560)
+    and run 2's losses at the steps both runs logged are within
+    CONVERGE_REPLAY_TOL of run 1's; run 2's log counts K1 = K2 dq = K2
+    dk/dv = one a layer a step and no other kernel.  Also reports the
+    curve every 100th step, epochs, each run's seconds, run 2's median
+    tok/s, a step_N directory's bytes, and both loader engines' host ms a
+    batch.  The temporary directory (~10 checkpoints) is removed."""
+    import shutil
+
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join(
+               [str(ROOT), os.environ.get("PYTHONPATH", "")])}
+    data = ROOT / "data"
+    with tempfile.TemporaryDirectory() as tmp:
+        tokenizer = os.path.join(tmp, "tokenizer.json")
+        shutil.copy(data / "tokenizer.json", tokenizer)
+        shard = os.path.join(tmp, "corpus.bin")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "tpu_autoscaler_torch.workloads.tokenizer",
+             "--corpus", str(data / "corpus.txt"), "--vocab",
+             str(CONVERGE_VOCAB), "--tokenizer-out", tokenizer,
+             "--shard-out", shard], capture_output=True, text=True, env=env,
+            cwd=ROOT, timeout=600)
+        tokenize_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"tokenizer CLI exited {res.returncode}:\n"
+                                 f"{res.stderr[-4000:]}")
+        shard_tokens = os.path.getsize(shard) // 4
+        shard_rebuilt = (Path(shard).read_bytes()
+                         == (data / "corpus.bin").read_bytes()
+                         and shard_tokens == CORPUS_TOKENS)
+        ckpt = os.path.join(tmp, "ckpt")
+        cmd = [sys.executable, "-m", "tpu_autoscaler_torch.workloads.train",
+               "--steps", str(CONVERGE_STEPS), "--vocab",
+               str(CONVERGE_VOCAB), "--d-model", str(CONVERGE_D_MODEL),
+               "--n-layers", str(CONVERGE_LAYERS), "--seq-len",
+               str(CONVERGE_SEQ), "--batch", str(CONVERGE_BATCH),
+               "--data-file", shard, "--checkpoint-dir", ckpt,
+               "--checkpoint-every", str(CONVERGE_EVERY), "--lr", "3e-3",
+               "--warmup-steps", str(CONVERGE_WARMUP), "--lr-schedule",
+               "cosine", "--grad-clip", "1.0", "--platform", "cuda",
+               "--annotations-file", os.path.join(tmp, "none")]
+        run1 = _watch_train(cmd, env, kill_at=CONVERGE_KILL_AT)
+        after_kill = sorted(os.listdir(ckpt))
+        run2 = _watch_train(cmd, env)
+        resumed = re.search(r"resumed from checkpoint step (\d+)",
+                            run2["log"])
+        resume = int(resumed.group(1)) if resumed else None
+        loader = re.search(r"token shard \S+: (\d+) tokens \((\w+) "
+                           r"loader\)", run2["log"])
+        launches = re.search(r"kernel launches (\{.*\})", run2["log"])
+        launches = json.loads(launches.group(1)) if launches else {}
+        final = Path(ckpt) / f"step_{CONVERGE_STEPS}"
+        step_bytes = sum(f.stat().st_size for f in final.iterdir()) \
+            if final.is_dir() else None
+        native = dataio.open_token_loader(shard, CONVERGE_BATCH,
+                                          CONVERGE_SEQ + 1, 0)
+        plain = dataio.PyTokenLoader(shard, CONVERGE_BATCH, CONVERGE_SEQ + 1,
+                                     0)
+        try:
+            replayed = range(resume or 0, CONVERGE_KILL_AT + 11)
+            stream_equal = isinstance(native, dataio.NativeTokenLoader) \
+                and all(np.array_equal(native.next(s), plain.next(s))
+                        for s in replayed)
+        finally:
+            native.close()
+            plain.close()
+        loader_ms = {"native": _loader_ms(dataio.NativeTokenLoader, shard),
+                     "numpy": _loader_ms(dataio.PyTokenLoader, shard)}
+    ln_v = math.log(CONVERGE_VOCAB)
+    curve = {**run1["losses"], **run2["losses"]}
+    first, last = curve[min(curve)], curve.get(CONVERGE_STEPS)
+    both = sorted(set(run1["losses"]) & set(run2["losses"]))
+    replay_diffs = [abs(run1["losses"][s] - run2["losses"][s]) for s in both]
+    run2_first = run2["losses"][min(run2["losses"])] if run2["losses"] \
+        else None
+    want = CONVERGE_LAYERS * (CONVERGE_STEPS - (resume or 0))
+    want_launches = {k: (want if k.startswith("flash_attention") else 0)
+                     for k in launches}
+    checks = {
+        "shard_rebuilt": shard_rebuilt,
+        "killed": (run1["killed_at"] is not None
+                   and run1["killed_at"] >= CONVERGE_KILL_AT),
+        "resumed": resume in CONVERGE_RESUMES,
+        "native_loader": bool(loader) and loader.group(2)
+        == "NativeTokenLoader" and int(loader.group(1)) == CORPUS_TOKENS,
+        "completed": (f"training complete at step {CONVERGE_STEPS}"
+                      in run2["log"] and last is not None),
+        "decreasing": (last is not None and last < first - 0.5
+                       and last < ln_v - 0.5),
+        "resume_continued_curve": (run2_first is not None
+                                   and run2_first < ln_v - 0.2),
+        "replay_stream": stream_equal,
+        "replay_losses": (bool(both) and max(replay_diffs)
+                          <= CONVERGE_REPLAY_TOL),
+        "launches": bool(launches) and launches == want_launches,
+    }
+    rec = dict(
+        config=dict(vocab=CONVERGE_VOCAB, d_model=CONVERGE_D_MODEL,
+                    n_layers=CONVERGE_LAYERS, n_heads=4, head_dim=128,
+                    d_ff=512, seq_len=CONVERGE_SEQ, batch=CONVERGE_BATCH,
+                    steps=CONVERGE_STEPS, checkpoint_every=CONVERGE_EVERY,
+                    lr=3e-3, warmup=CONVERGE_WARMUP, schedule="cosine",
+                    grad_clip=1.0, dtype="bf16 over f32 masters"),
+        checks=checks, tokenize_seconds=tokenize_s,
+        shard_tokens=shard_tokens, killed_at=run1["killed_at"],
+        checkpoints_after_kill=after_kill, resumed_from=resume,
+        loader=loader.group(2) if loader else None,
+        loss_first=first, loss_last=last, ln_vocab=ln_v,
+        run2_first_loss=run2_first,
+        curve={s: curve[s] for s in sorted(curve) if s % 100 == 0},
+        replayed_steps=both, replay_max_abs_diff=max(replay_diffs,
+                                                     default=None),
+        replay_equal_as_logged=bool(both) and max(replay_diffs) == 0,
+        epochs=CONVERGE_STEPS * CONVERGE_BATCH * CONVERGE_SEQ / shard_tokens,
+        run1_seconds=run1["seconds"], run2_seconds=run2["seconds"],
+        run2_median_tok_s=statistics.median(run2["toks"].values())
+        if run2["toks"] else None,
+        step_dir_bytes=step_bytes, launches=launches,
+        launches_want=want_launches, run2_steps=CONVERGE_STEPS - (resume
+                                                                  or 0),
+        loader_host_ms_per_batch=loader_ms)
+    emit("converge", **rec)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"converge failed {failed}:\n"
+                             f"{run2['log'][-4000:]}")
+    return rec
+
+
 def main() -> None:
     import torch
 
@@ -5043,6 +5265,7 @@ def main() -> None:
                                      dataio, paged, serving, spec_serving)
     phase_cli(model, decode, DrainReceipt)
     phase_moe_cli(model, decode, DrainReceipt)
+    converge_rec = phase_converge(np, dataio)
     kernels = []
     for kname, source, replaces, design, launches, kchecks in (
             ("flash_attention", "flash_attention.cu", 192, TC_DESIGN,
@@ -5258,6 +5481,18 @@ def main() -> None:
         kernel["pipeline_shard"] = {
             label: shard_case(checks_of, label, part, grads)
             for label in ("pp-microbatch", "mesh-shard")}
+    # K1/K2 on the real-text training path: over the converge phase's
+    # resumed run (one launch a layer a step), at a layer's shape there.
+    for kernel in kernels:
+        kname = kernel["name"]
+        if not kname.startswith("flash_attention"):
+            continue
+        checks_of, part, grads, _ = shards[kname]
+        kernel["converge"] = dict(
+            shard_case(checks_of, "converge-layer", part, grads),
+            launches=converge_rec["launches"][kname],
+            launches_per=f"converge run 2 ({converge_rec['run2_steps']} "
+                         f"steps of {CONVERGE_LAYERS} layers)")
     # K1, K3 and K4 on the mesh serving paths: over the mesh linear and
     # paged engines' timed passes, per mesh generate call; each at its
     # shard shape there.

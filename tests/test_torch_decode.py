@@ -20,6 +20,7 @@ held against those plain versions on the card
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import os
 import re
 import subprocess
@@ -38,9 +39,11 @@ from tpu_autoscaler.workloads import decode as jax_decode  # noqa: E402
 from tpu_autoscaler.workloads import model as jax_model  # noqa: E402
 from tpu_autoscaler_torch.workloads import attention  # noqa: E402
 from tpu_autoscaler_torch.workloads import decode, model  # noqa: E402
-from tpu_autoscaler_torch.workloads import (  # noqa: E402
-    generate as generate_cli,
-)
+
+# The CLI module: the package re-exports decode's ``generate`` function
+# under the same name, as the JAX package does.
+generate_cli = importlib.import_module(
+    "tpu_autoscaler_torch.workloads.generate")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = dict(vocab=64, d_model=32, n_layers=2, n_heads=4, d_ff=64,

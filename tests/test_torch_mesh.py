@@ -38,7 +38,6 @@ from tpu_autoscaler.workloads import checkpoint as jax_checkpoint  # noqa: E402
 from tpu_autoscaler.workloads import model as jax_model  # noqa: E402
 from tpu_autoscaler_torch.workloads import (  # noqa: E402
     attention,
-    generate,
     model,
     serve,
 )
@@ -46,6 +45,9 @@ from tpu_autoscaler_torch.workloads import train as train_cli  # noqa: E402
 
 jax_serve = importlib.import_module("tpu_autoscaler.workloads.serve")
 jax_generate = importlib.import_module("tpu_autoscaler.workloads.generate")
+# The CLI module: both packages re-export decode's ``generate`` function
+# under the same name.
+generate = importlib.import_module("tpu_autoscaler_torch.workloads.generate")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = dict(vocab=64, d_model=32, n_layers=2, n_heads=4, d_ff=64,

@@ -38,7 +38,6 @@ from tpu_autoscaler.workloads import serving as jax_serving  # noqa: E402
 from tpu_autoscaler_torch.workloads import (  # noqa: E402
     attention,
     decode,
-    generate,
     model,
     paged,
     serve,
@@ -49,6 +48,9 @@ from tpu_autoscaler_torch.workloads import train as train_cli  # noqa: E402
 
 jax_serve = importlib.import_module("tpu_autoscaler.workloads.serve")
 jax_generate = importlib.import_module("tpu_autoscaler.workloads.generate")
+# The CLI module: both packages re-export decode's ``generate`` function
+# under the same name.
+generate = importlib.import_module("tpu_autoscaler_torch.workloads.generate")
 
 ARCH = dict(vocab=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
             d_ff=64, seq_len=64)

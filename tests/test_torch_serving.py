@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -344,4 +345,105 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "workloads.ring_attention",
             "workloads.serve", "workloads.serving",
             "workloads.spec_serving", "workloads.sp",
-            "workloads.train", "workloads.ulysses")}
+            "workloads.tokenizer", "workloads.train", "workloads.ulysses")}
+
+
+def test_importing_the_workloads_builds_nothing_and_leaves_cuda_alone(
+        tmp_path):
+    """``import tpu_autoscaler_torch.workloads`` (every public name and
+    the port's modules) builds no kernel and no token loader, writes no
+    build directory and does not initialise CUDA: builds happen at first
+    use."""
+    probe = textwrap.dedent("""
+        import os, sys
+        import torch
+        import tpu_autoscaler_torch.workloads as w
+        from tpu_autoscaler_torch import dataio
+        from tpu_autoscaler_torch.workloads import attention, tokenizer
+        print(len(w.__all__), torch.cuda.is_initialized(),
+              attention._LIBS, attention._ENTRIES, dataio._lib_state,
+              os.path.exists(attention.BUILD_DIR),
+              os.path.exists(dataio.BUILD_DIR))
+    """)
+    copy = tmp_path / "repo"
+    shutil.copytree(os.path.join(REPO, "tpu_autoscaler_torch"),
+                    copy / "tpu_autoscaler_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    env = {**os.environ, "PYTHONPATH": str(copy)}
+    res = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, env=env, cwd=copy, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["30", "False", "{}", "{}", "{}", "False",
+                                  "False"]
+
+
+def test_workloads_reexport_every_name_of_the_jax_package():
+    """Every name in the JAX package's ``workloads.__all__`` imports from
+    ``tpu_autoscaler_torch.workloads``, as the object of its port
+    module of the same name.  Checked in a fresh interpreter: once the
+    ``generate`` CLI module is imported, Python binds it over the
+    re-exported ``decode.generate`` (in both packages)."""
+    probe = textwrap.dedent("""
+        import importlib
+        import tpu_autoscaler.workloads as jax_workloads
+        import tpu_autoscaler_torch.workloads as workloads
+        assert sorted(workloads.__all__) == sorted(jax_workloads.__all__)
+        for name in jax_workloads.__all__:
+            theirs = getattr(jax_workloads, name)
+            module = theirs.__module__.replace("tpu_autoscaler.",
+                                               "tpu_autoscaler_torch.", 1)
+            ours = importlib.import_module(module)
+            assert getattr(workloads, name) is getattr(ours, name), name
+            exec(f"from tpu_autoscaler_torch.workloads import {name}")
+        print(len(jax_workloads.__all__))
+    """)
+    env = {**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu"}
+    res = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["30"]
+
+
+@pytest.mark.parametrize("drain", [False, True], ids=["served", "drained"])
+def test_final_stats_payload_equals_jax(drain):
+    """The port's ``serve.final_stats_payload`` and the JAX one on the
+    same requests through the two engines: equal key for key, the stats'
+    wall-clock ``epoch`` aside (``elapsed_s`` is passed in).  Drained:
+    the watcher fires after the first tick, so one slot finishes and the
+    queue stays unserved."""
+    from tpu_autoscaler.workloads import serve as jax_serve
+    from tpu_autoscaler_torch.workloads import serve
+
+    jcfg, tcfg = _cfgs()
+    jp, tp = _params(jcfg)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 64, (n,)).astype(np.int32)
+               for n in (4, 9, 6)]
+    payloads = []
+    for eng, req_cls, mod in (
+            (jax_serving.ContinuousBatcher(jp, jcfg, slots=1, max_len=64,
+                                           chunk=8),
+             jax_serving.Request, jax_serve),
+            (serving.ContinuousBatcher(tp, tcfg, slots=1, max_len=64,
+                                       chunk=8, device="cpu"),
+             serving.Request, serve)):
+        reqs = [req_cls(prompt=p, max_new_tokens=3) for p in prompts]
+        for r in reqs:
+            eng.submit(r)
+        annotations = {}
+        if drain:
+            eng.tick()
+            annotations[CHECKPOINT_ANNOTATION] = "1"
+        eng.run(watcher=DrainWatcher(lambda: annotations,
+                                     min_poll_interval=0))
+        payloads.append(mod.final_stats_payload(reqs, eng, 1.25,
+                                                replica_id="r-0"))
+    theirs, ours = payloads
+    json.dumps(ours)
+    for p in payloads:
+        p["stats"].pop("epoch")
+    assert ours == theirs
+    assert ours["event"] == "final_stats" and ours["replica"] == "r-0"
+    assert ours["drained"] is drain
+    assert (ours["served"], ours["unserved"]) == ((1, 2) if drain
+                                                  else (3, 0))

@@ -24,6 +24,7 @@ bounds (rtol 1e-3, atol 1e-5) for the params after them.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -652,7 +653,9 @@ def test_dataio_stream_matches_jax(tmp_path):
         0, 50_000, 4096, dtype=np.uint32))
     ours = dataio.open_token_loader(shard, batch=4, window=17, seed=3)
     theirs = jax_dataio.PyTokenLoader(shard, batch=4, window=17, seed=3)
-    assert isinstance(ours, dataio.PyTokenLoader)
+    # The native engine wherever it builds (g++), as JAX's picks.
+    assert isinstance(ours, dataio.NativeTokenLoader
+                      if dataio.native_available() else dataio.PyTokenLoader)
     assert ours.n_tokens == theirs.n_tokens == 4096
     for step in (0, 1, 7, 123456):
         np.testing.assert_array_equal(ours.next(step), theirs.next(step))
@@ -757,7 +760,12 @@ def test_cli_trains_from_token_shard(tmp_path):
     res = _train(tmp_path, "--steps", "3", "--checkpoint-every", "3",
                  "--data-file", shard)
     assert res.returncode == 0, res.stderr
-    assert "token shard" in res.stderr and "PyTokenLoader" in res.stderr
+    engine = ("NativeTokenLoader" if dataio.native_available()
+              else "PyTokenLoader")
+    assert "token shard" in res.stderr and f"({engine} loader)" in res.stderr
+    # The run's kernel launches, logged at its end: none on the CPU.
+    assert "kernel launches " + json.dumps(
+        {name: 0 for name in attention.LAUNCHES}) in res.stderr
     assert "aliased with modulo" in res.stderr
     assert "training complete at step 3" in res.stderr
 

@@ -96,6 +96,14 @@ def final_stats_receipt(reqs, engine, elapsed_s: float,
         replica=replica_id)
 
 
+def final_stats_payload(reqs, engine, elapsed_s: float,
+                        replica_id: str = "") -> dict:
+    """Wire-dict form of :func:`final_stats_receipt` (the historical
+    key set; older consumers parse it unchanged)."""
+    return final_stats_receipt(reqs, engine, elapsed_s,
+                               replica_id).to_payload()
+
+
 def _read_requests(requests_file, random_n, max_new_tokens, seed, cfg):
     from tpu_autoscaler_torch.workloads.serving import Request
 
@@ -367,8 +375,7 @@ def main(checkpoint_dir, requests_file, random_n, max_new_tokens, slots,
                  "%.3f (plain decode = 1.0)", engine.accept_rate,
                  engine.target_pass_ratio)
     # The drain contract's receipt: always the LAST stdout line.
-    final = final_stats_receipt(reqs, engine, dt,
-                                replica_id=replica_id).to_payload()
+    final = final_stats_payload(reqs, engine, dt, replica_id=replica_id)
     if sampler is not None:
         final["trace"] = sampler.debug_state()
     print(json.dumps(final))

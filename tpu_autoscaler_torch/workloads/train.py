@@ -13,8 +13,13 @@ checkpoint is saved and the process exits 0.
 Checkpoints are ``step_N/params.npz`` (the layout ``serve`` and
 ``generate`` read) plus ``step_N/opt.npz``, in the one-device layout
 whatever the mesh (gathered on save, cut again on restore, so a run
-resumes on any mesh); the JAX trainer's orbax checkpoints cannot be
-read here (orbax needs JAX).  Training runs on CUDA unless
+resumes on any mesh).  The JAX trainer's orbax checkpoints are not
+read here (orbax needs JAX): ``tools/convert_checkpoint.py`` converts
+them to this layout and back, where JAX is installed.  A
+``--data-file`` is read by ``dataio.open_token_loader`` (the native
+loader, numpy without a compiler).  When training ends, the log's last
+line but one counts the kernel launches of the run
+(``attention.LAUNCHES``).  Training runs on CUDA unless
 ``--platform cpu`` is given; without a GPU it refuses to start rather
 than run on the CPU.
 
@@ -57,6 +62,7 @@ and ``--pp-stages`` are single-process only, as in the JAX trainer.
 from __future__ import annotations
 
 import functools
+import json
 import logging
 import os
 import sys
@@ -239,8 +245,13 @@ def _shard_state(mesh, cfg, shard, state):
                    "--sp).  auto = the kernel ring on CUDA, einsum on "
                    "the CPU.")
 @click.option("--data-file", default=None,
-              help="Binary uint32 token shard to train on (numpy loader). "
-                   "Default: synthetic random tokens.")
+              help="Binary uint32 token shard to train on (native mmap "
+                   "loader with prefetch; numpy fallback).  The repo "
+                   "ships data/corpus.bin (byte-BPE vocab 8192, "
+                   "data/tokenizer.json; rebuild or retokenize with "
+                   "`python -m tpu_autoscaler_torch.workloads.tokenizer`) "
+                   "— pair it with --vocab 8192.  Default: synthetic "
+                   "random tokens.")
 @click.option("--profile-dir", default=None,
               help="Capture a torch.profiler trace of steps start+3.."
                    "start+5 into this directory (trace.json, Chrome "
@@ -269,6 +280,7 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
     import torch
 
     from tpu_autoscaler_torch.dataio import open_token_loader
+    from tpu_autoscaler_torch.workloads import attention
     from tpu_autoscaler_torch.workloads.checkpoint import (
         DEFAULT_ANNOTATIONS_PATH,
         AsyncCheckpointWriter,
@@ -596,6 +608,8 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
             stop_profiler()
         if n_proc > 1:
             torch.distributed.destroy_process_group()
+    # What the run launched of each hand-written kernel: zero on the CPU.
+    log.info("kernel launches %s", json.dumps(attention.LAUNCHES))
     if drained:
         log.info("drain requested: checkpointed at step %d, exiting "
                  "cleanly", step)
