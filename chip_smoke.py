@@ -53,8 +53,10 @@ power limit, the ``kernels`` summary, and ``{"ok": true, "device":
 
 Needs one CUDA device; without one it exits non-zero before printing
 any result.  Imports nothing of JAX and nothing of the JAX package.
-``python3 chip_smoke.py --distributed-worker PORT PID REF OUT`` is one
-process of the two-process phase, which starts it.
+``python3 chip_smoke.py --distributed-worker PORT PID SHARD REF OUT`` is
+one process of the two-process phase, which starts it; ``python3
+chip_smoke.py --time-mesh-step ROOT [MODES]`` times the mesh step of the
+checkout at ROOT (time_mesh_step).
 """
 
 from __future__ import annotations
@@ -1319,9 +1321,28 @@ def phase_profile(torch, np, serving, eng, path, prompt_lens, syncs=None,
                   traced=None if host else "card only")
 
 
+# Device kernels by class, the first pattern their name matches: the
+# port's attention kernels, cuBLAS/CUTLASS products, copies (the casts
+# of f32 masters to bf16 and the moves between ranks), adds (the
+# replicas' gradient sums, the residual stream, the update), reductions.
+KERNEL_CLASSES = (
+    ("attention", re.compile(r"flash|ring_|decode_kernel|tc_kernel")),
+    ("gemm", re.compile(r"gemm|xmma|cutlass|nvjet|wgmma|sm90_", re.I)),
+    ("copy", re.compile(r"copy|Memcpy", re.I)),
+    ("add", re.compile(r"add", re.I)),
+    ("reduce", re.compile(r"reduce", re.I)),
+)
+
+
+def _kernel_class(name: str) -> str:
+    return next((c for c, pat in KERNEL_CLASSES if pat.search(name)),
+                "other")
+
+
 def _emit_profile(path, unit, count, prof, wall_ms, **extra) -> dict:
-    """Device busy time, idle share and the top kernels of a window of
-    ``count`` engine ticks, decode steps or train steps (``unit``)."""
+    """Device busy time, idle share, device time and launches by kernel
+    class (KERNEL_CLASSES) and the top kernels of a window of ``count``
+    engine ticks, decode steps or train steps (``unit``)."""
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) \
             or getattr(e, "self_cuda_time_total", 0)
@@ -1330,11 +1351,18 @@ def _emit_profile(path, unit, count, prof, wall_ms, **extra) -> dict:
                if str(e.device_type).endswith("CUDA")]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    by_class = {}
+    for e in kernels:
+        c = by_class.setdefault(_kernel_class(e.key),
+                                dict(device_ms=0.0, calls=0))
+        c["device_ms"] += dev_us(e) / 1e3
+        c["calls"] += e.count
     rec = dict(path=path, **{unit: count}, profiled_wall_ms=wall_ms,
                device_busy_ms=busy_ms if busy_ms > 0 else None,
                kernel_launches=sum(e.count for e in kernels),
                device_idle_share=(1 - busy_ms / wall_ms) if busy_ms > 0
                else None,
+               device_by_class=by_class,
                top_kernels=[dict(name=e.key[:90], device_ms=dev_us(e) / 1e3,
                                  calls=e.count) for e in top],
                **{k: v for k, v in extra.items() if v is not None})
@@ -2925,18 +2953,26 @@ def _mesh_loss_and_grad_norm(torch, model, mesh, cfg, params, tokens):
 
 def _blocks_loss_and_grad_norm(torch, model, loss_of, params, tokens):
     """``loss_of(params, tokens)`` on ``params`` (trees of Sharded
-    leaves) and the global norm of its gradient, every block counted
-    once."""
+    leaves, a block on every rank) and the global norm of its gradient:
+    each block's gradient summed over the ranks that hold it, then every
+    block counted once."""
     import dataclasses
 
     flat = dict(model._flatten(params))
     live = {path: dataclasses.replace(leaf, blocks={
-        i: t.detach().requires_grad_() for i, t in leaf.blocks.items()})
+        r: t.detach().requires_grad_() for r, t in leaf.blocks.items()})
         for path, leaf in flat.items()}
-    leaves = [t for leaf in live.values() for t in leaf.blocks.values()]
+    keys = [(path, leaf.indices[r], t) for path, leaf in live.items()
+            for r, t in leaf.blocks.items()]
     loss = loss_of(model._unflatten(live), tokens)
-    grads = torch.autograd.grad(loss, leaves)
-    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    grads = torch.autograd.grad(loss, [t for *_, t in keys],
+                                allow_unused=True)
+    sums = {}
+    for (path, index, _), g in zip(keys, grads):
+        if g is not None:
+            prev = sums.get((path, index))
+            sums[path, index] = g if prev is None else prev + g.to(prev.device)
+    norm = torch.sqrt(sum(g.float().square().sum() for g in sums.values()))
     return loss.item(), norm.item()
 
 
@@ -2949,12 +2985,13 @@ def phase_mesh_train_main_path(torch, np, attention, model):
     steps whose launches are counted per step (K1 and each K2 kernel
     once per rank per layer, K3-K6 never); one profiled step; the bytes
     of params and optimizer state each rank stores as placed
-    (``model.rank_state_bytes``: a block once, on its first holder), and
+    (``model.rank_state_bytes``: every rank its own blocks, a replicated
+    block on each rank of its group, as JAX's devices hold them), and
     the card's allocation after init.  The modes' losses must agree
     within MESH_MODE_GAP, the loss must fall, the allocation must be the
-    counted bytes (all ranks share the card, so it is one copy of the
-    state in every mode), and the busiest rank's bytes must rank fsdp <
-    zero1 < none."""
+    sum of the ranks' counted bytes (all ranks share the card, so under
+    none it holds dp copies of the state), and the busiest rank's bytes
+    must rank fsdp < zero1 < none."""
     cfg = model.ModelConfig(**TRAIN_FULL)
     mesh = model.make_mesh(["cuda:0"] * MESH_RANKS, tp=MESH_TP)
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
@@ -3002,6 +3039,7 @@ def phase_mesh_train_main_path(torch, np, attention, model):
             mfu=flops / (step_s * BF16_OPS_PER_S), peak_memory_gb=peak,
             device_idle_share=prof["device_idle_share"],
             device_busy_ms=prof["device_busy_ms"],
+            device_by_class=prof["device_by_class"],
             kernel_launches_per_step=prof["kernel_launches"],
             rank_state_bytes=held, card_state_bytes=card,
             state_blocks=n_blocks, losses=losses,
@@ -3051,6 +3089,62 @@ def phase_mesh_train_main_path(torch, np, attention, model):
         raise AssertionError(f"busiest rank's state bytes {held}: want "
                              f"fsdp < zero1 < none")
     return rec
+
+
+def time_mesh_step(root: str, modes: str = ",".join(MESH_MODES)) -> None:
+    """``chip_smoke.py --time-mesh-step ROOT [MODES]``: the mesh step of
+    phase_mesh_train_main_path (TRAIN_FULL, batch TRAIN_BATCH, dp 4 ×
+    tp 2 on the card, params from seed 0) with the
+    ``tpu_autoscaler_torch`` of the checkout at ROOT, in each shard mode
+    of MODES (comma-separated): TRAIN_WARM warm steps and TRAIN_STEPS
+    timed ones, each ending in a synchronise, then one profiled step
+    (its device time by kernel class, _emit_profile); one JSON line per
+    mode.  Two commits are compared on one card in one call by running
+    it with each root in turn (parent, change, change, parent), the
+    other unpacked with ``git archive`` into a directory that
+    ``.gitignore`` lists."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time-mesh-step: no CUDA device")
+    from tpu_autoscaler_torch.workloads import attention, model
+
+    attention.build_kernels()
+    cfg = model.ModelConfig(**TRAIN_FULL)
+    mesh = model.make_mesh(["cuda:0"] * MESH_RANKS, tp=MESH_TP)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (TRAIN_BATCH, cfg.seq_len + 1)).astype(np.int32)).cuda()
+    for shard in modes.split(","):
+        init_fn, step_fn = model.make_sharded_train_step(mesh, cfg,
+                                                         shard=shard)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        card = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for i in range(TRAIN_WARM + TRAIN_STEPS):
+            t, (params, opt, loss) = _wall(
+                torch, lambda: step_fn(params, opt, tokens))
+            if i >= TRAIN_WARM:
+                times.append(t * 1e3)
+            losses.append(loss.item())
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = _profile_train(torch, step_fn, params, opt, tokens,
+                              f"mesh_{shard}", 1)
+        emit("time_mesh_step", root=str(root), shard=shard,
+             mesh=dict(mesh.shape), step_ms=times,
+             median_step_ms=statistics.median(times),
+             card_state_bytes=card, peak_memory_gb=peak, losses=losses,
+             profiled_wall_ms=prof["profiled_wall_ms"],
+             device_busy_ms=prof["device_busy_ms"],
+             device_by_class=prof["device_by_class"],
+             device=torch.cuda.get_device_name(0))
+        del params, opt, init_fn, step_fn
+        torch.cuda.empty_cache()
 
 
 def phase_small_mesh(torch, np, attention, model):
@@ -3706,7 +3800,9 @@ def phase_ep_tp_train_main_path(torch, np, attention, model, moe, ep_rec):
     """dp×ep×tp (``moe.make_ep_train_step`` on ``make_ep_mesh(ep=2,
     tp=2)`` over MESH_RANKS ranks of the card: data 2 × ep 2 × model 2)
     of the MoE step model on the step's batch and params (as
-    ep_train_main_path): at capacity factor EP_NO_DROP the first-step
+    ep_train_main_path; every rank holds its own copy of the dense
+    state, as JAX places it, so the card holds eight, and the step
+    updates them in place): at capacity factor EP_NO_DROP the first-step
     loss and gradient norm must equal the one-device MoE step's that
     ep_train_main_path took, within TRAIN_LOSS_GAP /
     TRAIN_GRAD_NORM_RTOL; then, at the model's 1.25, on the cut state
@@ -3797,9 +3893,9 @@ def phase_ep_tp_train_main_path(torch, np, attention, model, moe, ep_rec):
             and abs(first[1] - sn) <= TRAIN_GRAD_NORM_RTOL * sn):
         raise AssertionError(f"ep×tp at no-drop capacity: loss {first[0]}, "
                              f"grad norm {first[1]} vs one device {sl}, {sn}")
-    if max(held) != whole // (EP_TP[0] * EP_TP[1]) or sum(held) != whole:
+    if held != [whole // (EP_TP[0] * EP_TP[1])] * MESH_RANKS:
         raise AssertionError(f"ep×tp expert state per rank {held}, whole "
-                             f"{whole}: want 1/(ep·tp) on each expert rank")
+                             f"{whole}: want 1/(ep·tp) on every rank")
     return rec
 
 
@@ -3916,16 +4012,21 @@ def _dist_cfg(model, torch):
     return model.ModelConfig(**TRAIN_FULL, dtype=torch.float32)
 
 
-def distributed_worker(port: str, pid: str, ref_path: str,
+def distributed_worker(port: str, pid: str, shard: str, ref_path: str,
                        out_path: str) -> None:
     """One process of phase_distributed_train (``chip_smoke.py
-    --distributed-worker PORT PID REF OUT``): joins the two-process
+    --distributed-worker PORT PID SHARD REF OUT``): joins the two-process
     group through ``distributed.initialize_from_env`` over gloo, runs
-    the dp+tp step on a dp 1 × tp 2 mesh of the card on its
-    DIST_LOCAL_BATCH rows of the trainer's stream, the gradients and the
-    loss averaged over the processes, for DIST_STEPS steps, and writes
-    its losses, launches, step times and the gap of its final params to
-    the one-process run's (``REF``) as JSON."""
+    the dp+tp step in shard mode SHARD on the two processes' one mesh
+    (``distributed.make_process_mesh``: its own data row of DIST_TP
+    ranks of the card, the other process's row beside it) on its
+    DIST_LOCAL_BATCH rows of the trainer's stream, the gradients and
+    the loss averaged over the processes, for DIST_STEPS steps, and
+    writes its ranks' state bytes, its peak allocation over init and
+    the steps (``torch.cuda.max_memory_allocated``, this process's own
+    allocator), losses, launches, step times and the gap of its final
+    params (gathered over both processes) to the one-process run's
+    (``REF``) as JSON."""
     import torch
 
     from tpu_autoscaler_torch.workloads import (
@@ -3940,10 +4041,10 @@ def distributed_worker(port: str, pid: str, ref_path: str,
         {"TPU_WORKER_HOSTNAMES": "localhost,localhost",
          "TPU_WORKER_ID": pid}, backend="gloo")
     cfg = _dist_cfg(model, torch)
-    mesh = model.make_mesh(["cuda:0"] * DIST_TP, tp=DIST_TP)
-    init_fn, step = model.make_sharded_train_step(
-        mesh, cfg, grad_sync=distributed.process_mean)
+    mesh = distributed.make_process_mesh(["cuda:0"] * DIST_TP, tp=DIST_TP)
+    init_fn, step = model.make_sharded_train_step(mesh, cfg, shard=shard)
     params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    held = model.rank_state_bytes(mesh, params, opt)
     losses, launches, step_ms = [], [], []
     for s in range(DIST_STEPS):
         tokens = torch.from_numpy(train.synthetic_rows(
@@ -3955,6 +4056,7 @@ def distributed_worker(port: str, pid: str, ref_path: str,
         launches.append(dict(attention.LAUNCHES))
         step_ms.append(t * 1e3)
         losses.append(loss.item())
+    peak = torch.cuda.max_memory_allocated()
     ref = torch.load(ref_path, map_location="cuda")
     gap, differing = 0.0, 0
     for path, t in model._flatten(model.gather_params(mesh, params)):
@@ -3964,107 +4066,143 @@ def distributed_worker(port: str, pid: str, ref_path: str,
     torch.distributed.destroy_process_group()
     Path(out_path).write_text(json.dumps(dict(
         process_id=topo.process_id, num_processes=topo.num_processes,
-        losses=losses, step_ms=step_ms, launches_per_step=launches,
-        param_rel_gap=gap, params_differing=differing)))
+        shard=shard, mesh=dict(mesh.shape), local_ranks=mesh.local,
+        rank_state_bytes=held, peak_memory_bytes=peak, losses=losses,
+        step_ms=step_ms, launches_per_step=launches, param_rel_gap=gap,
+        params_differing=differing)))
+
+
+def _dist_pair(port, shard, ref_path, tmp):
+    """Run the two distributed_worker processes of one shard mode and
+    return their records and the wall seconds; a worker that does not
+    finish within DIST_TIMEOUT_S fails, and both are stopped either
+    way."""
+    outs = [os.path.join(tmp, f"{shard}_p{pid}.json") for pid in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--distributed-worker",
+         str(port), str(pid), shard, ref_path, outs[pid]], cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for pid in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"distributed worker ({shard}) did not finish "
+                             f"in {DIST_TIMEOUT_S} s") from e
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"distributed worker ({shard}) exited "
+                                 f"{p.returncode}: {log[-3000:]}")
+    return [json.loads(Path(path).read_text()) for path in outs], wall_s
 
 
 def phase_distributed_train(torch, np, attention, model, train):
-    """Multi-process data parallelism on the card: two processes of this
-    script (distributed_worker) joined by ``initialize_from_env`` over
-    gloo (TPU_WORKER_HOSTNAMES=localhost,localhost, a free port; NCCL
-    refuses two ranks on one GPU, so the transport is gloo over CUDA
-    tensors), each on DIST_LOCAL_BATCH rows of the trainer's stream on a
-    dp 1 × tp 2 mesh of the card, against the one-process dp 2 × tp 2
-    mesh on both processes' rows, all at the step cell's widths in f32
-    for DIST_STEPS steps.  The processes sum the same two row gradients
-    as the one-process mesh does (in f32: in bf16 the one-process mesh's
-    rows share one bf16 cast of each weight on the card, so their
-    gradients would be summed in bf16 there), and scale by powers of
-    two, so the losses must agree within DIST_LOSS_GAP and the params
-    within DIST_PARAM_RTOL of each leaf's largest |value|.  A worker
-    that does not finish within DIST_TIMEOUT_S fails the phase; both
-    are stopped either way."""
+    """Multi-process data parallelism on the card, in each shard mode of
+    MESH_MODES: two processes of this script (distributed_worker) joined
+    by ``initialize_from_env`` over gloo (TPU_WORKER_HOSTNAMES=
+    localhost,localhost, a free port; NCCL refuses two ranks on one GPU,
+    so the transport is gloo over CUDA tensors), sharing one data 2 ×
+    model 2 mesh (``distributed.make_process_mesh``), each process a
+    data row of DIST_TP ranks on DIST_LOCAL_BATCH rows of the trainer's
+    stream, against the one-process dp 2 × tp 2 mesh on both processes'
+    rows, all at the step cell's widths in f32 for DIST_STEPS steps.
+    ZeRO-1 and FSDP cut over both processes' rows, so each process's
+    ranks must hold the bytes the one-process mesh places on the same
+    ranks (``model.rank_state_bytes``).  The processes sum the same two
+    row gradients as the one-process mesh does (in f32: in bf16 the
+    one-process mesh's rows share one bf16 cast of each weight on the
+    card, so their gradients would be summed in bf16 there), and scale
+    by powers of two, so the losses must agree within DIST_LOSS_GAP and
+    the params within DIST_PARAM_RTOL of each leaf's largest |value|;
+    K1 and each K2 kernel launch once per local rank per layer a step.
+    Each worker reports its peak allocation."""
     import socket
     import tempfile
 
     cfg = _dist_cfg(model, torch)
     mesh = model.make_mesh(["cuda:0"] * (2 * DIST_TP), tp=DIST_TP)
-    init_fn, step = model.make_sharded_train_step(mesh, cfg)
-    params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
-    ref_losses, ref_ms = [], []
-    for s in range(DIST_STEPS):
-        tokens = torch.from_numpy(np.concatenate([train.synthetic_rows(
-            s, pid, DIST_LOCAL_BATCH, cfg.vocab, cfg.seq_len)
-            for pid in range(2)])).cuda()
-        t, (params, opt, loss) = _wall(torch,
-                                       lambda: step(params, opt, tokens))
-        ref_losses.append(loss.item())
-        ref_ms.append(t * 1e3)
-    with tempfile.TemporaryDirectory() as tmp:
-        ref_path = os.path.join(tmp, "ref.pt")
-        torch.save(dict(model._flatten(model.gather_params(mesh, params))),
-                   ref_path)
-        del params, opt, init_fn, step
-        torch.cuda.empty_cache()
-        with socket.socket() as sock:
-            sock.bind(("localhost", 0))
-            port = sock.getsockname()[1]
-        outs = [os.path.join(tmp, f"p{pid}.json") for pid in range(2)]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"),
-             "--distributed-worker", str(port), str(pid), ref_path,
-             outs[pid]], cwd=str(ROOT), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for pid in range(2)]
-        logs = []
-        try:
-            for p in procs:
-                logs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
-        except subprocess.TimeoutExpired as e:
-            raise AssertionError(f"distributed worker did not finish in "
-                                 f"{DIST_TIMEOUT_S} s") from e
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        wall_s = time.perf_counter() - t0
-        for p, log in zip(procs, logs):
-            if p.returncode != 0:
-                raise AssertionError(f"distributed worker exited "
-                                     f"{p.returncode}: {log[-3000:]}")
-        got = [json.loads(Path(path).read_text()) for path in outs]
     per_step = DIST_TP * cfg.n_layers
     want = _kernel_launches(attention, flash_attention=per_step,
                             flash_attention_bwd_dq=per_step,
                             flash_attention_bwd_dkv=per_step)
+    modes = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for shard in MESH_MODES:
+            init_fn, step = model.make_sharded_train_step(mesh, cfg,
+                                                          shard=shard)
+            params, opt = init_fn(
+                torch.Generator(device="cuda").manual_seed(0))
+            held = model.rank_state_bytes(mesh, params, opt)
+            ref_losses, ref_ms = [], []
+            for s in range(DIST_STEPS):
+                tokens = torch.from_numpy(np.concatenate([
+                    train.synthetic_rows(s, pid, DIST_LOCAL_BATCH,
+                                         cfg.vocab, cfg.seq_len)
+                    for pid in range(2)])).cuda()
+                t, (params, opt, loss) = _wall(
+                    torch, lambda: step(params, opt, tokens))
+                ref_losses.append(loss.item())
+                ref_ms.append(t * 1e3)
+            ref_path = os.path.join(tmp, f"{shard}_ref.pt")
+            torch.save(dict(model._flatten(model.gather_params(mesh,
+                                                               params))),
+                       ref_path)
+            del params, opt, init_fn, step
+            torch.cuda.empty_cache()
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            got, wall_s = _dist_pair(port, shard, ref_path, tmp)
+            modes[shard] = dict(reference_rank_state_bytes=held,
+                                reference_losses=ref_losses,
+                                reference_step_ms=ref_ms, workers=got,
+                                workers_wall_s=wall_s)
     rec = dict(config=TRAIN_FULL, dtype="float32", processes=2,
                transport="gloo over CUDA tensors (NCCL refuses two ranks "
                          "on one GPU)",
-               per_process_mesh={"data": 1, "model": DIST_TP},
-               reference_mesh=dict(mesh.shape),
-               local_batch=DIST_LOCAL_BATCH, steps=DIST_STEPS,
-               reference_losses=ref_losses, reference_step_ms=ref_ms,
-               workers=got, workers_wall_s=wall_s,
+               process_mesh={"data": 2, "model": DIST_TP},
+               ranks_per_process=DIST_TP, reference_mesh=dict(mesh.shape),
+               local_batch=DIST_LOCAL_BATCH, steps=DIST_STEPS, modes=modes,
                loss_gap_bound=DIST_LOSS_GAP,
                param_rel_gap_bound=DIST_PARAM_RTOL,
-               launches_per_step=got[0]["launches_per_step"][-1],
+               launches_per_step=modes["none"]["workers"][0][
+                   "launches_per_step"][-1],
                expected_launches_per_step=want)
     emit("distributed_train", **rec)
-    for w in got:
-        if any(n != want for n in w["launches_per_step"]):
-            raise AssertionError(f"distributed process {w['process_id']} "
-                                 f"launched {w['launches_per_step']}, want "
-                                 f"{want}")
-        gap = max(abs(a - b) for a, b in zip(w["losses"], ref_losses))
-        if not gap <= DIST_LOSS_GAP:
-            raise AssertionError(f"distributed process {w['process_id']}: "
-                                 f"losses {w['losses']} vs one process "
-                                 f"{ref_losses}")
-        if not w["param_rel_gap"] <= DIST_PARAM_RTOL:
-            raise AssertionError(f"distributed process {w['process_id']}: "
-                                 f"params {w['param_rel_gap']} of their "
-                                 f"scale from one process's")
+    for shard, m in modes.items():
+        for w in m["workers"]:
+            who = f"distributed process {w['process_id']} ({shard})"
+            if any(n != want for n in w["launches_per_step"]):
+                raise AssertionError(f"{who} launched "
+                                     f"{w['launches_per_step']}, want "
+                                     f"{want}")
+            mine = m["reference_rank_state_bytes"][
+                w["local_ranks"][0]:w["local_ranks"][-1] + 1]
+            if w["rank_state_bytes"] != mine:
+                raise AssertionError(f"{who} holds {w['rank_state_bytes']} "
+                                     f"bytes a rank; the one-process mesh "
+                                     f"places {mine} there")
+            gap = max(abs(a - b) for a, b in zip(w["losses"],
+                                                 m["reference_losses"]))
+            if not gap <= DIST_LOSS_GAP:
+                raise AssertionError(f"{who}: losses {w['losses']} vs one "
+                                     f"process {m['reference_losses']}")
+            if not w["param_rel_gap"] <= DIST_PARAM_RTOL:
+                raise AssertionError(f"{who}: params {w['param_rel_gap']} "
+                                     f"of their scale from one process's")
+    busiest = {shard: max(m["reference_rank_state_bytes"])
+               for shard, m in modes.items()}
+    if not busiest["fsdp"] < busiest["zero1"] < busiest["none"]:
+        raise AssertionError(f"distributed busiest rank's state bytes "
+                             f"{busiest}: want fsdp < zero1 < none")
     return rec
 
 
@@ -4207,7 +4345,8 @@ def phase_pp_train_main_path(torch, np, attention, model, pipeline,
     train_main_path's one-device kernel step within TRAIN_LOSS_GAP /
     TRAIN_GRAD_NORM_RTOL; each stage's stored bytes as placed
     (``model.rank_state_bytes``: its blocks and their moments are 1/P of
-    the whole, the first stage also holds the replicated leaves); the
+    the whole, and every stage holds its own copy of the replicated
+    leaves); the
     stage forwards a step (m·P, the bubble slots skipped) beside the
     GPipe bubble (P−1)/(m+P−1); MESH_WARM warm and MESH_STEPS timed
     steps whose launches are counted per step (K1 2·L·m under remat,
@@ -4227,6 +4366,7 @@ def phase_pp_train_main_path(torch, np, attention, model, pipeline,
     n_params = sum(int(np.prod(leaf.shape))
                    for _, leaf in model._flatten(params))
     held = model.rank_state_bytes(mesh, params, opt)
+    placed = _placed_state_bytes(np, model, mesh, params)
     block_bytes = model.rank_state_bytes(
         mesh, {"blocks": params["blocks"]},
         {key: {"blocks": opt[key]["blocks"]} for key in ("mu", "nu")})
@@ -4317,9 +4457,10 @@ def phase_pp_train_main_path(torch, np, attention, model, pipeline,
     if block_bytes != [whole // stages] * stages:
         raise AssertionError(f"pp: each stage's blocks and moments "
                              f"{block_bytes}, want 1/{stages} of {whole}")
-    if sum(held) != 3 * 4 * n_params:
-        raise AssertionError(f"pp: the stages hold {sum(held)} bytes, one "
-                             f"copy of the state is {3 * 4 * n_params}")
+    if sum(held) != placed:
+        raise AssertionError(f"pp: the stages hold {sum(held)} bytes, a "
+                             f"block of each leaf and its two moments on "
+                             f"every stage is {placed}")
     if moe_launches != moe_want:
         raise AssertionError(f"pp MoE loss launched {moe_launches}, want "
                              f"{moe_want}")
@@ -4357,6 +4498,7 @@ def phase_pp3d_train_main_path(torch, np, attention, model, pipeline,
     n_params = sum(int(np.prod(leaf.shape))
                    for _, leaf in model._flatten(params))
     held = model.rank_state_bytes(mesh, params, opt)
+    placed = _placed_state_bytes(np, model, mesh, params)
     first = _blocks_loss_and_grad_norm(
         torch, model, pipeline.make_pipeline3d_loss(mesh, cfg, m, remat=True),
         params, tokens)
@@ -4402,10 +4544,19 @@ def phase_pp3d_train_main_path(torch, np, attention, model, pipeline,
             and abs(first[1] - sn) <= TRAIN_GRAD_NORM_RTOL * sn):
         raise AssertionError(f"dp×pp×tp: first loss {first[0]}, grad norm "
                              f"{first[1]} vs one device {sl}, {sn}")
-    if sum(held) != 3 * 4 * n_params:
+    if sum(held) != placed:
         raise AssertionError(f"dp×pp×tp: the ranks hold {sum(held)} bytes, "
-                             f"one copy of the state is {3 * 4 * n_params}")
+                             f"a block of each leaf and its two moments on "
+                             f"every rank is {placed}")
     return rec
+
+
+def _placed_state_bytes(np, model, mesh, params) -> int:
+    """The bytes of params and their two f32 moments at the params' specs
+    when every rank holds its own block of every leaf."""
+    return mesh.size * sum(
+        3 * 4 * int(np.prod(leaf.shape)) // int(np.prod(leaf.counts))
+        for _, leaf in model._flatten(params))
 
 
 def _pipeline_grads(torch, model, pipeline, mesh, cfg, loss_of, params,
@@ -4416,15 +4567,22 @@ def _pipeline_grads(torch, model, pipeline, mesh, cfg, loss_of, params,
     import dataclasses
 
     live = {path: dataclasses.replace(leaf, blocks={
-        i: t.detach().requires_grad_() for i, t in leaf.blocks.items()})
+        r: t.detach().requires_grad_() for r, t in leaf.blocks.items()})
         for path, leaf in model._flatten(params)}
-    keys = [(path, i) for path, leaf in live.items() for i in leaf.blocks]
+    keys = [(path, r) for path, leaf in live.items() for r in leaf.blocks]
     grads = torch.autograd.grad(loss_of(model._unflatten(live), tokens),
-                                [live[p].blocks[i] for p, i in keys])
+                                [live[p].blocks[r] for p, r in keys],
+                                allow_unused=True)
+    # Each block's gradient summed over its ranks, held by its first.
     tree = {path: dataclasses.replace(leaf, blocks={})
             for path, leaf in live.items()}
-    for (path, i), g in zip(keys, grads):
-        tree[path].blocks[i] = g
+    for (path, r), g in zip(keys, grads):
+        leaf = live[path]
+        first = leaf.first_holders(leaf.blocks)[leaf.indices[r]]
+        g = torch.zeros_like(leaf.blocks[r]) if g is None else g
+        if first in tree[path].blocks:
+            g = tree[path].blocks[first] + g.to(tree[path].blocks[first].device)
+        tree[path].blocks[first] = g
     out = model.gather_params(mesh, model._unflatten(tree))
     if "wq" in out["blocks"]:
         out = pipeline.merge_qkv_weights(out, cfg)
@@ -5525,5 +5683,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--distributed-worker"]:
         distributed_worker(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--time-mesh-step"]:
+        time_mesh_step(*sys.argv[2:])
     else:
         main()

@@ -146,3 +146,65 @@ def test_auto_resolves_by_device_and_head_dim():
     assert odd.resolved_attention(torch.device("cpu")) == "einsum"
     assert ModelConfig(attention="einsum").resolved_attention(
         torch.device("cuda")) == "einsum"
+
+
+# ---- reference_attention ---------------------------------------------------
+
+REF_CASES = {"mha-causal": (4, 4, True, None), "gqa-causal": (4, 2, True, None),
+             "mqa-window5": (4, 1, True, 5), "gqa-window3": (4, 2, True, 3),
+             "mha-full": (4, 4, False, None), "gqa-full": (4, 2, False, None)}
+
+
+@pytest.mark.parametrize("case", REF_CASES)
+def test_reference_attention_matches_jax(case):
+    """``reference_attention`` against JAX's (attention.py's einsum
+    oracle) in f32: MHA, GQA and MQA, causal, windowed and non-causal."""
+    h, hkv, causal, window = REF_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((2, h, 24, 8), (2, hkv, 24, 8), (2, hkv, 24, 8)))
+    got = attention.reference_attention(
+        *map(torch.from_numpy, (q, k, v)), causal=causal, window=window)
+    want = jax_attention.reference_attention(
+        *map(jnp.asarray, (q, k, v)), causal=causal, window=window)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+
+
+# The mean |Δ| of the bf16 Ulysses outputs over their mean |value|: the
+# einsum route on both sides keeps P in f32, so the two differ only where
+# an f32 summation order tips a bf16 rounding.  The kernel's plain
+# version casts P to bf16 before PV and lands well above it.
+ULYSSES_BF16_REL = 1e-5
+
+
+def test_ulysses_einsum_matches_jax_in_bf16():
+    """The port's einsum Ulysses (``reference_attention`` on each rank's
+    heads) against JAX's ``make_ulysses_attention(impl="einsum")`` on an
+    sp 2 mesh, in bf16, within ULYSSES_BF16_REL; the kernel's plain
+    version (``flash_attention_reference``), the route before, does not
+    meet that bound on the same inputs."""
+    from jax.sharding import Mesh
+
+    from tpu_autoscaler.workloads import ulysses as jax_ulysses
+    from tpu_autoscaler_torch.workloads import ulysses
+
+    rng = np.random.default_rng(16)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((2, 4, 64, 16), (2, 2, 64, 16), (2, 2, 64, 16)))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got = ulysses.make_ulysses_attention(["cpu"] * 2, impl="einsum")(
+        tq, tk, tv)
+    mesh = Mesh(np.asarray(jax.devices()[:2]), axis_names=("sp",))
+    want = np.asarray(jax_ulysses.make_ulysses_attention(
+        mesh, impl="einsum")(*(jnp.asarray(x, jnp.bfloat16)
+                               for x in (q, k, v))).astype(jnp.float32))
+    old = attention.flash_attention_reference(tq, tk, tv)[0]
+    assert got.dtype == torch.bfloat16
+
+    def rel(t):
+        return float(np.abs(t.float().numpy() - want).mean()
+                     / np.abs(want).mean())
+
+    assert rel(got) <= ULYSSES_BF16_REL < rel(old), (rel(got), rel(old))

@@ -147,7 +147,9 @@ def test_sp_compositions_match_jax(case):
 def test_zero1_under_sp_cuts_the_moments_over_data_and_sp(tp):
     """ZeRO-1 under sp (JAX tests/test_sp.py's zero1 test): every moment
     is cut over (data, sp), as JAX's opt_state_shardings cut it, each
-    rank's slice 1/4 of the whole; the params stay one copy."""
+    rank's slice 1/4 of the whole and every rank holding its own (the
+    model ranks of a (data, sp) coordinate each a copy, as JAX's devices
+    each hold their shard); the params stay one copy."""
     jcfg, tcfg = _cfgs()
     jmesh, tmesh = _meshes("sp", 2, 2, tp)
     jinit, _ = jax_sp.make_sp_train_step(jmesh, jcfg, shard="zero1")
@@ -161,7 +163,8 @@ def test_zero1_under_sp_cuts_the_moments_over_data_and_sp(tp):
         assert {tuple(t.shape) for t in leaf.blocks.values()} == {
             tuple(jmu[path].sharding.shard_shape(jmu[path].shape))}, path
     qkv = topt["mu"]["blocks"]["qkv"]
-    assert len(qkv.blocks) == 4
+    assert sorted(qkv.blocks) == list(range(tmesh.size))
+    assert len({qkv.indices[r] for r in qkv.blocks}) == 4
     assert all(4 * t.numel() == int(np.prod(qkv.shape))
                for t in qkv.blocks.values())
     assert all(isinstance(t, torch.Tensor) for _, t in
@@ -269,12 +272,14 @@ def test_ep_compositions_match_jax(case):
                          ids=["ep2", "ep2-tp2", "ep4-tp2"])
 def test_ep_state_bytes_fall_by_ep_and_tp(n, tp):
     """Each rank stores 1/(ep·tp) of the expert weights and of their
-    Adam moments (JAX's shard shapes), the dense state once; every
-    block on its rank's device; the one-device layout round-trips bit
-    for bit through shard and gather."""
+    Adam moments (JAX's shard shapes), and its own copy of the dense
+    state: every rank's params and moments weigh what JAX's addressable
+    shards weigh on its device; every block on its rank's device; the
+    one-device layout round-trips bit for bit through shard and
+    gather."""
     jcfg, tcfg = _ep_cfgs()
     jmesh, tmesh = _meshes("ep", 2, n, tp)
-    jparams, _ = jax_moe.make_ep_train_step(jmesh, jcfg)[0](
+    jparams, jopt = jax_moe.make_ep_train_step(jmesh, jcfg)[0](
         jax.random.PRNGKey(0))
     params, opt = moe.make_ep_train_step(tmesh, tcfg)[0](
         torch.Generator().manual_seed(0))
@@ -282,7 +287,21 @@ def test_ep_state_bytes_fall_by_ep_and_tp(n, tp):
         leaf, jleaf = params["blocks"][name], jparams["blocks"][name]
         shapes = {tuple(t.shape) for t in leaf.blocks.values()}
         assert shapes == {tuple(jleaf.sharding.shard_shape(jleaf.shape))}
-        assert len(leaf.blocks) == n * tp
+        assert sorted(leaf.blocks) == list(range(tmesh.size))
+        assert len({leaf.indices[r] for r in leaf.blocks}) == n * tp
+    jmoments = [leaf for path, leaf in
+                jax.tree_util.tree_flatten_with_path(jopt)[0]
+                if any(getattr(k, "name", None) in ("mu", "nu")
+                       for k in path)]
+    jbytes = [0] * jmesh.size
+    for x in jax.tree_util.tree_leaves(jparams) + jmoments:
+        by_device = {sh.device: sh for sh in x.addressable_shards}
+        for r, dev in enumerate(jmesh.devices.flat):
+            jbytes[r] += by_device[dev].data.nbytes
+    # JAX has 8 devices: at ep 4 × tp 2 its mesh has one data row, whose
+    # bytes each of the port's data rows repeats.
+    assert model.rank_state_bytes(tmesh, params, opt) \
+        == jbytes * (tmesh.size // jmesh.size)
     experts = {"blocks": {k: params["blocks"][k] for k in ("w1", "w2")}}
     moments = {key: {"blocks": {k: opt[key]["blocks"][k]
                                 for k in ("w1", "w2")}}
@@ -290,8 +309,7 @@ def test_ep_state_bytes_fall_by_ep_and_tp(n, tp):
     held = model.rank_state_bytes(tmesh, experts, moments)
     whole = 3 * 4 * sum(int(np.prod(leaf.shape))
                         for leaf in experts["blocks"].values())
-    assert sum(held) == whole
-    assert max(held) == whole // (n * tp)
+    assert held == [whole // (n * tp)] * tmesh.size
     one = model.init_params(torch.Generator().manual_seed(0), tcfg, "cpu")
     back = model.gather_params(tmesh, moe.shard_ep_params(tmesh, tcfg, one))
     for (path, a), (_, b) in zip(model._flatten(one), model._flatten(back)):

@@ -208,8 +208,8 @@ topo = distributed.initialize_from_env(
      "TPU_WORKER_ID": str(pid)}, backend="gloo")
 cfg = model.ModelConfig(vocab=64, d_model=32, n_layers=2, n_heads=4,
                         d_ff=64, seq_len=16, dtype=torch.float32)
-init_fn, step = model.make_train_step(
-    cfg, device="cpu", grad_sync=distributed.process_mean)
+mesh = distributed.make_process_mesh(["cpu"], tp=1)
+init_fn, step = model.make_sharded_train_step(mesh, cfg)
 params, opt = init_fn(torch.Generator().manual_seed(0))
 losses = []
 for s in range(steps):
@@ -218,7 +218,8 @@ for s in range(steps):
     params, opt, loss = step(params, opt, rows)
     losses.append(float(loss))
 np.savez(out, losses=np.asarray(losses),
-         **{k: v.numpy() for k, v in model._flatten(params)})
+         **{k: v.numpy() for k, v in model._flatten(
+             model.gather_params(mesh, params))})
 torch.distributed.destroy_process_group()
 """
 
@@ -261,9 +262,10 @@ def _one_process_dp2(steps, rows_of):
 
 def test_two_processes_train_the_one_process_dp2_model(tmp_path):
     """Two processes joined by gloo on the CPU (initialize_from_env with
-    TPU_WORKER_HOSTNAMES=localhost,localhost and a free port), each
-    stepping on its own 4 rows with the gradients and the loss averaged
-    over the processes: three steps give the losses and params of the
+    TPU_WORKER_HOSTNAMES=localhost,localhost and a free port) on one
+    mesh (``distributed.make_process_mesh``, shard none), each stepping
+    on its own 4 rows with the gradients and the loss averaged over the
+    processes: three steps give the losses and params of the
     one-process dp 2 mesh on the 8 rows."""
     port = _free_port()
     outs = [str(tmp_path / f"p{pid}.npz") for pid in range(2)]

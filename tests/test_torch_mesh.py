@@ -231,7 +231,7 @@ def test_rank_shards_match_jax(name, shard):
     assert len(pairs) == len(_paths(jp)) * 4      # params, mu, nu, acc
     for path, leaf, jx in pairs:
         for r, js in enumerate(_jax_shards(jx, jmesh)):
-            block = leaf.blocks[leaf.index_of(r)]
+            block = leaf.blocks[r]
             assert tuple(block.shape) == tuple(js.data.shape), (path, r)
             if not path.endswith("qkv"):
                 assert leaf.region(leaf.index_of(r)) == tuple(
@@ -265,15 +265,28 @@ def test_gather_of_shard_is_exact(name, shard):
             assert torch.equal(x, y), (key, path)
 
 
+def _jax_device_bytes(jmesh, jparams, jopt) -> list:
+    """The bytes of JAX's params and moments (mu, nu; no counts) in each
+    device's addressable shards, in rank order."""
+    moments, _ = _jax_moments(jopt)
+    out = [0] * jmesh.size
+    for x in [*_paths(jparams).values(), *moments.values()]:
+        for r, js in enumerate(_jax_shards(x, jmesh)):
+            out[r] += js.data.nbytes
+    return out
+
+
 def test_rank_state_bytes_rank_the_modes():
     """Params + moments stored per rank at dp 4 × tp 2, as placed: each
-    block once, on its first holder.  Every mode stores one copy in all
-    (and the blocks' own storages hold exactly the counted bytes, so no
-    block keeps a whole tensor alive); under none the replicas weigh on
-    the first data row alone; the busiest rank ranks the modes fsdp <
-    zero1 < none."""
-    _, tcfg = _cfgs()
-    mesh = model.make_mesh(["cpu"] * 8)
+    rank holds its own blocks, so every rank's bytes are JAX's
+    addressable shards' on the same rank's device in each mode (a
+    replicated block counts on each rank of its group: under none every
+    rank holds the same, at least a tp-th of the state), and the blocks'
+    storages, one per block, hold exactly the counted bytes, so no two
+    ranks share one and no block keeps a whole tensor alive; the busiest
+    rank ranks the modes fsdp < zero1 < none."""
+    jcfg, tcfg = _cfgs()
+    jmesh, mesh = _meshes()
     one_copy = 3 * 4 * sum(
         int(np.prod(shape)) for _, shape in model._flatten(
             model.param_shapes(tcfg)))
@@ -282,14 +295,18 @@ def test_rank_state_bytes_rank_the_modes():
         params, opt = model.make_sharded_train_step(
             mesh, tcfg, shard=shard)[0](torch.Generator().manual_seed(0))
         held[shard] = model.rank_state_bytes(mesh, params, opt)
+        jp, jo = jax_model.make_sharded_train_step(
+            jmesh, jcfg, shard=shard)[0](jax.random.PRNGKey(0))
+        assert held[shard] == _jax_device_bytes(jmesh, jp, jo), shard
+        blocks = [t for tree in (params, opt["mu"], opt["nu"])
+                  for _, leaf in model._flatten(tree)
+                  for t in leaf.blocks.values()]
         storages = {t.untyped_storage().data_ptr():
-                    t.untyped_storage().nbytes()
-                    for tree in (params, opt["mu"], opt["nu"])
-                    for _, leaf in model._flatten(tree)
-                    for t in leaf.blocks.values()}
-        assert sum(storages.values()) == sum(held[shard]) == one_copy, shard
-    assert held["none"][2:] == [0] * 6
-    assert all(n > 0 for n in held["zero1"] + held["fsdp"][::2])
+                    t.untyped_storage().nbytes() for t in blocks}
+        assert len(storages) == len(blocks), shard
+        assert sum(storages.values()) == sum(held[shard]), shard
+    assert held["none"] == [held["none"][0]] * 8
+    assert 2 * held["none"][0] >= one_copy
     assert max(held["fsdp"]) < max(held["zero1"]) < max(held["none"])
 
 
@@ -299,8 +316,7 @@ def test_rank_state_bytes_rank_the_modes():
 def _rank_shards(leaf):
     """Each rank's block of ``leaf`` on its rank's device, in rank
     order."""
-    return [leaf.blocks[leaf.index_of(r)].to(dev)
-            for r, dev in enumerate(leaf.mesh.ranks)]
+    return [leaf.blocks[r] for r in range(leaf.mesh.size)]
 
 
 def _from_rank_shards(mesh, spec, shards):
@@ -308,8 +324,7 @@ def _from_rank_shards(mesh, spec, shards):
     order)."""
     leaf = model.Sharded(mesh, spec, tuple(shards[0].shape), {})
     leaf.shape = tuple(n * c for n, c in zip(leaf.shape, leaf.counts))
-    for r, t in enumerate(shards):
-        leaf.blocks.setdefault(leaf.index_of(r), t)
+    leaf.blocks.update(enumerate(shards))
     return leaf
 
 

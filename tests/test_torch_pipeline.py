@@ -88,17 +88,24 @@ def _placed(tmesh, tcfg, jparams):
 
 def _grads(loss_of, params, tokens):
     """The loss and its gradient with respect to every block of the
-    Sharded ``params``, gathered to the one-device layout."""
+    Sharded ``params`` (each block's summed over the ranks that hold
+    it), gathered to the one-device layout."""
     live = {path: dataclasses.replace(leaf, blocks={
-        i: t.detach().requires_grad_() for i, t in leaf.blocks.items()})
+        r: t.detach().requires_grad_() for r, t in leaf.blocks.items()})
         for path, leaf in model._flatten(params)}
     value = loss_of(model._unflatten(live), tokens)
-    keys = [(path, i) for path, leaf in live.items() for i in leaf.blocks]
-    grads = torch.autograd.grad(value, [live[p].blocks[i] for p, i in keys])
+    keys = [(path, r) for path, leaf in live.items() for r in leaf.blocks]
+    grads = torch.autograd.grad(value, [live[p].blocks[r] for p, r in keys],
+                                allow_unused=True)
     out = {path: dataclasses.replace(leaf, blocks={})
            for path, leaf in live.items()}
-    for (path, i), g in zip(keys, grads):
-        out[path].blocks[i] = g
+    for (path, r), g in zip(keys, grads):
+        leaf = live[path]
+        first = leaf.first_holders(leaf.blocks)[leaf.indices[r]]
+        g = torch.zeros_like(leaf.blocks[r]) if g is None else g
+        if first in out[path].blocks:
+            g = out[path].blocks[first] + g
+        out[path].blocks[first] = g
     return value, dict(model._flatten(model.gather_params(
         next(iter(live.values())).mesh, model._unflatten(out))))
 
@@ -182,22 +189,41 @@ def test_split_merge_round_trip_bit_for_bit():
             assert torch.equal(dict(model._flatten(merged))[path], t)
 
 
+def _jax_device_bytes(jmesh, jparams, jopt) -> list:
+    """The bytes of JAX's params and Adam moments in each device's
+    addressable shards, in rank order."""
+    moments = [leaf for path, leaf in
+               jax.tree_util.tree_flatten_with_path(jopt)[0]
+               if any(getattr(k, "name", None) in ("mu", "nu")
+                      for k in path)]
+    out = [0] * jmesh.size
+    for x in jax.tree_util.tree_leaves(jparams) + moments:
+        by_device = {s.device: s for s in x.addressable_shards}
+        for r, dev in enumerate(jmesh.devices.flat):
+            out[r] += by_device[dev].data.nbytes
+    return out
+
+
 def test_params_shard_over_stages_and_model():
     """Each rank's blocks have JAX's shard shapes: 4 layers over 4
-    stages, one layer each (moments the same); under data 2 × pp 2 ×
-    model 2, wq [2, 32, 16], w2 [2, 32, 32]; the ranks' stored bytes
-    sum to one copy of the state."""
-    _, tcfg = _cfgs(**ARCH)
-    _, tmesh = _pp_meshes(4)
+    stages, stage r holding layer r (moments the same); under data 2 ×
+    pp 2 × model 2, wq [2, 32, 16], w2 [2, 32, 32]; each rank's stored
+    bytes, its own blocks and its own copy of the replicated leaves,
+    are JAX's addressable shards' on its device."""
+    jcfg, tcfg = _cfgs(**ARCH)
+    jmesh, tmesh = _pp_meshes(4)
     init_fn, _ = pipeline.make_pipeline_train_step(tmesh, tcfg, 2)
     params, opt = init_fn(torch.Generator().manual_seed(0))
     for tree in (params, opt["mu"], opt["nu"]):
         leaf = tree["blocks"]["qkv"]
-        assert sorted(leaf.blocks) == [(i, 0, 0) for i in range(4)]
+        assert sorted(leaf.blocks) == list(range(4))
+        assert [leaf.indices[r] for r in range(4)] == [(i, 0, 0)
+                                                       for i in range(4)]
         assert all(t.shape[0] == 1 for t in leaf.blocks.values())
-    whole = sum(3 * 4 * int(np.prod(leaf.shape))
-                for _, leaf in model._flatten(params))
-    assert sum(model.rank_state_bytes(tmesh, params, opt)) == whole
+    jp, jo = jax_pipeline.make_pipeline_train_step(jmesh, jcfg, 2)[0](
+        jax.random.PRNGKey(0))
+    assert model.rank_state_bytes(tmesh, params, opt) \
+        == _jax_device_bytes(jmesh, jp, jo)
 
     _, tcfg4 = _cfgs(**ARCH4)
     _, tmesh3 = _meshes3d(2, 2, 2)

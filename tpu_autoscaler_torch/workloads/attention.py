@@ -401,6 +401,29 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
     return out, (m + torch.log(l_sum)).reshape(b, h, s, 1)
 
 
+def reference_attention(q, k, v, *, causal: bool = True,
+                        window: int | None = None):
+    """Plain einsum attention, the JAX package's numerics oracle: the
+    GQA repeat materialised, f32 scores times d^-0.5, keys outside the
+    band at -1e30, an f32 softmax and an f32 PV, the output cast to q's
+    dtype.  Unlike :func:`flash_attention_reference` (the kernel's
+    plain version) P is not cast to v's dtype before PV, and no lse is
+    returned."""
+    if k.shape[1] != q.shape[1]:
+        rep = q.shape[1] // k.shape[1]
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    d = q.shape[-1]
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
+        * d ** -0.5
+    if causal:
+        scores = torch.where(
+            causal_band_mask(scores.shape[-1], window, q.device), scores,
+            NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+
+
 def _attention_forward(q, k, v, causal: bool, window):
     """Out and lse without a graph: the kernel on CUDA tensors, the plain
     version on CPU tensors."""

@@ -8,10 +8,12 @@ job side of the hardware the autoscaler provisions.
   coordinator address and the process index come from the GKE env
   contract (``TPU_WORKER_HOSTNAMES``, ``TPU_WORKER_ID``), and the
   process group is brought up over it (``torch.distributed``: NCCL
-  between CUDA processes, gloo on the CPU).  Each process then trains a
-  replica of the step over the mesh of its own cards and averages the
-  gradients over the processes (:func:`process_mean`), so the data
-  parallelism crosses hosts while tensor parallelism stays inside each.
+  between CUDA processes, gloo on the CPU).  The processes then share
+  one mesh (:func:`make_process_mesh`), each holding the data rows of
+  its own cards: the step averages the gradients over the processes
+  (:func:`process_mean`), and ZeRO-1 and FSDP cut the state over the
+  global data axes, so the data parallelism crosses hosts while tensor
+  parallelism stays inside each.
 - **multi-slice**: the mesh gains a leading ``dcn`` axis, one coordinate
   per slice (``MEGASCALE_SLICE_ID``, or the JobSet job index).  The batch
   is cut over (dcn, data), tensor parallelism stays inside each slice
@@ -107,9 +109,10 @@ def initialize_from_env(env: Mapping[str, str] | None = None,
 def process_mean(tensors: list) -> list:
     """``tensors`` averaged over the processes of the group (one
     all-reduce per device and dtype, over the tensors flattened into one
-    buffer): what every process's step applies to its gradients and its
-    loss before the optimizer, so the processes train one model on the
-    global batch.  Identity when no group is up."""
+    buffer): what the step over a mesh of several processes applies to
+    its loss and the gradients every process holds before the optimizer,
+    so the processes train one model on the global batch.  Identity when
+    no group is up."""
     import torch
     import torch.distributed as dist
 
@@ -128,6 +131,36 @@ def process_mean(tensors: list) -> list:
                                             for i in idx])):
             out[i] = part.view_as(tensors[i])
     return out
+
+
+def make_process_mesh(devices=None, tp: int | None = None,
+                      num_slices: int = 1):
+    """The mesh of every process of the job, as the JAX trainer's one
+    mesh over ``jax.devices()``: each process brings the same count of
+    ``devices`` (default: every visible CUDA card; a device may repeat),
+    cut into data rows of ``tp`` model ranks as ``model.make_mesh`` cuts
+    them (tp's default from the local count), and process p's rows
+    follow process p - 1's on the data axis, so ZeRO-1 and FSDP cut over
+    the global data parallelism.  The grid holds this process's devices,
+    and None at the other processes' ranks (``Mesh.local``).  With
+    ``num_slices`` > 1 it is the (dcn, data, model) mesh, slice-major.
+    Without a process group, the mesh of this process alone."""
+    import torch.distributed as dist
+
+    from tpu_autoscaler_torch.workloads.model import Mesh, make_mesh
+
+    local = make_mesh(devices, tp=tp)
+    up = dist.is_initialized()
+    n_proc, pid = (dist.get_world_size(), dist.get_rank()) if up else (1, 0)
+    dp, tp = local.devices.shape
+    grid = np.full((n_proc * dp, tp), None, dtype=object)
+    grid[pid * dp:(pid + 1) * dp] = local.devices
+    if num_slices == 1:
+        return Mesh(grid, ("data", "model"))
+    if (n_proc * dp) % num_slices:
+        raise ValueError(f"{n_proc * dp} data rows not divisible by "
+                         f"num_slices = {num_slices}")
+    return Mesh(grid.reshape(num_slices, -1, tp), ("dcn", "data", "model"))
 
 
 def make_multislice_mesh(num_slices: int, model: int = 2, devices=None):

@@ -43,6 +43,7 @@ from tpu_autoscaler_torch.workloads.attention import (
     flash_attention,
     make_sharded_flash_attention,
 )
+from tpu_autoscaler_torch.workloads.distributed import process_mean
 from tpu_autoscaler_torch.workloads.moe import (
     _ranks_loss,
     combine as moe_combine,
@@ -158,7 +159,7 @@ class ModelConfig:
         mesh: on head shards when :meth:`mesh_shardable` holds, else on
         each data row's whole heads."""
         return dataclasses.replace(
-            self, attention=self.resolved_attention(mesh.ranks[0]))
+            self, attention=self.resolved_attention(mesh.first))
 
     @property
     def head_dim(self) -> int:
@@ -657,12 +658,15 @@ class Optimizer:
             return self._sched
         return self._sched(count * self.train.accum_steps)
 
-    def _clip(self, grads: dict) -> dict:
+    def _clip(self, grads: dict, norm_sq=None) -> dict:
         # The leaves may lie on several devices (a mesh's blocks): the
         # norm is summed on the first leaf's and read back on each.
-        leaves = [g for _, g in _flatten(grads)]
-        dev = leaves[0].device
-        norm = torch.sqrt(sum(torch.sum(g * g).to(dev) for g in leaves))
+        if norm_sq is None:
+            leaves = [g for _, g in _flatten(grads)]
+            dev = leaves[0].device
+            norm = torch.sqrt(sum(torch.sum(g * g).to(dev) for g in leaves))
+        else:
+            norm = torch.sqrt(norm_sq(grads))
         max_norm = self.train.grad_clip
         keep = norm < max_norm
         return _map_tree(
@@ -687,25 +691,29 @@ class Optimizer:
         updates = _map_tree(step, mu, nu, params)
         return updates, {"count": count, "mu": mu, "nu": nu}
 
-    def _inner(self, grads: dict, state: dict, params: dict):
+    def _inner(self, grads: dict, state: dict, params: dict, norm_sq):
         if self.train.grad_clip is not None:
-            grads = self._clip(grads)
+            grads = self._clip(grads, norm_sq)
         return self._adamw(grads, state, params)
 
     @torch.no_grad()
-    def update(self, grads: dict, state: dict, params: dict):
+    def update(self, grads: dict, state: dict, params: dict, norm_sq=None):
         """(updates, new state) for ``grads`` at ``params``; add the
-        updates to the params (:func:`apply_updates`)."""
+        updates to the params (:func:`apply_updates`).  ``norm_sq(tree)
+        -> 0-d tensor``, when given, is the clip's squared global norm
+        of a gradient tree of this shape (the sum over the pieces every
+        process holds, :func:`_sharded_update`); by default the sum
+        over the tree's leaves."""
         k = self.train.accum_steps
         if k == 1:
-            return self._inner(grads, state, params)
+            return self._inner(grads, state, params, norm_sq)
         n = state["mini_step"]
         acc = _map_tree(lambda g, a: a + (g - a) / (n + 1), grads,
                         state["acc"])
         if n < k - 1:
             return _tree_zeros(grads), {**state, "mini_step": n + 1,
                                         "acc": acc}
-        updates, inner = self._inner(acc, state, params)
+        updates, inner = self._inner(acc, state, params, norm_sq)
         return updates, {**inner, "mini_step": 0,
                          "gradient_step": state["gradient_step"] + 1,
                          "acc": _tree_zeros(acc)}
@@ -725,12 +733,16 @@ def apply_updates(params: dict, updates: dict) -> dict:
 # ---- sharding -----------------------------------------------------------
 #
 # The JAX package declares its (data, model) layout with NamedSharding
-# and lets XLA place the collectives.  Here one process holds the mesh as
+# and lets XLA place the collectives.  Here a process holds the mesh as
 # a grid of devices (a device may repeat, so ranks share a card, as the
-# JAX tests' virtual CPU devices do), every tensor of the state lives as
-# the blocks its partition spec cuts it into (Sharded), the Megatron
-# products run on the model ranks of each data row, and the collectives
-# are ``.to()`` copies, cats and adds, which autograd transposes.
+# JAX tests' virtual CPU devices do), every rank holds its own block of
+# every tensor of the state, cut by its partition spec (Sharded), the
+# Megatron products run on the model ranks of each data row, and the
+# collectives are ``.to()`` copies, cats and adds, which autograd
+# transposes.  A mesh may span processes (the data rows of several
+# hosts, ``distributed.make_process_mesh``): each process then holds the
+# blocks of its own ranks, and meets the others through
+# ``torch.distributed`` (:func:`_process_all_gather`).
 
 
 class P(tuple):
@@ -754,11 +766,17 @@ class P(tuple):
 
 class Mesh:
     """A grid of devices with named axes, the port's
-    ``jax.sharding.Mesh``, held in one process.  ``devices`` is a numpy
-    object array of torch.devices with one dimension per name; a device
-    may appear more than once, so ranks share a card.  Rank r is the
-    r-th device in row-major order (``ranks[r]``); ``shape`` maps each
-    axis name to its size, in order."""
+    ``jax.sharding.Mesh``.  ``devices`` is a numpy object array of
+    torch.devices with one dimension per name; a device may appear more
+    than once, so ranks share a card.  Rank r is the r-th device in
+    row-major order (``ranks[r]``); ``shape`` maps each axis name to its
+    size, in order.
+
+    A mesh over several processes holds None at the ranks of the other
+    processes: ``local`` lists this process's ranks (one contiguous run,
+    as long on every process, so process p holds the p-th run), and
+    ``process`` is its index among ``processes``.  A mesh of one process
+    has every rank local."""
 
     def __init__(self, devices, axis_names):
         devices = np.asarray(devices, dtype=object)
@@ -770,7 +788,27 @@ class Mesh:
         self.shape = collections.OrderedDict(zip(self.axis_names,
                                                  devices.shape))
         self.size = devices.size
-        self.ranks = [_device(dev) for dev in devices.flat]
+        self.ranks = [None if dev is None else _device(dev)
+                      for dev in devices.flat]
+        self.local = [r for r, dev in enumerate(self.ranks)
+                      if dev is not None]
+        n = len(self.local)
+        if not n or self.size % n or self.local != list(
+                range(self.local[0], self.local[0] + n)):
+            raise ValueError("a process's ranks must be one contiguous run "
+                             "that divides the mesh")
+        self.processes = self.size // n
+        self.process = self.local[0] // n
+
+    @property
+    def first(self) -> torch.device:
+        """The device of this process's first rank."""
+        return self.ranks[self.local[0]]
+
+    def process_ranks(self, process: int) -> range:
+        """The ranks process ``process`` holds."""
+        n = len(self.local)
+        return range(process * n, (process + 1) * n)
 
     def coords(self, rank: int) -> dict:
         """Rank ``rank``'s coordinate along each axis."""
@@ -912,12 +950,16 @@ def _cut_axes(spec: P, ndim: int) -> list[tuple]:
 @dataclasses.dataclass(eq=False)
 class Sharded:
     """One leaf of a tree sharded over ``mesh``: the global ``shape`` cut
-    by ``spec`` into blocks, ``blocks[index]`` (index: the block's
-    position along each tensor axis) held once, on the device of the
-    first rank that holds it; the other ranks of its replica group read
-    it through ``.to()``, so autograd sums their gradients (JAX's psum).
-    ``order``, when set, permutes the last axis before the cut (qkv's
-    head-aligned columns, :func:`_qkv_order`)."""
+    by ``spec`` into blocks, ``blocks[rank]`` the block rank ``rank``
+    holds (its position along each tensor axis: :meth:`index_of`), on
+    that rank's device.  Every rank holds its own block, as each JAX
+    device holds its shard: the ranks of a replica group hold equal
+    copies, each in a storage of its own, and a step sums their
+    gradients (JAX's psum) and updates every copy alike.  ``blocks``
+    holds this process's ranks (:attr:`Mesh.local`); a step reads the
+    blocks only other processes hold through :func:`_fetch`.  ``order``,
+    when set, permutes the last axis before the cut (qkv's head-aligned
+    columns, :func:`_qkv_order`)."""
 
     mesh: Mesh
     spec: P
@@ -946,6 +988,28 @@ class Sharded:
             out.append(i)
         return tuple(out)
 
+    @functools.cached_property
+    def indices(self) -> list[tuple]:
+        """Every rank's block index, in rank order."""
+        return [self.index_of(r) for r in range(self.mesh.size)]
+
+    def first_holders(self, ranks) -> dict:
+        """index -> the first of ``ranks`` that holds it, for each index
+        they hold, in rank order."""
+        out: dict = {}
+        for r in ranks:
+            out.setdefault(self.indices[r], r)
+        return out
+
+    def holder(self, index: tuple, near: int | None = None) -> int | None:
+        """A rank of this process that holds block ``index``: ``near``
+        itself when it does, else the first; None when only other
+        processes' ranks hold it."""
+        if near in self.blocks and self.indices[near] == index:
+            return near
+        return next((r for r in self.blocks if self.indices[r] == index),
+                    None)
+
     def region(self, index: tuple) -> tuple:
         """Block ``index``'s slices of the (ordered) global tensor."""
         return tuple(slice(i * (n // c), (i + 1) * (n // c))
@@ -955,8 +1019,9 @@ class Sharded:
 def shard_tensor(mesh: Mesh, x: torch.Tensor, spec: P,
                  order: torch.Tensor | None = None) -> Sharded:
     """``x`` cut by ``spec`` over ``mesh`` (after ``order`` permutes its
-    last axis), each block on its first holder's device: a copy of its
-    own, so no block keeps the whole of ``x`` alive."""
+    last axis): each of this process's ranks gets its block on its own
+    device, a copy of its own, so no two ranks share a storage and no
+    block keeps the whole of ``x`` alive."""
     leaf = Sharded(mesh, P(*spec), tuple(x.shape), {}, order)
     for d, (n, c) in enumerate(zip(leaf.shape, leaf.counts)):
         if n % c:
@@ -964,23 +1029,89 @@ def shard_tensor(mesh: Mesh, x: torch.Tensor, spec: P,
                              f"divide over the {c} ranks of {spec}")
     if order is not None:
         x = x.index_select(-1, order.to(x.device))
-    for r, dev in enumerate(mesh.ranks):
-        index = leaf.index_of(r)
-        if index not in leaf.blocks:
-            leaf.blocks[index] = x[leaf.region(index)].to(
-                dev, copy=True, memory_format=torch.contiguous_format)
+    for r in mesh.local:
+        leaf.blocks[r] = x[leaf.region(leaf.indices[r])].to(
+            mesh.ranks[r], copy=True, memory_format=torch.contiguous_format)
     return leaf
 
 
+def _process_all_gather(mesh: Mesh, tensors: list, group=None) -> list[list]:
+    """Each process's ``tensors`` (the same count, shapes and dtype on
+    every process), one list per process in process order, on this
+    process's first device: one ``torch.distributed.all_gather`` over
+    ``group`` (default: every process) of the tensors flattened into one
+    buffer, through host memory under gloo.  Every process of the mesh
+    must call it at the same point."""
+    import torch.distributed as dist
+
+    dev = mesh.first
+    flat = torch.cat([t.detach().reshape(-1).to(dev) for t in tensors])
+    if dist.get_backend(group) == "gloo":
+        flat = flat.cpu()
+    outs = [torch.empty_like(flat) for _ in range(mesh.processes)]
+    dist.all_gather(outs, flat, group=group)
+    sizes = [t.numel() for t in tensors]
+    return [[part.view_as(t) for part, t in zip(out.to(dev).split(sizes),
+                                                tensors)]
+            for out in outs]
+
+
+def _partial(leaf: Sharded) -> bool:
+    """Whether only other processes' ranks hold some block of ``leaf``
+    (a leaf FSDP or ZeRO-1 cuts over data rows of several processes).
+    The same on every process."""
+    return leaf.mesh.processes > 1 and len(leaf.first_holders(
+        leaf.blocks)) < len(set(leaf.indices))
+
+
+def _at(t: torch.Tensor, layer: int | None) -> torch.Tensor:
+    return t if layer is None else t[layer]
+
+
+def _sent(leaves: dict, layer: int | None = None) -> list:
+    """What this process sends of ``leaves`` (name -> :class:`Sharded`):
+    each leaf's distinct blocks at ``layer``, from their first holders,
+    in rank order."""
+    return [_at(leaf.blocks[r], layer) for leaf in leaves.values()
+            for r in leaf.first_holders(leaf.blocks).values()]
+
+
+def _received(leaves: dict, got: list[list]) -> dict:
+    """(name, index) -> block, for the blocks of ``leaves`` that only
+    other processes hold, read from ``got`` (:func:`_process_all_gather`
+    of every process's :func:`_sent`)."""
+    mesh = next(iter(leaves.values())).mesh
+    out = {}
+    for q, theirs in enumerate(got):
+        theirs = iter(theirs)
+        for name, leaf in leaves.items():
+            mine = leaf.first_holders(leaf.blocks)
+            for index in leaf.first_holders(mesh.process_ranks(q)):
+                t = next(theirs)
+                if index not in mine:
+                    out.setdefault((name, index), t)
+    return out
+
+
 def gather_tensor(leaf: Sharded, device=None) -> torch.Tensor:
-    """The whole tensor of ``leaf`` on ``device`` (default: the first
-    rank's), in the one-device layout."""
-    dev = leaf.mesh.ranks[0] if device is None else _device(device)
-    blocks = list(leaf.blocks.items())
+    """The whole tensor of ``leaf`` on ``device`` (default: this
+    process's first rank's), in the one-device layout, a tensor of its
+    own (a step overwrites the blocks): each block from its first
+    holder; over a mesh that spans processes, the blocks only other
+    processes hold come over ``torch.distributed``, so every process
+    must call it."""
+    dev = leaf.mesh.first if device is None else _device(device)
+    blocks = {index: leaf.blocks[r]
+              for index, r in leaf.first_holders(leaf.blocks).items()}
+    if _partial(leaf):
+        got = _process_all_gather(leaf.mesh, _sent({"": leaf}))
+        blocks.update({index: t for (_, index), t in _received(
+            {"": leaf}, got).items()})
     if len(blocks) == 1 and leaf.order is None:
-        return blocks[0][1].to(dev)
-    out = torch.empty(leaf.shape, dtype=blocks[0][1].dtype, device=dev)
-    for index, t in blocks:
+        return next(iter(blocks.values())).to(dev, copy=True)
+    t0 = next(iter(blocks.values()))
+    out = torch.empty(leaf.shape, dtype=t0.dtype, device=dev)
+    for index, t in blocks.items():
         out[leaf.region(index)] = t.to(dev)
     if leaf.order is not None:
         out = out.index_select(-1, torch.argsort(leaf.order).to(dev))
@@ -989,8 +1120,9 @@ def gather_tensor(leaf: Sharded, device=None) -> torch.Tensor:
 
 def gather_params(mesh: Mesh, tree):
     """A tree of :class:`Sharded` leaves (params, or an optimizer state
-    whose counts pass through) in the one-device layout, on the mesh's
-    first rank: what a checkpoint holds."""
+    whose counts pass through) in the one-device layout, on this
+    process's first rank: what a checkpoint holds.  A collective over a
+    mesh that spans processes (:func:`gather_tensor`)."""
     if isinstance(tree, dict):
         return {k: gather_params(mesh, v) for k, v in tree.items()}
     return gather_tensor(tree) if isinstance(tree, Sharded) else tree
@@ -1062,7 +1194,7 @@ def shard_params(mesh: Mesh, cfg: ModelConfig, tree: dict,
                  shard: str = "none") -> dict:
     """A one-device params tree at the specs of ``shard`` ("none" and
     "zero1": :func:`param_specs`; "fsdp": :func:`fsdp_param_specs`):
-    each distinct block once, on its first holder's device."""
+    each rank's block on its own device."""
     return _shard_tree(mesh, cfg, tree, _shard_specs(cfg, mesh, shard))
 
 
@@ -1082,49 +1214,121 @@ def _shard_state(mesh: Mesh, cfg: ModelConfig, state: dict, specs: dict):
 
 
 def rank_state_bytes(mesh: Mesh, params: dict, opt_state: dict) -> list:
-    """The bytes of params and optimizer tensors each rank stores, in
-    rank order, as :func:`shard_tensor` places them: every block counts
-    once, on its first holder, and nothing on the other ranks of its
-    replica group, which read it through ``.to()``.  So the ranks' sum
-    is one copy of the state in every mode, and a replicated block
-    weighs on the first data row only."""
-    out = [0] * mesh.size
+    """The bytes of params and optimizer tensors each of this process's
+    ranks stores (:attr:`Mesh.local`, in rank order): its own blocks,
+    each in a storage of its own, so a block replicated over a group of
+    ranks counts on every one of them, as JAX's addressable shards do on
+    each device."""
+    pos = {r: i for i, r in enumerate(mesh.local)}
+    out = [0] * len(pos)
     for tree in (params, *(v for v in opt_state.values()
                            if isinstance(v, dict))):
         for _, leaf in _flatten(tree):
-            seen = set()
-            for r in range(mesh.size):
-                index = leaf.index_of(r)
-                if index not in seen:
-                    seen.add(index)
-                    t = leaf.blocks[index]
-                    out[r] += t.numel() * t.element_size()
+            for r, t in leaf.blocks.items():
+                out[pos[r]] += t.numel() * t.element_size()
     return out
 
 
-def _tp_view(leaf: Sharded, j: int, dev, layer: int | None = None):
-    """What model rank ``j`` computes with, on ``dev``: ``leaf``'s block
-    ``j`` along its 'model'-cut axis (the whole axis if none is), at
-    layer ``layer`` of a stacked ``blocks`` leaf, gathered over the data
-    axes FSDP cuts (a cat, which autograd transposes into the
-    reduce-scatter)."""
-    base, cut = [], None
-    for d, axes in enumerate(leaf.cut_axes):
-        base.append(j if axes == ("model",) else 0)
-        if axes and axes != ("model",):
-            cut = d
+def _tp_view(leaf: Sharded, rank: int, dev, layer: int | None = None,
+             remote: dict | None = None):
+    """What rank ``rank`` computes with, on ``dev``: its own block of
+    ``leaf``, at layer ``layer`` of a stacked ``blocks`` leaf, gathered
+    over the data axes FSDP cuts: the blocks along that axis in order,
+    its own where it holds one, else another rank's of this process, or
+    ``remote[index]``, fetched from another process (:func:`_fetch`): a
+    cat, which autograd transposes into the reduce-scatter."""
+    own = leaf.indices[rank]
+    cut = next((d for d, axes in enumerate(leaf.cut_axes)
+                if axes and axes != ("model",)), None)
 
-    def block(k):
-        index = list(base)
-        if cut is not None:
-            index[cut] = k
-        t = leaf.blocks[tuple(index)]
-        return (t if layer is None else t[layer]).to(dev)
+    def block(index):
+        r = leaf.holder(index, rank)
+        if r is None:
+            return remote[index].to(dev)
+        return _at(leaf.blocks[r], layer).to(dev)
 
     if cut is None:
-        return block(0)
-    return torch.cat([block(k) for k in range(leaf.counts[cut])],
+        return block(own)
+    return torch.cat([block(own[:cut] + (k,) + own[cut + 1:])
+                      for k in range(leaf.counts[cut])],
                      dim=cut - (layer is not None))
+
+
+class _Fetch(torch.autograd.Function):
+    """FSDP's gather across processes, of the blocks at one layer of the
+    leaves of :func:`_fetch`'s plan.  Forward: every process sends its
+    distinct blocks (``sent``, :func:`_sent`) and receives the others'
+    (one all-gather over the plan's gather group).  Backward: the
+    gradients of the received blocks go back to the processes that hold
+    them (one all-reduce, over the plan's reduce group, of a buffer of
+    every block index, each process adding its received blocks'
+    gradients; a process keeps its own indices' sums: the
+    reduce-scatter), returned as the gradients of ``sent``.  ``token``
+    orders the reductions: each call takes the previous call's token and
+    returns its own, so a call's backward runs after the next call's on
+    every process, whichever device thread runs it."""
+
+    @staticmethod
+    def forward(ctx, plan, token, *sent):
+        ctx.plan = plan
+        ctx.sent = [(t.shape, t.device) for t in sent]
+        got = _received(plan["leaves"], _process_all_gather(
+            plan["mesh"], list(sent), plan["groups"][0]))
+        return (token.new_zeros(()), *(got[key] for key in plan["keys"]))
+
+    @staticmethod
+    def backward(ctx, d_token, *d_got):
+        import torch.distributed as dist
+
+        plan = ctx.plan
+        dev, group = plan["mesh"].first, plan["groups"][1]
+        flat = torch.zeros(plan["numel"], dtype=d_got[0].dtype, device=dev)
+        for key, g in zip(plan["keys"], d_got):
+            flat[plan["where"][key]] = g.reshape(-1).to(dev)
+        if dist.get_backend(group) == "gloo":
+            flat = flat.cpu()
+        dist.all_reduce(flat, group=group)
+        flat = flat.to(dev)
+        return (None, torch.zeros_like(d_token), *(
+            flat[plan["where"][key]].view(shape).to(sent_dev)
+            for key, (shape, sent_dev) in zip(plan["sent_keys"],
+                                              ctx.sent)))
+
+
+def _fetch(tree: dict, layer: int | None, token, groups):
+    """``(remote, token)``: the blocks at ``layer`` of the leaves of
+    ``tree`` (a params tree of the step, or its ``blocks``) that only
+    other processes hold, ``remote[name][index]``, through
+    :class:`_Fetch` (FSDP's gather of one layer before it runs, inside
+    the layer's checkpoint, so the blocks live as long as the layer's
+    own activations), and the token that orders the next call (a new one
+    when ``token`` is None).  Every process of the mesh calls it at the
+    same point: when no leaf is cut over processes it does nothing, on
+    every process, and returns ``token`` unchanged."""
+    leaves = {name: leaf for name, leaf in tree.items()
+              if isinstance(leaf, Sharded) and _partial(leaf)}
+    if not leaves:
+        return {}, token
+    mesh = next(iter(leaves.values())).mesh
+    where, start = {}, 0
+    for name, leaf in leaves.items():
+        block = _at(next(iter(leaf.blocks.values())), layer)
+        for index in sorted(set(leaf.indices)):
+            where[name, index] = slice(start, start + block.numel())
+            start += block.numel()
+    mine = {(name, index) for name, leaf in leaves.items()
+            for index in leaf.first_holders(leaf.blocks)}
+    plan = dict(mesh=mesh, leaves=leaves, groups=groups, where=where,
+                numel=start, keys=[key for key in where if key not in mine],
+                sent_keys=[(name, index) for name, leaf in leaves.items()
+                           for index in leaf.first_holders(leaf.blocks)])
+    if token is None:
+        token = torch.zeros((), device=mesh.first)
+    token, *got = _Fetch.apply(plan, token, *_sent(leaves, layer))
+    remote = collections.defaultdict(dict)
+    for (name, index), t in zip(plan["keys"], got):
+        remote[name][index] = t
+    return remote, token
 
 
 def _vocab_parallel_ce_sum(x, targets, unembeds, row, cfg: ModelConfig):
@@ -1186,8 +1390,8 @@ def _tp_attention(xs, w, rows, cfg: ModelConfig, rope, attend):
     (``rows[i][0]``).  Training and serving share it; they differ in
     ``w``, ``rope`` and ``attend``:
 
-    - ``w(name, j, dev)``: model rank j's block of the layer's weight
-      ``name`` on ``dev`` (j None: the whole weight);
+    - ``w(name, i, j, dev)``: data row i's model rank j's block of the
+      layer's weight ``name`` on ``dev`` (j None: the whole weight);
     - ``rope(t, i)``: t rotated at data row i's positions (None: no
       rope);
     - ``attend(shards) -> outs``: shards[i] holds data row i's (q, k,
@@ -1206,17 +1410,17 @@ def _tp_attention(xs, w, rows, cfg: ModelConfig, rope, attend):
     heads = (cfg.n_heads // tp, cfg.kv_heads // tp) if split else None
     shards = []
     for i, (x, row) in enumerate(zip(xs, rows)):
-        y = _rmsnorm(x, w("ln1", 0, row[0]))
+        y = _rmsnorm(x, w("ln1", i, 0, row[0]))
         ranks = list(enumerate(row)) if split else [(None, row[0])]
         shards.append([])
         for j, dev in ranks:
-            q, k, v = _split_qkv(y.to(dev), w("qkv", j, dev), cfg, heads)
+            q, k, v = _split_qkv(y.to(dev), w("qkv", i, j, dev), cfg, heads)
             if rope is not None:
                 q, k = rope(q, i), rope(k, i)
             shards[-1].append((q, k, v))
     outs = attend(shards)
     new = []
-    for x, out, row in zip(xs, outs, rows):
+    for i, (x, out, row) in enumerate(zip(xs, outs, rows)):
         head = row[0]
         b, s, d = x.shape
         if split:
@@ -1226,7 +1430,7 @@ def _tp_attention(xs, w, rows, cfg: ModelConfig, rope, attend):
             # the row-parallel attn_out.
             parts = torch.split(out[0].transpose(1, 2).reshape(b, s, d),
                                 d // tp, dim=-1)
-        new.append(x + sum((a.to(dev) @ w("attn_out", j, dev)).to(head)
+        new.append(x + sum((a.to(dev) @ w("attn_out", i, j, dev)).to(head)
                            for j, (a, dev) in enumerate(zip(parts, row))))
     return new
 
@@ -1239,21 +1443,21 @@ def _tp_ffn(xs, w, rows, cfg: ModelConfig):
     sums the experts' d_ff-cut MLPs over the row's ranks.  Returns (new
     streams, each row's router aux; zeros for the dense FFN)."""
     new, auxs = [], []
-    for x, row in zip(xs, rows):
+    for i, (x, row) in enumerate(zip(xs, rows)):
         head = row[0]
-        y = _rmsnorm(x, w("ln2", 0, head))
+        y = _rmsnorm(x, w("ln2", i, 0, head))
         if cfg.moe_experts is not None:
-            def experts(buf, row=row):
-                return sum(expert_mlp(buf.to(dev), w("w1", j, dev),
-                                      w("w2", j, dev)).to(buf.device)
+            def experts(buf, i=i, row=row):
+                return sum(expert_mlp(buf.to(dev), w("w1", i, j, dev),
+                                      w("w2", i, j, dev)).to(buf.device)
                            for j, dev in enumerate(row))
 
-            out, aux = moe_ffn(y, {"router": w("router", 0, head)}, cfg,
+            out, aux = moe_ffn(y, {"router": w("router", i, 0, head)}, cfg,
                                experts)
         else:
-            out = sum((F.gelu(y.to(dev) @ w("w1", j, dev),
+            out = sum((F.gelu(y.to(dev) @ w("w1", i, j, dev),
                               approximate="tanh")
-                       @ w("w2", j, dev)).to(head)
+                       @ w("w2", i, j, dev)).to(head)
                       for j, dev in enumerate(row))
             zero = torch.zeros((), dtype=torch.float32, device=head)
             aux = {"balance_loss": zero, "z_loss": zero}
@@ -1290,27 +1494,32 @@ def _mesh_attend(cfg: ModelConfig, rows, attn):
 
 
 def _mesh_layer(xs, params: dict, layer: int, *, cfg: ModelConfig, rows,
-                attn):
+                ranks, attn, remote=None):
     """Layer ``layer`` of the training block over every data row
-    (:func:`_tp_layer`), the weights read from the :class:`Sharded`
-    ``params``: attention is K1/K2 through ``attn`` on head shards, or
-    on each row's whole heads when the heads do not divide (K1/K2 there
-    on CUDA), else the einsum (:func:`_mesh_attend`)."""
+    (:func:`_tp_layer`), each rank computing with its own blocks of the
+    :class:`Sharded` ``params`` (``ranks[i][j]``: the rank of row i's
+    model rank j) and the blocks ``remote`` holds of other processes
+    (:func:`_fetch`): attention is K1/K2 through ``attn`` on head
+    shards, or on each row's whole heads when the heads do not divide
+    (K1/K2 there on CUDA), else the einsum (:func:`_mesh_attend`)."""
+    remote = remote or {}
     tp = len(rows[0])
     dt = cfg.dtype
     blocks = params["blocks"]
     views: dict = {}
 
-    def w(name, j, dev):
-        # Each rank's weight once per layer and device; the products'
-        # weights already in the compute dtype (norm gains and the
-        # router stay f32, as one device reads them).
+    def w(name, i, j, dev):
+        # Each rank's weight once per layer; the products' weights
+        # already in the compute dtype (norm gains and the router stay
+        # f32, as one device reads them).
         if j is None:
-            return torch.cat([w(name, k, dev) for k in range(tp)], dim=-1)
-        if (name, j, dev) not in views:
-            t = _tp_view(blocks[name], j, dev, layer)
-            views[name, j, dev] = t.to(dt) if name in _PRODUCTS else t
-        return views[name, j, dev]
+            return torch.cat([w(name, i, k, dev) for k in range(tp)],
+                             dim=-1)
+        if (name, i, j, dev) not in views:
+            t = _tp_view(blocks[name], ranks[i][j], dev, layer,
+                         remote.get(name))
+            views[name, i, j, dev] = t.to(dt) if name in _PRODUCTS else t
+        return views[name, i, j, dev]
 
     rope = (lambda t, i: _rope(t, cfg.rope_theta)) if cfg.rope else None
     return _tp_layer(xs, w, rows, cfg, rope, _mesh_attend(cfg, rows, attn))
@@ -1349,10 +1558,11 @@ class TPParams:
         return self.rows[0][0]
 
     def weights(self, layer: int | None = None):
-        """``w(name, j, dev)`` over these blocks, as :func:`_tp_layer`
-        reads it: at layer ``layer`` of the stacked ``blocks`` leaves,
-        or the top-level leaves (embed, ln_f, unembed) when None."""
-        def w(name, j, dev):
+        """``w(name, i, j, dev)`` over these blocks, as :func:`_tp_layer`
+        reads it (every data row i reads the blocks of its devices): at
+        layer ``layer`` of the stacked ``blocks`` leaves, or the
+        top-level leaves (embed, ln_f, unembed) when None."""
+        def w(name, i, j, dev):
             if layer is None:
                 return self.blocks[name, j, dev]
             return self.blocks[f"blocks/{name}", j, dev][layer]
@@ -1427,7 +1637,7 @@ def tp_embed(sp: TPParams, tokens: list, rows: list[int]) -> list:
     out = []
     for t, i in zip(tokens, rows):
         row = sp.rows[i]
-        out.append(torch.cat([w("embed", j, dev)[t.to(dev)].to(row[0])
+        out.append(torch.cat([w("embed", i, j, dev)[t.to(dev)].to(row[0])
                               for j, dev in enumerate(row)], dim=-1))
     return out
 
@@ -1442,8 +1652,8 @@ def tp_logits(sp: TPParams, xs: list, rows: list[int]) -> torch.Tensor:
     out = []
     for x, i in zip(xs, rows):
         row = sp.rows[i]
-        x = _rmsnorm(x, w("ln_f", 0, row[0]))
-        out.append(torch.cat([(x.to(dev) @ w("unembed", j, dev)).float()
+        x = _rmsnorm(x, w("ln_f", i, 0, row[0]))
+        out.append(torch.cat([(x.to(dev) @ w("unembed", i, j, dev)).float()
                               .to(sp.first) for j, dev in enumerate(row)],
                              dim=-1))
     return torch.cat(out, dim=0)
@@ -1506,51 +1716,75 @@ def tp_blocks(sp: TPParams, xs: list, rows: list[int], rope, attend):
 def _make_mesh_loss(mesh: Mesh, cfg: ModelConfig):
     """``loss_of(params, tokens) -> loss``: :func:`loss_fn` of tokens
     [b, s + 1] with ``params`` a tree of :class:`Sharded` leaves over
-    ``mesh``, on the first rank's device.  The batch is cut by
-    :func:`batch_spec`, row-major over the data rows (every mesh axis
-    but 'model'); each row's block and residual stream live on its
-    first model rank.  The embedding's d_model cut is gathered per row,
-    the cross-entropy is vocab-parallel (:func:`_vocab_parallel_ce_sum`),
+    ``mesh``, on this process's first rank's device.  The batch is cut
+    row-major over this process's data rows (every mesh axis but
+    'model'); each row's block and residual stream live on its first
+    model rank.  The embedding's d_model cut is gathered per row, the
+    cross-entropy is vocab-parallel (:func:`_vocab_parallel_ce_sum`),
     and with ``cfg.remat`` each layer, over all ranks, runs under
     ``torch.utils.checkpoint``.  FSDP's gathers happen inside each
-    layer, so one layer's weights are whole at a time."""
+    layer, so one layer's weights are whole at a time; over a mesh that
+    spans processes the layer first fetches its blocks of other
+    processes (:func:`_fetch`, inside the checkpoint, and again when
+    the backward recomputes the layer; their gradients go back to their
+    processes as the backward leaves the layer), and the loss is this
+    process's rows' mean.  Fetches and their reductions use two process
+    groups, so the recomputes' gathers and the backward's reductions
+    never meet in one group's order."""
     tp = mesh.shape.get("model", 1)
-    rows = [mesh.ranks[i:i + tp] for i in range(0, mesh.size, tp)]
-    attn = make_sharded_flash_attention(mesh, causal=True,
-                                        window=cfg.attention_window)
-    layer_fn = functools.partial(_mesh_layer, cfg=cfg, rows=rows, attn=attn)
-    first = mesh.ranks[0]
+    ranks = [mesh.local[i:i + tp] for i in range(0, len(mesh.local), tp)]
+    rows = [[mesh.ranks[r] for r in row] for row in ranks]
+    attn = make_sharded_flash_attention(
+        Mesh(np.array(rows, dtype=object), ("data", "model")), causal=True,
+        window=cfg.attention_window)
+    layer_fn = functools.partial(_mesh_layer, cfg=cfg, rows=rows,
+                                 ranks=ranks, attn=attn)
+    first = mesh.first
+    groups = (None, None)
+    if mesh.processes > 1:
+        import torch.distributed as dist
+
+        groups = (None, dist.new_group())
 
     def loss_of(params: dict, tokens):
         b, s = tokens.shape[0], tokens.shape[1] - 1
         if b % len(rows):
             raise ValueError(f"global batch {b} is not divisible by the "
                              f"{len(rows)}-way data parallelism")
-        batch = shard_tensor(mesh, tokens, batch_spec(mesh))
-        row_tokens = [batch.blocks[i, 0] for i in range(len(rows))]
+        b_loc = b // len(rows)
+        row_tokens = [tokens[i * b_loc:(i + 1) * b_loc].to(row[0])
+                      for i, row in enumerate(rows)]
         views: dict = {}
+        top, token = _fetch(params, None, None, groups)
 
-        def w(name, j, dev):
-            if (name, j, dev) not in views:
-                t = _tp_view(params[name], j, dev)
-                views[name, j, dev] = t if name == "ln_f" else t.to(cfg.dtype)
-            return views[name, j, dev]
+        def w(name, i, j, dev):
+            if (name, i, j) not in views:
+                t = _tp_view(params[name], ranks[i][j], dev,
+                             remote=top.get(name))
+                views[name, i, j] = t if name == "ln_f" else t.to(cfg.dtype)
+            return views[name, i, j]
 
-        xs = [torch.cat([w("embed", j, dev)[t[:, :-1].to(dev)].to(row[0])
+        def run(xs, token, layer):
+            remote, token = _fetch(params["blocks"], layer, token, groups)
+            return (*layer_fn(xs, params=params, layer=layer,
+                              remote=remote), token)
+
+        xs = [torch.cat([w("embed", i, j, dev)[t[:, :-1].to(dev)].to(row[0])
                          for j, dev in enumerate(row)], dim=-1)
-              for t, row in zip(row_tokens, rows)]
+              for i, (t, row) in enumerate(zip(row_tokens, rows))]
         per_layer = []
         for layer in range(cfg.n_layers):
-            fn = functools.partial(layer_fn, params=params, layer=layer)
             if cfg.remat:
-                xs, auxs = checkpoint(fn, xs, use_reentrant=False)
+                xs, auxs, token = checkpoint(run, xs, token, layer,
+                                             use_reentrant=False)
             else:
-                xs, auxs = fn(xs)
+                xs, auxs, token = run(xs, token, layer)
             per_layer.append(auxs)
         total = sum(_vocab_parallel_ce_sum(
-            _rmsnorm(x, w("ln_f", 0, row[0])), t[:, 1:],
-            [w("unembed", j, dev) for j, dev in enumerate(row)], row,
-            cfg).to(first) for x, t, row in zip(xs, row_tokens, rows))
+            _rmsnorm(x, w("ln_f", i, 0, row[0])), t[:, 1:],
+            [w("unembed", i, j, dev) for j, dev in enumerate(row)], row,
+            cfg).to(first)
+            for i, (x, t, row) in enumerate(zip(xs, row_tokens, rows)))
         ce = total / (b * s)
         if cfg.moe_experts is None:
             return ce
@@ -1570,53 +1804,121 @@ def _enclosing(p: Sharded, m: Sharded, mi: tuple):
     return tuple(pi), tuple(local)
 
 
+def _unit_norm_sq(moments: dict, mesh: Mesh):
+    """The clip's ``norm_sq`` over the units of :func:`_sharded_update`
+    (gradient pieces keyed (path, moment block index)) when the mesh
+    spans processes: each process sums the units whose lowest holding
+    rank is its own, so a unit held on several counts once, and the sum
+    is all-reduced."""
+    import torch.distributed as dist
+
+    def norm_sq(grads: dict):
+        dev = next(iter(grads.values())).device
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for (path, mi), g in grads.items():
+            leaf = moments[path]
+            if leaf.indices.index(mi) in leaf.blocks:
+                total = total + torch.sum(g * g).to(dev)
+        if dist.get_backend() == "gloo":
+            total = total.cpu()
+        dist.all_reduce(total)
+        return total.to(dev)
+
+    return norm_sq
+
+
 @torch.no_grad()
 def _sharded_update(optimizer: Optimizer, params: dict, grads: dict,
                     opt_state: dict):
-    """The optimizer's update over sharded state: ``params`` maps each
-    path to its :class:`Sharded` leaf, ``grads`` each (path, block
-    index) to that block's gradient.  The update runs per block of the
-    moments, on the moment block's device: the gradient and the param
-    cut to it (the reduce-scatter ahead of a ZeRO-1 update), then the
-    optimizer's own arithmetic over the flat dict of those pieces (so
-    the clip norm counts every element once); the updates are added into
-    the param blocks that hold them (the all-gather back).  Returns the
-    new (params tree, opt state)."""
+    """The optimizer's update over sharded state, in place: ``params``
+    maps each path to its :class:`Sharded` leaf, ``grads`` each (path,
+    block index) to the gradient of that block, summed over its replicas
+    (and averaged over the processes).  The optimizer runs once per
+    distinct block of the moments this process holds (a unit), on the
+    device of its first holder: the gradient and the param cut to it
+    (the reduce-scatter ahead of a ZeRO-1 update), then the optimizer's
+    own arithmetic over the flat dict of the units, so the clip's norm
+    counts every element once (over the processes too,
+    :func:`_unit_norm_sq`).  Every rank then copies its units' new
+    moments into its own moment blocks, and adds to its own param block
+    the updates of the units inside it (the all-gather back; units only
+    other processes hold come over ``torch.distributed``), so the
+    replicas of a block stay bit for bit equal.  The blocks are
+    overwritten, as the JAX package's step donates its params and state,
+    so a step holds one copy of the state and the optimizer's temporaries
+    of one copy of the distinct units.  Returns the (params tree, opt
+    state), their leaves the ones given."""
     moments = dict(_flatten(opt_state["mu"]))
     units, g_u, p_u = {}, {}, {}
     for path, p in params.items():
-        for mi, mt in moments[path].blocks.items():
-            pi, local = _enclosing(p, moments[path], mi)
-            units[path, mi] = (pi, local)
-            g_u[path, mi] = grads[path, pi][local].to(mt.device)
-            p_u[path, mi] = p.blocks[pi][local].to(mt.device)
-    state = {key: ({(path, mi): t for path, leaf in _flatten(value)
-                    for mi, t in leaf.blocks.items()}
-                   if isinstance(value, dict) else value)
+        m = moments[path]
+        for mi, r in m.first_holders(m.blocks).items():
+            pi, local = _enclosing(p, m, mi)
+            dev = m.blocks[r].device
+            units[path, mi] = (r, pi, local)
+            g_u[path, mi] = grads[path, pi][local].to(dev)
+            p_u[path, mi] = p.blocks[p.holder(pi, r)][local].to(dev)
+    trees = {key: dict(_flatten(value)) for key, value in opt_state.items()
+             if isinstance(value, dict)}
+    state = {key: ({(path, mi): trees[key][path].blocks[r]
+                    for (path, mi), (r, _, _) in units.items()}
+                   if key in trees else value)
              for key, value in opt_state.items()}
-    updates, state = optimizer.update(g_u, state, p_u)
+    mesh = next(iter(moments.values())).mesh
+    updates, state = optimizer.update(
+        g_u, state, p_u,
+        _unit_norm_sq(moments, mesh) if mesh.processes > 1 else None)
+    del g_u, p_u
     parts = collections.defaultdict(list)
-    for (path, mi), (pi, local) in units.items():
+    for (path, mi), (_, pi, local) in units.items():
         parts[path, pi].append((local, updates[path, mi]))
-    new_params = {}
+    if mesh.processes > 1:
+        _gather_updates(params, moments, units, updates, parts)
     for path, p in params.items():
-        blocks = {}
-        for pi, t in p.blocks.items():
-            pieces = parts[path, pi]
-            if len(pieces) == 1 and pieces[0][1].shape == t.shape:
-                blocks[pi] = t + pieces[0][1].to(t.device)
-                continue
-            blocks[pi] = t.clone()
-            for local, u in pieces:
-                blocks[pi][local] += u.to(t.device)
-        new_params[path] = dataclasses.replace(p, blocks=blocks)
-    new_state = {key: (_unflatten({
-        path: dataclasses.replace(leaf, blocks={
-            mi: state[key][path, mi] for mi in leaf.blocks})
-        for path, leaf in _flatten(value)})
-        if isinstance(value, dict) else state[key])
-        for key, value in opt_state.items()}
-    return _unflatten(new_params), new_state
+        for r, t in p.blocks.items():
+            for local, u in parts[path, p.indices[r]]:
+                t[local] += u.to(t.device)
+    del parts, updates
+    for key, tree in trees.items():
+        for path, leaf in tree.items():
+            for r, t in leaf.blocks.items():
+                t.copy_(state[key][path, leaf.indices[r]])
+    return _unflatten(params), {
+        key: (opt_state[key] if key in trees else state[key])
+        for key in opt_state}
+
+
+def _gather_updates(params: dict, moments: dict, units: dict, updates: dict,
+                    parts) -> None:
+    """Add to ``parts`` ((path, param block index) -> [(slices, update)])
+    the updates of the moment units only other processes hold inside
+    param blocks this process holds (ZeRO-1 over data axes that cross
+    processes): each process sends its units' updates of every such
+    leaf, in one all-gather.  Under FSDP a leaf's moments are cut as its
+    params are, so no leaf needs it and nothing is sent."""
+    paths = []
+    for path, m in moments.items():
+        p = params[path]
+        held = {p.indices[r] for r in p.blocks}
+        theirs = set(m.indices) - set(m.first_holders(m.blocks))
+        if any(_enclosing(p, m, mi)[0] in held for mi in theirs):
+            paths.append(path)
+    if not paths:
+        return
+    mesh = moments[paths[0]].mesh
+    sent = [updates[path, mi] for path in paths
+            for mi in moments[path].first_holders(moments[path].blocks)]
+    for q, got in enumerate(_process_all_gather(mesh, sent)):
+        if q == mesh.process:
+            continue
+        got = iter(got)
+        for path in paths:
+            m = moments[path]
+            for mi in m.first_holders(mesh.process_ranks(q)):
+                u = next(got)
+                if (path, mi) not in units:
+                    pi, local = _enclosing(params[path], m, mi)
+                    parts[path, pi].append((local, u))
 
 
 def _replicated_update(optimizer: Optimizer, params: dict, grads: dict,
@@ -1624,15 +1926,16 @@ def _replicated_update(optimizer: Optimizer, params: dict, grads: dict,
     """The optimizer over one-copy params whose moments are
     :class:`Sharded` leaves (ZeRO-1 under sequence parallelism): each
     param and its gradient taken as a replicated leaf of the moments'
-    mesh, the update per moment block (:func:`_sharded_update`).
-    Returns the new (params tree, opt state)."""
+    mesh held by its first rank alone, the update per moment block
+    (:func:`_sharded_update`, in place).  Returns the (params tree, opt
+    state)."""
     mesh = next(leaf for _, leaf in _flatten(opt_state["mu"])).mesh
-    whole = {path: Sharded(mesh, P(), tuple(t.shape), {(0,) * t.ndim: t})
+    first = mesh.local[0]
+    whole = {path: Sharded(mesh, P(), tuple(t.shape), {first: t})
              for path, t in _flatten(params)}
     flat = {(path, (0,) * t.ndim): t for path, t in _flatten(grads)}
     new, opt_state = _sharded_update(optimizer, whole, flat, opt_state)
-    return _map_tree(lambda leaf: leaf.blocks[(0,) * len(leaf.shape)],
-                     new), opt_state
+    return _map_tree(lambda leaf: leaf.blocks[first], new), opt_state
 
 
 def _check_shard(shard: str) -> None:
@@ -1641,30 +1944,57 @@ def _check_shard(shard: str) -> None:
                          "'none', 'zero1' or 'fsdp'")
 
 
-def _sharded_step(optimizer: Optimizer, loss_of, has_aux: bool = False,
-                  grad_sync=None):
+def _sharded_step(optimizer: Optimizer, loss_of, has_aux: bool = False):
     """``step_fn(params, opt_state, tokens)`` over trees of
     :class:`Sharded` leaves: the gradient of ``loss_of(params, tokens)``
-    by ``torch.autograd.grad`` with respect to every block, then the
-    optimizer per block (:func:`_sharded_update`).  ``has_aux`` and
-    ``grad_sync`` as in :func:`_make_step`."""
+    by ``torch.autograd.grad`` with respect to every rank's blocks,
+    summed per block index over its replicas in rank order on the first
+    holder's device (the psum, one fixed order of adds, so every replica
+    steps alike), then the optimizer per block, in place
+    (:func:`_sharded_update`).  Over a mesh that spans processes the
+    loss and the gradients of the blocks every process holds are
+    averaged over the processes (``distributed.process_mean``); a block
+    only this process holds already carries the other processes' parts
+    (:func:`_fetch`'s backward) and is scaled alike.  ``has_aux``:
+    ``loss_of`` returns ``(loss, metrics)`` and step_fn ``(params,
+    opt_state, loss, metrics)``, the metrics detached."""
 
     def step_fn(params: dict, opt_state: dict, tokens):
         tokens = torch.as_tensor(tokens)
         live = {path: dataclasses.replace(leaf, blocks={
-            i: t.detach().requires_grad_() for i, t in leaf.blocks.items()})
+            r: t.detach().requires_grad_() for r, t in leaf.blocks.items()})
             for path, leaf in _flatten(params)}
-        keys = [(path, i) for path, leaf in live.items() for i in leaf.blocks]
         loss = loss_of(_unflatten(live), tokens)
         if has_aux:
             loss, metrics = loss
-        grads = torch.autograd.grad(
-            loss, [live[path].blocks[i] for path, i in keys])
-        if grad_sync is not None:
-            loss, *grads = grad_sync([loss, *grads])
+        keys = [(path, leaf.indices[r], t)
+                for path, leaf in live.items() for r, t in leaf.blocks.items()]
+        grads = torch.autograd.grad(loss, [k[-1] for k in keys],
+                                    allow_unused=True)
+        sums: dict = {}
+        for (path, index, _), g in zip(keys, grads):
+            if g is None:
+                continue
+            if (path, index) in sums:
+                prev = sums[path, index]
+                sums[path, index] = prev + g.to(prev.device)
+            else:
+                sums[path, index] = g
+        del keys, grads     # the replicas' own gradients, summed now
+        for path, leaf in live.items():     # a block no rank read: zeros
+            for r, t in leaf.blocks.items():
+                if (path, leaf.indices[r]) not in sums:
+                    sums[path, leaf.indices[r]] = torch.zeros_like(t)
+        mesh = next(iter(live.values())).mesh
+        if mesh.processes > 1:
+            shared = [key for key in sorted(sums)
+                      if not _partial(live[key[0]])]
+            loss, *synced = process_mean([loss, *(sums[k] for k in shared)])
+            for key in sums:
+                sums[key] = sums[key] / mesh.processes
+            sums.update(zip(shared, synced))
         params, opt_state = _sharded_update(
-            optimizer, dict(_flatten(params)), dict(zip(keys, grads)),
-            opt_state)
+            optimizer, dict(_flatten(params)), sums, opt_state)
         if has_aux:
             return params, opt_state, loss.detach(), {
                 name: m.detach() for name, m in metrics.items()}
@@ -1677,7 +2007,7 @@ def make_sharded_train_step(mesh: Mesh, cfg: ModelConfig,
                             learning_rate: float = 1e-3,
                             zero1: bool = False,
                             train: TrainConfig | None = None,
-                            shard: str | None = None, grad_sync=None):
+                            shard: str | None = None):
     """(init_fn, step_fn) over ``mesh`` (:func:`make_mesh`, or a
     (dcn, data, model) mesh from ``distributed.make_multislice_mesh``)
     with real DP + TP shardings: Megatron tensor parallelism over
@@ -1691,9 +2021,13 @@ def make_sharded_train_step(mesh: Mesh, cfg: ModelConfig,
     ``step_fn(params, opt_state, tokens) -> (params, opt_state, loss)``:
     the gradient by ``torch.autograd.grad`` with respect to every block,
     then the optimizer recipe (``train``, default bare
-    adamw(``learning_rate``)) per block (:func:`_sharded_update`).
-    ``grad_sync`` as in :func:`_make_step` (the processes of a
-    multi-host job, each over the mesh of its own cards).
+    adamw(``learning_rate``)) per block (:func:`_sharded_update`, in
+    place: the step consumes its params and state, as the JAX package's
+    donates them).  A mesh over several processes
+    (``distributed.make_process_mesh``) is the JAX trainer's one mesh
+    over every process's devices: each process steps on its own data
+    rows and the gradients are averaged over the processes
+    (:func:`_sharded_step`).
 
     ``shard`` (``zero1=True`` is the legacy spelling of "zero1"):
 
@@ -1722,16 +2056,15 @@ def make_sharded_train_step(mesh: Mesh, cfg: ModelConfig,
                                   shard == "zero1")
 
     def init_fn(generator: torch.Generator):
-        params = init_params(generator, cfg, mesh.ranks[0])
+        params = init_params(generator, cfg, mesh.first)
         return (_shard_tree(mesh, cfg, params, p_specs),
                 _shard_state(mesh, cfg, optimizer.init(params), s_specs))
 
-    return init_fn, _sharded_step(optimizer, _make_mesh_loss(mesh, cfg),
-                                  grad_sync=grad_sync)
+    return init_fn, _sharded_step(optimizer, _make_mesh_loss(mesh, cfg))
 
 
 def make_train_step(cfg: ModelConfig, train: TrainConfig | None = None,
-                    device=None, shard: str = "none", grad_sync=None):
+                    device=None, shard: str = "none"):
     """(init_fn, step_fn) on one device: the single-device counterpart
     of the JAX package's ``make_sharded_train_step``.
 
@@ -1745,29 +2078,24 @@ def make_train_step(cfg: ModelConfig, train: TrainConfig | None = None,
     ``shard`` "zero1" and "fsdp" cut the state over data ranks, and one
     device has one, so every mode runs this same step (the JAX
     package's single-device trainer takes them over a one-device
-    mesh).  ``grad_sync`` as in :func:`_make_step`."""
+    mesh)."""
     _check_shard(shard)
     dev = resolve_device(device)
     return _make_step(cfg, make_optimizer(train or TrainConfig()), dev,
-                      lambda tree, tokens: loss_fn(tree, tokens, cfg),
-                      grad_sync=grad_sync)
+                      lambda tree, tokens: loss_fn(tree, tokens, cfg))
 
 
 def _make_step(cfg: ModelConfig, optimizer: Optimizer, dev: torch.device,
-               loss_of, has_aux: bool = False, grad_sync=None):
+               loss_of, has_aux: bool = False):
     """(init_fn, step_fn) for the f32 master params on ``dev`` and the
     loss ``loss_of(params, tokens)``: the gradient by
     ``torch.autograd.grad`` with respect to the master params, then the
     optimizer's update (shared by the single-device, sequence-parallel
     and expert-parallel steps).  ``has_aux``: ``loss_of`` returns
     ``(loss, metrics)`` and step_fn ``(params, opt_state, loss,
-    metrics)``, the metrics detached.  ``grad_sync(tensors) ->
-    tensors``, when given, takes the loss and every gradient before the
-    optimizer (``distributed.process_mean``: their mean over the
-    processes, so each process steps on the global batch's gradient and
-    returns its loss).  Moments held as :class:`Sharded` leaves (ZeRO-1
-    under sequence parallelism) are updated per block
-    (:func:`_replicated_update`)."""
+    metrics)``, the metrics detached.  Moments held as
+    :class:`Sharded` leaves (ZeRO-1 under sequence parallelism) are
+    updated per block (:func:`_replicated_update`)."""
 
     def init_fn(generator: torch.Generator):
         params = init_params(generator, cfg, dev)
@@ -1781,8 +2109,6 @@ def _make_step(cfg: ModelConfig, optimizer: Optimizer, dev: torch.device,
         if has_aux:
             loss, metrics = loss
         grads = torch.autograd.grad(loss, leaves)
-        if grad_sync is not None:
-            loss, *grads = grad_sync([loss, *grads])
         grads = _unflatten(dict(zip(paths, grads)))
         if isinstance(next(_flatten(opt_state["mu"]))[1], Sharded):
             params, opt_state = _replicated_update(optimizer, params, grads,

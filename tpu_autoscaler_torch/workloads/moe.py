@@ -260,12 +260,12 @@ def _ep_rows_ffn(xs, w, rows, cfg, ep: int, experts):
     new, auxs = [], []
     for g in range(0, len(rows), ep):
         group = rows[g:g + ep]
-        ys = [_rmsnorm(x, w("ln2", 0, row[0]))
-              for x, row in zip(xs[g:g + ep], group)]
+        ys = [_rmsnorm(x, w("ln2", i, 0, row[0]))
+              for i, (x, row) in enumerate(zip(xs[g:g + ep], group), g)]
         layers = []
         for i, row in enumerate(group, g):
             pairs = [experts(i, m) for m in range(len(row))]
-            layers.append({"router": w("router", 0, row[0]),
+            layers.append({"router": w("router", i, 0, row[0]),
                            "w1": [p[0] for p in pairs],
                            "w2": [p[1] for p in pairs]})
         outs, a = _ep_moe_ffn(ys, layers, group, top_k=cfg.moe_top_k,
@@ -382,8 +382,8 @@ def _as_ep_mesh(mesh):
 def ep_param_specs(cfg, mesh) -> dict:
     """Partition specs of the ep step's params (the JAX step's
     ``p_specs``): w1 / w2 cut over 'ep' on the expert dim and, under
-    ep×tp, over 'model' on d_ff; every dense leaf replicated (one copy,
-    which each rank reads and cuts to its model rank's heads)."""
+    ep×tp, over 'model' on d_ff; every dense leaf replicated (each rank
+    reads its own copy and cuts it to its model rank's heads)."""
     from tpu_autoscaler_torch.workloads.model import P, param_shapes
 
     model_axis = "model" if "model" in mesh.axis_names else None
@@ -397,8 +397,7 @@ def ep_param_specs(cfg, mesh) -> dict:
 
 def shard_ep_params(mesh, cfg, tree: dict) -> dict:
     """A one-device params tree at :func:`ep_param_specs` over ``mesh``
-    (:func:`make_ep_mesh`): each expert block on its first holder's
-    device.  ``model.gather_params`` is the inverse (checkpoints)."""
+    (:func:`make_ep_mesh`): each rank's block on its own device.  ``model.gather_params`` is the inverse (checkpoints)."""
     from tpu_autoscaler_torch.workloads.model import _shard_tree
 
     return _shard_tree(mesh, cfg, tree, ep_param_specs(cfg, mesh))
@@ -417,12 +416,6 @@ def shard_ep_opt_state(mesh, cfg, state: dict) -> dict:
         state, ep_param_specs(cfg, mesh), mesh, False))
 
 
-def _whole(leaf):
-    """The one block of a replicated :class:`~model.Sharded` leaf."""
-    (t,) = leaf.blocks.values()
-    return t
-
-
 def make_ep_loss(mesh, cfg):
     """``loss_of(params, tokens) -> (loss, metrics)`` for dp×ep MoE
     training over ``mesh`` (:func:`make_ep_mesh`, or the list of rows
@@ -436,9 +429,9 @@ def make_ep_loss(mesh, cfg):
 
     ``params`` is a tree of ``model.Sharded`` leaves at
     :func:`ep_param_specs` (a one-device tree is cut so first, through
-    differentiable copies): each rank reads the dense params and its own
-    expert blocks, so autograd sums the replicated params' gradients
-    (the JAX step's psum).  Under ep×tp each row's attention is
+    differentiable copies): each rank reads its own copy of the dense
+    params and its own expert blocks; the step sums the replicas'
+    gradients (the JAX step's psum).  Under ep×tp each row's attention is
     tensor-parallel over its model ranks (``model._tp_attention``: K1
     forward, K2 backward per (row, model rank) on its h/tp heads on CUDA
     ranks, the einsum elsewhere), the JAX package's ``_ep_tp_block``.
@@ -478,18 +471,19 @@ def make_ep_loss(mesh, cfg):
     def layer_fn(xs, params, layer):
         views: dict = {}
 
-        def w(name, j, dev):
-            if (name, j, dev) not in views:
-                t = _replica_cut(cfg, tp, name, _whole(
-                    params["blocks"][name])[layer].to(dev), j)
-                views[name, j, dev] = (t.to(cfg.dtype) if name in _PRODUCTS
-                                       else t)
-            return views[name, j, dev]
+        def w(name, i, j, dev):
+            # Row i's model rank j is rank i·tp + j.
+            if (name, i, j) not in views:
+                t = _replica_cut(cfg, tp, name, params["blocks"][name]
+                                 .blocks[i * tp + (j or 0)][layer].to(dev), j)
+                views[name, i, j] = (t.to(cfg.dtype) if name in _PRODUCTS
+                                     else t)
+            return views[name, i, j]
 
         def experts(i, m):
-            return tuple(
-                leaf.blocks[leaf.index_of(i * tp + m)][layer].to(rows[i][m])
-                for leaf in (params["blocks"]["w1"], params["blocks"]["w2"]))
+            return tuple(leaf.blocks[i * tp + m][layer]
+                         for leaf in (params["blocks"]["w1"],
+                                      params["blocks"]["w2"]))
 
         xs = _tp_attention(xs, w, rows, cfg, rope, attend)
         return _ep_rows_ffn(xs, w, rows, cfg, ep, experts)
@@ -503,15 +497,16 @@ def make_ep_loss(mesh, cfg):
             raise ValueError(f"batch {b} not divisible by the {len(rows)} "
                              "data×ep ranks")
         b_loc = b // len(rows)
-        tops = {dev: {name: _whole(params[name]).to(dev)
-                      for name in ("embed", "ln_f", "unembed")}
-                for dev in dict.fromkeys(row[0] for row in rows)}
+        # Each row's first rank's own copies of the top-level leaves.
+        tops = [{name: params[name].blocks[i * tp]
+                 for name in ("embed", "ln_f", "unembed")}
+                for i in range(len(rows))]
 
         def cut(t, i):
             return t[i * b_loc:(i + 1) * b_loc].to(rows[i][0])
 
-        xs = [tops[row[0]]["embed"].to(cfg.dtype)[cut(inputs, i)]
-              for i, row in enumerate(rows)]
+        xs = [tops[i]["embed"].to(cfg.dtype)[cut(inputs, i)]
+              for i in range(len(rows))]
         per_layer = []
         for layer in range(cfg.n_layers):
             fn = functools.partial(layer_fn, params=params, layer=layer)
@@ -520,9 +515,9 @@ def make_ep_loss(mesh, cfg):
             else:
                 xs, auxs = fn(xs)
             per_layer.append(auxs)
-        total = sum(_local_ce_sum(x, tops[row[0]], cut(targets, i),
+        total = sum(_local_ce_sum(x, tops[i], cut(targets, i),
                                   cfg).to(first)
-                    for i, (x, row) in enumerate(zip(xs, rows)))
+                    for i, x in enumerate(xs))
         return _ranks_loss(total / (b * s), per_layer, cfg, first)
 
     return loss_of
@@ -558,8 +553,8 @@ def make_ep_train_step(mesh, cfg, *, train=None,
     ``model.init_params`` cut at :func:`ep_param_specs`, and their Adam
     moments cut the same way: each rank stores its E/ep experts' blocks
     (and, under ep×tp, their d_ff/tp cut) and their moments, so its
-    expert state drops by ep·tp, while the dense params replicate (one
-    copy, on the first rank).  ``step_fn(params, opt_state, tokens
+    expert state drops by ep·tp, while the dense params replicate (a
+    copy on every rank).  ``step_fn(params, opt_state, tokens
     [b, s + 1]) -> (params, opt_state, loss, metrics)``: the gradient
     per block, then the trainer's optimizer recipe
     (``model.make_optimizer``) per block.  A step given the one-device

@@ -199,9 +199,8 @@ def _rank_grid(mesh: Mesh, axes: tuple) -> np.ndarray:
 
 
 def _held(leaf, rank: int) -> torch.Tensor:
-    """The block of ``leaf`` that rank ``rank`` holds, on its device (the
-    block itself on its first holder, a differentiable copy elsewhere)."""
-    return leaf.blocks[leaf.index_of(rank)].to(leaf.mesh.ranks[rank])
+    """Rank ``rank``'s own block of ``leaf``, on its device."""
+    return leaf.blocks[rank]
 
 
 def _nll_mean(outs: list, ln_f, unembed, targets, cfg: ModelConfig):
@@ -353,24 +352,24 @@ def make_pipeline3d_loss(mesh: Mesh, cfg: ModelConfig, num_microbatches: int,
     counts = {"stage_forwards": 0}
 
     def weights(blocks: dict, i: int, layer: int):
-        """``w(name, j, dev)`` of stage i's layer ``layer``: model rank
-        j's block (qkv: ``cat(wq_j, wk_j, wv_j)``, the head-aligned
-        columns ``model._split_qkv`` reads), products in the compute
-        dtype."""
+        """``w(name, d, j, dev)`` of stage i's layer ``layer``: data row
+        d's model rank j's own block (qkv: ``cat(wq_j, wk_j, wv_j)``,
+        the head-aligned columns ``model._split_qkv`` reads), products in
+        the compute dtype."""
         views: dict = {}
 
-        def block(name, j):
-            leaf = blocks[name]
-            return leaf.blocks[leaf.index_of(int(grid[0, i, j]))][layer]
+        def block(name, d, j):
+            return blocks[name].blocks[int(grid[d, i, j])][layer]
 
-        def w(name, j, dev):
-            if (name, j, dev) not in views:
-                t = (torch.cat([block(n, j) for n in ("wq", "wk", "wv")],
-                               dim=-1) if name == "qkv" else block(name, j))
+        def w(name, d, j, dev):
+            if (name, d, j) not in views:
+                t = (torch.cat([block(n, d, j) for n in ("wq", "wk", "wv")],
+                               dim=-1) if name == "qkv"
+                     else block(name, d, j))
                 t = t.to(dev)
-                views[name, j, dev] = t.to(cfg.dtype) if name in _PRODUCTS \
+                views[name, d, j] = t.to(cfg.dtype) if name in _PRODUCTS \
                     else t
-            return views[name, j, dev]
+            return views[name, d, j]
         return w
 
     def loss(params3d: dict, tokens):
@@ -502,8 +501,8 @@ def make_pipeline_train_step(mesh: Mesh, cfg: ModelConfig,
                              remat: bool = True):
     """(init_fn, step_fn) for GPipe training over ``mesh``'s pp axis:
     grads and the AdamW moments live at the pipeline specs, so each
-    stage updates only the layer block it holds (plus the small
-    replicated embed/unembed/ln_f leaves, on the first rank).
+    stage updates only the layer block it holds (plus its own copy of
+    the small replicated embed/unembed/ln_f leaves).
 
     ``init_fn(generator) -> (params, opt_state)``: ``init_params``'
     model (the same generator gives the one-device step's) placed at

@@ -221,7 +221,8 @@ def make_sp_loss(mesh, cfg: ModelConfig, impl: str | None = None):
     def layer_fn(xs, on, layer, rope):
         views: dict = {}
 
-        def w(name, j, dev):
+        def w(name, i, j, dev):
+            # The params are one copy: every row reads the same.
             if (name, j, dev) not in views:
                 t = _replica_cut(cfg, tp, name,
                                  on[dev]["blocks"][name][layer], j)
@@ -233,8 +234,8 @@ def make_sp_loss(mesh, cfg: ModelConfig, impl: str | None = None):
             # Row i's sp rank owns experts [r·E/sp, (r+1)·E/sp).
             r = i % sp
             dev = rows[i][m]
-            return (w("w1", m, dev)[r * e_loc:(r + 1) * e_loc],
-                    w("w2", m, dev)[r * e_loc:(r + 1) * e_loc])
+            return (w("w1", i, m, dev)[r * e_loc:(r + 1) * e_loc],
+                    w("w2", i, m, dev)[r * e_loc:(r + 1) * e_loc])
 
         xs = _tp_attention(xs, w, rows, cfg, rope, attend)
         if moe:
@@ -289,7 +290,7 @@ def shard_sp_opt_state(mesh, cfg: ModelConfig, state: dict,
     (shard "none"), or, under "zero1", each moment cut over every
     non-model axis of the mesh on its first axis they divide
     (``model._zero1_spec`` of a replicated param, the JAX step's
-    ``opt_state_shardings``), each slice on its first holder's device;
+    ``opt_state_shardings``), each rank's slice on its own device;
     ``model.gather_params`` is the inverse (checkpoints)."""
     if shard == "none":
         return state

@@ -300,7 +300,7 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
     from tpu_autoscaler_torch.workloads.distributed import (
         initialize_from_env,
         make_multislice_mesh,
-        process_mean,
+        make_process_mesh,
     )
 
     _usage_errors(ep_degree, pp_stages, sp_degree, zero1, shard_mode,
@@ -463,30 +463,33 @@ def main(steps, batch, vocab, seq_len, d_model, n_layers, n_kv_heads,
     else:
         cards = _cards(device, tp_degree or 1)
         try:
-            mesh = (make_multislice_mesh(topo.num_slices, devices=cards)
-                    if topo.num_slices > 1 and topo.single_process
-                    else make_mesh(cards, tp=tp_degree))
+            if n_proc > 1:
+                mesh = make_process_mesh(cards, tp=tp_degree,
+                                         num_slices=topo.num_slices)
+            elif topo.num_slices > 1:
+                mesh = make_multislice_mesh(topo.num_slices, devices=cards)
+            else:
+                mesh = make_mesh(cards, tp=tp_degree)
         except ValueError as e:
             raise click.UsageError(str(e)) from e
-        dp = mesh.size // mesh.shape["model"]
+        dp = len(mesh.local) // mesh.shape["model"]
         if local_batch % dp:
             raise click.UsageError(
                 f"--batch {batch} must divide over the {dp} data-parallel "
                 f"ranks (devices / tp)")
-        # Several processes: each steps on its own rows, the gradients
-        # and the loss averaged over the processes.
-        sync = process_mean if n_proc > 1 else None
         if mesh.size > 1:
+            # Several processes share one mesh: each steps on its own
+            # rows, the gradients and the loss averaged over the
+            # processes, the state cut over every process's data rows.
             init_fn, raw_step_fn = make_sharded_train_step(
-                mesh, cfg, train=train_cfg, shard=shard, grad_sync=sync)
+                mesh, cfg, train=train_cfg, shard=shard)
             save_layout = functools.partial(gather_params, mesh)
             mesh_layout = functools.partial(_shard_state, mesh, cfg, shard)
         else:
             init_fn, raw_step_fn = make_train_step(
-                cfg, train=train_cfg, device=device, shard=shard,
-                grad_sync=sync)
+                cfg, train=train_cfg, device=device, shard=shard)
         log.info("mesh %s, shard %s on %s", dict(mesh.shape), shard,
-                 ", ".join(map(str, mesh.ranks)))
+                 ", ".join(str(mesh.ranks[r]) for r in mesh.local))
     try:  # e.g. a width the model ranks do not divide
         # A CPU generator: the same initial params on every device.
         params, opt_state = init_fn(torch.Generator().manual_seed(0))

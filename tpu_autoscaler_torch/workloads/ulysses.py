@@ -23,7 +23,7 @@ import torch
 from tpu_autoscaler_torch.workloads.attention import (
     _validate_attention_args,
     flash_attention,
-    flash_attention_reference,
+    reference_attention,
 )
 from tpu_autoscaler_torch.workloads.ring_attention import _shard
 
@@ -36,7 +36,8 @@ def _ulysses_local(qs, ks, vs, devices, *, causal: bool,
     inverse all-to-all: returns each rank's output shard [b, h, s_loc,
     d].  ``impl="pallas"`` attends with ``flash_attention`` (K1 forward
     and K2 backward on CUDA tensors, their plain versions on CPU
-    tensors), ``"einsum"`` with its plain version."""
+    tensors), ``"einsum"`` with :func:`~attention.reference_attention`
+    (f32 scores, softmax and PV, as the JAX package's einsum branch)."""
     world = len(devices)
 
     def to_heads(shards):
@@ -51,8 +52,8 @@ def _ulysses_local(qs, ks, vs, devices, *, causal: bool,
                                         v.contiguous(), causal=causal,
                                         window=window))
         else:
-            outs.append(flash_attention_reference(q, k, v, causal=causal,
-                                                  window=window)[0])
+            outs.append(reference_attention(q, k, v, causal=causal,
+                                            window=window))
     s_loc = qs[0].shape[2]
     return [torch.cat([o[:, :, j * s_loc:(j + 1) * s_loc].to(devices[j])
                        for o in outs], dim=1) for j in range(world)]
@@ -69,7 +70,7 @@ def make_ulysses_attention(devices, causal: bool = True,
     ``impl="pallas"`` (default, the JAX name) attends locally with
     ``flash_attention``: differentiable end to end, since both the
     Function and the regrouping have gradients.  ``impl="einsum"`` with
-    its plain version."""
+    ``reference_attention``."""
     if impl not in {"einsum", "pallas"}:
         raise ValueError(f"unknown ulysses attention impl {impl!r}")
     devices = [torch.device(dev) for dev in devices]
