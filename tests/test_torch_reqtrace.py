@@ -1,8 +1,8 @@
 """Request tracing in the port against the JAX package's, on the CPU.
 
 ``tpu_autoscaler_torch/serving/reqtrace.py`` and the modules it builds
-on (``obs/trace.py``, ``obs/recorder.py``, ``obs/blackbox.py``,
-``concurrency.py``) are copies of the JAX package's.  The sampler's own
+on (``obs/trace.py``, ``obs/recorder.py``, ``concurrency.py``) are
+copies of the JAX package's.  The sampler's own
 contract is tested here against the copy, as ``tests/test_reqtrace.py``
 tests the original; the same event scripts then go through both
 samplers, and the port's engines and the JAX engines serve the same
@@ -28,7 +28,6 @@ from tpu_autoscaler.workloads import model as jax_model  # noqa: E402
 from tpu_autoscaler.workloads import paged as jax_paged  # noqa: E402
 from tpu_autoscaler.workloads import serving as jax_serving  # noqa: E402
 from tpu_autoscaler.workloads import spec_serving as jax_spec  # noqa: E402
-from tpu_autoscaler_torch.obs import recorder as obs_recorder  # noqa: E402
 from tpu_autoscaler_torch.obs.recorder import trace_gaps  # noqa: E402
 from tpu_autoscaler_torch.serving import reqtrace  # noqa: E402
 from tpu_autoscaler_torch.serving.drain import DrainReceipt  # noqa: E402
@@ -209,18 +208,6 @@ def test_copy_emits_what_the_jax_sampler_emits(rate, slo):
                     rec.snapshot().as_dict() | {"epoch": 0}))
     assert out[0] == out[1]
     assert out[0][1]["sampled_total"] > 0
-
-
-def test_recorder_dump_writes_through_the_blackbox_copy(tmp_path):
-    """install_sigusr1's writer imports the blackbox copy lazily; its
-    atomic writer and unique names work from the port's package."""
-    from tpu_autoscaler_torch.obs import blackbox
-
-    rec = obs_recorder.FlightRecorder(max_spans=8, max_passes=2)
-    path = blackbox.unique_dump_path(str(tmp_path / "dump"))
-    blackbox.write_atomic(path, rec.dump())
-    with open(path) as f:
-        assert json.load(f)["counts"]["spans_retained"] == 0
 
 
 # ---- the engines' hooks against the JAX engines ---------------------------

@@ -335,8 +335,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert bad.strip() == "[]"
     assert set(mods.split()) >= {
         f"tpu_autoscaler_torch.{m}" for m in (
-            "concurrency", "dataio", "engine.jaxfit", "obs.blackbox",
-            "obs.recorder", "obs.trace", "serving.drain",
+            "concurrency", "dataio", "engine.jaxfit", "obs.recorder",
+            "obs.trace", "serving.drain",
             "serving.reqtrace", "serving.stats", "topology.catalog",
             "topology.shapes", "workloads._cli",
             "workloads.attention", "workloads.checkpoint",

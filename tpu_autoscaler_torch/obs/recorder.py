@@ -6,13 +6,8 @@ Prometheus endpoint says *that* something is wrong, not *why*.  The
 recorder keeps the last N completed spans (the per-phase latency
 anatomy of recent scale-ups) and the last M reconcile decision records
 ("why did/didn't we provision") in two lock-guarded ring buffers, and
-exposes them two ways that both work without a restart:
-
-- ``/debugz`` on the metrics port (``Metrics.serve(port, debugz=...)``)
-  returns the dump as JSON;
-- SIGUSR1 (``install_sigusr1``) writes the dump to a timestamped file
-  under ``/tmp`` — for controllers whose metrics port is firewalled or
-  was never enabled.
+exposes them as ``dump()``, a JSON-able copy taken under the lock
+(``/debugz`` on the JAX package's metrics port serves it).
 
 Retention is bounded by construction (``collections.deque`` maxlen):
 the recorder can never grow past ``max_spans + max_passes`` entries no
@@ -24,15 +19,13 @@ introspection state.  Everything in a dump is JSON-serializable with
 from __future__ import annotations
 
 import collections
-import logging
-import signal
 import time
-from typing import Any, Callable
+from typing import Any
+
+import numpy as np
 
 from tpu_autoscaler_torch import concurrency
 from tpu_autoscaler_torch.obs.trace import Span
-
-log = logging.getLogger(__name__)
 
 #: Ring bounds (docs/OBSERVABILITY.md).  4096 spans ≈ 500 scale-ups of
 #: 8 spans each; 512 passes ≈ 40 min of 5 s-interval history.
@@ -45,8 +38,7 @@ class FlightRecorder:
 
     Writers: the reconcile thread (most spans, every pass record) and
     the informer watch threads (relist spans) — hence the lock.  The
-    ``/debugz`` HTTP handler and the SIGUSR1 handler read via
-    ``dump()``, which copies under the lock.
+    readers go through ``dump()``, which copies under the lock.
     """
 
     def __init__(self, max_spans: int = DEFAULT_MAX_SPANS,
@@ -91,6 +83,39 @@ class FlightRecorder:
             out["active_spans"] = [s.as_dict()
                                    for s in tracer.active_spans()]
         return out
+
+
+class SpanTotals:
+    """A tracer's sink that keeps, per span name, how many spans ended,
+    their total seconds and the last ``keep`` durations (bounded, like
+    the rings above): what ``serve --trace-sample`` reports of the
+    engine's tick spans (``summary()``)."""
+
+    def __init__(self, keep: int = DEFAULT_MAX_SPANS) -> None:
+        self._lock = concurrency.Lock()
+        self._keep = keep
+        #: name -> [count, total seconds, recent durations]
+        self._by_name: dict[str, list] = {}
+
+    def record_span(self, span: Span) -> None:
+        took = span.duration or 0.0
+        with self._lock:
+            entry = self._by_name.get(span.name)
+            if entry is None:
+                entry = self._by_name[span.name] = [
+                    0, 0.0, collections.deque(maxlen=self._keep)]
+            entry[0] += 1
+            entry[1] += took
+            entry[2].append(took)
+
+    def summary(self) -> dict[str, dict[str, float]]:
+        """Per span name: ``count``, ``total_s`` and ``p95_ms``, the 95th
+        percentile of the last ``keep`` durations."""
+        with self._lock:
+            return {name: {"count": n, "total_s": total,
+                           "p95_ms": 1e3 * float(np.percentile(recent, 95))}
+                    for name, (n, total, recent) in
+                    sorted(self._by_name.items())}
 
 
 def trace_gaps(dump: dict[str, Any], trace_id: str) -> list[str]:
@@ -194,54 +219,3 @@ def trace_gaps(dump: dict[str, Any], trace_id: str) -> list[str]:
                 gaps.append(f"trace {trace_id}: completed repack root "
                             f"missing chip_seconds_saved attribution")
     return gaps
-
-
-def install_sigusr1(dump_fn: Callable[[], dict[str, Any]],
-                    path_prefix: str = "/tmp/tpu-autoscaler-debugz") -> bool:
-    """SIGUSR1 → write ``dump_fn()`` as JSON to a timestamped file.
-
-    Returns False on platforms without SIGUSR1 (Windows).  Install from
-    the main thread only (a Python signal.signal constraint).  The
-    handler is crash-only: a failing dump logs and never takes the
-    process down.
-
-    File names are UNIQUE per capture (UTC stamp + pid + a monotonic
-    counter, obs/blackbox.py): two signals in the same second used to
-    clobber each other's dump — exactly the double-capture an incident
-    produces — and the write is atomic (tmp + rename), so a reader
-    polling the directory never sees a half-written dump.
-
-    The dump runs on a THROWAWAY THREAD, never inline in the handler:
-    Python signal handlers interrupt the main thread between bytecodes,
-    and ``dump_fn`` acquires the recorder/tracer/metrics locks — all
-    non-reentrant.  An inline dump that lands while the interrupted
-    reconcile frame holds one of those locks would deadlock the very
-    controller it exists to diagnose; a thread just blocks until the
-    main thread releases the lock and then writes the file.
-    """
-    if not hasattr(signal, "SIGUSR1"):
-        return False
-
-    def _write() -> None:
-        from tpu_autoscaler_torch.obs.blackbox import (
-            unique_dump_path,
-            write_atomic,
-        )
-
-        path = unique_dump_path(path_prefix)
-        try:
-            write_atomic(path, dump_fn())
-            log.warning("SIGUSR1: flight-recorder dump written to %s", path)
-        except Exception:  # noqa: BLE001 — diagnostics must not kill
-            log.exception("SIGUSR1 flight-recorder dump failed")
-
-    def _handler(signum: int, frame: Any) -> None:
-        # Raw threading on purpose: this fires only in production
-        # processes (main.run), outside any scheduler's lifetime.
-        import threading
-
-        threading.Thread(target=_write, daemon=True,
-                         name="debugz-dump").start()
-
-    signal.signal(signal.SIGUSR1, _handler)
-    return True

@@ -1,13 +1,11 @@
-"""In-process tracing for the detection→actuation path.
+"""In-process tracing: spans inside the port's serving tick and train
+step (``workloads/serving.py``, ``paged.py``, ``model.py``), and the
+request-trace sampler's span trees (``serving/reqtrace.py``).
 
-The north-star metric (``scale_up_latency_seconds``) is a single opaque
-summary; when a scale-up is slow nothing says whether the time went to
-observation, planning, dispatch, cloud provisioning, node registration
-or scheduler binding.  This module is the missing decomposition: a
-dependency-free tracer whose spans mirror OpenTelemetry's shape (name,
-trace_id, span_id, parent, start/end, attrs, events) without the SDK —
-the controller must not grow a third-party runtime dep for its own
-introspection.
+A tracer whose spans mirror OpenTelemetry's shape (name, trace_id,
+span_id, parent, start/end, attrs, events) without the SDK.  It began
+as a copy of the JAX package's module of the same name, whose model
+follows; the port adds the profiler ranges and drops the metrics feed.
 
 Model (docs/OBSERVABILITY.md):
 
@@ -28,10 +26,15 @@ Model (docs/OBSERVABILITY.md):
   model); instead ``ActuationExecutor.submit`` captures the submitting
   span on the reconcile thread and the drain-time completion ends it
   there, so TAT2xx/TAR5xx stay clean by construction;
-- **metrics**: ending a span with ``metric=`` feeds the duration (or an
-  explicit ``value``) into the wired :class:`Metrics` registry — the
-  phase histograms (reconciler.PHASE_LATENCY_METRICS) are fed by the
-  same span ends that build the trace, so the two can never disagree.
+- **profiler ranges**: a span opened live (``start`` without ``t``)
+  is also a ``torch.profiler`` range of the same name while a profiler
+  records, entered and exited as ``torch.profiler.record_function``
+  does, so the port's serving tick and train step land in the device
+  trace; a retroactive span (``record``, or ``start`` with ``t``) opens
+  none.  The default clock, ``time.time``, is the profiler's: a live
+  span's ``start`` in ns lies just before its range's ``start_ns()``
+  (the range is entered after the span is stamped and exited before
+  the span's end is), with no offset to apply.
 
 Thread-safety: the tracer is called from the reconcile thread AND the
 informer watch threads; every mutation of shared tracer state
@@ -48,6 +51,8 @@ import dataclasses
 import time
 import uuid
 from typing import Any, Iterator
+
+import torch
 
 from tpu_autoscaler_torch import concurrency
 
@@ -102,33 +107,23 @@ class Span:
 
 class Tracer:
     """Span factory + sink.  ``recorder=None`` still produces spans (so
-    trace ids propagate and ``metric=`` feeds still fire) but retains
-    nothing — the zero-retention mode the overhead bench compares
-    against is ``tracer=None`` at each instrumentation seam, which
-    skips span work entirely."""
+    trace ids propagate) but retains nothing — the zero-retention mode
+    the overhead bench compares against is ``tracer=None`` at each
+    instrumentation seam, which skips span work entirely."""
 
-    def __init__(self, recorder: Any = None, metrics: Any = None,
-                 clock: Any = time.time) -> None:
+    def __init__(self, recorder: Any = None, clock: Any = time.time) -> None:
         self.recorder = recorder
-        self._metrics = metrics
         self.clock = clock
         self._lock = concurrency.Lock()
         self._active: dict[str, Span] = {}
+        # span_id -> the profiler range a live span holds open.
+        self._ranges: dict[str, Any] = {}
         self._seq = 0
         self._trace_seq = 0
         # Distinguishes traces across controller restarts in aggregated
         # log stores (trace ids repeat their counter after a crash-only
         # restart; the run id keeps them globally unique).
         self._run_id = uuid.uuid4().hex[:6]  # analysis: allow=TAD902 the run id exists to be unique ACROSS restarts BY DESIGN (see comment above); replay oracles compare span structure and attribution, never trace-id bytes
-
-    # -- wiring -----------------------------------------------------------
-
-    def bind_metrics(self, metrics: Any) -> None:
-        """Adopt a metrics registry if none was injected (the Controller
-        calls this so ``metric=`` span feeds land in ITS registry)."""
-        with self._lock:
-            if self._metrics is None:
-                self._metrics = metrics
 
     # -- ids --------------------------------------------------------------
 
@@ -148,7 +143,9 @@ class Tracer:
               parent: Span | None = None, t: float | None = None,
               attrs: dict[str, Any] | None = None) -> Span:
         """Open a span.  Parent defaults to the context's current span;
-        trace_id defaults to the parent's (or a fresh anonymous one)."""
+        trace_id defaults to the parent's (or a fresh anonymous one).
+        Without ``t`` the span is live: stamped now and, while a
+        profiler records, entered as a profiler range of its name."""
         if parent is None:
             parent = _CURRENT.get()
         if trace_id is None:
@@ -160,19 +157,25 @@ class Tracer:
                     parent_id=parent.span_id if parent is not None else None,
                     start=self.clock() if t is None else t,
                     seq=seq, attrs=dict(attrs or {}))
+        live = None
+        if t is None and torch._C._autograd._profiler_enabled():
+            live = torch.profiler.record_function(name)
+            live.__enter__()
         with self._lock:
             self._active[span.span_id] = span
+            if live is not None:
+                self._ranges[span.span_id] = live
         return span
 
     def end(self, span: Span | None, *, t: float | None = None,
-            attrs: dict[str, Any] | None = None,
-            metric: str | None = None,
-            value: float | None = None) -> None:
-        """Close ``span``; with ``metric=`` also observe its duration
-        (or the explicit ``value``) on the wired metrics registry —
-        the phase-histogram feed."""
+            attrs: dict[str, Any] | None = None) -> None:
+        """Close ``span``, and the profiler range it holds open."""
         if span is None:
             return
+        with self._lock:
+            live = self._ranges.pop(span.span_id, None)
+        if live is not None:
+            live.__exit__(None, None, None)
         # Span fields are single-writer by construction — the thread
         # that starts a span is the only one that ends it — and readers
         # on other threads only ever see (a) ring entries AFTER this
@@ -185,24 +188,18 @@ class Tracer:
             if attrs:
                 span.attrs.update(attrs)  # analysis: allow=TAR503 single-writer; published via recorder/active_spans locks
             self._active.pop(span.span_id, None)
-            metrics = self._metrics
-        if metric is not None and metrics is not None:
-            metrics.observe(
-                metric, value if value is not None else (span.duration or 0.0))
         if self.recorder is not None:
             self.recorder.record_span(span)
 
     def record(self, name: str, *, start: float, end: float,
                trace_id: str | None = None, parent: Span | None = None,
-               attrs: dict[str, Any] | None = None,
-               metric: str | None = None,
-               value: float | None = None) -> Span:
+               attrs: dict[str, Any] | None = None) -> Span:
         """Emit a retroactive span with explicit start/end — how a
         reconcile pass's shared observe/plan timings land in each served
-        gang's trace after the fact."""
+        gang's trace after the fact.  It opens no profiler range."""
         span = self.start(name, trace_id=trace_id, parent=parent, t=start,
                           attrs=attrs)
-        self.end(span, t=end, metric=metric, value=value)
+        self.end(span, t=end)
         return span
 
     def annotate(self, span: Span | None, **attrs: Any) -> None:
@@ -256,18 +253,27 @@ class Tracer:
                     for s in self._active.values()]
 
 
-@contextlib.contextmanager
+#: What :func:`maybe_span` returns without a tracer: a context that
+#: does nothing and yields None (stateless, so one serves every seam).
+_NO_SPAN = contextlib.nullcontext()
+
+
 def maybe_span(tracer: Tracer | None, name: str,
-               attrs: dict[str, Any] | None = None) -> Iterator[Span | None]:
+               attrs: dict[str, Any] | None = None):
     """Span-if-traced: the pattern for optional instrumentation seams
-    (actuators, informer).  ``tracer=None`` costs one ``if`` — the
-    untraced baseline the overhead gate (bench.py trace) holds the
-    traced path to.  The span is also made current, so nested calls
-    (and log records) attach to it; an exception is recorded on the
-    span and re-raised."""
+    (the port's serving tick and train step).  ``tracer=None`` costs
+    one ``if`` and hands back a shared do-nothing context.  With a
+    tracer the span is live (a profiler range too, while one records)
+    and made current, so nested seams attach to it; an exception is
+    recorded on the span and re-raised."""
     if tracer is None:
-        yield None
-        return
+        return _NO_SPAN
+    return _live_span(tracer, name, attrs)
+
+
+@contextlib.contextmanager
+def _live_span(tracer: Tracer, name: str,
+               attrs: dict[str, Any] | None) -> Iterator[Span]:
     span = tracer.start(name, attrs=attrs)
     with tracer.use(span):
         try:

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from tpu_autoscaler_torch.obs.trace import maybe_span
 from tpu_autoscaler_torch.workloads.attention import (
     causal_band_mask,
     flash_attention,
@@ -2064,7 +2065,7 @@ def make_sharded_train_step(mesh: Mesh, cfg: ModelConfig,
 
 
 def make_train_step(cfg: ModelConfig, train: TrainConfig | None = None,
-                    device=None, shard: str = "none"):
+                    device=None, shard: str = "none", tracer=None):
     """(init_fn, step_fn) on one device: the single-device counterpart
     of the JAX package's ``make_sharded_train_step``.
 
@@ -2078,15 +2079,16 @@ def make_train_step(cfg: ModelConfig, train: TrainConfig | None = None,
     ``shard`` "zero1" and "fsdp" cut the state over data ranks, and one
     device has one, so every mode runs this same step (the JAX
     package's single-device trainer takes them over a one-device
-    mesh)."""
+    mesh).  ``tracer``: each step is a span tree (:func:`_make_step`)."""
     _check_shard(shard)
     dev = resolve_device(device)
     return _make_step(cfg, make_optimizer(train or TrainConfig()), dev,
-                      lambda tree, tokens: loss_fn(tree, tokens, cfg))
+                      lambda tree, tokens: loss_fn(tree, tokens, cfg),
+                      tracer=tracer)
 
 
 def _make_step(cfg: ModelConfig, optimizer: Optimizer, dev: torch.device,
-               loss_of, has_aux: bool = False):
+               loss_of, has_aux: bool = False, tracer=None):
     """(init_fn, step_fn) for the f32 master params on ``dev`` and the
     loss ``loss_of(params, tokens)``: the gradient by
     ``torch.autograd.grad`` with respect to the master params, then the
@@ -2095,27 +2097,38 @@ def _make_step(cfg: ModelConfig, optimizer: Optimizer, dev: torch.device,
     ``(loss, metrics)`` and step_fn ``(params, opt_state, loss,
     metrics)``, the metrics detached.  Moments held as
     :class:`Sharded` leaves (ZeRO-1 under sequence parallelism) are
-    updated per block (:func:`_replicated_update`)."""
+    updated per block (:func:`_replicated_update`).
+
+    ``tracer`` (:class:`~tpu_autoscaler_torch.obs.trace.Tracer`): each
+    step is a ``train.step`` span over ``train.forward`` (the loss),
+    ``train.backward`` (``torch.autograd.grad``, remat's recompute
+    included) and ``train.update`` (the optimizer and the new params).
+    Nothing waits for the device: the loss stays a device tensor."""
 
     def init_fn(generator: torch.Generator):
         params = init_params(generator, cfg, dev)
         return params, optimizer.init(params)
 
     def step_fn(params: dict, opt_state: dict, tokens):
-        tokens = torch.as_tensor(tokens, device=dev)
-        paths, leaves = zip(*_flatten(params))
-        leaves = [p.detach().requires_grad_() for p in leaves]
-        loss = loss_of(_unflatten(dict(zip(paths, leaves))), tokens)
-        if has_aux:
-            loss, metrics = loss
-        grads = torch.autograd.grad(loss, leaves)
-        grads = _unflatten(dict(zip(paths, grads)))
-        if isinstance(next(_flatten(opt_state["mu"]))[1], Sharded):
-            params, opt_state = _replicated_update(optimizer, params, grads,
-                                                   opt_state)
-        else:
-            updates, opt_state = optimizer.update(grads, opt_state, params)
-            params = apply_updates(params, updates)
+        with maybe_span(tracer, "train.step"):
+            tokens = torch.as_tensor(tokens, device=dev)
+            paths, leaves = zip(*_flatten(params))
+            leaves = [p.detach().requires_grad_() for p in leaves]
+            with maybe_span(tracer, "train.forward"):
+                loss = loss_of(_unflatten(dict(zip(paths, leaves))), tokens)
+            if has_aux:
+                loss, metrics = loss
+            with maybe_span(tracer, "train.backward"):
+                grads = torch.autograd.grad(loss, leaves)
+            grads = _unflatten(dict(zip(paths, grads)))
+            with maybe_span(tracer, "train.update"):
+                if isinstance(next(_flatten(opt_state["mu"]))[1], Sharded):
+                    params, opt_state = _replicated_update(
+                        optimizer, params, grads, opt_state)
+                else:
+                    updates, opt_state = optimizer.update(grads, opt_state,
+                                                          params)
+                    params = apply_updates(params, updates)
         if has_aux:
             return params, opt_state, loss.detach(), {
                 name: m.detach() for name, m in metrics.items()}

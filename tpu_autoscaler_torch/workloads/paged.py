@@ -58,6 +58,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpu_autoscaler_torch.obs.trace import maybe_span
 from tpu_autoscaler_torch.workloads.attention import (
     gather_pool_rows,
     paged_flash_decode,
@@ -338,7 +339,7 @@ def _mesh_paged_decode_step(cfg: ModelConfig, tokens_per_row: int):
 
 
 def make_paged_decode_step(cfg: ModelConfig, tokens_per_row: int,
-                           mesh: Mesh | None = None):
+                           mesh: Mesh | None = None, tracer=None):
     """Build ``step(params, cache, tables, tokens, active) -> (logits,
     cache)``: one token for every slot, written and read through the
     block tables.  tables: [slots, tokens_per_row // block_size] int32
@@ -349,7 +350,9 @@ def make_paged_decode_step(cfg: ModelConfig, tokens_per_row: int,
     nothing; their logits are computed and ignored.
 
     ``mesh``: the step takes params placed over it
-    (:func:`model.place_params`) and a :class:`MeshPagedKVCache`."""
+    (:func:`model.place_params`) and a :class:`MeshPagedKVCache`.
+    ``tracer``: the one-device step's inputs are a
+    ``serve.decode.inputs`` span (:class:`serving.ContinuousBatcher`)."""
     if mesh is not None:
         return _mesh_paged_decode_step(cfg.resolved_for_mesh(mesh),
                                        tokens_per_row)
@@ -360,16 +363,19 @@ def make_paged_decode_step(cfg: ModelConfig, tokens_per_row: int,
         positions = cache.lengths
         # Per-step values every layer shares, computed once: the write
         # lists, the tables and lengths on the device, the rope tables.
-        writes = [t.to(dev) for t in _token_writes(
-            tables, positions, active, cache.num_blocks, cache.block_size)]
-        dev_tables = tables.to(dev)
-        dev_positions = positions.to(dev)
-        new_len = dev_positions + 1
-        x = params["embed"].to(cfg.dtype)[tokens.to(dev)][:, None, :]
+        with maybe_span(tracer, "serve.decode.inputs"):
+            writes = [t.to(dev) for t in _token_writes(
+                tables, positions, active, cache.num_blocks,
+                cache.block_size)]
+            dev_tables = tables.to(dev)
+            dev_positions = positions.to(dev)
+            dev_tokens = tokens.to(dev)
+            new_len = dev_positions + 1
+            if cfg.rope:
+                rope = _row_rope_tables(dev_positions, 1, cfg.head_dim,
+                                        cfg.rope_theta, cfg.dtype)
+        x = params["embed"].to(cfg.dtype)[dev_tokens][:, None, :]
         b, s, d = x.shape
-        if cfg.rope:
-            rope = _row_rope_tables(dev_positions, s, cfg.head_dim,
-                                    cfg.rope_theta, cfg.dtype)
         for i in range(cfg.n_layers):
             layer = _layer(params, i)
             k_pool, v_pool = cache.k[i], cache.v[i]
@@ -481,7 +487,7 @@ def _mesh_paged_prefill(cfg: ModelConfig, chunk: int, lanes: int,
 
 def make_paged_prefill(cfg: ModelConfig, chunk: int, lanes: int,
                        tokens_per_row: int, return_all_logits: bool = False,
-                       mesh: Mesh | None = None):
+                       mesh: Mesh | None = None, tracer=None):
     """Build ``fill(params, cache, tables, tokens, offsets, n_valid) ->
     (logits, cache)``: append one chunk to EACH of ``lanes`` prompts in
     one call.
@@ -498,8 +504,8 @@ def make_paged_prefill(cfg: ModelConfig, chunk: int, lanes: int,
     (the generation seed when the lane just finished its prompt) and the
     cache, its pool updated in place; lengths are the caller's to
     advance.  ``return_all_logits=True`` returns [lanes, chunk, vocab]:
-    every appended position's logits.  ``mesh``: as in
-    :func:`make_paged_decode_step`."""
+    every appended position's logits.  ``mesh``, ``tracer`` (a
+    ``serve.prefill.inputs`` span): as in :func:`make_paged_decode_step`."""
     if mesh is not None:
         return _mesh_paged_prefill(cfg.resolved_for_mesh(mesh), chunk, lanes,
                                    tokens_per_row, return_all_logits)
@@ -511,19 +517,22 @@ def make_paged_prefill(cfg: ModelConfig, chunk: int, lanes: int,
             raise ValueError(f"tokens {tuple(tokens.shape)}: want "
                              f"[{lanes}, {chunk}]")
         dev = cache.k.device
-        writes = [t.to(dev) for t in _chunk_writes(
-            tables, offsets, n_valid, chunk, cache.num_blocks,
-            cache.block_size)]
-        dev_tables = tables.to(dev)
-        dev_offsets = offsets.to(dev)
-        x = params["embed"].to(cfg.dtype)[tokens.to(dev)]  # [lanes, chunk, d]
+        with maybe_span(tracer, "serve.prefill.inputs"):
+            writes = [t.to(dev) for t in _chunk_writes(
+                tables, offsets, n_valid, chunk, cache.num_blocks,
+                cache.block_size)]
+            dev_tables = tables.to(dev)
+            dev_offsets = offsets.to(dev)
+            dev_tokens = tokens.to(dev)
+            # Each lane attends over its own gathered pages: causal
+            # within the chunk plus everything before its offset.
+            visible = _lanes_visible(dev_offsets, chunk, tokens_per_row,
+                                     cfg)
+            if cfg.rope:
+                rope = _row_rope_tables(dev_offsets, chunk, hd,
+                                        cfg.rope_theta, cfg.dtype)
+        x = params["embed"].to(cfg.dtype)[dev_tokens]  # [lanes, chunk, d]
         b, s, d = x.shape
-        # Each lane attends over its own gathered pages: causal within
-        # the chunk plus everything before its offset.
-        visible = _lanes_visible(dev_offsets, s, tokens_per_row, cfg)
-        if cfg.rope:
-            rope = _row_rope_tables(dev_offsets, s, hd, cfg.rope_theta,
-                                    cfg.dtype)
         for i in range(cfg.n_layers):
             layer = _layer(params, i)
             k_pool, v_pool = cache.k[i], cache.v[i]
@@ -576,9 +585,10 @@ class PagedBatcher(ContinuousBatcher):
                  prefill_lanes: int = 2, device=None,
                  generator: torch.Generator | None = None,
                  slo_ticks: int | None = None, reqtrace=None,
-                 mesh: Mesh | None = None):
+                 mesh: Mesh | None = None, tracer=None):
         """``mesh``: serve under it (see :class:`ContinuousBatcher`);
-        the pool is cut over KV heads (:class:`MeshPagedKVCache`)."""
+        the pool is cut over KV heads (:class:`MeshPagedKVCache`).
+        ``tracer``: see :class:`ContinuousBatcher`."""
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         if max_len % block_size:
@@ -595,7 +605,7 @@ class PagedBatcher(ContinuousBatcher):
         super().__init__(params, cfg, slots=slots, max_len=max_len,
                          chunk=chunk, device=device, generator=generator,
                          ring=False, slo_ticks=slo_ticks, reqtrace=reqtrace,
-                         mesh=mesh)
+                         mesh=mesh, tracer=tracer)
 
     def _pool(self, cfg, params):
         """A fresh pool for ``cfg`` (params placed over the engine's
@@ -610,9 +620,13 @@ class PagedBatcher(ContinuousBatcher):
         self.allocator = BlockAllocator(self._num_blocks)
         self.tables = np.full((slots, self.blocks_per_row), -1, np.int32)
         self.cache = self._pool(cfg, self.params)
-        self._decode = make_paged_decode_step(cfg, max_len, self.mesh)
+        # Untraced, the builders are called as they always were, so a
+        # wrapper of either with the untraced signature still serves.
+        traced = {} if self._tracer is None else {"tracer": self._tracer}
+        self._decode = make_paged_decode_step(cfg, max_len, self.mesh,
+                                              **traced)
         self._prefill = make_paged_prefill(cfg, chunk, self.prefill_lanes,
-                                           max_len, mesh=self.mesh)
+                                           max_len, mesh=self.mesh, **traced)
 
     def submit(self, request: Request) -> None:
         """Linear-engine validation plus the pool-feasibility check: a
@@ -752,7 +766,8 @@ class PagedBatcher(ContinuousBatcher):
         phases are hooks: spec_serving.py mirrors the prefill into the
         draft cache (``_after_prefill``) and replaces the decode phase
         with draft-propose / target-verify rounds."""
-        self._admit()
+        with maybe_span(self._tracer, "serve.admit"):
+            self._admit()
         self.ticks += 1
         self._after_prefill(self._prefill_phase())
         if self._has_pending.any():
@@ -777,6 +792,48 @@ class PagedBatcher(ContinuousBatcher):
         of each, and seed the slots whose prompt is complete.  Returns
         the served chunks, ``(slot, tokens [chunk], take, offset)``
         each, offset being the slot's length before the chunk."""
+        tracer = self._tracer
+        with maybe_span(tracer, "serve.prefill.plan"):
+            lanes = self._choose_lanes()
+            if tracer is not None:
+                self._note_lanes(lanes)
+            if not lanes:
+                return []
+            served = []
+            tok = np.zeros((self.prefill_lanes, self.chunk), np.int64)
+            offs = np.zeros((self.prefill_lanes,), np.int32)
+            nval = np.zeros((self.prefill_lanes,), np.int32)
+            tabs = np.full((self.prefill_lanes, self.blocks_per_row), -1,
+                           np.int32)
+            for lane, i in enumerate(lanes):
+                prompt = self._slots[i].remaining_prompt
+                take = min(self.chunk, len(prompt))
+                tok[lane, :take] = prompt[:take]
+                offs[lane] = self.cache.lengths[i]
+                nval[lane] = take
+                tabs[lane] = self.tables[i]
+                served.append((i, tok[lane].copy(), take, int(offs[lane])))
+                self.prefill_tokens += take
+            self.prefill_chunks += len(lanes)
+        with maybe_span(tracer, "serve.prefill.step"):
+            logits, self.cache = self._prefill(
+                self.params, self.cache, torch.from_numpy(tabs),
+                torch.from_numpy(tok), torch.from_numpy(offs),
+                torch.from_numpy(nval))
+        with maybe_span(tracer, "serve.prefill.sample"):
+            for lane, i in enumerate(lanes):
+                slot = self._slots[i]
+                slot.remaining_prompt = slot.remaining_prompt[nval[lane]:]
+                self.cache.lengths[i] += int(nval[lane])
+                if len(slot.remaining_prompt) == 0:
+                    self._note_seeded(i, self._sample_host(logits[lane],
+                                                           slot.request))
+        return served
+
+    def _choose_lanes(self) -> list[int]:
+        """Up to ``prefill_lanes`` slots holding prompt, in slot order,
+        each grown to take its next chunk (preempting under pool
+        pressure)."""
         lanes: list[int] = []
         for i, slot in enumerate(self._slots):
             if len(lanes) == self.prefill_lanes:
@@ -798,54 +855,30 @@ class PagedBatcher(ContinuousBatcher):
         # A LATER lane's block pressure may have preempted an EARLIER
         # collected lane (youngest-first victim choice): drop lanes
         # whose slot no longer holds a request.
-        lanes = [i for i in lanes
-                 if self._slots[i].request is not None
-                 and self._slots[i].remaining_prompt is not None]
-        if not lanes:
-            return []
-        served = []
-        tok = np.zeros((self.prefill_lanes, self.chunk), np.int64)
-        offs = np.zeros((self.prefill_lanes,), np.int32)
-        nval = np.zeros((self.prefill_lanes,), np.int32)
-        tabs = np.full((self.prefill_lanes, self.blocks_per_row), -1,
-                       np.int32)
-        for lane, i in enumerate(lanes):
-            prompt = self._slots[i].remaining_prompt
-            take = min(self.chunk, len(prompt))
-            tok[lane, :take] = prompt[:take]
-            offs[lane] = self.cache.lengths[i]
-            nval[lane] = take
-            tabs[lane] = self.tables[i]
-            served.append((i, tok[lane].copy(), take, int(offs[lane])))
-        logits, self.cache = self._prefill(
-            self.params, self.cache, torch.from_numpy(tabs),
-            torch.from_numpy(tok), torch.from_numpy(offs),
-            torch.from_numpy(nval))
-        for lane, i in enumerate(lanes):
-            slot = self._slots[i]
-            slot.remaining_prompt = slot.remaining_prompt[nval[lane]:]
-            self.cache.lengths[i] += int(nval[lane])
-            if len(slot.remaining_prompt) == 0:
-                self._note_seeded(i, self._sample_host(logits[lane],
-                                                       slot.request))
-        return served
+        return [i for i in lanes
+                if self._slots[i].request is not None
+                and self._slots[i].remaining_prompt is not None]
 
     def _decode_phase(self) -> None:
         """Grow every decoding slot's table by the block its next token
         needs (preempting under pool pressure), then one batched decode
         step and its sampling."""
-        lengths_now = self.cache.lengths.clone()
-        for i, slot in enumerate(self._slots):
-            if not self._has_pending[i] or slot.request is None:
-                continue
-            while not self._ensure_blocks(i, int(lengths_now[i]) + 1):
-                if not self._preempt_youngest():
-                    raise RuntimeError(
-                        "paged pool exhausted with nothing to preempt")
-                if self._slots[i].request is None:
-                    break  # we preempted ourselves; skip this row
-        logits, self.cache = self._decode(
-            self.params, self.cache, torch.from_numpy(self.tables),
-            torch.from_numpy(self._pending_token).to(self.device),
-            torch.from_numpy(self._has_pending))
-        self._take_decoded(logits)
+        tracer = self._tracer
+        with maybe_span(tracer, "serve.decode.plan"):
+            lengths_now = self.cache.lengths.clone()
+            for i, slot in enumerate(self._slots):
+                if not self._has_pending[i] or slot.request is None:
+                    continue
+                while not self._ensure_blocks(i, int(lengths_now[i]) + 1):
+                    if not self._preempt_youngest():
+                        raise RuntimeError(
+                            "paged pool exhausted with nothing to preempt")
+                    if self._slots[i].request is None:
+                        break  # we preempted ourselves; skip this row
+            tokens = torch.from_numpy(self._pending_token).to(self.device)
+        with maybe_span(tracer, "serve.decode.step"):
+            logits, self.cache = self._decode(
+                self.params, self.cache, torch.from_numpy(self.tables),
+                tokens, torch.from_numpy(self._has_pending))
+        with maybe_span(tracer, "serve.decode.sample"):
+            self._take_decoded(logits)

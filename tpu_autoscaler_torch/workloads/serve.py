@@ -33,7 +33,15 @@ all slots, per-slot block tables, preemption under pool pressure.
 (workloads/spec_serving.py): the target's first ``--draft-layers``
 layers propose K tokens a round and the target verifies them in one
 pass.  ``--trace-sample RATE`` samples per-request span trees
-(serving/reqtrace.py); the receipt then carries a ``trace`` field.
+(serving/reqtrace.py) and also hands the engine a tracer
+(``obs/trace.py``) that opens the tick's spans (``serve.tick``,
+``serve.prefill.step``, ``serve.sync``, ... and each request's
+``serve.request.prefill``: ``serving.ContinuousBatcher``); the receipt
+then carries a ``trace`` field, the sampler's counters and, under
+``spans``, each span name's ``count``, ``total_s`` and ``p95_ms``:
+
+    "trace": {"sample_rate": 0.1, ..., "spans": {"serve.tick":
+              {"count": 212, "total_s": 9.87, "p95_ms": 61.2}, ...}}
 ``--tp N`` (> 1) serves under a (data, model) mesh of the visible
 devices (``model.make_mesh``; when N exceeds them the ranks repeat them
 round-robin): the params placed once per rank, the slots cut over the
@@ -206,9 +214,10 @@ def _read_requests(requests_file, random_n, max_new_tokens, seed, cfg):
               type=click.FloatRange(0.0, 1.0),
               help="Request-trace head-sampling rate: sampled requests "
                    "(plus the always-captured tail: SLO misses, "
-                   "preemptions, drain losses) emit span trees; counts "
-                   "ride the final-stats receipt.  0 disables the "
-                   "sampler entirely.")
+                   "preemptions, drain losses) emit span trees, and the "
+                   "engine's tick spans are totalled by name; both ride "
+                   "the final-stats receipt.  0 disables the sampler "
+                   "and the tracer entirely.")
 @click.option("--slo-ticks", default=None, type=int,
               help="Engine-tick latency target: completions within "
                    "this many ticks count as SLO-attained in the "
@@ -311,14 +320,17 @@ def main(checkpoint_dir, requests_file, random_n, max_new_tokens, slots,
         log.info("serving under mesh %s", dict(mesh.shape))
         device = mesh.ranks[0]
     generator = torch.Generator(device=device).manual_seed(seed)
-    sampler = None
+    sampler = tracer = None
     if trace_sample > 0.0:
+        from tpu_autoscaler_torch.obs.recorder import SpanTotals
+        from tpu_autoscaler_torch.obs.trace import Tracer
         from tpu_autoscaler_torch.serving.reqtrace import (
             RequestTraceSampler,
         )
 
         sampler = RequestTraceSampler("serve", sample_rate=trace_sample,
                                       slo_ticks=slo_ticks)
+        tracer = Tracer(recorder=SpanTotals())
     if paged and mesh is not None and dp > 1:
         raise click.UsageError(
             "--paged serves TP-only meshes (all slots share ONE block pool, "
@@ -340,18 +352,18 @@ def main(checkpoint_dir, requests_file, random_n, max_new_tokens, slots,
             params, cfg, dparams, dcfg, k=spec_k, slots=slots,
             max_len=max_len, block_size=block_size, num_blocks=num_blocks,
             chunk=chunk, device=device, generator=generator, seed=seed,
-            slo_ticks=slo_ticks, reqtrace=sampler, mesh=mesh)
+            slo_ticks=slo_ticks, reqtrace=sampler, mesh=mesh, tracer=tracer)
     elif paged:
         engine = PagedBatcher(
             params, cfg, slots=slots, max_len=max_len,
             block_size=block_size, num_blocks=num_blocks, chunk=chunk,
             device=device, generator=generator, slo_ticks=slo_ticks,
-            reqtrace=sampler, mesh=mesh)
+            reqtrace=sampler, mesh=mesh, tracer=tracer)
     else:
         engine = ContinuousBatcher(
             params, cfg, slots=slots, max_len=max_len, chunk=chunk,
             ring=ring, device=device, generator=generator,
-            slo_ticks=slo_ticks, reqtrace=sampler, mesh=mesh)
+            slo_ticks=slo_ticks, reqtrace=sampler, mesh=mesh, tracer=tracer)
 
     watcher = DrainWatcher(annotations_file or DEFAULT_ANNOTATIONS_PATH)
     t0 = time.perf_counter()
@@ -377,7 +389,8 @@ def main(checkpoint_dir, requests_file, random_n, max_new_tokens, slots,
     # The drain contract's receipt: always the LAST stdout line.
     final = final_stats_payload(reqs, engine, dt, replica_id=replica_id)
     if sampler is not None:
-        final["trace"] = sampler.debug_state()
+        final["trace"] = {**sampler.debug_state(),
+                          "spans": tracer.recorder.summary()}
     print(json.dumps(final))
     if final_stats_file:
         with open(final_stats_file, "w", encoding="utf-8") as f:

@@ -34,6 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpu_autoscaler_torch.obs.trace import maybe_span
 from tpu_autoscaler_torch.serving.stats import (
     ServingSnapshot,
     ServingStatsRecorder,
@@ -541,6 +542,19 @@ class Request:
 
 
 @dataclasses.dataclass
+class _PromptWait:
+    """A traced request's way to its first token, on the tracer's clock:
+    when it was submitted and first admitted, the wall time of the ticks
+    in which it held unprefilled prompt without a prefill lane, and the
+    chunks prefilled for it."""
+
+    submitted: float
+    admitted: float | None = None
+    lane_wait_s: float = 0.0
+    chunks: int = 0
+
+
+@dataclasses.dataclass
 class _SlotState:
     request: Request | None = None
     remaining_prompt: np.ndarray | None = None
@@ -557,13 +571,40 @@ class ContinuousBatcher:
     sequence that hits max_new_tokens (or eos) frees its slot on the
     spot — the next request is admitted the next tick.  Shapes never
     change; slot occupancy is pure data.
+
+    With a tracer (``tracer=``) every :meth:`tick` is one span tree, on
+    the tracer's clock (profiler ranges too, while a profiler records)::
+
+        serve.tick           attrs: tick, decode_rows, prefill_lanes,
+        │                           prompt_tokens
+        ├─ serve.admit
+        ├─ serve.prefill.plan     lane choice (paged: block growth,
+        │                         preemption, the host arrays)
+        ├─ serve.prefill.step     the call into the prefill step
+        │  └─ serve.prefill.inputs  (paged) its inputs to the device
+        ├─ serve.prefill.sample   seeding the lanes whose prompt ended
+        │  └─ serve.sync            waiting for the logits
+        ├─ serve.decode.plan      (paged) block growth, tokens to the
+        │                         device
+        ├─ serve.decode.step      the call into the decode step
+        │  └─ serve.decode.inputs   (paged) its inputs to the device
+        ├─ serve.decode.sample    sampling, bookkeeping, finishing
+        │  └─ serve.sync            the sampled tokens to the host
+        └─ serve.stats            closing the stats tick
+
+    and each request's first token closes a root span
+    ``serve.request.prefill`` from its submission, with attrs
+    ``queue_s`` (submission to first admission), ``lane_wait_s`` (the
+    wall time of the ticks in which it held unprefilled prompt without
+    a lane) and ``chunks``.  The speculative engine's own decode phase
+    and the mesh step functions are not split.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 4,
                  max_len: int = 256, chunk: int = 32, device=None,
                  generator: torch.Generator | None = None,
                  ring: bool = False, slo_ticks: int | None = None,
-                 reqtrace=None, mesh: Mesh | None = None):
+                 reqtrace=None, mesh: Mesh | None = None, tracer=None):
         """``device``: where the engine runs, CUDA unless the caller
         asks for the CPU (``device='cpu'``).  ``generator``: the
         sampling generator, on ``device`` (default: seeded with 0).
@@ -587,7 +628,16 @@ class ContinuousBatcher:
         :class:`~tpu_autoscaler_torch.serving.reqtrace.RequestTraceSampler`,
         sampled per-request span trees built from the host-side
         bookkeeping this scheduler already does (submit, admit, seeded,
-        preempt, finish); None costs one ``if`` per event."""
+        preempt, finish); None costs one ``if`` per event.
+
+        ``tracer``: an optional :class:`~tpu_autoscaler_torch.obs.trace.
+        Tracer` for the tick's span tree (class docstring); None costs
+        one ``if`` per seam."""
+        self._tracer = tracer
+        # Traced only: each unseeded request's way to its first token,
+        # and the ones waiting for a lane in the current tick.
+        self._prompt_waits: dict[str, _PromptWait] = {}
+        self._lane_waiting: list[_PromptWait] = []
         self.mesh = mesh
         if mesh is not None:
             self.params = place_params(mesh, cfg, params)
@@ -614,6 +664,8 @@ class ContinuousBatcher:
         self.ticks = 0
         self.decode_steps = 0
         self.decode_tokens = 0
+        self.prefill_chunks = 0
+        self.prefill_tokens = 0
         self.draining = False
         # Signal export: host-side numpy rings.  _stat_lengths mirrors
         # cache.lengths host-side so KV occupancy never reads the device.
@@ -683,6 +735,9 @@ class ContinuousBatcher:
             request.request_id = f"r{self._rid_seq}"
         if self._reqtrace is not None:
             self._reqtrace.note_submit(request.request_id, self.ticks)
+        if self._tracer is not None:
+            self._prompt_waits.setdefault(
+                request.request_id, _PromptWait(self._tracer.clock()))
         self._queue.append(request)
 
     @property
@@ -703,6 +758,10 @@ class ContinuousBatcher:
             self._stats.note_requeue_wait(self.ticks - req.preempted_tick)
         if self._reqtrace is not None and req.request_id is not None:
             self._reqtrace.note_admit(req.request_id, self.ticks)
+        if self._tracer is not None:
+            wait = self._prompt_waits.get(req.request_id)
+            if wait is not None and wait.admitted is None:
+                wait.admitted = self._tracer.clock()
 
     def _note_seeded(self, i: int, tok: int) -> None:
         """Slot i's prompt is fully in the cache and ``tok``, sampled
@@ -716,6 +775,39 @@ class ContinuousBatcher:
         if self._reqtrace is not None \
                 and slot.request.request_id is not None:
             self._reqtrace.note_seeded(slot.request.request_id, self.ticks)
+        if self._tracer is not None:
+            self._record_prompt_wait(slot.request)
+
+    def _record_prompt_wait(self, req: Request) -> None:
+        """The ``serve.request.prefill`` span of a request just seeded:
+        a root span of its own, from its submission to now."""
+        wait = self._prompt_waits.pop(req.request_id, None)
+        if wait is None:
+            return
+        tracer = self._tracer
+        with tracer.use(None):
+            tracer.record("serve.request.prefill", start=wait.submitted,
+                          end=tracer.clock(), attrs={
+                              "queue_s": wait.admitted - wait.submitted,
+                              "lane_wait_s": wait.lane_wait_s,
+                              "chunks": wait.chunks})
+
+    def _note_lanes(self, lanes: list[int]) -> None:
+        """Traced prefill bookkeeping, before the call: a chunk for each
+        lane's request; every other slot holding unprefilled prompt
+        waits out this tick (see :meth:`_close_tick`)."""
+        self._lane_waiting = []
+        for i, slot in enumerate(self._slots):
+            if slot.request is None or slot.remaining_prompt is None \
+                    or len(slot.remaining_prompt) == 0:
+                continue
+            wait = self._prompt_waits.get(slot.request.request_id)
+            if wait is None:
+                continue
+            if i in lanes:
+                wait.chunks += 1
+            else:
+                self._lane_waiting.append(wait)
 
     def _trace_finish_attrs(self, req: Request) -> dict:
         """Extra root-span attrs for a finished request's trace (the
@@ -741,8 +833,10 @@ class ContinuousBatcher:
                 self.cache.reset(i)
 
     def _sample_host(self, logits, req: Request) -> int:
-        return int(_sample(logits, self._gen, req.temperature, req.top_k,
-                           req.top_p))
+        tok = _sample(logits, self._gen, req.temperature, req.top_k,
+                      req.top_p)
+        with maybe_span(self._tracer, "serve.sync"):
+            return int(tok)
 
     def _batch_sample(self, logits, temps: np.ndarray,
                       greedy: np.ndarray) -> np.ndarray:
@@ -757,7 +851,9 @@ class ContinuousBatcher:
             drawn = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
             keep = torch.from_numpy(greedy).to(self.device)
             toks = torch.where(keep, toks, drawn)
-        return toks.cpu().numpy()
+        with maybe_span(self._tracer, "serve.sync"):
+            toks = toks.cpu()
+        return toks.numpy()
 
     def _finish_if_done(self, i: int) -> None:
         slot = self._slots[i]
@@ -797,19 +893,41 @@ class ContinuousBatcher:
 
     def tick(self) -> None:
         """One engine step, then close the stats tick."""
-        self._tick()
-        used, cap = self._kv_usage()
-        self._stats.end_tick(
-            queue_depth=len(self._queue),
-            active=sum(1 for s in self._slots
-                       if s.request is not None),
-            kv_used=used, kv_capacity=cap,
-            decode_tokens_total=self.decode_tokens)
+        with maybe_span(self._tracer, "serve.tick") as span:
+            counts = self._counts()
+            self._tick()
+            with maybe_span(self._tracer, "serve.stats"):
+                used, cap = self._kv_usage()
+                self._stats.end_tick(
+                    queue_depth=len(self._queue),
+                    active=sum(1 for s in self._slots
+                               if s.request is not None),
+                    kv_used=used, kv_capacity=cap,
+                    decode_tokens_total=self.decode_tokens)
+            if span is not None:
+                self._close_tick(span, counts)
+
+    def _counts(self) -> tuple[int, int, int]:
+        return self.decode_tokens, self.prefill_chunks, self.prefill_tokens
+
+    def _close_tick(self, span, counts) -> None:
+        """The traced tick's attrs, and its wall time so far added to
+        the lane wait of every request that waited for a lane in it."""
+        rows, lanes, tokens = (now - before for now, before in
+                               zip(self._counts(), counts))
+        self._tracer.annotate(span, tick=self.ticks, decode_rows=rows,
+                              prefill_lanes=lanes, prompt_tokens=tokens)
+        took = self._tracer.clock() - span.start
+        for wait in self._lane_waiting:
+            wait.lane_wait_s += took
+        self._lane_waiting = []
 
     def _tick(self) -> None:
         """One engine step: admit, at most one prefill chunk, then one
         batched decode step for every slot with a pending token."""
-        self._admit()
+        tracer = self._tracer
+        with maybe_span(tracer, "serve.admit"):
+            self._admit()
         self.ticks += 1
 
         # Chunked prefill: the first slot still holding prompt gets one
@@ -818,18 +936,26 @@ class ContinuousBatcher:
             if slot.request is None or slot.remaining_prompt is None \
                     or len(slot.remaining_prompt) == 0:
                 continue
-            take = min(self.chunk, len(slot.remaining_prompt))
-            buf = np.zeros((self.chunk,), np.int64)
-            buf[:take] = slot.remaining_prompt[:take]
-            slot.remaining_prompt = slot.remaining_prompt[take:]
-            logits, self.cache = self._prefill(
-                self.params, self.cache, i,
-                torch.from_numpy(buf).to(self.device), take)
+            with maybe_span(tracer, "serve.prefill.plan"):
+                if tracer is not None:
+                    self._note_lanes([i])
+                take = min(self.chunk, len(slot.remaining_prompt))
+                buf = np.zeros((self.chunk,), np.int64)
+                buf[:take] = slot.remaining_prompt[:take]
+                slot.remaining_prompt = slot.remaining_prompt[take:]
+            with maybe_span(tracer, "serve.prefill.step"):
+                logits, self.cache = self._prefill(
+                    self.params, self.cache, i,
+                    torch.from_numpy(buf).to(self.device), take)
+            self.prefill_chunks += 1
+            self.prefill_tokens += take
             self._stat_lengths[i] += take
             if len(slot.remaining_prompt) == 0:
                 # Prompt complete: sample the first generated token.
-                self._note_seeded(i, self._sample_host(logits, slot.request))
-                self._finish_if_done(i)
+                with maybe_span(tracer, "serve.prefill.sample"):
+                    self._note_seeded(i, self._sample_host(logits,
+                                                           slot.request))
+                    self._finish_if_done(i)
             break
 
         if not self._has_pending.any():
@@ -838,12 +964,14 @@ class ContinuousBatcher:
         # Batched decode over every live slot.  Slots without a pending
         # token run masked lanes; the active mask keeps their lengths
         # from advancing on the device.
-        logits, self.cache = self._decode(
-            self.params, self.cache,
-            torch.from_numpy(self._pending_token).to(self.device),
-            torch.from_numpy(self._has_pending).to(self.device))
+        with maybe_span(tracer, "serve.decode.step"):
+            logits, self.cache = self._decode(
+                self.params, self.cache,
+                torch.from_numpy(self._pending_token).to(self.device),
+                torch.from_numpy(self._has_pending).to(self.device))
         self._stat_lengths[self._has_pending] += 1
-        self._take_decoded(logits)
+        with maybe_span(tracer, "serve.decode.sample"):
+            self._take_decoded(logits)
 
     def _take_decoded(self, logits) -> None:
         """After a batched decode step: sample every decoding row's next

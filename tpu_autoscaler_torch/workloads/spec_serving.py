@@ -101,7 +101,7 @@ class SpeculativePagedBatcher(PagedBatcher):
                  chunk: int = 32, prefill_lanes: int = 2, device=None,
                  generator: torch.Generator | None = None, seed: int = 0,
                  slo_ticks: int | None = None, reqtrace=None,
-                 mesh: Mesh | None = None):
+                 mesh: Mesh | None = None, tracer=None):
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         if k >= chunk:
@@ -123,7 +123,8 @@ class SpeculativePagedBatcher(PagedBatcher):
                          block_size=block_size, num_blocks=num_blocks,
                          chunk=chunk, prefill_lanes=prefill_lanes,
                          device=device, generator=generator,
-                         slo_ticks=slo_ticks, reqtrace=reqtrace, mesh=mesh)
+                         slo_ticks=slo_ticks, reqtrace=reqtrace, mesh=mesh,
+                         tracer=tracer)
 
     def _trace_finish_attrs(self, req) -> dict:
         """Speculative economics on the request's root span: the
