@@ -608,6 +608,126 @@ def check_paged_case(torch, F, attention, flush, *, label, slots, h, hkv,
     return rec
 
 
+# K7's cases: (label, lanes as (offset, n_valid), chunk, h, hkv, d, block
+# size, tokens_per_row, window).  The first is sc2-3b.complete's median
+# prefill call: its median prompt (2,560 tokens, 5 chunks of 512) at
+# ~3/4 of the lanes busy (the cell's prefill_fill.serve reads ~71%): lanes
+# at offsets 512, 1,024 and 2,048, one lane unused, StarCoder2-3B's heads
+# (24 on 2 KV heads of 128) and window (4,096), the cell's pages (16) and
+# tokens_per_row (4,096).  Then sc2-3b.chat's (2 lanes of 256, one
+# resumed), the speculative verify's (k + 1 = 5 rows a slot, GQA 16 on 2
+# of 64), a window shorter than the context, and f32.
+PREFILL_CASES = (
+    ("complete-median-call", [(512, 512), (1024, 512), (2048, 512),
+                              (0, 0)], 512, 24, 2, 128, 16, 4096, 4096),
+    ("chat-call", [(256, 256), (0, 171)], 256, 24, 2, 128, 16, 3072, 4096),
+    ("spec-verify", [(37, 5), (200, 5), (0, 0), (511, 5), (64, 3)] * 3, 5,
+     16, 2, 64, 16, 1024, None),
+    ("window-300", [(900, 128), (17, 128), (0, 100)], 128, 8, 1, 128, 8,
+     2048, 300),
+    ("f32-d64", [(70, 64), (0, 33), (0, 0)], 64, 8, 2, 64, 16, 256, None),
+)
+
+
+def _prefill_work(lanes, chunk, h, hkv, d, bs, tpr_keys, window, elem):
+    """(flops, bytes) of one paged prefill call: 4*d flops per visible
+    (query head, key) pair, the padding rows' too (K7 attends them as
+    the einsum does); each visible K/V row once, q and out, the table
+    entries read and the lanes' offsets and n_valid."""
+    pairs = keys = entries = 0
+    for off, _ in lanes:
+        end = min(off + chunk, tpr_keys)
+        for i in range(chunk):
+            p = off + i
+            lo = 0 if window is None else max(0, p - window + 1)
+            pairs += max(0, min(p, end - 1) - lo + 1)
+        lo = 0 if window is None else max(0, off - window + 1)
+        keys += max(0, end - lo)
+        entries += -(-end // bs) - lo // bs
+    moved = (2 * keys * hkv + 2 * len(lanes) * chunk * h) * d * elem \
+        + 4 * entries + 8 * len(lanes)
+    return 4 * d * h * pairs, moved
+
+
+def check_prefill_case(torch, attention, paged, model, flush, *, label,
+                       lanes, chunk, h, hkv, d, bs, tpr_keys, window,
+                       seed=0):
+    """One K7 case: random q and pools, scrambled tables (-1 past each
+    lane's end, which its padding rows read as block 0), against
+    paged_flash_prefill_reference over every row; the kernel, the plain
+    version and the einsum route it replaces (paged._lanes_attend over
+    the gathered tables) timed, L2 flushed."""
+    dtype = torch.float32 if label.startswith("f32") else torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tpr = tpr_keys // bs
+    nb = len(lanes) * tpr + 8
+    q = torch.randn((len(lanes), h, chunk, d), generator=g,
+                    device="cuda").to(dtype)
+    k = torch.randn((nb, hkv, bs, d), generator=g, device="cuda").to(dtype)
+    v = torch.randn((nb, hkv, bs, d), generator=g, device="cuda").to(dtype)
+    tables = torch.randperm(nb, generator=g, device="cuda")[
+        :len(lanes) * tpr].reshape(len(lanes), tpr).to(torch.int32)
+    for b, (off, nv) in enumerate(lanes):
+        tables[b, -(-(off + nv) // bs):] = -1
+    offsets = torch.tensor([o for o, _ in lanes], dtype=torch.int32,
+                           device="cuda")
+    n_valid = torch.tensor([n for _, n in lanes], dtype=torch.int32,
+                           device="cuda")
+    args = (q, k, v, tables, offsets, n_valid)
+    got = attention.paged_flash_prefill(*args, window=window)
+    again = attention.paged_flash_prefill(*args, window=window)
+    want = attention.paged_flash_prefill_reference(*args, window=window)
+    torch.cuda.synchronize()
+    err, share = err_over_tol(torch, got, want)
+    deterministic = torch.equal(got, again)
+    del got, again, want
+    cfg = model.ModelConfig(d_model=h * d, n_heads=h, n_kv_heads=hkv,
+                            attention_window=window, dtype=dtype)
+    visible = paged._lanes_visible(offsets, chunk, tpr_keys, cfg)
+    ms = _time_ms(torch, lambda: attention.paged_flash_prefill(
+        *args, window=window), flush)
+    plain_ms = _time_ms(torch, lambda: attention.paged_flash_prefill_reference(
+        *args, window=window), flush, iters=5)
+    einsum_ms = _time_ms(torch, lambda: paged._lanes_attend(
+        q, attention.gather_pool_rows(k, tables),
+        attention.gather_pool_rows(v, tables), visible, cfg), flush, iters=5)
+    flops, moved = _prefill_work(lanes, chunk, h, hkv, d, bs, tpr_keys,
+                                 window, q.element_size())
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / peak
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    dname = str(dtype)
+    rec = dict(case=label, lanes=[list(x) for x in lanes],
+               shape=[len(lanes), h, hkv, chunk, d, bs, tpr_keys],
+               dtype=dname, window=window, max_abs_err=err,
+               err_over_tolerance=share, tolerance=TOL_REASON[dname],
+               deterministic=deterministic,
+               ms=ms, plain_ms=plain_ms, einsum_ms=einsum_ms,
+               bound_ms=bound_ms,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               roofline_share=bound_ms / ms, tflops=flops / ms * 1e-9,
+               flops=flops, bytes=moved)
+    emit("paged_prefill_kernel_check", **rec)
+    if not share <= 1.0:
+        raise AssertionError(f"paged_flash_prefill {label}: error {share} "
+                             f"times its tolerance (max |err| {err})")
+    if not deterministic:
+        raise AssertionError(f"paged_flash_prefill {label}: two calls on "
+                             f"the same inputs differ")
+    return rec
+
+
+def phase_paged_prefill_checks(torch, attention, paged, model, flush):
+    """K7 in PREFILL_CASES, the first at sc2-3b.complete's median
+    prefill call; each also run twice (bit for bit)."""
+    return [check_prefill_case(torch, attention, paged, model, flush,
+                               label=label, lanes=lanes, chunk=chunk, h=h,
+                               hkv=hkv, d=d, bs=bs, tpr_keys=tpr_keys,
+                               window=window, seed=i)
+            for i, (label, lanes, chunk, h, hkv, d, bs, tpr_keys, window)
+            in enumerate(PREFILL_CASES)]
+
+
 def phase_paged_kernel_checks(torch, F, attention, flush, main_tick,
                               draft_tick):
     """K4 in 20 cases; the first at the paged main path's shape with the
@@ -1234,12 +1354,21 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged,
     eng._decode = compared_step
     warm_s = _serve_all(eng, warm)
     eng._decode = kernel_step
+    kernel_fill, fills = eng._prefill, []
+
+    def counted_fill(*args):
+        fills.append(1)
+        return kernel_fill(*args)
+
+    eng._prefill = counted_fill
 
     reqs = _requests(serving, np, cfg, PAGED_PROMPT_LENS)
     ticks0, steps0, pre0 = eng.ticks, eng.decode_steps, eng.preemptions
     attention.reset_launch_counts()
     dt, peak = _serve_ticks(eng, reqs)
     launches = dict(attention.LAUNCHES)
+    eng._prefill = kernel_fill
+    want_fills = len(fills) * cfg.n_layers
     steps = eng.decode_steps - steps0
     preemptions = eng.preemptions - pre0
     want_launches = steps * cfg.n_layers
@@ -1263,7 +1392,9 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged,
         preemptions=preemptions, peak_concurrent_sequences=peak,
         paged_flash_decode_launches=launches["paged_flash_decode"],
         flash_decode_launches=launches["flash_decode"],
-        expected_launches=want_launches, einsum_seconds=einsum_s,
+        expected_launches=want_launches, prefill_calls=len(fills),
+        paged_flash_prefill_launches=launches["paged_flash_prefill"],
+        expected_prefill_launches=want_fills, einsum_seconds=einsum_s,
         einsum_tokens_per_s=decoded / einsum_s,
         einsum_preemptions=eeng.preemptions,
         **_compare_record(diffs, firsts),
@@ -1279,6 +1410,11 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged,
         raise AssertionError(f"flash_decode launched "
                              f"{launches['flash_decode']} times on the "
                              f"paged path")
+    if launches["paged_flash_prefill"] != want_fills or want_fills == 0:
+        raise AssertionError(
+            f"paged_flash_prefill launched "
+            f"{launches['paged_flash_prefill']} times, want prefill calls "
+            f"x layers = {want_fills}")
     if preemptions == 0:
         raise AssertionError(f"the {path} never preempted")
     _check_ticks(path, diffs)
@@ -1457,10 +1593,8 @@ def phase_generate_main_path(torch, np, attention, model, decode, label,
     prefill_max, prefill_rows, prefill_finite, diffs, apart = _decode_diffs(
         torch, model, decode, cast, prompt, cfg, ecfg, max_len)
     del cast
-    want = {"flash_attention": cfg.n_layers,
-            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-            "flash_decode": (steps - 1) * cfg.n_layers,
-            "paged_flash_decode": 0, **dict.fromkeys(RING_KERNELS, 0)}
+    want = _kernel_launches(attention, flash_attention=cfg.n_layers,
+                            flash_decode=(steps - 1) * cfg.n_layers)
     gen_s, pf_s, launches = [], [], []
     for _ in range(GEN_REPS):
         pf_s.append(_wall(torch, prefill_alone)[0])
@@ -2288,11 +2422,10 @@ def phase_train_main_path(torch, np, attention, model, path, arch, batch,
     moe = cfg.moe_experts is not None
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab, (batch, cfg.seq_len + 1)).astype(np.int32)).cuda()
-    want = {"flash_attention": (2 if cfg.remat else 1) * cfg.n_layers,
-            "flash_attention_bwd_dq": cfg.n_layers,
-            "flash_attention_bwd_dkv": cfg.n_layers,
-            "flash_decode": 0, "paged_flash_decode": 0,
-            **dict.fromkeys(RING_KERNELS, 0)}
+    want = _kernel_launches(
+        attention, flash_attention=(2 if cfg.remat else 1) * cfg.n_layers,
+        flash_attention_bwd_dq=cfg.n_layers,
+        flash_attention_bwd_dkv=cfg.n_layers)
     ecfg = dataclasses.replace(cfg, attention="einsum")
     rec = dict(path=path, config=arch, dtype="bfloat16", batch=batch,
                n_params=n_params, warm_steps=warm, timed_steps=steps)
@@ -5358,6 +5491,8 @@ def main() -> None:
                                  main_rec["mid_tick_lengths"])
     paged_checks = phase_paged_kernel_checks(torch, F, attention, flush,
                                              paged_tick, spec_tick)
+    prefill_checks = phase_paged_prefill_checks(torch, attention, paged,
+                                                model, flush)
     attn_checks = phase_attn_kernel_checks(torch, F, attention, flush)
     bwd_checks = phase_bwd_kernel_checks(torch, F, attention, flush)
     ring_checks = phase_ring_kernel_checks(torch, F, attention, flush)
@@ -5448,6 +5583,21 @@ def main() -> None:
             kernels[-1].update(splits=at_main["splits"],
                                ctas=at_main["ctas"],
                                launch_floor_ms=floor_ms)
+    # K7 replaces no TPU kernel: the JAX package's paged prefill is an
+    # einsum; at sc2-3b.complete's median call beside that einsum.
+    at_main = prefill_checks[0]
+    kernels.append(dict(
+        name="paged_flash_prefill", route="cuda",
+        design="wgmma+tma through the block table (f32: cuda-core fma)",
+        source="tpu_autoscaler_torch/csrc/paged_flash_prefill.cu",
+        replaces=None, added_for="the gathered-table einsum of the paged "
+        "prefill (tpu_autoscaler/workloads/paged.py has no kernel there)",
+        launches=paged_rec["paged_flash_prefill_launches"],
+        max_abs_err=at_main["max_abs_err"], ms=at_main["ms"],
+        plain_ms=at_main["plain_ms"], einsum_ms=at_main["einsum_ms"],
+        bound_ms=at_main["bound_ms"], bound_by=at_main["bound_by"],
+        tflops=at_main["tflops"], cases_passed=len(prefill_checks),
+        shape=at_main["shape"], lanes=at_main["lanes"]))
     # Launches of K1, K3 and K4 on the speculative paths: per
     # speculative_generate call, over the speculative engine's timed
     # pass and its self-draft pass, over the trained pair's evaluation.
@@ -5547,7 +5697,9 @@ def main() -> None:
     moe_paths = {
         "moe_main_path": {"flash_decode": moe_rec["flash_decode_launches"]},
         "moe_paged_main_path": {
-            "paged_flash_decode": moe_paged_rec["paged_flash_decode_launches"]},
+            "paged_flash_decode": moe_paged_rec["paged_flash_decode_launches"],
+            "paged_flash_prefill":
+                moe_paged_rec["paged_flash_prefill_launches"]},
         "moe_generate_main_path": moe_gen_rec["launches"],
         "moe_train_main_path": moe_train_rec["launches_per_step"],
         "ep_train_main_path": ep_rec["launches_per_step"],

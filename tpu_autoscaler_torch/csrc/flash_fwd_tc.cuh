@@ -1,6 +1,8 @@
 // The bf16 tensor-core forward tile for NVIDIA Hopper, sm_90a, shared by
-// the flash-attention forward (K1, flash_attention.cu) and the ring hop
-// (K5, ring_flash_step.cu).
+// the flash-attention forward (K1, flash_attention.cu), the ring hop
+// (K5, ring_flash_step.cu) and the paged prefill (K7,
+// paged_flash_prefill.cu, whose CTA has a producer of its own and runs
+// this consumer).
 //
 // Both merge the K/V tiles a q-tile sees into an f32 online-softmax carry
 //
@@ -22,6 +24,11 @@
 //   read from or written to HBM; the epilogue writes out = acc / l in
 //   bf16 and lse = m + log(l) in f32.  Every causal row sees its diagonal
 //   key, so there is no lone row.
+// - PagedOut (K7): as Normalised, with no lse, and with keys the producer
+//   flags per stage (dead pages): for the rows below io.nv a flagged key
+//   is masked like a key outside the hop's mask (the rows from io.nv on
+//   read it as it was loaded), a masked key takes P = 0 even while m is
+//   still -1e30, and a row that sees no key is written as zeros.
 //
 // The CTA (fwd_tc_kernel):
 //
@@ -74,6 +81,7 @@ using decode::kNegInf;
 // *_in tensors and written, merged, to the *_out tensors.
 struct HopCarry {
   static constexpr bool kFresh = false;
+  static constexpr bool kPaged = false;
   const float* m_in;
   const float* l_in;
   const float* acc_in;
@@ -86,8 +94,22 @@ struct HopCarry {
 // lse [b, h, s] f32 = m + log(l).
 struct Normalised {
   static constexpr bool kFresh = true;
+  static constexpr bool kPaged = false;
   __nv_bfloat16* out;
   float* lse;
+};
+
+// K7's: a fresh carry in registers; out (the rows of one lane and query
+// head, d apart) bf16 = acc / l, zeros for a row that sees no key; no
+// lse.  dead: the stages' flag words in shared memory, BK / 32 a stage,
+// bit k of a stage's words set when key k of its tile lies in a dead
+// page, which hides the key from the rows below nv only.
+struct PagedOut {
+  static constexpr bool kFresh = true;
+  static constexpr bool kPaged = true;
+  __nv_bfloat16* out;
+  const uint32_t* dead;
+  int nv;
 };
 
 template <int D, int BK_ = (D == 256 ? 32 : 64)>
@@ -218,8 +240,18 @@ __device__ __forceinline__ void consume(uint32_t q_tile, uint32_t stages,
   // and keys past sk take P = 0.
   auto softmax = [&](int t, float (&corr)[2]) {
     const int start = (t_lo + t) * BK;
-    const bool whole_tile = tile_visible(w_r0, w_r1, start, start + BK - 1,
-                                         sk, offset, masked, window);
+    bool whole_tile = tile_visible(w_r0, w_r1, start, start + BK - 1, sk,
+                                   offset, masked, window);
+    uint32_t dead[BK / 32];  // K7: the tile's flagged keys
+    if constexpr (IO::kPaged) {
+      uint32_t any = 0;
+#pragma unroll
+      for (int w = 0; w < BK / 32; ++w) {
+        dead[w] = io.dead[(t % G::kStages) * (BK / 32) + w];
+        any |= dead[w];
+      }
+      whole_tile = whole_tile && any == 0;
+    }
     float mx[2] = {kNegInf, kNegInf};
     if (whole_tile) {
 #pragma unroll
@@ -235,10 +267,12 @@ __device__ __forceinline__ void consume(uint32_t q_tile, uint32_t stages,
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int key = start + 8 * i + c2 + c;
-            const float x =
-                key < sk && hop_visible(rows[j], key, offset, masked, window)
-                    ? sc[4 * i + 2 * j + c] * scale
-                    : kNegInf;
+            bool vis =
+                key < sk && hop_visible(rows[j], key, offset, masked, window);
+            if constexpr (IO::kPaged)
+              vis = vis && (rows[j] >= io.nv ||
+                            !((dead[i / 4] >> (8 * (i % 4) + c2 + c)) & 1u));
+            const float x = vis ? sc[4 * i + 2 * j + c] * scale : kNegInf;
             sc[4 * i + 2 * j + c] = x;
             mx[j] = fmaxf(mx[j], x);
           }
@@ -271,9 +305,12 @@ __device__ __forceinline__ void consume(uint32_t q_tile, uint32_t stages,
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int key = start + 8 * i + c2 + c;
+            // K5 and K1 give a masked key P = 1 while m is -1e30 (the lone
+            // row); K7 gives every masked key P = 0.
+            const bool live =
+                key < sk && (!IO::kPaged || sc[4 * i + 2 * j + c] > kNegInf);
             const float p =
-                key < sk ? exp2f((sc[4 * i + 2 * j + c] - m[j]) * kLog2e)
-                         : 0.f;
+                live ? exp2f((sc[4 * i + 2 * j + c] - m[j]) * kLog2e) : 0.f;
             sc[4 * i + 2 * j + c] = p;
             sum[j] += p;
           }
@@ -354,7 +391,11 @@ __device__ __forceinline__ void consume(uint32_t q_tile, uint32_t stages,
     if (rows[j] >= sq) continue;
     const size_t r = static_cast<size_t>(bh) * sq + rows[j];
     if constexpr (IO::kFresh) {
-      if (lane % 4 == 0) io.lse[r] = m[j] + logf(l[j]);
+      if constexpr (IO::kPaged) {
+        if (l[j] == 0.f) l[j] = 1.f;  // no key seen: o is 0, written so
+      } else {
+        if (lane % 4 == 0) io.lse[r] = m[j] + logf(l[j]);
+      }
 #pragma unroll
       for (int i = 0; i < NO / 4; ++i) {
         const int col = 8 * i + c2;

@@ -1,6 +1,7 @@
 """Attention kernels: ``flash_attention`` (the whole-sequence forward
 and its backward), the one-token ``flash_decode`` and
-``paged_flash_decode``, and the ring-attention hop ``ring_flash_step``
+``paged_flash_decode``, the paged chunked prefill
+``paged_flash_prefill``, and the ring-attention hop ``ring_flash_step``
 and its backward ``ring_flash_bwd_step``, as CUDA kernels beside their
 plain PyTorch versions, and the build that makes them.
 
@@ -22,6 +23,12 @@ or a per-row ``[b]`` count of filled positions.  ``paged_flash_decode``
 keeps those of the JAX ``paged_flash_decode``: the same q, one layer's
 block pools ``[num_blocks, kv_heads, block_size, d]``, per-row block
 tables ``[slots, tpr]`` (-1 = no block) and lengths ``[slots]``.
+``paged_flash_prefill`` has no JAX counterpart (the JAX package's
+paged prefill gathers each lane's pages and runs an einsum): each
+lane's chunk of queries ``[lanes, h, chunk, d]`` attends over its pages
+of the same pools through ``tables [lanes, tpr]`` from its ``offsets``,
+with ``n_valid`` real rows a lane and its padding rows as the JAX
+prefill's einsum makes them.
 ``ring_flash_step`` and ``ring_flash_bwd_step`` keep those of the JAX
 functions of the same names, less ``block_q`` and ``interpret``: one
 rank's q against a visiting K/V block at a host-int ``offset``, merged
@@ -34,11 +41,12 @@ Head dims: the kernels are built for KERNEL_HEAD_DIMS and take any
 head_dim up to 256.  The whole-activation kernels (flash_attention, its
 backward and the ring hops) run a head_dim outside the set zero-padded to
 the next built width with the true scale (:func:`call_padded`); the
-decode kernels read the cache at its true width (a padded copy would
-rewrite the cache every step).  In bf16, flash_attention, its backward
-and the ring hops run on the tensor cores (wgmma + TMA, one forward tile
-and one pair of backward tiles shared between the whole-sequence and the
-ring kernels); the decode kernels split each row's keys over a
+decode kernels and the paged prefill read the cache at its true width (a
+padded copy would rewrite the cache every step).  In bf16,
+flash_attention, its backward, the ring hops and the paged prefill run
+on the tensor cores (wgmma + TMA, one forward tile and one pair of
+backward tiles shared between the whole-sequence, the ring and the paged
+prefill kernels); the decode kernels split each row's keys over a
 thread-block cluster and run their bf16 products on ``mma.sync``; every
 kernel in f32 runs on CUDA-core FMA.
 
@@ -75,7 +83,8 @@ LAUNCHES: dict[str, int] = {"flash_attention": 0,
                              "flash_attention_bwd_dkv": 0,
                              "flash_decode": 0, "paged_flash_decode": 0,
                              "ring_flash_step": 0, "ring_flash_bwd_dq": 0,
-                             "ring_flash_bwd_dkv": 0}
+                             "ring_flash_bwd_dkv": 0,
+                             "paged_flash_prefill": 0}
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -88,7 +97,8 @@ KERNEL_SOURCES = {"flash_attention": CSRC / "flash_attention.cu",
                   "paged_flash_decode": CSRC / "paged_flash_decode.cu",
                   "ring_flash_step": CSRC / "ring_flash_step.cu",
                   "ring_flash_bwd_dq": CSRC / "ring_flash_bwd.cu",
-                  "ring_flash_bwd_dkv": CSRC / "ring_flash_bwd.cu"}
+                  "ring_flash_bwd_dkv": CSRC / "ring_flash_bwd.cu",
+                  "paged_flash_prefill": CSRC / "paged_flash_prefill.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Each library exports a C function of each entry's name: pointers
@@ -104,7 +114,8 @@ _ARGTYPES = {name: [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints
                  ("paged_flash_decode", 6, 9),
                  ("ring_flash_step", 9, 10),
                  ("ring_flash_bwd_dq", 7, 10),
-                 ("ring_flash_bwd_dkv", 8, 10))}
+                 ("ring_flash_bwd_dkv", 8, 10),
+                 ("paged_flash_prefill", 7, 10))}
 _LIBS: dict[Path, ctypes.CDLL] = {}
 _ENTRIES: dict[str, object] = {}
 
@@ -996,4 +1007,152 @@ def paged_flash_decode(q, k_pool, v_pool, tables, lengths, *,
             v_pool.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), slots, h, hkv, nb, bs, tpr, d,
             _DTYPE_CODES[q.dtype], window or 0, d ** -0.5)
+    return out
+
+
+def _check_prefill_args(q, k_pool, v_pool, tables, offsets, n_valid,
+                        window) -> None:
+    """What a paged prefill needs of its shapes: K4's pool and table
+    checks for q [lanes, h, chunk, d], plus offsets and n_valid of
+    length lanes, and (where n_valid is on the host, so reading it costs
+    no sync) 0 <= n_valid <= chunk."""
+    if q.dim() != 4:
+        raise ValueError(f"paged_flash_prefill wants q [lanes, h, chunk, "
+                         f"d]; got {tuple(q.shape)}")
+    lanes, h, chunk, d = q.shape
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if k_pool.shape != v_pool.shape:
+        raise ValueError(
+            f"k/v pool shape mismatch: {k_pool.shape} vs {v_pool.shape}")
+    if k_pool.dim() != 4 or k_pool.shape[3] != d or h % k_pool.shape[1]:
+        raise ValueError(
+            f"pool {tuple(k_pool.shape)} does not fit q {tuple(q.shape)}: "
+            f"want [num_blocks, kv_heads, block_size, d] with kv_heads "
+            f"dividing the query heads")
+    if tables.dim() != 2 or tables.shape[0] != lanes:
+        raise ValueError(f"tables {tuple(tables.shape)} do not fit "
+                         f"{lanes} lanes: want [lanes, tpr]")
+    for name, t in (("offsets", offsets), ("n_valid", n_valid)):
+        if tuple(t.shape) != (lanes,):
+            raise ValueError(f"{name} {tuple(t.shape)}: want [{lanes}]")
+    if n_valid.device.type == "cpu" and bool(
+            ((n_valid < 0) | (n_valid > chunk)).any()):
+        raise ValueError(f"n_valid {n_valid.tolist()} must lie in "
+                         f"[0, chunk={chunk}]")
+
+
+def _check_prefill_kernel(q, k_pool, v_pool, tables) -> None:
+    """What the paged_flash_prefill kernel needs beyond the shapes: the
+    tensors every kernel needs (:func:`_check_kernel_tensors`), rows of
+    whole 16-byte vectors, int32 positions, and in bf16 a block size
+    whose pages are whole TMA boxes of its key tiles (a multiple of 8
+    that divides the 64-key tile, 32 at head_dim over 128, or is a
+    multiple of it)."""
+    d = q.shape[-1]
+    bs = k_pool.shape[2]
+    _check_kernel_tensors("paged_flash_prefill", q,
+                          {"k_pool": k_pool, "v_pool": v_pool})
+    if d * q.element_size() % 16:
+        raise ValueError(f"paged_flash_prefill kernel reads rows of whole "
+                         f"16-byte vectors; head_dim {d} in {q.dtype} is not")
+    if tables.shape[1] * bs + q.shape[2] >= 2 ** 31:
+        raise ValueError(f"paged_flash_prefill kernel indexes positions "
+                         f"with int32; tpr * block_size = "
+                         f"{tables.shape[1] * bs}")
+    if q.dtype == torch.bfloat16:
+        tile = 32 if d > 128 else 64
+        if bs % 8 or (tile % bs and bs % tile):
+            raise ValueError(
+                f"paged_flash_prefill kernel takes a block size that is a "
+                f"multiple of 8 and divides {tile} or is divided by it at "
+                f"head_dim {d}; got {bs}")
+
+
+def paged_flash_prefill_reference(q, k_pool, v_pool, tables, offsets,
+                                  n_valid, *, window: int | None = None,
+                                  scale: float | None = None):
+    """The plain PyTorch version of the paged_flash_prefill kernel.
+
+    Lane b's query row i sits at position p = offsets[b] + i and sees key
+    position j when j <= p (and is within ``window`` of it) and j <
+    tpr * block_size.  j's page is its table entry, clamped to [0,
+    num_blocks - 1] as :func:`gather_pool_rows` clamps it.  A real row
+    (i < n_valid[b]) does not see a dead page's keys (an entry < 0, K4's
+    table semantics), and as j <= p it sees none at or past the lane's
+    end.  The padding rows (i >= n_valid[b]) are the gathered einsum's
+    (the JAX prefill's): every key j <= p, a dead page read as block 0;
+    an MoE layer routes their tokens in the lane's capacity pool.  Rows
+    that see no key are zeros.  The kernel's numerics: f32 scores times
+    ``scale`` (default d^-0.5), f32 softmax, P cast to v's dtype before
+    PV with f32 sums, the output in q's dtype.  Returns [lanes, h, chunk,
+    d]."""
+    tables = torch.as_tensor(tables, device=q.device)
+    offsets = torch.as_tensor(offsets, device=q.device)
+    n_valid = torch.as_tensor(n_valid, device=q.device)
+    _check_prefill_args(q, k_pool, v_pool, tables, offsets, n_valid, window)
+    lanes, h, chunk, d = q.shape
+    hkv, bs = k_pool.shape[1], k_pool.shape[2]
+    dev = q.device
+    kpos = torch.arange(tables.shape[1] * bs, device=dev)
+    rows = torch.arange(chunk, device=dev)
+    qpos = (offsets.long()[:, None] + rows)[..., None]      # [lanes, s, 1]
+    dead = (tables.long() < 0).repeat_interleave(bs, dim=1)[:, None, :]
+    pad = (rows[None, :] >= n_valid.long()[:, None])[..., None]
+    visible = (kpos <= qpos) & (pad | ~dead)                # [lanes, s, T]
+    if window is not None:
+        visible &= kpos > qpos - window
+    k_rows = gather_pool_rows(k_pool, tables).float()
+    v_rows = gather_pool_rows(v_pool, tables).float()
+    qg = q.reshape(lanes, hkv, h // hkv, chunk, d).float()
+    scores = torch.einsum("bngqd,bnkd->bngqk", qg, k_rows) \
+        * _scale_of(q, scale)
+    visible = visible[:, None, None]
+    scores = scores.masked_fill(~visible, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(visible, torch.exp(scores - m), 0.0)
+    l_sum = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bngqk,bnkd->bngqd", p.to(v_pool.dtype).float(),
+                       v_rows)
+    out = acc / l_sum.clamp_min(1e-30)
+    return out.to(q.dtype).reshape(lanes, h, chunk, d)
+
+
+def paged_flash_prefill(q, k_pool, v_pool, tables, offsets, n_valid, *,
+                        window: int | None = None):
+    """Each lane's chunk of queries over its pages of a PAGED cache, read
+    in place through its block table with no gathered copy (see module
+    doc; :func:`paged_flash_prefill_reference` for the function).  q
+    [lanes, h, chunk, d]; pools [num_blocks, kv_heads, block_size, d];
+    tables [lanes, tpr]; offsets [lanes] (each lane's length before the
+    chunk, its keys already written) and n_valid [lanes] (its real rows;
+    the padding rows after them are attended as the gathered einsum
+    attends them).  Returns [lanes, h, chunk, d] in q's dtype.
+
+    CPU tensors run the plain version.  CUDA tensors launch the kernel
+    (bf16 on the tensor cores, at a block size that is a multiple of 8
+    and divides 64 or is divided by it, 32 at head_dim over 128; or f32;
+    a head_dim up to 256 whose rows are whole 16-byte vectors, read at
+    its true width; any GQA group; contiguous pools) or raise; tables,
+    offsets and n_valid are taken as int32 on q's device, and there
+    n_valid is clamped to [0, chunk] rather than checked."""
+    tables = torch.as_tensor(tables, device=q.device)
+    offsets = torch.as_tensor(offsets, device=q.device)
+    n_valid = torch.as_tensor(n_valid, device=q.device)
+    _check_prefill_args(q, k_pool, v_pool, tables, offsets, n_valid, window)
+    if not _on_cuda("paged_flash_prefill", q):
+        return paged_flash_prefill_reference(q, k_pool, v_pool, tables,
+                                             offsets, n_valid, window=window)
+    _check_prefill_kernel(q, k_pool, v_pool, tables)
+    lanes, h, chunk, d = q.shape
+    nb, hkv, bs, _ = k_pool.shape
+    tpr = tables.shape[1]
+    tables = tables.to(torch.int32).contiguous()
+    offsets = offsets.to(torch.int32).contiguous()
+    n_valid = n_valid.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    _launch("paged_flash_prefill", q, q.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), tables.data_ptr(), offsets.data_ptr(),
+            n_valid.data_ptr(), out.data_ptr(), lanes, h, hkv, chunk, nb, bs,
+            tpr, d, _DTYPE_CODES[q.dtype], window or 0, d ** -0.5)
     return out

@@ -22,10 +22,13 @@ the vLLM/PagedAttention design:
 
 The decode step's cache read is the ``paged_flash_decode`` CUDA kernel
 on a CUDA device: it reads each row's pool blocks in place through the
-block table.  Elsewhere (CPU tensors, or ``attention="einsum"``) the
-rows are gathered into contiguous ``[rows, kv_heads, tpr*bs, head_dim]``
-views and attended with the linear engine's einsum.  Prefill always
-gathers and runs the einsum, as in the JAX package.
+block table.  The one-device prefill's is the ``paged_flash_prefill``
+kernel there: each lane's chunk reads its pages in place, over only the
+keys its queries see.  Elsewhere (CPU tensors, or
+``attention="einsum"``) the rows are gathered into contiguous ``[rows,
+kv_heads, tpr*bs, head_dim]`` views and attended with an einsum (the
+prefill's masked over the whole table), as in the JAX package; the
+prefill under a mesh always takes that route.
 
 Under a mesh (``mesh=``) the params are placed per rank
 (``model.place_params``) and every layer runs tensor-parallel; the pool
@@ -62,6 +65,7 @@ from tpu_autoscaler_torch.obs.trace import maybe_span
 from tpu_autoscaler_torch.workloads.attention import (
     gather_pool_rows,
     paged_flash_decode,
+    paged_flash_prefill,
 )
 from tpu_autoscaler_torch.workloads.model import (
     Mesh,
@@ -504,8 +508,17 @@ def make_paged_prefill(cfg: ModelConfig, chunk: int, lanes: int,
     (the generation seed when the lane just finished its prompt) and the
     cache, its pool updated in place; lengths are the caller's to
     advance.  ``return_all_logits=True`` returns [lanes, chunk, vocab]:
-    every appended position's logits.  ``mesh``, ``tracer`` (a
-    ``serve.prefill.inputs`` span): as in :func:`make_paged_decode_step`."""
+    every appended position's logits (rows past a lane's n_valid are
+    padding).  ``mesh``, ``tracer`` (a ``serve.prefill.inputs`` span):
+    as in :func:`make_paged_decode_step`.
+
+    Each layer's attention, on one device, is the paged_flash_prefill
+    kernel when the config resolves to it on the pool's device (as the
+    decode step's read does): each lane's chunk reads its pages in
+    place, its padding rows attended as the einsum attends them (an MoE
+    layer routes their tokens in the lane's pool).  Otherwise, and always
+    under a mesh, each lane's whole table is gathered and attended with
+    the masked einsum (:func:`_lanes_attend`)."""
     if mesh is not None:
         return _mesh_paged_prefill(cfg.resolved_for_mesh(mesh), chunk, lanes,
                                    tokens_per_row, return_all_logits)
@@ -517,17 +530,24 @@ def make_paged_prefill(cfg: ModelConfig, chunk: int, lanes: int,
             raise ValueError(f"tokens {tuple(tokens.shape)}: want "
                              f"[{lanes}, {chunk}]")
         dev = cache.k.device
+        kernel = cfg.resolved_attention(dev) == "kernel"
         with maybe_span(tracer, "serve.prefill.inputs"):
             writes = [t.to(dev) for t in _chunk_writes(
                 tables, offsets, n_valid, chunk, cache.num_blocks,
                 cache.block_size)]
             dev_tables = tables.to(dev)
-            dev_offsets = offsets.to(dev)
             dev_tokens = tokens.to(dev)
-            # Each lane attends over its own gathered pages: causal
-            # within the chunk plus everything before its offset.
-            visible = _lanes_visible(dev_offsets, chunk, tokens_per_row,
-                                     cfg)
+            if kernel:
+                # offsets and n_valid in one copy to the device.
+                dev_offsets, dev_n_valid = torch.stack(
+                    [offsets.to(torch.int32), n_valid.to(torch.int32)]
+                ).to(dev)
+            else:
+                dev_offsets = offsets.to(dev)
+                # Each lane attends over its own gathered pages: causal
+                # within the chunk plus everything before its offset.
+                visible = _lanes_visible(dev_offsets, chunk, tokens_per_row,
+                                         cfg)
             if cfg.rope:
                 rope = _row_rope_tables(dev_offsets, chunk, hd,
                                         cfg.rope_theta, cfg.dtype)
@@ -542,9 +562,14 @@ def make_paged_prefill(cfg: ModelConfig, chunk: int, lanes: int,
                 q, k = _rotate(q, *rope), _rotate(k, *rope)
             _scatter_chunk(k_pool, k, writes)
             _scatter_chunk(v_pool, v, writes)
-            attn = _lanes_attend(q, gather_pool_rows(k_pool, dev_tables),
-                                 gather_pool_rows(v_pool, dev_tables),
-                                 visible, cfg)
+            if kernel:
+                attn = paged_flash_prefill(
+                    q.contiguous(), k_pool, v_pool, dev_tables, dev_offsets,
+                    dev_n_valid, window=cfg.attention_window)
+            else:
+                attn = _lanes_attend(
+                    q, gather_pool_rows(k_pool, dev_tables),
+                    gather_pool_rows(v_pool, dev_tables), visible, cfg)
             attn = attn.transpose(1, 2).reshape(b, s, d)
             x = x + attn @ layer["attn_out"].to(cfg.dtype)
             y = _rmsnorm(x, layer["ln2"])
