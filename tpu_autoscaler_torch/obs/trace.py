@@ -105,6 +105,41 @@ class Span:
         }
 
 
+class DeviceCounter:
+    """Counts a traced step keeps on the device: each :meth:`add`
+    copies one row (a 1-d tensor of counts, on the device) into a tensor
+    allocated at the first row, one launch and no sync; :meth:`read`
+    brings the rows kept so far to the host (the one sync, after the
+    steps), :meth:`reset` starts over.  Rows past ``capacity`` are not
+    kept; ``dropped`` counts them."""
+
+    capacity = 8192
+
+    def __init__(self) -> None:
+        self.rows = 0
+        self.dropped = 0
+        self._buf: torch.Tensor | None = None
+
+    def add(self, values: torch.Tensor) -> None:
+        if self._buf is None:
+            self._buf = values.new_zeros((self.capacity, values.shape[0]))
+        if self.rows == self.capacity:
+            self.dropped += 1
+            return
+        self._buf[self.rows].copy_(values)
+        self.rows += 1
+
+    def read(self) -> list[list]:
+        """The rows kept since the last :meth:`reset`, on the host."""
+        if self._buf is None:
+            return []
+        return self._buf[:self.rows].tolist()
+
+    def reset(self) -> None:
+        self.rows = 0
+        self.dropped = 0
+
+
 class Tracer:
     """Span factory + sink.  ``recorder=None`` still produces spans (so
     trace ids propagate) but retains nothing — the zero-retention mode
@@ -120,6 +155,8 @@ class Tracer:
         self._ranges: dict[str, Any] = {}
         self._seq = 0
         self._trace_seq = 0
+        #: Device-side counters by name (:meth:`counter`).
+        self.counters: dict[str, DeviceCounter] = {}
         # Distinguishes traces across controller restarts in aggregated
         # log stores (trace ids repeat their counter after a crash-only
         # restart; the run id keeps them globally unique).
@@ -136,6 +173,16 @@ class Tracer:
         with self._lock:
             self._seq += 1
             return self._seq
+
+    def counter(self, name: str) -> DeviceCounter:
+        """The device counter ``name``, made at its first use: a traced
+        step records into it and the caller reads it after the steps
+        (the MoE layers' ``serve.moe``: a row per call, its group ends
+        over the experts)."""
+        with self._lock:
+            if name not in self.counters:
+                self.counters[name] = DeviceCounter()
+            return self.counters[name]
 
     # -- span lifecycle ---------------------------------------------------
 

@@ -216,6 +216,7 @@ def _run_blocks(params, x, cache: KVCache, cfg: ModelConfig, offset: int,
     (logits [b, s, vocab] f32, cache advanced to offset + s).  The
     values every layer shares are made once: the rope tables and, for a
     one-token kernel step, the [b] lengths."""
+    cfg.require_uniform("decode.generate")
     b, s, _ = x.shape
     rope = None
     if cfg.rope:

@@ -49,11 +49,35 @@ from tpu_autoscaler_torch.workloads.moe import (
     _ranks_loss,
     combine as moe_combine,
     dispatch as moe_dispatch,
+    dropless_ffn,
     expert_mlp,
     route_topk,
 )
 
 log = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass(frozen=True)
+class Yarn:
+    """YaRN's rescaled rotary frequencies (arXiv:2309.00071), with the
+    keys a published config's ``rope_parameters`` give them
+    (``rope_type: "yarn"``), computed as Hugging Face's
+    ``_compute_yarn_parameters`` does: :func:`rope_frequencies`."""
+    factor: float
+    original_max_position_embeddings: int
+    # cos and sin are scaled by it.
+    attention_factor: float
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerKind:
+    """One kind of attention layer: its window (None = full causal) and
+    its rotary table (``theta``, and YaRN's rescaling when set)."""
+    window: int | None = None
+    rope_theta: float = 10000.0
+    yarn: Yarn | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +106,15 @@ class ModelConfig:
     attn_block_k: int = 1024
     rope: bool = True
     rope_theta: float = 10000.0
+    # Width of one attention head; None: d_model // n_heads.  Set, the
+    # query width n_heads * head_dim may differ from d_model.
+    head_size: int | None = None
+    # Attention kind of each layer (window and rope), one entry per
+    # layer, in place of attention_window and rope_theta; None: every
+    # layer is attention_window / rope_theta with default RoPE.  Only
+    # the one-device paged engine and the plain forward run layer kinds
+    # (:meth:`require_uniform`).
+    layer_kinds: tuple[LayerKind, ...] | None = None
     # Training: rematerialize each block in the backward
     # (torch.utils.checkpoint), and the chunked cross-entropy.
     remat: bool = False
@@ -91,9 +124,15 @@ class ModelConfig:
     # (moe.route_topk), dispatched per sequence with capacity
     # moe_capacity_factor * seq * k / E per expert per row; the router's
     # balance and z losses join the loss with the weights below.
+    # The capacity route's experts are gelu MLPs (w1 [E, d, d_ff]).
+    # ``moe_capacity_factor=None`` is the dropless route instead
+    # (moe.dropless_ffn: every token to its k experts, its k gates
+    # renormalised, grouped products over the tokens sorted by expert),
+    # whose experts are SwiGLU (w1 [E, d, 2*d_ff], gate | up), as the
+    # published models that route so have them.
     moe_experts: int | None = None
     moe_top_k: int = 2
-    moe_capacity_factor: float = 1.25
+    moe_capacity_factor: float | None = 1.25
     moe_balance_weight: float = 0.01
     moe_z_weight: float = 1e-3
 
@@ -118,10 +157,21 @@ class ModelConfig:
                 raise ValueError(
                     f"moe_top_k must be in [1, {self.moe_experts}], got "
                     f"{self.moe_top_k}")
-            if self.moe_capacity_factor <= 0:
+            if self.moe_capacity_factor is not None \
+                    and self.moe_capacity_factor <= 0:
                 raise ValueError(
                     f"moe_capacity_factor must be > 0, got "
                     f"{self.moe_capacity_factor}")
+        if self.head_size is not None and self.head_size < 1:
+            raise ValueError(f"head_size must be >= 1, got {self.head_size}")
+        if self.layer_kinds is not None:
+            if len(self.layer_kinds) != self.n_layers:
+                raise ValueError(
+                    f"layer_kinds has {len(self.layer_kinds)} entries for "
+                    f"{self.n_layers} layers")
+            if any(k.window is not None and k.window < 1
+                   for k in self.layer_kinds):
+                raise ValueError("every layer kind's window must be >= 1")
         if self.n_heads % self.kv_heads:
             raise ValueError(
                 f"n_heads ({self.n_heads}) must be a multiple of "
@@ -164,12 +214,183 @@ class ModelConfig:
 
     @property
     def head_dim(self) -> int:
-        return self.d_model // self.n_heads
+        return self.head_size if self.head_size is not None \
+            else self.d_model // self.n_heads
+
+    @property
+    def q_width(self) -> int:
+        """Columns of the query projection: n_heads * head_dim."""
+        return self.n_heads * self.head_dim
+
+    @property
+    def moe_dropless(self) -> bool:
+        """Experts on the dropless route, SwiGLU (see the fields)."""
+        return self.moe_experts is not None \
+            and self.moe_capacity_factor is None
+
+    def require_uniform(self, what: str) -> None:
+        """Refuse, for the paths ``what`` names (the meshes, the slot
+        engines, the train steps), a block only the one-device paged
+        engine and the plain forward run: layer kinds, a query width
+        other than d_model, dropless SwiGLU experts."""
+        if self.layer_kinds is not None or self.q_width != self.d_model \
+                or self.moe_dropless:
+            raise ValueError(
+                f"{what} runs the in-tree block only (one layer kind, "
+                "query width d_model, capacity-routed gelu experts)")
+
+    @classmethod
+    def from_published(cls, config: dict, **fields) -> "ModelConfig":
+        """The config of a published model's ``config.json`` keys
+        (Hugging Face names), with ``fields`` (``seq_len``, ``dtype``,
+        ...) on top.  Reads the mixture-of-experts and layer-kind keys of
+        Mellum-style configs: ``layer_types`` with per-kind
+        ``rope_parameters`` (default or YaRN RoPE), ``sliding_window``,
+        ``head_dim``, SwiGLU (``silu``) experts with renormalised gates
+        (``norm_topk_prob``), routed dropless as the published model
+        routes.  Refuses a key it does not model, and a value the
+        program does not run."""
+        return _from_published(cls, config, fields)
 
     @property
     def kv_heads(self) -> int:
         return self.n_kv_heads if self.n_kv_heads is not None \
             else self.n_heads
+
+
+#: Published keys that describe no part of the forward pass the program
+#: runs (ids, the context a model was trained to, the dtype it ships
+#: in, how it was initialised).
+_PUBLISHED_NOTES = frozenset({
+    "architectures", "model_type", "torch_dtype", "dtype", "bos_token_id",
+    "eos_token_id", "pad_token_id", "max_position_embeddings",
+    "initializer_range", "use_cache", "attention_dropout",
+    "transformers_version"})
+
+
+def _published_kind(kind: str, config: dict) -> LayerKind:
+    """The LayerKind of a ``layer_types`` entry: its window and its
+    ``rope_parameters`` section (default or YaRN rotary)."""
+    if kind not in ("full_attention", "sliding_attention"):
+        raise ValueError(f"layer type {kind!r} is not modelled")
+    rope = config["rope_parameters"][kind]
+    known = {"rope_type", "rope_theta", "factor", "beta_fast", "beta_slow",
+             "original_max_position_embeddings", "attention_factor"}
+    if set(rope) - known:
+        raise ValueError(f"rope keys {sorted(set(rope) - known)} of {kind} "
+                         "are not modelled")
+    yarn = None
+    if rope.get("rope_type", "default") == "yarn":
+        yarn = Yarn(factor=float(rope["factor"]),
+                    original_max_position_embeddings=int(
+                        rope["original_max_position_embeddings"]),
+                    attention_factor=float(rope["attention_factor"]),
+                    beta_fast=float(rope.get("beta_fast", 32.0)),
+                    beta_slow=float(rope.get("beta_slow", 1.0)))
+    elif rope.get("rope_type", "default") != "default":
+        raise ValueError(f"rope_type {rope['rope_type']!r} is not modelled")
+    window = None
+    if kind == "sliding_attention":
+        window = int(config["sliding_window"])
+    return LayerKind(window=window, rope_theta=float(rope["rope_theta"]),
+                     yarn=yarn)
+
+
+def _from_published(cls, config: dict, fields: dict) -> ModelConfig:
+    """:meth:`ModelConfig.from_published`."""
+    modelled = {
+        "vocab_size", "hidden_size", "num_hidden_layers",
+        "num_attention_heads", "num_key_value_heads", "head_dim",
+        "hidden_act", "rms_norm_eps", "layer_types", "rope_parameters",
+        "sliding_window", "use_sliding_window", "max_window_layers",
+        "mlp_layer_types", "num_experts", "num_experts_per_tok",
+        "norm_topk_prob", "moe_intermediate_size", "intermediate_size",
+        "attention_bias", "tie_word_embeddings"}
+    unknown = set(config) - modelled - _PUBLISHED_NOTES
+    if unknown:
+        raise ValueError(f"published keys not modelled: {sorted(unknown)}")
+    refusals = [
+        (config.get("rms_norm_eps", 1e-6) != 1e-6,
+         "the program's RMSNorm eps is 1e-6"),
+        (config.get("attention_bias", False), "the program has no biases"),
+        (config.get("tie_word_embeddings", False),
+         "the program keeps an unembedding of its own"),
+        (config.get("max_window_layers", 0) != 0
+         or not config.get("use_sliding_window", True),
+         "windows come from layer_types alone"),
+        (config.get("hidden_act") != "silu" or "num_experts" not in config,
+         "the program's published-config path runs SwiGLU (silu) experts"),
+        (any(t != "sparse" for t in config.get("mlp_layer_types", [])),
+         "every layer's MLP must be sparse"),
+        (not config.get("norm_topk_prob", True),
+         "the dropless route renormalises the top-k gates")]
+    for refused, why in refusals:
+        if refused:
+            raise ValueError(f"published config refused: {why}")
+    n_layers = int(config["num_hidden_layers"])
+    kinds = tuple(_published_kind(t, config) for t in config.get(
+        "layer_types", ["full_attention"] * n_layers))
+    # Experts routed dropless: the published model drops no token.  The
+    # dense intermediate_size is unused when every layer is sparse.
+    return cls(vocab=int(config["vocab_size"]),
+               d_model=int(config["hidden_size"]), n_layers=n_layers,
+               n_heads=int(config["num_attention_heads"]),
+               n_kv_heads=int(config["num_key_value_heads"]),
+               head_size=config.get("head_dim"),
+               d_ff=int(config["moe_intermediate_size"]), layer_kinds=kinds,
+               moe_experts=int(config["num_experts"]),
+               moe_top_k=int(config["num_experts_per_tok"]),
+               moe_capacity_factor=None, **fields)
+
+
+def layer_kinds(cfg: ModelConfig) -> tuple[list[tuple], list[int]]:
+    """The distinct attention kinds of ``cfg``'s layers, in order of
+    first use, each as (the config of a model of that kind alone: its
+    ``attention_window`` and ``rope_theta``; its :class:`Yarn` or None),
+    and each layer's index into them.  A config without ``layer_kinds``
+    is its own one kind, with default RoPE, so a step over it builds
+    what it always built."""
+    if cfg.layer_kinds is None:
+        return [(cfg, None)], [0] * cfg.n_layers
+    distinct = list(dict.fromkeys(cfg.layer_kinds))
+    kinds = [(dataclasses.replace(cfg, layer_kinds=None,
+                                  attention_window=k.window,
+                                  rope_theta=k.rope_theta), k.yarn)
+             for k in distinct]
+    return kinds, [distinct.index(k) for k in cfg.layer_kinds]
+
+
+def yarn_range(head_dim: int, theta: float, yarn: Yarn) -> tuple:
+    """YaRN's (low, high) dims of the ramp between the rescaled and the
+    original frequencies: where a dim turns ``beta_fast`` and
+    ``beta_slow`` times over the original context, floored and ceiled,
+    clamped to [0, head_dim - 1]."""
+    def dim(rotations):
+        return head_dim * math.log(
+            yarn.original_max_position_embeddings
+            / (rotations * 2 * math.pi)) / (2 * math.log(theta))
+
+    return (max(math.floor(dim(yarn.beta_fast)), 0),
+            min(math.ceil(dim(yarn.beta_slow)), head_dim - 1))
+
+
+def rope_frequencies(head_dim: int, theta: float, yarn: Yarn | None,
+                     device) -> torch.Tensor:
+    """f32 inverse frequencies [head_dim / 2]: theta ** (-i / half),
+    and under YaRN the ramp from them (dims below ``low``) to them over
+    ``factor`` (dims above ``high``)."""
+    half = head_dim // 2
+    base = theta ** (-torch.arange(half, dtype=torch.float32,
+                                   device=device) / half)
+    if yarn is None:
+        return base
+    low, high = yarn_range(head_dim, theta, yarn)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(half, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    extrap = 1 - ramp
+    return base / yarn.factor * (1 - extrap) + base * extrap
 
 
 def resolve_device(device=None) -> torch.device:
@@ -200,12 +421,13 @@ def param_shapes(cfg: ModelConfig) -> dict:
     if E is None:
         ffn = {"w1": (L, d, f), "w2": (L, f, d)}
     else:
-        ffn = {"router": (L, d, E), "w1": (L, E, d, f), "w2": (L, E, f, d)}
+        f1 = 2 * f if cfg.moe_dropless else f
+        ffn = {"router": (L, d, E), "w1": (L, E, d, f1), "w2": (L, E, f, d)}
     return {
         "embed": (cfg.vocab, d),
         "blocks": {
-            "qkv": (L, d, d + 2 * cfg.kv_heads * cfg.head_dim),
-            "attn_out": (L, d, d),
+            "qkv": (L, d, cfg.q_width + 2 * cfg.kv_heads * cfg.head_dim),
+            "attn_out": (L, cfg.q_width, d),
             **ffn,
             "ln1": (L, d),
             "ln2": (L, d),
@@ -223,7 +445,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     one."""
     shapes = param_shapes(cfg)
     d, f = cfg.d_model, cfg.d_ff
-    scale = {"embed": 0.02, "qkv": d ** -0.5, "attn_out": d ** -0.5,
+    scale = {"embed": 0.02, "qkv": d ** -0.5, "attn_out": cfg.q_width ** -0.5,
              "router": 0.02, "w1": d ** -0.5, "w2": f ** -0.5,
              "unembed": d ** -0.5}
     dev = resolve_device(device)
@@ -310,15 +532,18 @@ def load_params(directory: str, step: int, device=None) -> dict:
 
 
 def _rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, yarn: Yarn | None = None):
     """cos, sin [..., head_dim/2] in ``dtype`` for f32 absolute
     ``positions``; the angles themselves are f32.  A step computes them
-    once and rotates q and k of every layer with them."""
-    half = head_dim // 2
-    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
-                                    device=positions.device) / half)
-    angles = positions[..., None] * freqs
-    return torch.cos(angles).to(dtype), torch.sin(angles).to(dtype)
+    once (once a layer kind) and rotates q and k of every layer with
+    them.  Under ``yarn`` the frequencies are YaRN's and cos and sin
+    are scaled by its attention factor."""
+    angles = positions[..., None] * rope_frequencies(
+        head_dim, theta, yarn, positions.device)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    if yarn is not None:
+        cos, sin = cos * yarn.attention_factor, sin * yarn.attention_factor
+    return cos.to(dtype), sin.to(dtype)
 
 
 def _rotate(x: torch.Tensor, cos: torch.Tensor,
@@ -329,14 +554,15 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor,
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def _rope(x: torch.Tensor, theta: float, offset=0) -> torch.Tensor:
+def _rope(x: torch.Tensor, theta: float, offset=0,
+          yarn: Yarn | None = None) -> torch.Tensor:
     """Rotary embedding over [batch, heads, seq, head_dim] at absolute
     positions ``offset .. offset+seq-1`` (``offset`` an int or a 0-d
     tensor on x's device)."""
     s, hd = x.shape[2], x.shape[3]
     positions = offset + torch.arange(s, dtype=torch.float32,
                                       device=x.device)
-    return _rotate(x, *_rope_tables(positions, hd, theta, x.dtype))
+    return _rotate(x, *_rope_tables(positions, hd, theta, x.dtype, yarn))
 
 
 def _rmsnorm(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
@@ -363,11 +589,24 @@ def _split_qkv(y: torch.Tensor, layer_qkv: torch.Tensor,
     return q, k, v
 
 
-def moe_ffn(y: torch.Tensor, layer: dict, cfg: ModelConfig, experts=None):
-    """Top-k MoE FFN over [b, s, d] normed activations.
+def moe_ffn(y: torch.Tensor, layer: dict, cfg: ModelConfig, experts=None,
+            *, valid=None, counter=None, aux: bool = True):
+    """Top-k MoE FFN over [b, s, d] normed activations, by one of two
+    routes.
 
-    Routing is ``moe.route_topk`` on f32 logits of the f32 activations
-    and router; dispatch is per sequence: each row routes its s tokens
+    Dropless (``cfg.moe_capacity_factor`` None, :func:`moe.dropless_ffn`):
+    every token goes to its k experts, none dropped; the (token, choice)
+    pairs are sorted by expert on the device and each weight runs as one
+    grouped product over them.  ``valid`` [b, s] bool (the prefill's
+    real tokens) keeps the other rows out of the routing, their output
+    zero; ``counter`` (a traced engine's
+    :class:`~tpu_autoscaler_torch.obs.trace.DeviceCounter`) keeps each
+    call's group ends over the experts.  With ``aux``
+    False the router losses are not computed (serving): zeros.
+
+    Capacity (the JAX package's): routing is ``moe.route_topk`` on f32
+    logits of the f32 activations and router; dispatch is per sequence:
+    each row routes its s tokens
     into [E, cap, d] buffers (cap = capacity_factor·s·k/E), the experts
     run as one batched product per weight over the expert dim, and the
     combine gathers each token's k outputs gate-weighted.  Rows route
@@ -377,6 +616,9 @@ def moe_ffn(y: torch.Tensor, layer: dict, cfg: ModelConfig, experts=None):
     replaces the expert MLPs over the [b, E, cap, d] buffers (the
     tensor-parallel step sums them over the model ranks); ``layer`` then
     needs only the router."""
+    if cfg.moe_dropless:
+        return dropless_ffn(y, layer, cfg, valid=valid, counter=counter,
+                            aux=aux)
     b, s, d = y.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
     cap = max(1, int(cfg.moe_capacity_factor * s * k / E))
@@ -394,12 +636,15 @@ def moe_ffn(y: torch.Tensor, layer: dict, cfg: ModelConfig, experts=None):
 
 
 def _ffn_residual(x: torch.Tensor, y: torch.Tensor, layer: dict,
-                  cfg: ModelConfig) -> torch.Tensor:
+                  cfg: ModelConfig, valid=None, counter=None) -> torch.Tensor:
     """The FFN half of a block (the dense gelu MLP or :func:`moe_ffn`)
     added onto the residual stream; y is the post-ln2 activations.
-    The serving and decode bodies share it with :func:`_block`."""
+    The serving and decode bodies share it with :func:`_block`;
+    ``valid`` and ``counter`` are :func:`moe_ffn`'s (the dropless
+    route's)."""
     if cfg.moe_experts is not None:
-        return x + moe_ffn(y, layer, cfg)[0]
+        return x + moe_ffn(y, layer, cfg, valid=valid, counter=counter,
+                           aux=False)[0]
     hdn = F.gelu(y @ layer["w1"].to(cfg.dtype), approximate="tanh")
     return x + hdn @ layer["w2"].to(cfg.dtype)
 
@@ -427,30 +672,32 @@ def _attend(q, k, v, cfg: ModelConfig, kernel: bool) -> torch.Tensor:
     return _einsum_attention(q, k, v, cfg)
 
 
-def _attention_residual(x: torch.Tensor, layer: dict,
-                        cfg: ModelConfig) -> torch.Tensor:
+def _attention_residual(x: torch.Tensor, layer: dict, cfg: ModelConfig,
+                        yarn: Yarn | None = None) -> torch.Tensor:
     """The attention half of a block over x [batch, seq, d_model] in
     compute dtype, added onto the residual stream: the flash_attention
     kernel when the config resolves to it on x's device, else the
-    grouped einsum with the band mask."""
+    grouped einsum with the band mask.  ``yarn``: the layer kind's
+    YaRN rotary (:func:`layer_kinds`)."""
     b, s, d = x.shape
     y = _rmsnorm(x, layer["ln1"])
     q, k, v = _split_qkv(y, layer["qkv"], cfg)
     if cfg.rope:
-        q = _rope(q, cfg.rope_theta)
-        k = _rope(k, cfg.rope_theta)
+        q = _rope(q, cfg.rope_theta, yarn=yarn)
+        k = _rope(k, cfg.rope_theta, yarn=yarn)
     kernel = cfg.resolved_attention(x.device) == "kernel"
-    attn = _attend(q, k, v, cfg, kernel).transpose(1, 2).reshape(b, s, d)
+    attn = _attend(q, k, v, cfg, kernel).transpose(1, 2).reshape(b, s, -1)
     return x + attn @ layer["attn_out"].to(cfg.dtype)
 
 
-def _block(x: torch.Tensor, layer: dict, cfg: ModelConfig):
+def _block(x: torch.Tensor, layer: dict, cfg: ModelConfig,
+           yarn: Yarn | None = None):
     """One transformer block over x [batch, seq, d_model] in compute
     dtype, without the JAX package's ``ffn`` hook (its mesh branch is
-    :func:`_mesh_layer`).
+    :func:`_mesh_layer`); ``yarn`` as in :func:`_attention_residual`.
     Returns ``(x, aux)``; aux holds the MoE router losses, zeros for
     the dense FFN."""
-    x = _attention_residual(x, layer, cfg)
+    x = _attention_residual(x, layer, cfg, yarn)
     y = _rmsnorm(x, layer["ln2"])
     if cfg.moe_experts is not None:
         out, aux = moe_ffn(y, layer, cfg)
@@ -469,13 +716,15 @@ def features_with_aux(params: dict, tokens: torch.Tensor,
     recomputes it instead of keeping its activations."""
     x = params["embed"].to(cfg.dtype)[tokens]
     aux = []
+    kinds, of_layer = layer_kinds(cfg)
     for i in range(cfg.n_layers):
         layer = {name: w[i] for name, w in params["blocks"].items()}
+        lcfg, yarn = kinds[of_layer[i]]
         if cfg.remat:
-            x, layer_aux = checkpoint(_block, x, layer, cfg,
+            x, layer_aux = checkpoint(_block, x, layer, lcfg, yarn,
                                       use_reentrant=False)
         else:
-            x, layer_aux = _block(x, layer, cfg)
+            x, layer_aux = _block(x, layer, lcfg, yarn)
         aux.append(layer_aux)
     mean = {name: torch.stack([a[name] for a in aux]).mean()
             for name in aux[0]}
@@ -1590,6 +1839,7 @@ def place_params(mesh: Mesh, cfg: ModelConfig, params: dict) -> TPParams:
     each row's first rank, which alone reads them; when the heads do not
     divide over the ranks the whole qkv goes there too.  A tree that is
     already placed over ``mesh`` is returned as it is."""
+    cfg.require_uniform("serving under a mesh")
     if isinstance(params, TPParams):
         if params.mesh is not mesh:
             raise ValueError("params are placed over another mesh")
@@ -2042,6 +2292,7 @@ def make_sharded_train_step(mesh: Mesh, cfg: ModelConfig,
     :func:`gather_params` and :func:`shard_params` /
     :func:`shard_opt_state` move the state between these trees and the
     one-device layout (checkpoints)."""
+    cfg.require_uniform("the mesh train step")
     if shard is None:
         shard = "zero1" if zero1 else "none"
     _check_shard(shard)

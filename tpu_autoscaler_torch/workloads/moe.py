@@ -1,11 +1,27 @@
 """Mixture-of-experts FFN and expert parallelism (ep), on PyTorch.
 
-The counterpart of the JAX package's ``workloads/moe.py``.
-The routing rule (``route_topk``) is the one every MoE path of the port
-shares: the flagship model's per-row dispatch (``model.moe_ffn``), the
-expert-parallel step (``_ep_moe_ffn``, ``make_ep_train_step``) and
-sp×ep (``sp.py``).  Tokens over an expert's capacity are dropped (they
-contribute zero; the residual carries them), switch-transformer style.
+The counterpart of the JAX package's ``workloads/moe.py``, and the
+port's own dropless route.  Two routes, chosen by
+``ModelConfig.moe_capacity_factor``:
+
+- **Capacity** (a factor; the JAX package's): the routing rule
+  ``route_topk`` every capacity path of the port shares, the flagship
+  model's per-row dispatch (``model.moe_ffn``), the expert-parallel
+  step (``_ep_moe_ffn``, ``make_ep_train_step``) and sp×ep
+  (``sp.py``).  Each expert takes at most ``capacity`` tokens of a
+  routing pool into an [E, cap, d] buffer; tokens over it are dropped
+  (they contribute zero; the residual carries them),
+  switch-transformer style.
+- **Dropless** (None; ``dropless_ffn``, one device): what published
+  MoE models such as Mellum2 run, with SwiGLU experts.  Every token goes to its top-k
+  experts (``route_dropless``: softmax in f32, top-k with ties to the
+  lower index, renormalised).  The (token, choice) pairs are
+  sorted by expert on the device and each weight runs as one grouped
+  product over the sorted rows (``grouped_mm``: ``torch._grouped_mm``
+  on the card, whose group ends stay on the device; a loop over
+  experts elsewhere), so a step does the work of its tokens, not of E
+  full buffers, and never syncs the host.  Rows the caller marks
+  invalid (a prefill lane's padding) are not routed.
 
 The JAX package shards experts over a mesh axis and moves tokens with
 two ``lax.all_to_all`` exchanges.  Here one process holds the ranks as
@@ -160,6 +176,90 @@ def expert_mlp(buf, w1, w2):
     h = F.gelu(torch.bmm(flat, w1), approximate="tanh")
     out = torch.bmm(h, w2)
     return out.reshape(e, g, cap, -1).transpose(0, 1)
+
+
+def route_dropless(logits: torch.Tensor, k: int):
+    """Top-k routing with no capacity: logits [n, e] f32 -> (expert
+    [n, k] int64, gate [n, k] f32).  Probabilities are the softmax in
+    f32; the k largest in order, ties to the lower expert index (a
+    stable descending sort, as :func:`route_topk`), renormalised over
+    the k (``norm_topk_prob``)."""
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :k], topi[..., :k]
+    return topi, topv / topv.sum(dim=-1, keepdim=True)
+
+
+def grouped_mm(a: torch.Tensor, w: torch.Tensor,
+               ends: torch.Tensor) -> torch.Tensor:
+    """Rows of ``a`` [m, k] in groups by expert times that expert's
+    weight ``w`` [E, k, n] -> [m, n]: group e is rows [ends[e - 1],
+    ends[e]) (``ends`` int32 [E] on a's device).  Rows past ends[-1]
+    are left unset.  bf16 CUDA tensors take ``torch._grouped_mm``, one
+    launch whose group ends stay on the device; anything else loops over
+    the experts, reading ``ends`` on the host."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch._grouped_mm(a, w, offs=ends)
+    out = a.new_empty(a.shape[0], w.shape[-1])
+    start = 0
+    for e, end in enumerate(ends.tolist()):
+        if end > start:
+            out[start:end] = a[start:end] @ w[e]
+        start = end
+    return out
+
+
+def dropless_ffn(y: torch.Tensor, layer: dict, cfg, *, valid=None,
+                 counter=None, aux: bool = True):
+    """The dropless MoE FFN over y [b, s, d] (post-norm activations in
+    the compute dtype): route every token in f32 (``layer["router"]``
+    [d, E]; :func:`route_dropless`), sort its k (token, choice) pairs by
+    expert, run the SwiGLU experts' ``w1`` [E, d, 2 f] (gate | up) and
+    ``w2`` [E, f, d] as grouped products over the sorted rows
+    (:func:`grouped_mm`), put the rows back in token order
+    and sum each token's k outputs gate-weighted (the f32 gates cast to
+    the compute dtype, one batched product with f32 accumulation).
+
+    ``valid`` [b, s] bool: rows left out of the routing (sorted past
+    every group, their output zero).  ``counter``: records the call's
+    group ends [E] int32 on the device (the assignments are the last,
+    the experts that took a token its non-empty groups).  Returns
+    (out [b, s, d], aux): the balance and z losses over the valid
+    tokens, or zeros with ``aux`` False."""
+    b, s, d = y.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    x = y.reshape(b * s, d)
+    logits = x.float() @ layer["router"].float()
+    expert, gate = route_dropless(logits, k)
+    flat = expert.reshape(-1)
+    if valid is not None:
+        # Pairs of invalid rows sort after every group (expert E).
+        flat = torch.where(valid.reshape(-1, 1), expert, E).reshape(-1)
+    ordered, order = torch.sort(flat, stable=True)
+    ends = torch.searchsorted(
+        ordered, torch.arange(1, E + 1, device=y.device), out_int32=True)
+    w1, w2 = layer["w1"].to(cfg.dtype), layer["w2"].to(cfg.dtype)
+    gated, up = grouped_mm(x[order // k], w1, ends).chunk(2, dim=-1)
+    o = grouped_mm(F.silu(gated) * up, w2, ends)
+    if valid is not None:
+        o = torch.where((ordered < E)[:, None], o, o.new_zeros(()))
+    back = torch.empty_like(o)
+    back[order] = o
+    out = torch.bmm(gate.to(o.dtype)[:, None, :],
+                    back.reshape(b * s, k, d)).reshape(b, s, d)
+    if counter is not None:
+        counter.add(ends)
+    if not aux:
+        zero = torch.zeros((), dtype=torch.float32, device=y.device)
+        return out, {"balance_loss": zero, "z_loss": zero}
+    keep = torch.ones(b * s, device=y.device) if valid is None \
+        else valid.reshape(-1).float()
+    n = keep.sum().clamp_min(1)
+    frac = (F.one_hot(expert, E).sum(dim=1).float() * keep[:, None]).sum(0) \
+        / (n * k)
+    mean_prob = (torch.softmax(logits, dim=-1) * keep[:, None]).sum(0) / n
+    z = (torch.logsumexp(logits, dim=-1).square() * keep).sum() / n
+    return out, {"balance_loss": E * (frac * mean_prob).sum(), "z_loss": z}
 
 
 def moe_reference(params: dict, x: torch.Tensor, capacity: int | None = None,
@@ -525,6 +625,7 @@ def make_ep_loss(mesh, cfg):
 
 def _check_ep(mesh, cfg) -> None:
     """The JAX package's refusals of ``make_ep_train_step``."""
+    cfg.require_uniform("make_ep_train_step")
     if cfg.moe_experts is None:
         raise ValueError("make_ep_train_step needs cfg.moe_experts set")
     ep = mesh.shape["ep"]

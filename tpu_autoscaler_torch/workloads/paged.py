@@ -78,6 +78,7 @@ from tpu_autoscaler_torch.workloads.model import (
     _split_qkv,
     kv_gather,
     kv_zeros,
+    layer_kinds,
     row_sizes,
     tp_blocks,
     tp_embed,
@@ -358,15 +359,19 @@ def make_paged_decode_step(cfg: ModelConfig, tokens_per_row: int,
     ``tracer``: the one-device step's inputs are a
     ``serve.decode.inputs`` span (:class:`serving.ContinuousBatcher`)."""
     if mesh is not None:
+        cfg.require_uniform("serving under a mesh")
         return _mesh_paged_decode_step(cfg.resolved_for_mesh(mesh),
                                        tokens_per_row)
+    kinds, of_layer = layer_kinds(cfg)
+    moe = _MoeSeam(cfg, tracer)
 
     def step(params, cache: PagedKVCache, tables, tokens, active):
         _check_tables(tables, cache, tokens_per_row)
         dev = cache.k.device
         positions = cache.lengths
         # Per-step values every layer shares, computed once: the write
-        # lists, the tables and lengths on the device, the rope tables.
+        # lists, the tables and lengths on the device, the rope tables
+        # (once a layer kind).
         with maybe_span(tracer, "serve.decode.inputs"):
             writes = [t.to(dev) for t in _token_writes(
                 tables, positions, active, cache.num_blocks,
@@ -376,30 +381,63 @@ def make_paged_decode_step(cfg: ModelConfig, tokens_per_row: int,
             dev_tokens = tokens.to(dev)
             new_len = dev_positions + 1
             if cfg.rope:
-                rope = _row_rope_tables(dev_positions, 1, cfg.head_dim,
-                                        cfg.rope_theta, cfg.dtype)
+                ropes = [_row_rope_tables(dev_positions, 1, cfg.head_dim,
+                                          kc.rope_theta, cfg.dtype, yarn)
+                         for kc, yarn in kinds]
         x = params["embed"].to(cfg.dtype)[dev_tokens][:, None, :]
         b, s, d = x.shape
+        rows = moe.tokens(active)
         for i in range(cfg.n_layers):
+            kcfg = kinds[of_layer[i]][0]
             layer = _layer(params, i)
             k_pool, v_pool = cache.k[i], cache.v[i]
             y = _rmsnorm(x, layer["ln1"])
             q, k, v = _split_qkv(y, layer["qkv"], cfg)
             if cfg.rope:
+                rope = ropes[of_layer[i]]
                 q, k = _rotate(q, *rope), _rotate(k, *rope)
             _scatter_token(k_pool, k, writes)
             _scatter_token(v_pool, v, writes)
-            attn = _paged_attend(q, k_pool, v_pool, dev_tables, new_len, cfg)
-            attn = attn.transpose(1, 2).reshape(b, s, d)
+            attn = _paged_attend(q, k_pool, v_pool, dev_tables, new_len,
+                                 kcfg)
+            attn = attn.transpose(1, 2).reshape(b, s, -1)
             x = x + attn @ layer["attn_out"].to(cfg.dtype)
             y = _rmsnorm(x, layer["ln2"])
-            x = _ffn_residual(x, y, layer, cfg)
+            x = moe.ffn(x, y, layer, i, rows)
         x = _rmsnorm(x, params["ln_f"])
         logits = x @ params["unembed"].to(cfg.dtype)
         cache.lengths += active.to(torch.int32)
         return logits[:, 0].float(), cache
 
     return step
+
+
+class _MoeSeam:
+    """A step's FFN half, through :func:`model._ffn_residual`: for an
+    MoE config under a tracer, each layer's call is a ``serve.moe`` span
+    (attrs ``layer``, ``tokens``: the rows the step serves, counted on
+    the host) and the dropless route counts into the tracer's
+    ``serve.moe`` device counter.  Anything else calls through with
+    nothing added."""
+
+    def __init__(self, cfg: ModelConfig, tracer):
+        self.cfg = cfg
+        self.dropless = cfg.moe_dropless
+        self.tracer = tracer if cfg.moe_experts is not None else None
+        self.counter = None if self.tracer is None or not self.dropless \
+            else self.tracer.counter("serve.moe")
+
+    def tokens(self, rows) -> int | None:
+        """The rows a step serves (a host tensor of flags or counts),
+        read only under a tracer."""
+        return None if self.tracer is None else int(rows.sum())
+
+    def ffn(self, x, y, layer: dict, i: int, tokens, valid=None):
+        if self.tracer is None:
+            return _ffn_residual(x, y, layer, self.cfg, valid)
+        with maybe_span(self.tracer, "serve.moe",
+                        {"layer": i, "tokens": tokens}):
+            return _ffn_residual(x, y, layer, self.cfg, valid, self.counter)
 
 
 def _lanes_visible(offsets, s: int, tokens_per_row: int,
@@ -520,9 +558,12 @@ def make_paged_prefill(cfg: ModelConfig, chunk: int, lanes: int,
     under a mesh, each lane's whole table is gathered and attended with
     the masked einsum (:func:`_lanes_attend`)."""
     if mesh is not None:
+        cfg.require_uniform("serving under a mesh")
         return _mesh_paged_prefill(cfg.resolved_for_mesh(mesh), chunk, lanes,
                                    tokens_per_row, return_all_logits)
     hd = cfg.head_dim
+    kinds, of_layer = layer_kinds(cfg)
+    moe = _MoeSeam(cfg, tracer)
 
     def fill(params, cache: PagedKVCache, tables, tokens, offsets, n_valid):
         _check_tables(tables, cache, tokens_per_row)
@@ -537,43 +578,53 @@ def make_paged_prefill(cfg: ModelConfig, chunk: int, lanes: int,
                 cache.block_size)]
             dev_tables = tables.to(dev)
             dev_tokens = tokens.to(dev)
-            if kernel:
+            if kernel or moe.dropless:
                 # offsets and n_valid in one copy to the device.
                 dev_offsets, dev_n_valid = torch.stack(
                     [offsets.to(torch.int32), n_valid.to(torch.int32)]
                 ).to(dev)
             else:
                 dev_offsets = offsets.to(dev)
+            if not kernel:
                 # Each lane attends over its own gathered pages: causal
-                # within the chunk plus everything before its offset.
-                visible = _lanes_visible(dev_offsets, chunk, tokens_per_row,
-                                         cfg)
+                # within the chunk plus everything before its offset
+                # (and inside the window of each layer kind).
+                visible = [_lanes_visible(dev_offsets, chunk, tokens_per_row,
+                                          kc) for kc, _ in kinds]
             if cfg.rope:
-                rope = _row_rope_tables(dev_offsets, chunk, hd,
-                                        cfg.rope_theta, cfg.dtype)
+                ropes = [_row_rope_tables(dev_offsets, chunk, hd,
+                                          kc.rope_theta, cfg.dtype, yarn)
+                         for kc, yarn in kinds]
+            # The dropless route leaves the padding rows unrouted.
+            valid = (torch.arange(chunk, device=dev)[None, :]
+                     < dev_n_valid[:, None]) if moe.dropless else None
         x = params["embed"].to(cfg.dtype)[dev_tokens]  # [lanes, chunk, d]
         b, s, d = x.shape
+        tokens_in = moe.tokens(n_valid)
         for i in range(cfg.n_layers):
+            kcfg = kinds[of_layer[i]][0]
             layer = _layer(params, i)
             k_pool, v_pool = cache.k[i], cache.v[i]
             y = _rmsnorm(x, layer["ln1"])
             q, k, v = _split_qkv(y, layer["qkv"], cfg)     # [b, h, s, hd]
             if cfg.rope:
+                rope = ropes[of_layer[i]]
                 q, k = _rotate(q, *rope), _rotate(k, *rope)
             _scatter_chunk(k_pool, k, writes)
             _scatter_chunk(v_pool, v, writes)
             if kernel:
                 attn = paged_flash_prefill(
                     q.contiguous(), k_pool, v_pool, dev_tables, dev_offsets,
-                    dev_n_valid, window=cfg.attention_window)
+                    dev_n_valid, window=kcfg.attention_window)
             else:
                 attn = _lanes_attend(
                     q, gather_pool_rows(k_pool, dev_tables),
-                    gather_pool_rows(v_pool, dev_tables), visible, cfg)
-            attn = attn.transpose(1, 2).reshape(b, s, d)
+                    gather_pool_rows(v_pool, dev_tables),
+                    visible[of_layer[i]], cfg)
+            attn = attn.transpose(1, 2).reshape(b, s, -1)
             x = x + attn @ layer["attn_out"].to(cfg.dtype)
             y = _rmsnorm(x, layer["ln2"])
-            x = _ffn_residual(x, y, layer, cfg)
+            x = moe.ffn(x, y, layer, i, tokens_in, valid)
         if return_all_logits:
             x = _rmsnorm(x, params["ln_f"])
             return (x @ params["unembed"].to(cfg.dtype)).float(), cache

@@ -254,6 +254,7 @@ def make_pipeline_loss(mesh: Mesh, cfg: ModelConfig, num_microbatches: int,
     docstring).  MoE configs fold the router balance/z losses in as
     ``model.loss_and_metrics`` does.  Bubble slots do not run:
     ``loss.counts["stage_forwards"]`` adds ``m·P`` a call."""
+    cfg.require_uniform("the pipeline")
     n_stages = mesh.shape[pp_axis]
     if cfg.n_layers % n_stages:
         raise ValueError(
@@ -318,6 +319,7 @@ def make_pipeline3d_loss(mesh: Mesh, cfg: ModelConfig, num_microbatches: int,
     device.  Dense blocks only.  ``loss.counts`` as in
     :func:`make_pipeline_loss`, one stage forward being one stage over
     every data row."""
+    cfg.require_uniform("the pipeline")
     n_stages = mesh.shape[pp_axis]
     tp = mesh.shape[model_axis]
     dp = mesh.shape[data_axis]

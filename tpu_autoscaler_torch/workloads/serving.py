@@ -160,12 +160,13 @@ class MeshSlotKVCache:
 
 
 def _row_rope_tables(positions: torch.Tensor, s: int, head_dim: int,
-                     theta: float, dtype: torch.dtype):
+                     theta: float, dtype: torch.dtype, yarn=None):
     """cos, sin [b, 1, s, head_dim/2] for rows starting at per-row
-    ``positions`` [b]; shared by every layer's q and k in a step."""
+    ``positions`` [b]; shared by every layer's q and k in a step (by
+    every layer of one kind, ``yarn`` its :class:`model.Yarn`)."""
     pos = positions[:, None].float() + torch.arange(
         s, dtype=torch.float32, device=positions.device)[None, :]
-    cos, sin = _rope_tables(pos, head_dim, theta, dtype)
+    cos, sin = _rope_tables(pos, head_dim, theta, dtype, yarn)
     return cos[:, None], sin[:, None]
 
 
@@ -334,6 +335,7 @@ def make_slot_decode_step(cfg: ModelConfig, ring: bool = False,
     (:func:`model.place_params`) and a :class:`MeshSlotKVCache`; K3 runs
     once per (data row, model rank) shard.
     """
+    cfg.require_uniform("the slot engines")
     if ring and cfg.attention_window is None:
         raise ValueError("ring=True needs cfg.attention_window (the "
                          "ring holds exactly the window of live keys)")
@@ -476,6 +478,7 @@ def make_prefill_chunk(cfg: ModelConfig, chunk: int, ring: bool = False,
     ``mesh``: as in :func:`make_slot_decode_step`; the chunk runs on its
     slot's data row.
     """
+    cfg.require_uniform("the slot engines")
     if ring and cfg.attention_window is None:
         raise ValueError("ring=True needs cfg.attention_window")
     if mesh is not None:

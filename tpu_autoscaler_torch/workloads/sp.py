@@ -333,6 +333,7 @@ def make_sp_train_step(mesh, cfg: ModelConfig, *,
     takes the moments in that layout (:func:`shard_sp_opt_state` cuts a
     one-device state).
     """
+    cfg.require_uniform("sequence parallelism")
     if shard not in {"none", "zero1"}:
         raise ValueError(
             f"sp supports shard='none' or 'zero1', got {shard!r} "
