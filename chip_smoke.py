@@ -1129,6 +1129,161 @@ class _RouteLog:
         self.model.route_topk = self._real
 
 
+class _TokenWriteLog:
+    """While in a with-block, every write of the one-device paged decode
+    step (``paged._scatter_token``: the paged_token_write kernel on the
+    card) is also made by the kernel's plain version on copies of the
+    pools, and the two pools must match bit for bit.  ``calls`` counts the
+    writes, ``unequal`` those that differed, ``written`` the pool entries
+    they wrote; ``steps`` keeps each decode step's first-layer inputs
+    (new k/v, tables, positions, active)."""
+
+    def __init__(self, torch, attention, paged, n_layers):
+        self.torch, self.attention, self.paged = torch, attention, paged
+        self.n_layers = n_layers
+        self.calls = self.unequal = self.written = 0
+        self.steps = []
+
+    def __enter__(self):
+        real = self._real = self.paged._scatter_token
+        torch = self.torch
+
+        def checked(k_pool, v_pool, k, v, tables, positions, active):
+            want_k, want_v = k_pool.clone(), v_pool.clone()
+            self.attention.paged_token_write_reference(
+                want_k, want_v, k, v, tables, positions, active)
+            if self.calls % self.n_layers == 0:
+                self.steps.append(tuple(t.clone() for t in (
+                    k, v, tables, positions, active)))
+            before = k_pool.clone()
+            real(k_pool, v_pool, k, v, tables, positions, active)
+            self.calls += 1
+            self.unequal += not (torch.equal(k_pool, want_k)
+                                 and torch.equal(v_pool, want_v))
+            self.written += int((k_pool != before).any(-1).sum())
+
+        self.paged._scatter_token = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.paged._scatter_token = self._real
+
+
+#: The port's paged kernels by the name of their device code, as a
+#: profiler's trace lists them: K4, K7 (bf16 and f32 builds), K8.
+PAGED_KERNEL_NAMES = {"paged_flash_decode": ("paged_decode_kernel",),
+                      "paged_flash_prefill": ("paged_prefill_tc_kernel",
+                                              "paged_prefill_fma_kernel"),
+                      "paged_token_write": ("token_write_kernel",)}
+
+
+def _graph_kernel_nodes(graph) -> dict:
+    """The kernel nodes of a captured ``torch.cuda.CUDAGraph`` (made with
+    ``keep_graph=True``) counted by the PAGED_KERNEL_NAMES they match,
+    read from the graph through the CUDA driver (``cuGraphGetNodes``,
+    each kernel node's function and its name): the launches one replay
+    makes, whoever counted them in Python."""
+    import ctypes
+
+    class Params(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p)] \
+            + [(n, ctypes.c_uint) for n in (
+                "grid_x", "grid_y", "grid_z", "block_x", "block_y",
+                "block_z", "shared_mem")] \
+            + [(n, ctypes.c_void_p) for n in (
+                "kernel_params", "extra", "kern", "ctx")]
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} returned CUresult {rc}")
+
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    counts = dict.fromkeys(PAGED_KERNEL_NAMES, 0)
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        kernels += 1
+        params = Params()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                               ctypes.byref(params)),
+              "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if params.func:
+            check(cu.cuFuncGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(params.func)),
+                  "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name),
+                                     ctypes.c_void_p(params.kern)),
+                  "cuKernelGetName")
+        for key, names in PAGED_KERNEL_NAMES.items():
+            if any(m.encode() in name.value for m in names):
+                counts[key] += 1
+    return dict(counts, kernel_nodes=kernels, nodes=n.value)
+
+
+def _decode_launches(cfg, step, launches, profiled, steps, replays,
+                     captures):
+    """K4's and K8's launches over a pass of ``steps`` calls of a
+    PagedDecodeStep, from what ran on the card: each eager run of its
+    body (a call not replayed, and each capture's warm-up) launches both
+    once a layer, as attention's wrappers count at the launch, and each
+    replay launches the kernel nodes of the captured graph, read from the
+    graph (_graph_kernel_nodes).  Returns (those launches by name, the
+    graph's nodes, what disagrees): attention.LAUNCHES must hold the
+    same, the graph one node of each a layer, as counted at its capture,
+    and the profiler (``profiled``; it may drop records of a replay's
+    burst of kernels, never add any) no more than was launched."""
+    nodes = dict.fromkeys(PAGED_KERNEL_NAMES, 0)
+    bad = []
+    if step._graph is not None:
+        nodes = _graph_kernel_nodes(step._graph.graph)
+        at_capture = {k: step._graph.launches.get(k, 0)
+                      for k in PAGED_KERNEL_NAMES}
+        if {k: nodes[k] for k in PAGED_KERNEL_NAMES} != at_capture \
+                or nodes["paged_flash_decode"] != cfg.n_layers:
+            bad.append(f"graph nodes {nodes}, counted at capture "
+                       f"{at_capture}")
+    eager_runs = steps - replays + captures
+    ran = {k: eager_runs * cfg.n_layers + replays * nodes[k]
+           for k in ("paged_flash_decode", "paged_token_write")}
+    bad += [f"attention.LAUNCHES {k} {launches[k]}, launched {n}"
+            for k, n in ran.items() if launches[k] != n or n == 0]
+    bad += [f"the profiler saw {profiled[k]} {k}, {launches[k]} launched"
+            for k in PAGED_KERNEL_NAMES if profiled[k] > launches[k]]
+    return ran, nodes, bad
+
+
+def _measured_launches(torch, fn):
+    """(``fn()``, the PAGED_KERNEL_NAMES kernels that ran on the card
+    while it ran, counted by name in a device-only profiler trace: every
+    kernel of a replayed CUDA graph is an event of its own there)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(PAGED_KERNEL_NAMES, 0)
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        for key, names in PAGED_KERNEL_NAMES.items():
+            if any(n in e.key for n in names):
+                counts[key] += e.count
+    return out, counts
+
+
 def _routed_apart(got, want, k, rows) -> dict:
     """Rows (batch indices among ``rows``) whose top-k experts differ
     between two routes' runs of the same step (_RouteLog calls, layer by
@@ -1313,10 +1468,16 @@ def phase_main_path(torch, np, attention, model, serving, arch=FULL,
 def phase_paged_main_path(torch, np, attention, model, serving, paged,
                           arch=FULL, path="paged_main_path"):
     """The paged-KV server at full width: warm pass (with the einsum
-    gather route on identical inputs every tick), then the timed pass
-    whose kernel launches are counted, then the same traffic through an
-    einsum-route engine for free-running greedy agreement.  ``arch``:
-    FULL, or FULL_MOE (``path`` moe_paged_main_path)."""
+    gather route on identical inputs every tick, and every token write
+    held to its plain version: _TokenWriteLog), then the timed pass
+    (the decode step replayed from its CUDA graph) whose kernel launches
+    are counted by name on the card (_measured_launches) and held to
+    attention.LAUNCHES and to the calls made, then the same traffic
+    through an einsum-route engine for free-running greedy agreement.
+    ``arch``: FULL, or FULL_MOE (``path`` moe_paged_main_path).  Returns
+    (record, the median tick's tables and lengths, the engine, the warm
+    pass's tokens and logits rows, the warm pass's median decode step's
+    token-write inputs)."""
     import dataclasses
 
     cfg = model.ModelConfig(**arch)
@@ -1338,13 +1499,17 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged,
         # the same cache, tables, tokens and mask through the einsum
         # route first, every tick (teacher-forced).  The kernel route's
         # logits rows are kept for the speculative paths' comparison.
+        # Both steps run eagerly, so that each call's routes are logged
+        # (a replayed graph calls no Python); the timed pass replays,
+        # and paged_decode_graph_check holds replays to eager calls.
         ticks_seen.append((tables.clone(), (cache.lengths + 1).tolist()))
         ref = paged.PagedKVCache(cache.k.clone(), cache.v.clone(),
                                  cache.lengths.clone())
         with _RouteLog(model) as want_routes:
-            want, _ = einsum_step(p, ref, tables, tokens, active)
+            want, _ = einsum_step.eager(p, ref, tables, tokens, active)
         with _RouteLog(model) as got_routes:
-            logits, cache = kernel_step(p, cache, tables, tokens, active)
+            logits, cache = kernel_step.eager(p, cache, tables, tokens,
+                                              active)
         diffs.append(_compare_routed(
             torch, logits, want, active.nonzero()[:, 0].to(logits.device),
             got_routes.calls, want_routes.calls, cfg.moe_top_k))
@@ -1352,7 +1517,8 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged,
         return logits, cache
 
     eng._decode = compared_step
-    warm_s = _serve_all(eng, warm)
+    with _TokenWriteLog(torch, attention, paged, cfg.n_layers) as writes:
+        warm_s = _serve_all(eng, warm)
     eng._decode = kernel_step
     kernel_fill, fills = eng._prefill, []
 
@@ -1364,14 +1530,19 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged,
 
     reqs = _requests(serving, np, cfg, PAGED_PROMPT_LENS)
     ticks0, steps0, pre0 = eng.ticks, eng.decode_steps, eng.preemptions
+    captures0, replays0 = eng.decode_graph_captures, eng.decode_graph_replays
     attention.reset_launch_counts()
-    dt, peak = _serve_ticks(eng, reqs)
+    (dt, peak), profiled = _measured_launches(
+        torch, lambda: _serve_ticks(eng, reqs))
     launches = dict(attention.LAUNCHES)
     eng._prefill = kernel_fill
     want_fills = len(fills) * cfg.n_layers
     steps = eng.decode_steps - steps0
     preemptions = eng.preemptions - pre0
-    want_launches = steps * cfg.n_layers
+    captures = eng.decode_graph_captures - captures0
+    replays = eng.decode_graph_replays - replays0
+    ran, nodes, bad = _decode_launches(cfg, kernel_step, launches, profiled,
+                                       steps, replays, captures)
     decoded = sum(len(r.generated) for r in reqs)
     if eng.allocator.used_blocks != 0:
         raise AssertionError(f"drained paged engine holds "
@@ -1389,23 +1560,37 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged,
         warm_seconds=warm_s, seconds=dt, ticks=eng.ticks - ticks0,
         decode_steps=steps, decoded_tokens=decoded,
         decode_tokens=eng.decode_tokens, tokens_per_s=decoded / dt,
+        timed_pass="profiled (device only)",
         preemptions=preemptions, peak_concurrent_sequences=peak,
-        paged_flash_decode_launches=launches["paged_flash_decode"],
+        decode_graph_replays=replays, decode_graph_captures=captures,
+        graph_kernel_nodes=nodes,
+        paged_flash_decode_launches=ran["paged_flash_decode"],
+        paged_token_write_launches=ran["paged_token_write"],
         flash_decode_launches=launches["flash_decode"],
-        expected_launches=want_launches, prefill_calls=len(fills),
+        expected_launches=(steps + captures) * cfg.n_layers,
+        prefill_calls=len(fills),
         paged_flash_prefill_launches=launches["paged_flash_prefill"],
-        expected_prefill_launches=want_fills, einsum_seconds=einsum_s,
+        expected_prefill_launches=want_fills,
+        profiled_launches=profiled,
+        token_writes_checked=writes.calls,
+        token_writes_unequal=writes.unequal,
+        token_write_entries_written=writes.written,
+        einsum_seconds=einsum_s,
         einsum_tokens_per_s=decoded / einsum_s,
         einsum_preemptions=eeng.preemptions,
         **_compare_record(diffs, firsts),
         greedy_tokens_agree=agree, greedy_prefix_agree=sum(firsts),
         greedy_tokens_total=decoded, mid_tick_lengths=mid_lengths)
     emit(path, **rec)
-    if launches["paged_flash_decode"] != want_launches or want_launches == 0:
+    if bad or ran["paged_flash_decode"] != rec["expected_launches"]:
         raise AssertionError(
-            f"paged_flash_decode launched "
-            f"{launches['paged_flash_decode']} times, want decode steps x "
-            f"layers = {want_launches}")
+            f"{path}: K4/K8 launched {ran}, want (decode steps + captures) "
+            f"x layers = {rec['expected_launches']}; {bad}")
+    if writes.unequal or not writes.calls or not writes.written:
+        raise AssertionError(
+            f"{path}: {writes.unequal} of {writes.calls} token writes "
+            f"differ from the plain version ({writes.written} entries "
+            f"written)")
     if launches["flash_decode"] != 0:
         raise AssertionError(f"flash_decode launched "
                              f"{launches['flash_decode']} times on the "
@@ -1418,8 +1603,244 @@ def phase_paged_main_path(torch, np, attention, model, serving, paged,
     if preemptions == 0:
         raise AssertionError(f"the {path} never preempted")
     _check_ticks(path, diffs)
+    by_rows = sorted(writes.steps, key=lambda w: int(w[4].sum()))
     return (rec, (mid_tables, mid_lengths), eng,
-            ([r.generated for r in warm], rows))
+            ([r.generated for r in warm], rows), by_rows[len(by_rows) // 2])
+
+
+#: The graph check's small dropless MoE: the main path's widths with 8
+#: SwiGLU experts of 1,024, top 2, no capacity (Mellum2's route).
+GRAPH_MOE = dict(FULL, moe_experts=8, moe_top_k=2, moe_capacity_factor=None,
+                 d_ff=1024)
+
+
+def _timed_calls(torch, fn, events):
+    """``fn`` with CUDA events recorded around each call into
+    ``events``."""
+    def timed(*args):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn(*args)
+        ev[1].record()
+        events.append(ev)
+        return out
+    return timed
+
+
+def _token_write_check(torch, attention, dtype) -> dict:
+    """The paged_token_write kernel against its plain version, bit for
+    bit, on one layer's pools at the paged main path's geometry
+    (NUM_BLOCKS blocks of BLOCK_SIZE, MAX_LEN // BLOCK_SIZE table
+    entries, PAGED_SLOTS rows, its KV heads and head size): inactive
+    rows, a row with no block at its position (-1), two whose entry is
+    past the pool, a row past its table (its last entry), positions on
+    both sides of a block edge; new k/v as the step hands them (views of
+    the packed qkv, or contiguous)."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    nb, bs, tpr, slots = NUM_BLOCKS, BLOCK_SIZE, MAX_LEN // BLOCK_SIZE, \
+        PAGED_SLOTS
+    hkv, d = FULL["n_kv_heads"], FULL["d_model"] // FULL["n_heads"]
+    positions = [0, 15, 16, 33, 47, 3, 20, 127, 128, MAX_LEN + 5, 64, 31,
+                 32, 1, 95, 1023]
+    pools = torch.randn((2, nb, hkv, bs, d), generator=g, device="cuda")
+    pools = pools.to(dtype)
+    # Each row's entries up to its position hold distinct blocks; the
+    # rest are -1, as the allocator leaves them.
+    need = [min(pos // bs, tpr - 1) + 1 for pos in positions]
+    blocks = torch.randperm(nb, generator=g, device="cuda")[:sum(need)]
+    tables = torch.full((slots, tpr), -1, dtype=torch.int32, device="cuda")
+    at = 0
+    for row, n in enumerate(need):
+        tables[row, :n] = blocks[at:at + n]
+        at += n
+    tables[3, 2], tables[5, 0], tables[6, 1] = -1, nb, nb + 5
+    positions = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    active = torch.ones(slots, dtype=torch.bool, device="cuda")
+    active[[2, 11, 14]] = False
+    qkv = torch.randn((slots, 1, 4 * hkv * d), generator=g, device="cuda")
+    qkv = qkv.to(dtype).reshape(slots, 1, 4 * hkv, d).transpose(1, 2)
+    k_view, v_view = qkv[:, 2 * hkv:3 * hkv], qkv[:, 3 * hkv:]
+    out = {}
+    for name, k, v in (("views", k_view, v_view),
+                       ("contiguous", k_view.contiguous(), v_view)):
+        got, want = pools.clone(), pools.clone()
+        attention.paged_token_write(got[0], got[1], k, v, tables,
+                                    positions, active)
+        attention.paged_token_write_reference(want[0], want[1], k, v,
+                                              tables, positions, active)
+        torch.cuda.synchronize()
+        out[name] = bool(torch.equal(got, want))
+        out[f"{name}_entries_written"] = int((got != pools).any(
+            dim=-1).sum())
+    return out
+
+
+def phase_token_write_timing(torch, attention, flush, call) -> dict:
+    """K8 at the paged main path's median decode step (by rows that
+    write), on a layer's pools of the path's shape: its device time, its
+    plain version's (the write lists and the masked ``index_put_``), and
+    the least time for its bytes (each writing row's k and v read and
+    written, one table entry, and every row's position and flag)."""
+    k, v, tables, positions, active = call
+    slots, hkv, _, d = k.shape
+    pools = torch.zeros((2, NUM_BLOCKS, hkv, BLOCK_SIZE, d), dtype=k.dtype,
+                        device="cuda")
+    ms = _time_ms(torch, lambda: attention.paged_token_write(
+        pools[0], pools[1], k, v, tables, positions, active), flush)
+    plain_ms = _time_ms(torch, lambda: attention.paged_token_write_reference(
+        pools[0], pools[1], k, v, tables, positions, active), flush)
+    rows = int(active.sum())
+    moved = rows * (4 * hkv * d * k.element_size() + 4) + slots * (4 + 1)
+    rec = dict(shape=dict(slots=slots, hkv=hkv, d=d, nb=NUM_BLOCKS,
+                          bs=BLOCK_SIZE, tpr=tables.shape[1],
+                          dtype=str(k.dtype)),
+               active_rows=rows, ms=ms, plain_ms=plain_ms,
+               bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               bytes=moved)
+    emit("token_write_timing", **rec)
+    return rec
+
+
+def phase_paged_decode_graph_check(torch, np, attention, model, serving,
+                                   paged, label="dense", arch=FULL):
+    """The one-device paged decode step replayed from its CUDA graph
+    against the same step run eagerly (``PagedDecodeStep.eager``), at
+    the paged main path's geometry: the same traffic through one engine
+    of each route, for ``arch`` (FULL, or GRAPH_MOE under a tracer, so
+    that the dropless route's ``serve.moe`` counter rows are kept),
+    must give the same tokens, ticks and preemptions over admissions,
+    finishes and preemptions and the same counter rows, with every
+    decode step after the first two replayed.  Each route's K4 and K8
+    launches are those of its eager runs and of its graph's kernel
+    nodes a replay (_decode_launches, read from the graph) and must
+    equal attention.LAUNCHES, and no more than a profiler counts on the
+    card; the replayed route's K7 equal the eager route's, and its K4
+    and K8 the eager route's plus one step's (the capture's warm-up
+    run) a capture.  Then a copy of a mid-run pool is a changed pool:
+    the step runs it eagerly, captures it on its second call, and that
+    replay equals the eager call bit for bit.  The token-write kernel
+    is held to its plain version first.  Emits each route's median
+    device ms a decode step (CUDA events around the call)."""
+    from tpu_autoscaler_torch.obs.trace import Tracer
+
+    path = f"paged_decode_graph_check.{label}"
+    writes = {str(dt): _token_write_check(torch, attention, dt)
+              for dt in (torch.bfloat16, torch.float32)}
+    cfg = model.ModelConfig(**arch)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, "cuda")
+    geometry = dict(slots=PAGED_SLOTS, max_len=MAX_LEN,
+                    block_size=BLOCK_SIZE, num_blocks=NUM_BLOCKS,
+                    chunk=CHUNK, prefill_lanes=PREFILL_LANES)
+    runs, mid = {}, []
+    for route in ("graph", "eager"):
+        tracer = None if cfg.moe_experts is None else Tracer()
+        eng = paged.PagedBatcher(params, cfg, device="cuda", tracer=tracer,
+                                 **geometry)
+        step, events = eng._decode_step, []
+        run = step if route == "graph" else step.eager
+        timed = _timed_calls(torch, run, events)
+
+        def decode(p, cache, tables, tokens, active, timed=timed,
+                   events=events, route=route):
+            if route == "graph" and len(events) == 40:
+                mid.append((cache.k.clone(), cache.v.clone(),
+                            cache.lengths.clone(), tables.clone(),
+                            tokens.clone(), active.clone()))
+            return timed(p, cache, tables, tokens, active)
+
+        eng._decode = decode
+        reqs = _requests(serving, np, cfg, PAGED_PROMPT_LENS)
+        attention.reset_launch_counts()
+        (dt, _), profiled = _measured_launches(
+            torch, lambda: _serve_ticks(eng, reqs))
+        launches = dict(attention.LAUNCHES)
+        ran, nodes, faults = _decode_launches(
+            cfg, step, launches, profiled, eng.decode_steps,
+            eng.decode_graph_replays, eng.decode_graph_captures)
+        counter = None if tracer is None else tracer.counter("serve.moe")
+        runs[route] = dict(
+            tokens=[list(r.generated) for r in reqs], ticks=eng.ticks,
+            preemptions=eng.preemptions, decode_steps=eng.decode_steps,
+            launches=dict(ran, paged_flash_prefill=launches[
+                "paged_flash_prefill"]),
+            profiled_launches=profiled, graph_kernel_nodes=nodes,
+            launch_faults=faults,
+            moe_rows=None if counter is None else counter.read(),
+            moe_dropped=None if counter is None else counter.dropped,
+            replays=eng.decode_graph_replays,
+            captures=eng.decode_graph_captures,
+            eager_steps=eng.decode_eager_steps, seconds=dt,
+            decode_ms=statistics.median(a.elapsed_time(b)
+                                        for a, b in events))
+        if route == "graph":
+            graph_eng = eng
+    graph, eager = runs["graph"], runs["eager"]
+
+    # A changed pool: a copy of the pool at the 41st decode call.
+    k, v, lengths, tables, tokens, active = mid[0]
+    step = graph_eng._decode_step
+    captures, replays = step.captures, step.replays
+
+    def call(fn, k_pool, v_pool):
+        cache = paged.PagedKVCache(k_pool, v_pool, lengths.clone())
+        return fn(graph_eng.params, cache, tables, tokens, active)[0]
+
+    k2, v2 = k.clone(), v.clone()
+    first = call(step, k2, v2)
+    again = call(step, k2, v2)
+    ek, ev = k.clone(), v.clone()
+    by_eager = call(step.eager, ek, ev)
+    torch.cuda.synchronize()
+    recapture = dict(
+        captures=step.captures - captures, replays=step.replays - replays,
+        replay_equals_first_call=bool(torch.equal(again, first)),
+        replay_equals_eager=bool(torch.equal(again, by_eager)),
+        pools_equal=bool(torch.equal(k2, ek) and torch.equal(v2, ev)))
+    rec = dict(
+        label=label, config=arch, dtype="bfloat16", **geometry,
+        prompt_lens=PAGED_PROMPT_LENS, new_tokens=NEW_TOKENS,
+        token_write=writes, recapture=recapture,
+        **{f"{route}_{key}": value for route, r in runs.items()
+           for key, value in r.items()
+           if key not in ("tokens", "moe_rows", "launches")},
+        graph_launches=graph["launches"], eager_launches=eager["launches"],
+        tokens_equal=graph["tokens"] == eager["tokens"],
+        moe_rows_equal=graph["moe_rows"] == eager["moe_rows"],
+        moe_rows=None if graph["moe_rows"] is None
+        else len(graph["moe_rows"]))
+    emit(path, **rec)
+    bad = [name for name, ok in (
+        ("token_write", all(all(v for key, v in w.items()
+                                if not key.endswith("written"))
+                            for w in writes.values())),
+        ("tokens", rec["tokens_equal"]),
+        ("ticks", graph["ticks"] == eager["ticks"] >= 64),
+        ("preemptions", graph["preemptions"] == eager["preemptions"] > 0),
+        ("launches", not graph["launch_faults"]
+         and not eager["launch_faults"]
+         and eager["launches"]["paged_flash_decode"]
+         == eager["launches"]["paged_token_write"]
+         == eager["decode_steps"] * cfg.n_layers
+         and graph["launches"] == dict(
+             eager["launches"], **{
+                 k: eager["launches"][k] + graph["captures"] * cfg.n_layers
+                 for k in ("paged_flash_decode", "paged_token_write")})),
+        ("moe_rows", rec["moe_rows_equal"]
+         and graph["moe_dropped"] == eager["moe_dropped"]),
+        ("graph_route", graph["captures"] == 1
+         and graph["replays"] == graph["decode_steps"] - 1
+         and graph["eager_steps"] == 1),
+        ("eager_route", eager["replays"] == 0
+         and eager["eager_steps"] == eager["decode_steps"]),
+        ("recapture", recapture["captures"] == 1
+         and recapture["replays"] == 1
+         and all(v for key, v in recapture.items()
+                 if key not in ("captures", "replays")))) if not ok]
+    if bad:
+        raise AssertionError(f"{path}: the replayed route differs from the "
+                             f"eager route in {bad}")
+    return rec
 
 
 def phase_profile(torch, np, serving, eng, path, prompt_lens, syncs=None,
@@ -1906,10 +2327,11 @@ def phase_spec_main_path(torch, np, attention, model, serving, spec_serving,
     request's first divergence must be a near tie and every token the
     argmax of its verify logits.  Then the timed pass, accounting
     checked every tick, with the launch counts zeroed just before and
-    read just after: K4 once per draft layer per draft step, K1 and K3
-    never."""
+    read just after: K4 once per draft layer per draft step (and per
+    draft-step capture's warm-up run), K1 and K3 never."""
     eng, cfg, geometry = _spec_engine(torch, model, spec_serving,
                                       DRAFT_LAYERS)
+    draft = eng._d_decode
     warm = _requests(serving, np, cfg, PAGED_PROMPT_LENS)
     spec_rows, draft_ticks = {}, []
     _, _, restore = _watch_spec_engine(
@@ -1920,6 +2342,7 @@ def phase_spec_main_path(torch, np, attention, model, serving, spec_serving,
 
     reqs = _requests(serving, np, cfg, PAGED_PROMPT_LENS)
     before = _spec_counters(eng)
+    captures = draft.captures
     attention.reset_launch_counts()
     dt, peak = _serve_ticks(eng, reqs, check=True)
     launches = dict(attention.LAUNCHES)
@@ -1928,7 +2351,8 @@ def phase_spec_main_path(torch, np, attention, model, serving, spec_serving,
     if eng.allocator.used_blocks or eng.d_allocator.used_blocks:
         raise AssertionError("drained speculative engine holds blocks")
     decoded = sum(len(r.generated) for r in reqs)
-    want_k4 = pass_syncs["draft_decode"] * DRAFT_LAYERS
+    want_k4 = (pass_syncs["draft_decode"] + draft.captures - captures) \
+        * DRAFT_LAYERS
     agreement = _spec_agreement(range(len(warm)), [r.generated for r in warm],
                                 plain[0], spec_rows, plain[1])
     by_live = sorted(draft_ticks, key=lambda t: sum(t[1]))
@@ -1951,7 +2375,8 @@ def phase_spec_main_path(torch, np, attention, model, serving, spec_serving,
     if launches["paged_flash_decode"] != want_k4 or want_k4 == 0:
         raise AssertionError(
             f"paged_flash_decode launched {launches['paged_flash_decode']} "
-            f"times, want draft steps x draft layers = {want_k4}")
+            f"times, want (draft steps + captures) x draft layers = "
+            f"{want_k4}")
     if launches["flash_decode"] or launches["flash_attention"]:
         raise AssertionError(f"K1/K3 launched on the speculative paged "
                              f"path: {launches}")
@@ -1970,15 +2395,18 @@ def phase_spec_self_draft(torch, np, attention, model, serving, spec_serving,
     and reserve k_eff + 1 draft positions, under the paged cell's pool,
     traffic and preemptions.  One pass, block accounting checked every
     tick, launch counts zeroed just before and read just after (K4 once
-    per layer per draft step, K1 and K3 never); its greedy tokens held
-    against the plain engine's (``plain``) as in spec_main_path."""
+    per layer per draft step and per draft-step capture's warm-up run,
+    K1 and K3 never); its greedy tokens held against the plain engine's
+    (``plain``) as in spec_main_path."""
     eng, cfg, geometry = _spec_engine(torch, model, spec_serving,
                                       FULL["n_layers"])
+    draft = eng._d_decode
     reqs = _requests(serving, np, cfg, PAGED_PROMPT_LENS)
     spec_rows = {}
     syncs, replays, restore = _watch_spec_engine(
         eng, {id(r): n for n, r in enumerate(reqs)}, spec_rows)
     before = _spec_counters(eng)
+    captures = draft.captures
     attention.reset_launch_counts()
     dt, peak = _serve_ticks(eng, reqs, check=True)
     launches = dict(attention.LAUNCHES)
@@ -1986,7 +2414,8 @@ def phase_spec_self_draft(torch, np, attention, model, serving, spec_serving,
     econ = _spec_economics(before, _spec_counters(eng))
     if eng.allocator.used_blocks or eng.d_allocator.used_blocks:
         raise AssertionError("drained speculative engine holds blocks")
-    want_k4 = syncs["draft_decode"] * cfg.n_layers
+    want_k4 = (syncs["draft_decode"] + draft.captures - captures) \
+        * cfg.n_layers
     agreement = _spec_agreement(range(len(reqs)), [r.generated for r in reqs],
                                 plain[0], spec_rows, plain[1])
     rec = dict(
@@ -2005,7 +2434,7 @@ def phase_spec_self_draft(torch, np, attention, model, serving, spec_serving,
     if launches["paged_flash_decode"] != want_k4 or want_k4 == 0:
         raise AssertionError(
             f"paged_flash_decode launched {launches['paged_flash_decode']} "
-            f"times, want draft steps x layers = {want_k4}")
+            f"times, want (draft steps + captures) x layers = {want_k4}")
     if launches["flash_decode"] or launches["flash_attention"]:
         raise AssertionError(f"K1/K3 launched on the speculative paged "
                              f"path: {launches}")
@@ -5454,10 +5883,13 @@ def main() -> None:
                                                  serving)
     phase_profile(torch, np, serving, eng, "linear", PROMPT_LENS)
     del eng
-    paged_rec, paged_tick, eng, paged_plain = phase_paged_main_path(
-        torch, np, attention, model, serving, paged)
+    paged_rec, paged_tick, eng, paged_plain, write_call = \
+        phase_paged_main_path(torch, np, attention, model, serving, paged)
     phase_profile(torch, np, serving, eng, "paged", PAGED_PROMPT_LENS)
     del eng
+    for label, arch in (("dense", FULL), ("moe", GRAPH_MOE)):
+        phase_paged_decode_graph_check(torch, np, attention, model, serving,
+                                       paged, label, arch)
     mesh_serve_rec, eng = phase_mesh_main_path(
         torch, np, attention, model, serving, main_rec, main_tokens)
     phase_profile(torch, np, serving, eng, "mesh_linear", PROMPT_LENS,
@@ -5493,6 +5925,9 @@ def main() -> None:
                                              paged_tick, spec_tick)
     prefill_checks = phase_paged_prefill_checks(torch, attention, paged,
                                                 model, flush)
+    write_timing = phase_token_write_timing(torch, attention, flush,
+                                            write_call)
+    del write_call
     attn_checks = phase_attn_kernel_checks(torch, F, attention, flush)
     bwd_checks = phase_bwd_kernel_checks(torch, F, attention, flush)
     ring_checks = phase_ring_kernel_checks(torch, F, attention, flush)
@@ -5598,6 +6033,27 @@ def main() -> None:
         bound_ms=at_main["bound_ms"], bound_by=at_main["bound_by"],
         tflops=at_main["tflops"], cases_passed=len(prefill_checks),
         shape=at_main["shape"], lanes=at_main["lanes"]))
+    # K8 replaces no TPU kernel: the JAX package's decode step writes
+    # with a dropping scatter; at the paged main path's median decode
+    # step beside the write lists and masked index_put_ it stands in for.
+    # Its launches were counted on the card over the timed pass, and
+    # every write of the warm pass was held to the plain version.
+    kernels.append(dict(
+        name="paged_token_write", route="cuda",
+        design="one CTA per (row, KV head); each row decides on the card "
+        "whether it writes",
+        source="tpu_autoscaler_torch/csrc/paged_token_write.cu",
+        replaces=None, added_for="the dropping scatter of the decode "
+        "step's new k/v (tpu_autoscaler/workloads/paged.py::_scatter_token, "
+        "mode=drop), so that the step keeps one shape as a CUDA graph",
+        launches=paged_rec["paged_token_write_launches"],
+        max_abs_err=0.0, ms=write_timing["ms"],
+        plain_ms=write_timing["plain_ms"],
+        bound_ms=write_timing["bound_ms"],
+        bound_by=write_timing["bound_by"], launch_floor_ms=floor_ms,
+        shape=write_timing["shape"],
+        active_rows=write_timing["active_rows"],
+        writes_checked=paged_rec["token_writes_checked"]))
     # Launches of K1, K3 and K4 on the speculative paths: per
     # speculative_generate call, over the speculative engine's timed
     # pass and its self-draft pass, over the trained pair's evaluation.
@@ -5699,7 +6155,9 @@ def main() -> None:
         "moe_paged_main_path": {
             "paged_flash_decode": moe_paged_rec["paged_flash_decode_launches"],
             "paged_flash_prefill":
-                moe_paged_rec["paged_flash_prefill_launches"]},
+                moe_paged_rec["paged_flash_prefill_launches"],
+            "paged_token_write":
+                moe_paged_rec["paged_token_write_launches"]},
         "moe_generate_main_path": moe_gen_rec["launches"],
         "moe_train_main_path": moe_train_rec["launches_per_step"],
         "ep_train_main_path": ep_rec["launches_per_step"],

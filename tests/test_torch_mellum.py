@@ -295,7 +295,12 @@ def test_a_traced_engine_spans_and_counts_the_expert_half():
 #: What the StarCoder2-shaped block's steps ran before layer kinds and
 #: the dropless route were added: the aten ops of one paged prefill
 #: call and one decode step on the CPU (the config below), and the sums
-#: of its seeded params.
+#: of its seeded params.  Since the decode step writes each layer's new
+#: k/v through ``paged_token_write`` (on the CPU its plain version),
+#: every layer, not once a step, works out where its rows write: one
+#: more layer's index arithmetic (2 ``_to_copy``, ``arange``, 2
+#: ``bitwise_and``, ``clamp``, ``floor_divide``, ``ge``, 4 ``index``,
+#: ``lt``, ``remainder``: 14 ops) than the counts read before it.
 _BEFORE_PREFILL = {
     "aten._softmax": 2, "aten._to_copy": 10, "aten._unsafe_view": 14,
     "aten.add": 16, "aten.arange": 6, "aten.bitwise_and": 2,
@@ -311,14 +316,14 @@ _BEFORE_PREFILL = {
     "aten.transpose": 8, "aten.unbind": 1, "aten.unsqueeze": 32,
     "aten.view": 34, "aten.where": 2}
 _BEFORE_DECODE = {
-    "aten._softmax": 2, "aten._to_copy": 8, "aten._unsafe_view": 13,
-    "aten.add": 15, "aten.add_": 1, "aten.arange": 5, "aten.bitwise_and": 2,
-    "aten.bitwise_and_": 2, "aten.bmm": 4, "aten.cat": 4, "aten.clamp": 5,
-    "aten.clone": 4, "aten.cos": 1, "aten.div": 1, "aten.floor_divide": 1,
-    "aten.ge": 1, "aten.gelu": 2, "aten.gt": 2, "aten.index": 13,
-    "aten.index_put_": 4, "aten.le": 2, "aten.lift_fresh": 2, "aten.lt": 1,
+    "aten._softmax": 2, "aten._to_copy": 10, "aten._unsafe_view": 13,
+    "aten.add": 15, "aten.add_": 1, "aten.arange": 6, "aten.bitwise_and": 4,
+    "aten.bitwise_and_": 2, "aten.bmm": 4, "aten.cat": 4, "aten.clamp": 6,
+    "aten.clone": 4, "aten.cos": 1, "aten.div": 1, "aten.floor_divide": 2,
+    "aten.ge": 2, "aten.gelu": 2, "aten.gt": 2, "aten.index": 17,
+    "aten.index_put_": 4, "aten.le": 2, "aten.lift_fresh": 2, "aten.lt": 2,
     "aten.mean": 5, "aten.mm": 9, "aten.mul": 29, "aten.neg": 1,
-    "aten.permute": 24, "aten.pow": 6, "aten.remainder": 1, "aten.rsqrt": 5,
+    "aten.permute": 24, "aten.pow": 6, "aten.remainder": 2, "aten.rsqrt": 5,
     "aten.scalar_tensor": 2, "aten.select": 21, "aten.sin": 1,
     "aten.slice": 8, "aten.split_with_sizes": 2, "aten.sub": 8,
     "aten.transpose": 8, "aten.unsqueeze": 30, "aten.view": 37,
@@ -329,8 +334,9 @@ _BEFORE_SUMS = {
     "blocks/w1": -15.485776509944117, "blocks/w2": 3.854259487357922,
     "embed": 0.5426717898599236, "ln_f": 32.0,
     "unembed": -12.882386913814116}
-#: Op totals of the capacity-routed MoE block's prefill and decode.
-_BEFORE_MOE = (473, 470)
+#: Op totals of the capacity-routed MoE block's prefill and decode (the
+#: decode with the same 14 more ops).
+_BEFORE_MOE = (473, 484)
 
 
 class _Ops(TorchDispatchMode):

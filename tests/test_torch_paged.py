@@ -27,6 +27,7 @@ import jax.numpy as jnp  # noqa: E402
 from tpu_autoscaler.workloads import attention as jax_attention  # noqa: E402
 from tpu_autoscaler.workloads import model as jax_model  # noqa: E402
 from tpu_autoscaler.workloads import paged as jax_paged  # noqa: E402
+from tpu_autoscaler_torch.obs.trace import DeviceCounter  # noqa: E402
 from tpu_autoscaler_torch.serving.drain import DrainReceipt  # noqa: E402
 from tpu_autoscaler_torch.workloads import (  # noqa: E402
     attention,
@@ -306,6 +307,137 @@ def test_engine_matches_jax_engine_tick_by_tick(case):
     assert teng.stats().as_dict() | {"epoch": 0} \
         == jeng.stats().as_dict() | {"epoch": 0}
     assert teng.allocator.used_blocks == 0 and (teng.tables == -1).all()
+
+
+# ---- the decode step's token writes ----------------------------------
+
+#: A small dropless MoE (as tests/test_torch_mellum.py builds one):
+#: SwiGLU experts on grouped products, every token to its 2 of 4.
+DROPLESS = dict(moe_experts=4, moe_top_k=2, moe_capacity_factor=None)
+
+
+def _jax_token_writes(k_pool, v_pool, k, v, tables, positions, active):
+    """The JAX package's dropping scatter of one layer's new k/v, on
+    copies of the pools: (k_pool, v_pool) as numpy."""
+    idx = [jnp.asarray(_np(t)) for t in (tables, positions, active)]
+    return tuple(np.asarray(jax_paged._scatter_token(
+        jnp.asarray(_np(pool)), jnp.asarray(_np(new)), *idx))
+        for pool, new in ((k_pool, k), (v_pool, v)))
+
+
+@pytest.mark.parametrize("kw", [{}, DROPLESS], ids=["dense", "dropless"])
+@pytest.mark.parametrize("case", ["full-pool", "pressure"])
+def test_decode_step_writes_match_jax_scatter(monkeypatch, case, kw):
+    """Every layer's token write in an engine run's decode steps, as the
+    one-device step makes it (``paged._scatter_token``: every slot
+    through ``paged_token_write``, on the CPU its plain version), equals
+    the JAX package's dropping scatter (``mode="drop"``) of the same
+    k/v, tables, positions and mask on the same pools, bit for bit.
+    The runs hold inactive rows (slots mid-prefill), released slots
+    (tables all -1), writes crossing into a new block and, under pool
+    pressure, preemptions."""
+    spec = ENGINE_CASES[case]
+    cfg = model.ModelConfig(**ARCH, dtype=torch.float32, **kw)
+    params = model.init_params(torch.Generator().manual_seed(2), cfg, "cpu")
+    eng = paged.PagedBatcher(params, cfg, device="cpu", **spec["engine"])
+    write, seen, calls = paged._scatter_token, set(), []
+
+    def checked(k_pool, v_pool, k, v, tables, positions, active):
+        want = _jax_token_writes(k_pool, v_pool, k, v, tables, positions,
+                                 active)
+        before = k_pool.clone()
+        write(k_pool, v_pool, k, v, tables, positions, active)
+        np.testing.assert_array_equal(_np(k_pool), want[0])
+        np.testing.assert_array_equal(_np(v_pool), want[1])
+        calls.append(int((k_pool != before).any(-1).sum()))
+        seen.update(
+            name for name, hit in (
+                ("inactive", bool((~active & (tables >= 0).any(1)).any())),
+                ("released", bool((tables < 0).all(1).any())),
+                ("block edge", bool((positions[active] % eng.block_size
+                                     == 0).any())))
+            if hit)
+
+    monkeypatch.setattr(paged, "_scatter_token", checked)
+    rng = np.random.default_rng(9)
+    reqs = [paged.Request(prompt=rng.integers(0, 64, (n,)).astype(np.int32),
+                          max_new_tokens=m)
+            for n, m in zip(spec["prompts"], spec["new"])]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    assert all(r.done for r in reqs)
+    assert len(calls) == eng.decode_steps * cfg.n_layers > 0
+    assert sum(calls) > 0
+    assert seen == {"inactive", "released", "block edge"}
+    assert (eng.preemptions > 0) == spec["preempts"]
+    assert eng.decode_eager_steps == eng.decode_steps
+    assert eng.decode_graph_replays == eng.decode_graph_captures == 0
+
+
+#: One row each that must not write, against rows that must: (row,
+#: what is done to it) on 4 rows of 3 entries over a pool of 16 blocks
+#: of 4; every other row writes.
+EDGE_ROWS = {
+    "inactive": (1, "inactive"),
+    "dead entry": (2, "dead"),
+    "past the pool": (0, "past the pool"),
+    "past the table": (3, "past the table"),
+}
+
+
+@pytest.mark.parametrize("case", list(EDGE_ROWS))
+def test_token_write_matches_jax_scatter_at_the_edges(case):
+    """``paged_token_write`` (on the CPU its plain version) against the
+    JAX package's dropping scatter: an inactive row, a row whose entry
+    is -1 and one whose entry is past the pool write nothing; a row
+    whose position lies past its table writes into its last entry, as
+    the JAX package's clipped index does."""
+    g = torch.Generator().manual_seed(5)
+    nb, hkv, bs, hd, slots, tpr = 16, 2, 4, 3, 4, 3
+    pools = torch.randn((2, nb, hkv, bs, hd), generator=g)
+    tables = torch.randperm(nb, generator=g)[:slots * tpr].reshape(
+        slots, tpr).to(torch.int32)
+    positions = torch.tensor([5, 2, 8, 11], dtype=torch.int32)
+    active = torch.ones(slots, dtype=torch.bool)
+    new = torch.randn((2, slots, hkv, 1, hd), generator=g)
+    row, what = EDGE_ROWS[case]
+    at = int(positions[row]) // bs
+    if what == "inactive":
+        active[row] = False
+    elif what == "dead":
+        tables[row, at] = -1
+    elif what == "past the pool":
+        tables[row, at] = nb + 3
+    else:
+        positions[row] = tpr * bs + 1
+    want = _jax_token_writes(pools[0], pools[1], new[0], new[1], tables,
+                             positions, active)
+    got = pools.clone()
+    attention.paged_token_write(got[0], got[1], new[0], new[1], tables,
+                                positions, active)
+    np.testing.assert_array_equal(_np(got[0]), want[0])
+    np.testing.assert_array_equal(_np(got[1]), want[1])
+    written = int((got[0] != pools[0]).any(-1).any(1).sum())
+    assert written == (slots if what == "past the table" else slots - 1)
+    if what == "past the table":
+        last = int(tables[row, -1])
+        assert torch.equal(got[0, last, :, 1], new[0, row, :, 0])
+
+
+@pytest.mark.parametrize("capacity", [64, 10])
+def test_device_counter_add_rows_equals_repeated_add(capacity):
+    """add_rows of [n, width] keeps and drops what n calls of add would,
+    in order, past the counter's capacity too."""
+    rows = torch.arange(4 * 3 * 5, dtype=torch.int32).reshape(4, 3, 5)
+    one, many = DeviceCounter(), DeviceCounter()
+    one.capacity = many.capacity = capacity
+    for block in rows:
+        for row in block:
+            one.add(row)
+        many.add_rows(block)
+    assert many.read() == one.read() and many.rows == one.rows
+    assert many.dropped == one.dropped == max(0, 12 - capacity)
 
 
 def test_paged_engine_tokens_equal_linear_engine():

@@ -108,7 +108,8 @@ class Span:
 class DeviceCounter:
     """Counts a traced step keeps on the device: each :meth:`add`
     copies one row (a 1-d tensor of counts, on the device) into a tensor
-    allocated at the first row, one launch and no sync; :meth:`read`
+    allocated at the first row, one launch and no sync (:meth:`add_rows`
+    several rows in one); :meth:`read`
     brings the rows kept so far to the host (the one sync, after the
     steps), :meth:`reset` starts over.  Rows past ``capacity`` are not
     kept; ``dropped`` counts them."""
@@ -128,6 +129,17 @@ class DeviceCounter:
             return
         self._buf[self.rows].copy_(values)
         self.rows += 1
+
+    def add_rows(self, rows: torch.Tensor) -> None:
+        """:meth:`add` of each row of ``rows`` [n, width] (on the device)
+        in order, in one copy."""
+        if self._buf is None:
+            self._buf = rows.new_zeros((self.capacity, rows.shape[1]))
+        kept = min(rows.shape[0], self.capacity - self.rows)
+        self.dropped += rows.shape[0] - kept
+        if kept:
+            self._buf[self.rows:self.rows + kept].copy_(rows[:kept])
+            self.rows += kept
 
     def read(self) -> list[list]:
         """The rows kept since the last :meth:`reset`, on the host."""

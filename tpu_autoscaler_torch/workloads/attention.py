@@ -28,7 +28,10 @@ paged prefill gathers each lane's pages and runs an einsum): each
 lane's chunk of queries ``[lanes, h, chunk, d]`` attends over its pages
 of the same pools through ``tables [lanes, tpr]`` from its ``offsets``,
 with ``n_valid`` real rows a lane and its padding rows as the JAX
-prefill's einsum makes them.
+prefill's einsum makes them.  ``paged_token_write`` is no attention: it
+writes one decode step's new k/v of every slot into one layer's pools,
+each row deciding on the device whether it writes (the JAX package's
+dropping scatter), so the paged decode step keeps one shape.
 ``ring_flash_step`` and ``ring_flash_bwd_step`` keep those of the JAX
 functions of the same names, less ``block_q`` and ``interpret``: one
 rank's q against a visiting K/V block at a host-int ``offset``, merged
@@ -84,7 +87,8 @@ LAUNCHES: dict[str, int] = {"flash_attention": 0,
                              "flash_decode": 0, "paged_flash_decode": 0,
                              "ring_flash_step": 0, "ring_flash_bwd_dq": 0,
                              "ring_flash_bwd_dkv": 0,
-                             "paged_flash_prefill": 0}
+                             "paged_flash_prefill": 0,
+                             "paged_token_write": 0}
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -98,7 +102,8 @@ KERNEL_SOURCES = {"flash_attention": CSRC / "flash_attention.cu",
                   "ring_flash_step": CSRC / "ring_flash_step.cu",
                   "ring_flash_bwd_dq": CSRC / "ring_flash_bwd.cu",
                   "ring_flash_bwd_dkv": CSRC / "ring_flash_bwd.cu",
-                  "paged_flash_prefill": CSRC / "paged_flash_prefill.cu"}
+                  "paged_flash_prefill": CSRC / "paged_flash_prefill.cu",
+                  "paged_token_write": CSRC / "paged_token_write.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Each library exports a C function of each entry's name: pointers
@@ -115,7 +120,8 @@ _ARGTYPES = {name: [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints
                  ("ring_flash_step", 9, 10),
                  ("ring_flash_bwd_dq", 7, 10),
                  ("ring_flash_bwd_dkv", 8, 10),
-                 ("paged_flash_prefill", 7, 10))}
+                 ("paged_flash_prefill", 7, 10),
+                 ("paged_token_write", 7, 11))}
 _LIBS: dict[Path, ctypes.CDLL] = {}
 _ENTRIES: dict[str, object] = {}
 
@@ -1008,6 +1014,90 @@ def paged_flash_decode(q, k_pool, v_pool, tables, lengths, *,
             out.data_ptr(), slots, h, hkv, nb, bs, tpr, d,
             _DTYPE_CODES[q.dtype], window or 0, d ** -0.5)
     return out
+
+
+def paged_token_writes(tables, positions, active, num_blocks: int,
+                       block_size: int):
+    """Where one decode step writes each row's new token: (rows, blocks,
+    offsets) int64 on the tables' device.  tables [rows, tpr]; positions
+    [rows] absolute; active [rows] bool.  Inactive rows, and rows whose
+    table has no block there (< 0) or one past the pool, write nothing.
+    A position past the table lands in its last entry, as the JAX
+    package's clipped index does."""
+    tpr = tables.shape[1]
+    positions = positions.long()
+    rows = torch.arange(tables.shape[0], device=tables.device)
+    block = tables[rows, (positions // block_size).clamp(0, tpr - 1)].long()
+    keep = active & (block >= 0) & (block < num_blocks)
+    return rows[keep], block[keep], (positions % block_size)[keep]
+
+
+def paged_token_write_reference(k_pool, v_pool, k_new, v_new, tables,
+                                positions, active) -> None:
+    """The plain PyTorch version of the paged_token_write kernel: the
+    rows :func:`paged_token_writes` keeps write their new k/v in place."""
+    rows, blocks, offsets = paged_token_writes(
+        tables, positions, active, k_pool.shape[0], k_pool.shape[2])
+    k_pool[blocks, :, offsets] = k_new[rows, :, 0]
+    v_pool[blocks, :, offsets] = v_new[rows, :, 0]
+
+
+def paged_token_write(k_pool, v_pool, k_new, v_new, tables, positions,
+                      active) -> None:
+    """One decode step's new keys and values, k_new / v_new [slots, hkv,
+    1, d], written in place into one layer's pools [nb, hkv, bs, d]:
+    row r at position positions[r] into its table's block there (see
+    :func:`paged_token_writes` for the rows that write nothing).  Every
+    slot is taken and each decides on the device, so the launch has one
+    shape whatever the rows hold.
+
+    CPU tensors run :func:`paged_token_write_reference`.  CUDA tensors
+    launch the kernel (2- or 4-byte elements, contiguous pools, k/v with
+    unit stride along d) or raise; tables and positions int32 and
+    active bool, on the pools' device."""
+    if k_new.shape != v_new.shape or k_pool.shape != v_pool.shape \
+            or k_new.dim() != 4 or k_new.shape[2] != 1 \
+            or k_new.shape[1] != k_pool.shape[1] \
+            or k_new.shape[3] != k_pool.shape[3]:
+        raise ValueError(f"new k/v {tuple(k_new.shape)} do not fit pools "
+                         f"{tuple(k_pool.shape)}: want [slots, hkv, 1, d] "
+                         f"and [nb, hkv, bs, d]")
+    slots, hkv, _, d = k_new.shape
+    if tables.dim() != 2 or tables.shape[0] != slots \
+            or tuple(positions.shape) != (slots,) \
+            or tuple(active.shape) != (slots,):
+        raise ValueError(f"tables {tuple(tables.shape)}, positions "
+                         f"{tuple(positions.shape)} and active "
+                         f"{tuple(active.shape)} do not fit {slots} slots")
+    if not _on_cuda("paged_token_write", k_new):
+        return paged_token_write_reference(k_pool, v_pool, k_new, v_new,
+                                           tables, positions, active)
+    for name, t in {"v_new": v_new, "k_pool": k_pool, "v_pool": v_pool,
+                    "tables": tables, "positions": positions,
+                    "active": active}.items():
+        if t.device != k_new.device:
+            raise ValueError(f"{name} on {t.device}, k_new on "
+                             f"{k_new.device}")
+    if {v_new.dtype, k_pool.dtype, v_pool.dtype} != {k_new.dtype} \
+            or k_new.element_size() not in (2, 4):
+        raise ValueError("paged_token_write kernel takes one element type "
+                         "of 2 or 4 bytes for new k/v and the pools")
+    if (tables.dtype, positions.dtype, active.dtype) != (
+            torch.int32, torch.int32, torch.bool) \
+            or not tables.is_contiguous() or not positions.is_contiguous() \
+            or not active.is_contiguous():
+        raise ValueError("paged_token_write kernel takes contiguous int32 "
+                         "tables and positions and bool active")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()
+            and k_new.stride(3) == 1 and v_new.stride(3) == 1):
+        raise ValueError("paged_token_write kernel needs contiguous pools "
+                         "and new k/v with unit stride along d")
+    nb, _, bs, _ = k_pool.shape
+    _launch("paged_token_write", k_new, k_new.data_ptr(), v_new.data_ptr(),
+            k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+            positions.data_ptr(), active.data_ptr(), slots, hkv, nb, bs,
+            tables.shape[1], d, k_new.element_size(), k_new.stride(0),
+            k_new.stride(1), v_new.stride(0), v_new.stride(1), 0.0)
 
 
 def _check_prefill_args(q, k_pool, v_pool, tables, offsets, n_valid,

@@ -49,9 +49,15 @@ Differences from the JAX package, each for a reason:
   place their writes; the steps upload them with the tables.
 - JAX's scatters send inactive rows, pad lanes and table entries < 0 or
   >= num_blocks to an out-of-range index and let XLA drop the write
-  (``mode="drop"``).  PyTorch has no such mode, so the write lists are
-  filtered on the host before ``index_put_``.  An inactive decode row
-  writes nothing: its slot may be in the middle of its prefill.
+  (``mode="drop"``).  PyTorch has no such mode.  The one-device decode
+  step writes through ``paged_token_write``, which takes every slot and
+  drops those rows itself (on CUDA a kernel); the mesh step and the
+  prefill filter their write lists before ``index_put_``.  An inactive
+  decode row writes nothing: its slot may be in the middle of its
+  prefill.
+- JAX compiles each step once.  On one CUDA device the decode step is
+  captured as a CUDA graph instead (:class:`PagedDecodeStep`): its
+  launches, tens a layer, replay as one; the prefill runs eagerly.
 """
 
 from __future__ import annotations
@@ -62,10 +68,13 @@ import numpy as np
 import torch
 
 from tpu_autoscaler_torch.obs.trace import maybe_span
+from tpu_autoscaler_torch.workloads import attention
 from tpu_autoscaler_torch.workloads.attention import (
     gather_pool_rows,
     paged_flash_decode,
     paged_flash_prefill,
+    paged_token_write,
+    paged_token_writes,
 )
 from tpu_autoscaler_torch.workloads.model import (
     Mesh,
@@ -73,6 +82,7 @@ from tpu_autoscaler_torch.workloads.model import (
     TPParams,
     _PerDevice,
     _ffn_residual,
+    _flatten,
     _rmsnorm,
     _rotate,
     _split_qkv,
@@ -94,8 +104,8 @@ from tpu_autoscaler_torch.workloads.serving import (
 )
 
 __all__ = ["PagedKVCache", "MeshPagedKVCache", "BlockAllocator",
-           "PagedBatcher", "Request", "make_paged_decode_step",
-           "make_paged_prefill"]
+           "PagedBatcher", "PagedDecodeStep", "Request",
+           "make_paged_decode_step", "make_paged_prefill"]
 
 
 @dataclasses.dataclass
@@ -195,26 +205,20 @@ class BlockAllocator:
                 self._free.append(int(b))
 
 
-def _token_writes(tables, positions, active, num_blocks: int,
-                  block_size: int):
-    """Where one decode step writes each row's new token, computed on
-    the host: (rows, blocks, offsets), int64.  tables [rows, tpr];
-    positions [rows] absolute; active [rows] bool.  Inactive rows, and
-    rows whose table has no block there (< 0) or one past the pool,
-    write nothing.  A position past the table lands in its last entry,
-    as the JAX package's clipped index does."""
-    tpr = tables.shape[1]
-    positions = positions.long()
-    rows = torch.arange(tables.shape[0])
-    block = tables[rows, (positions // block_size).clamp(0, tpr - 1)].long()
-    keep = active & (block >= 0) & (block < num_blocks)
-    return rows[keep], block[keep], (positions % block_size)[keep]
+def _scatter_token(k_pool, v_pool, k, v, tables, positions,
+                   active) -> None:
+    """The one-device decode step's write of every slot's new k/v
+    [slots, hkv, 1, hd] into one layer's pools [nb, hkv, bs, hd], in
+    place: ``paged_token_write``, each row deciding on the pools' device
+    whether it writes.  perfbench's fault check replaces it by this
+    name."""
+    paged_token_write(k_pool, v_pool, k, v, tables, positions, active)
 
 
-def _scatter_token(pool, new, writes) -> None:
+def _scatter_rows(pool, new, writes) -> None:
     """Write one token per row into one layer's pool [nb, hkv, bs, hd],
-    in place; new [rows, hkv, 1, hd]; writes from :func:`_token_writes`
-    (on the pool's device)."""
+    in place; new [rows, hkv, 1, hd]; writes from
+    :func:`attention.paged_token_writes` (on the pool's device)."""
     rows, blocks, offsets = writes
     pool[blocks, :, offsets] = new[rows, :, 0]
 
@@ -296,8 +300,8 @@ def _mesh_paged_decode_step(cfg: ModelConfig, tokens_per_row: int):
         bounds = _row_bounds(tables.shape[0], len(sp.rows))
         live = [i for i, (a, b) in enumerate(bounds) if b > a]
         tp_only = len(sp.rows) == 1
-        writes = _token_writes(tables, positions, active, cache.num_blocks,
-                               cache.block_size)
+        writes = paged_token_writes(tables, positions, active,
+                                    cache.num_blocks, cache.block_size)
         tokens = tokens.to(sp.first)
         xs = tp_embed(sp, [tokens[a:b, None] for a, b in
                            (bounds[i] for i in live)], live)
@@ -324,8 +328,8 @@ def _mesh_paged_decode_step(cfg: ModelConfig, tokens_per_row: int):
             pdev = k_pool.device
             mine = on(("writes", i), pdev, lambda d: [
                 t.to(d) for t in _row_writes(writes, *bounds[i])])
-            _scatter_token(k_pool, k.to(pdev), mine)
-            _scatter_token(v_pool, v.to(pdev), mine)
+            _scatter_rows(k_pool, k.to(pdev), mine)
+            _scatter_rows(v_pool, v.to(pdev), mine)
             new_len = on(("new_len", i), q.device,
                          lambda d: positions_on(i, d) + 1)
             tabs = on(("tables", i), pdev, lambda d: rows_of(tables, i).to(d))
@@ -356,60 +360,236 @@ def make_paged_decode_step(cfg: ModelConfig, tokens_per_row: int,
 
     ``mesh``: the step takes params placed over it
     (:func:`model.place_params`) and a :class:`MeshPagedKVCache`.
-    ``tracer``: the one-device step's inputs are a
+    Without one the step is a :class:`PagedDecodeStep`, which on a CUDA
+    device replays a captured CUDA graph once the same pool and params
+    come twice in a row.  ``tracer``: the one-device step's inputs are a
     ``serve.decode.inputs`` span (:class:`serving.ContinuousBatcher`)."""
     if mesh is not None:
         cfg.require_uniform("serving under a mesh")
         return _mesh_paged_decode_step(cfg.resolved_for_mesh(mesh),
                                        tokens_per_row)
-    kinds, of_layer = layer_kinds(cfg)
-    moe = _MoeSeam(cfg, tracer)
+    return PagedDecodeStep(cfg, tokens_per_row, tracer)
 
-    def step(params, cache: PagedKVCache, tables, tokens, active):
-        _check_tables(tables, cache, tokens_per_row)
+
+class PagedDecodeStep:
+    """The one-device paged decode step (:func:`make_paged_decode_step`).
+
+    Its :meth:`body` takes tensors of one shape every call, on the
+    pool's device, and keeps the step's work there: each layer's new
+    k/v are written by ``paged_token_write`` over every slot, each row
+    deciding on the device whether it writes, so nothing in the body
+    depends on which rows are live.  On a CUDA device:
+
+    - the inputs reach the device in one non-blocking copy from a pinned
+      buffer (:class:`_StagedInputs`);
+    - a call whose pool and params (by storage) are those of the call
+      before it captures the body as a ``torch.cuda.CUDAGraph``, after
+      one warm-up run on a side stream, into the step's own graph memory
+      pool; every later call on them replays it and returns a copy of
+      its logits.  Any other call runs the body eagerly, and a pool or
+      set of params that comes twice in a row is captured in turn;
+    - a replay adds the captured launches to ``attention.LAUNCHES``
+      (a capture counts those of its warm-up run, which reach the card,
+      and not its own) and, for the dropless MoE route under a tracer,
+      each layer's group ends to the tracer's ``serve.moe`` counter, a
+      row a layer as the eager body adds them; no span is opened inside
+      the graph.
+
+    ``replays`` and ``captures`` count the calls answered by a replay
+    and the graphs captured; :meth:`eager` runs a call without the
+    graph."""
+
+    def __init__(self, cfg: ModelConfig, tokens_per_row: int, tracer=None):
+        self.cfg = cfg
+        self.tokens_per_row = tokens_per_row
+        self.tracer = tracer
+        self.kinds, self.of_layer = layer_kinds(cfg)
+        self.moe = _MoeSeam(cfg, tracer)
+        self.replays = 0
+        self.captures = 0
+        self._staged: _StagedInputs | None = None
+        self._graph: _Captured | None = None
+        self._seen = None
+        self._mempool = None
+
+    def __call__(self, params, cache: PagedKVCache, tables, tokens, active):
+        return self._step(params, cache, tables, tokens, active, graph=True)
+
+    def eager(self, params, cache: PagedKVCache, tables, tokens, active):
+        """The step with its body run eagerly, never replayed."""
+        return self._step(params, cache, tables, tokens, active, graph=False)
+
+    def _step(self, params, cache, tables, tokens, active, graph: bool):
+        _check_tables(tables, cache, self.tokens_per_row)
         dev = cache.k.device
-        positions = cache.lengths
-        # Per-step values every layer shares, computed once: the write
-        # lists, the tables and lengths on the device, the rope tables
-        # (once a layer kind).
-        with maybe_span(tracer, "serve.decode.inputs"):
-            writes = [t.to(dev) for t in _token_writes(
-                tables, positions, active, cache.num_blocks,
-                cache.block_size)]
-            dev_tables = tables.to(dev)
-            dev_positions = positions.to(dev)
-            dev_tokens = tokens.to(dev)
-            new_len = dev_positions + 1
-            if cfg.rope:
-                ropes = [_row_rope_tables(dev_positions, 1, cfg.head_dim,
-                                          kc.rope_theta, cfg.dtype, yarn)
-                         for kc, yarn in kinds]
-        x = params["embed"].to(cfg.dtype)[dev_tokens][:, None, :]
+        served = self.moe.tokens(active)
+        with maybe_span(self.tracer, "serve.decode.inputs"):
+            # Off CUDA the body takes them where they are.
+            inputs = (tables, cache.lengths, tokens, active)
+            if dev.type == "cuda":
+                inputs = self._stage(dev, *inputs)
+        if graph and dev.type == "cuda":
+            logits = self._graphed(params, cache, inputs, served)
+        else:
+            logits = self.body(params, cache.k, cache.v, *inputs,
+                               served=served)
+        cache.lengths += active.to(torch.int32)
+        return logits, cache
+
+    def body(self, params, k_pools, v_pools, tables, positions, tokens,
+             active, *, moe=None, served=None):
+        """The decode step over tensors on the pools' device, of one
+        shape every call: pools [layers, nb, hkv, bs, hd]; tables
+        [slots, tpr] int32, positions [slots] int32 (each row's length
+        before the step), tokens [slots] int and active [slots] bool.
+        Returns logits [slots, vocab] f32.  ``moe``: the FFN seam
+        (default the step's), ``served`` its span attr."""
+        cfg = self.cfg
+        moe = self.moe if moe is None else moe
+        new_len = positions + 1
+        if cfg.rope:
+            # Once a layer kind, shared by its layers.
+            ropes = [_row_rope_tables(positions, 1, cfg.head_dim,
+                                      kc.rope_theta, cfg.dtype, yarn)
+                     for kc, yarn in self.kinds]
+        x = params["embed"].to(cfg.dtype)[tokens][:, None, :]
         b, s, d = x.shape
-        rows = moe.tokens(active)
         for i in range(cfg.n_layers):
-            kcfg = kinds[of_layer[i]][0]
+            kcfg = self.kinds[self.of_layer[i]][0]
             layer = _layer(params, i)
-            k_pool, v_pool = cache.k[i], cache.v[i]
+            k_pool, v_pool = k_pools[i], v_pools[i]
             y = _rmsnorm(x, layer["ln1"])
             q, k, v = _split_qkv(y, layer["qkv"], cfg)
             if cfg.rope:
-                rope = ropes[of_layer[i]]
+                rope = ropes[self.of_layer[i]]
                 q, k = _rotate(q, *rope), _rotate(k, *rope)
-            _scatter_token(k_pool, k, writes)
-            _scatter_token(v_pool, v, writes)
-            attn = _paged_attend(q, k_pool, v_pool, dev_tables, new_len,
-                                 kcfg)
+            _scatter_token(k_pool, v_pool, k, v, tables, positions, active)
+            attn = _paged_attend(q, k_pool, v_pool, tables, new_len, kcfg)
             attn = attn.transpose(1, 2).reshape(b, s, -1)
             x = x + attn @ layer["attn_out"].to(cfg.dtype)
             y = _rmsnorm(x, layer["ln2"])
-            x = moe.ffn(x, y, layer, i, rows)
+            x = moe.ffn(x, y, layer, i, served)
         x = _rmsnorm(x, params["ln_f"])
-        logits = x @ params["unembed"].to(cfg.dtype)
-        cache.lengths += active.to(torch.int32)
-        return logits[:, 0].float(), cache
+        return (x @ params["unembed"].to(cfg.dtype))[:, 0].float()
 
-    return step
+    def _stage(self, dev, tables, positions, tokens, active):
+        slots, tpr = tables.shape
+        if self._staged is None or self._staged.shape != (slots, tpr) \
+                or self._staged.device != dev:
+            # A captured graph reads the old buffers: it goes with them.
+            self._staged = _StagedInputs(slots, tpr, dev)
+            self._graph = self._seen = None
+        return self._staged.put(tables, positions, tokens, active)
+
+    def _graphed(self, params, cache, inputs, served):
+        key = tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in (
+            cache.k, cache.v, *(w for _, w in _flatten(params))))
+        captured = self._graph
+        if captured is None or captured.key != key:
+            if key != self._seen:
+                self._seen = key
+                return self.body(params, cache.k, cache.v, *inputs,
+                                 served=served)
+            captured = self._capture(key, params, cache, inputs)
+        captured.graph.replay()
+        for name, n in captured.launches.items():
+            attention.LAUNCHES[name] += n
+        if captured.ends is not None:
+            self.moe.counter.add_rows(captured.ends)
+        self.replays += 1
+        return captured.logits.clone()
+
+    def _capture(self, key, params, cache, inputs) -> "_Captured":
+        self._graph = None  # its memory back to the pool before the next
+        dev = cache.k.device
+        if self._mempool is None:
+            self._mempool = torch.cuda.graph_pool_handle()
+        ends = None if self.moe.counter is None else torch.zeros(
+            (self.cfg.n_layers, self.cfg.moe_experts), dtype=torch.int32,
+            device=dev)
+        seam = _MoeSeam(self.cfg, None, ends)
+        # The warm-up writes what the replay writes again: the same k/v
+        # at the same places.  Its launches run and are counted; the
+        # capture's run nothing.
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.body(params, cache.k, cache.v, *inputs, moe=seam)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        warm = dict(attention.LAUNCHES)
+        # The graph as captured is kept beside its executable, so that
+        # its kernel nodes can be read (``raw_cuda_graph``).
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, pool=self._mempool):
+            logits = self.body(params, cache.k, cache.v, *inputs, moe=seam)
+        graph.instantiate()
+        launches = {n: attention.LAUNCHES[n] - warm[n] for n in warm
+                    if attention.LAUNCHES[n] != warm[n]}
+        attention.LAUNCHES.update(warm)
+        self._graph = _Captured(key, graph, logits, ends, launches)
+        self.captures += 1
+        return self._graph
+
+
+@dataclasses.dataclass
+class _Captured:
+    """A captured decode step: the pool and params it was captured on
+    (``key``: storage, shape and dtype of each), its graph, its output
+    logits and MoE group ends (rewritten by every replay), and the
+    kernel launches one replay makes."""
+
+    key: tuple
+    graph: object
+    logits: torch.Tensor
+    ends: torch.Tensor | None
+    launches: dict
+
+
+class _StagedInputs:
+    """A decode step's inputs on their way to the device: one pinned
+    host buffer holding tokens [slots] int64, tables [slots, tpr] int32,
+    positions [slots] int32 and active [slots] bool, and the device
+    buffer it reaches in one non-blocking copy.  :meth:`put` returns the
+    device buffer's views, the same tensors every call, so a captured
+    graph reads each call's inputs there.  The host buffer is rewritten
+    only after its last copy has left it."""
+
+    def __init__(self, slots: int, tpr: int, device):
+        self.shape = (slots, tpr)
+        self.device = device
+        layout = ((torch.int64, (slots,)), (torch.int32, (slots, tpr)),
+                  (torch.int32, (slots,)), (torch.bool, (slots,)))
+        sizes = [int(np.prod(shape)) * dtype.itemsize
+                 for dtype, shape in layout]
+        self._host = torch.empty(sum(sizes), dtype=torch.uint8,
+                                 pin_memory=True)
+        self._dev = torch.empty(sum(sizes), dtype=torch.uint8, device=device)
+        self.host, self.inputs = [], []
+        for views, buf in ((self.host, self._host), (self.inputs, self._dev)):
+            at = 0
+            for (dtype, shape), n in zip(layout, sizes):
+                views.append(buf[at:at + n].view(dtype).view(shape))
+                at += n
+        self._copied = torch.cuda.Event()
+
+    def put(self, tables, positions, tokens, active):
+        """Stage one call's inputs (each on the host, or already on the
+        device); returns (tables, positions, tokens, active) on the
+        device."""
+        self._copied.synchronize()
+        on_device = []
+        for host, dev, t in zip(self.host, self.inputs,
+                                (tokens, tables, positions, active)):
+            if t.device.type == "cpu":
+                host.copy_(t)
+            else:
+                on_device.append((dev, t))
+        self._dev.copy_(self._host, non_blocking=True)
+        self._copied.record()
+        for dev, t in on_device:
+            dev.copy_(t)
+        tokens, tables, positions, active = self.inputs
+        return tables, positions, tokens, active
 
 
 class _MoeSeam:
@@ -417,12 +597,15 @@ class _MoeSeam:
     MoE config under a tracer, each layer's call is a ``serve.moe`` span
     (attrs ``layer``, ``tokens``: the rows the step serves, counted on
     the host) and the dropless route counts into the tracer's
-    ``serve.moe`` device counter.  Anything else calls through with
+    ``serve.moe`` device counter.  With ``ends`` (a captured decode
+    step's [layers, E] int32 buffer) layer i's group ends go to row i
+    of it instead, with no span.  Anything else calls through with
     nothing added."""
 
-    def __init__(self, cfg: ModelConfig, tracer):
+    def __init__(self, cfg: ModelConfig, tracer, ends=None):
         self.cfg = cfg
         self.dropless = cfg.moe_dropless
+        self.ends = ends
         self.tracer = tracer if cfg.moe_experts is not None else None
         self.counter = None if self.tracer is None or not self.dropless \
             else self.tracer.counter("serve.moe")
@@ -433,11 +616,25 @@ class _MoeSeam:
         return None if self.tracer is None else int(rows.sum())
 
     def ffn(self, x, y, layer: dict, i: int, tokens, valid=None):
+        if self.ends is not None:
+            return _ffn_residual(x, y, layer, self.cfg, valid,
+                                 _EndsRow(self.ends[i]))
         if self.tracer is None:
             return _ffn_residual(x, y, layer, self.cfg, valid)
         with maybe_span(self.tracer, "serve.moe",
                         {"layer": i, "tokens": tokens}):
             return _ffn_residual(x, y, layer, self.cfg, valid, self.counter)
+
+
+class _EndsRow:
+    """One layer's row of a captured step's group ends, in the place of
+    the ``serve.moe`` counter: ``add`` copies the call's ends into it."""
+
+    def __init__(self, row: torch.Tensor):
+        self.row = row
+
+    def add(self, values: torch.Tensor) -> None:
+        self.row.copy_(values)
 
 
 def _lanes_visible(offsets, s: int, tokens_per_row: int,
@@ -699,10 +896,30 @@ class PagedBatcher(ContinuousBatcher):
         # Untraced, the builders are called as they always were, so a
         # wrapper of either with the untraced signature still serves.
         traced = {} if self._tracer is None else {"tracer": self._tracer}
-        self._decode = make_paged_decode_step(cfg, max_len, self.mesh,
-                                              **traced)
+        # The step as built, whatever later wraps self._decode: its
+        # replay and capture counts say how each decode step ran.
+        self._decode = self._decode_step = make_paged_decode_step(
+            cfg, max_len, self.mesh, **traced)
         self._prefill = make_paged_prefill(cfg, chunk, self.prefill_lanes,
                                            max_len, mesh=self.mesh, **traced)
+
+    # How the decode steps ran, read from the step (a PagedDecodeStep;
+    # the mesh step and wrappers of the builder replay nothing).
+
+    @property
+    def decode_graph_replays(self) -> int:
+        """Decode steps answered by a replay of the step's CUDA graph."""
+        return getattr(self._decode_step, "replays", 0)
+
+    @property
+    def decode_graph_captures(self) -> int:
+        """CUDA graphs the decode step captured."""
+        return getattr(self._decode_step, "captures", 0)
+
+    @property
+    def decode_eager_steps(self) -> int:
+        """Decode steps run eagerly."""
+        return self.decode_steps - self.decode_graph_replays
 
     def submit(self, request: Request) -> None:
         """Linear-engine validation plus the pool-feasibility check: a
@@ -951,10 +1168,14 @@ class PagedBatcher(ContinuousBatcher):
                             "paged pool exhausted with nothing to preempt")
                     if self._slots[i].request is None:
                         break  # we preempted ourselves; skip this row
-            tokens = torch.from_numpy(self._pending_token).to(self.device)
-        with maybe_span(tracer, "serve.decode.step"):
+        replays = self.decode_graph_replays
+        with maybe_span(tracer, "serve.decode.step") as span:
             logits, self.cache = self._decode(
                 self.params, self.cache, torch.from_numpy(self.tables),
-                tokens, torch.from_numpy(self._has_pending))
+                torch.from_numpy(self._pending_token),
+                torch.from_numpy(self._has_pending))
+            if span is not None:
+                tracer.annotate(span,
+                                graph=self.decode_graph_replays > replays)
         with maybe_span(tracer, "serve.decode.sample"):
             self._take_decoded(logits)

@@ -587,9 +587,9 @@ class ContinuousBatcher:
         │  └─ serve.prefill.inputs  (paged) its inputs to the device
         ├─ serve.prefill.sample   seeding the lanes whose prompt ended
         │  └─ serve.sync            waiting for the logits
-        ├─ serve.decode.plan      (paged) block growth, tokens to the
-        │                         device
-        ├─ serve.decode.step      the call into the decode step
+        ├─ serve.decode.plan      (paged) block growth
+        ├─ serve.decode.step      the call into the decode step (paged:
+        │  │                      attr graph, whether it replayed)
         │  └─ serve.decode.inputs   (paged) its inputs to the device
         ├─ serve.decode.sample    sampling, bookkeeping, finishing
         │  └─ serve.sync            the sampled tokens to the host
